@@ -1,0 +1,53 @@
+"""Deterministic synthetic vision data (the vision half of the JAX
+package's ``data/pipeline.py``).
+
+Class prototypes plus gaussian noise, so the paper's models see
+learnable images without a dataset download.  Seeds come from a CRC32 of
+the dataset key, so the data is the same in every process (Python's
+``hash()`` of a tuple is salted per process).  Arrays are numpy, NHWC in
+[0, 1]; callers move batches to their device.
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+
+def _key_seed(name, hw, ch, n_classes, seed) -> int:
+    return zlib.crc32(f"{name}|{hw}|{ch}|{n_classes}|{seed}".encode())
+
+
+def vision_dataset(name: str, n_train: int, n_test: int, hw: int, ch: int,
+                   n_classes: int, noise: float = 0.35, seed: int = 0):
+    """Synthetic learnable image dataset: class prototypes + gaussian noise.
+
+    Returns {x_train, y_train, x_test, y_test}, NHWC float32 in [0, 1];
+    deterministic in (name, shape, seed).
+    """
+    base = _key_seed(name, hw, ch, n_classes, seed)
+    rng = np.random.default_rng(base)
+    protos = rng.uniform(0, 1, (n_classes, hw, hw, ch)).astype(np.float32)
+    # low-pass the prototypes so they have learnable spatial structure
+    for _ in range(2):
+        protos = (protos + np.roll(protos, 1, 1) + np.roll(protos, 1, 2)) / 3
+
+    def make(n, salt):
+        r = np.random.default_rng((base + salt) % (2**32))
+        y = r.integers(0, n_classes, n).astype(np.int32)
+        x = protos[y] + r.normal(0, noise, (n, hw, hw, ch)).astype(np.float32)
+        return np.clip(x, 0, 1).astype(np.float32), y
+
+    x_train, y_train = make(n_train, 1)
+    x_test, y_test = make(n_test, 2)
+    return {"x_train": x_train, "y_train": y_train,
+            "x_test": x_test, "y_test": y_test}
+
+
+def vision_batches(data, batch: int, epoch: int, seed: int = 0):
+    """Deterministic epoch shuffling; yields {"x", "y"} numpy batches."""
+    n = data["x_train"].shape[0]
+    order = np.random.default_rng(seed + epoch).permutation(n)
+    for i in range(0, n - batch + 1, batch):
+        idx = order[i:i + batch]
+        yield {"x": data["x_train"][idx], "y": data["y_train"][idx]}
