@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on an NVIDIA GPU: build, check, run, time.
+"""Drive the PyTorch/CUDA port on an NVIDIA GPU: build, check, run, train, time.
 
 Run from the root of a checkout, on a machine with an H100 and the CUDA
 toolkit (``nvcc``):
@@ -14,37 +14,65 @@ caught:
     every shape the three paper models give it at batch 64, for packed and
     canonical LUTs of afm16 and mitchell8 and an M=10 table (read from
     global memory); every result must be bitwise equal;
- 4. the main path: resnet-mini at full width (batch 64, 32x32x3 images
-    from the port's ``vision_dataset``, random weights from a seed) under
+ 3b. the conv weight-gradient kernel the same way, at every conv of
+    resnet-mini and LeNet-5: batch 64 for afm16 packed (shared memory) and
+    afm10 packed (global memory), batch 4 for the other four tables;
+ 3c. the conv forward kernel at every data-gradient shape of those convs
+    (dilated error, flipped IO-transposed weights, explicit pads), split
+    over the tables as in 3b;
+ 4. inference: resnet-mini at full width (batch 64, 32x32x3 images from
+    the port's ``vision_dataset``, random weights from a seed) under
     ``amsim``/afm16 for a few batches; the launch counters must read 15
     conv + 1 GEMM launches per forward and the logits must be finite and
     bitwise equal to ``amsim_torch`` on the card; then lenet-5 and
     lenet-300-100 the same way;
+ 4b. training: resnet-mini at full width, ``amsim``/afm16, sgdm lr 0.05,
+    clip 1.0, 3 steps from seed-0 weights; the counters must read 29
+    conv-kernel launches (15 forward + 14 dx: the stem's input needs
+    none), 15 dw and 3 GEMM per step, and loss and parameters after step 1
+    must be bitwise equal to the same step under ``amsim_torch`` (with
+    ``torch.use_deterministic_algorithms``); then lenet-5 (3 / 2 / 9) and
+    lenet-300-100 (0 / 0 / 8); then ``train_one`` on lenet-300-100 for one
+    epoch of 512 images under fp32, bf16, afm16 and afm32 (``direct``):
+    the mean loss of each second half of the epoch must be below the first
+    half's, and the Table III deltas are printed;
  5. per-forward times (CUDA events) of native, amsim and amsim_torch with
-    the device's busy time (torch.profiler), and each kernel's device time
-    at the main path's shapes beside its bound and its plain version's time.
+    the device's busy time (torch.profiler);
+ 5b. per-training-step times of native and amsim for each model with the
+    device's busy time and idle share, and each kernel's device time at
+    the shapes of one resnet-mini step beside its bound and its plain
+    version's time.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# cuBLAS is deterministic only with a fixed workspace; set before CUDA starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SEED = 0
 BATCH = 64
 N_BATCHES = 3
+TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 LOOKUPS_PER_SM_PER_CLOCK = 32      # shared-memory gathers: one per bank
 LUT_CASES = [("afm16", True), ("afm16", False), ("mitchell8", True),
              ("mitchell8", False), ("afm10", True), ("afm10", False)]
+# The gradient kernels are checked at batch 64 with one shared-memory and
+# one global-memory table, and at batch 4 with the others.
+FULL_BATCH_LUTS = [("afm16", True), ("afm10", True)]
+SMALL_BATCH = 4
 # Every GEMM of the three models at batch 64, plus a ragged one.
 GEMM_SHAPES = [(64, 784, 120), (64, 120, 84), (64, 84, 10), (64, 784, 300),
                (64, 300, 100), (64, 100, 10), (64, 64, 10), (67, 130, 33)]
@@ -62,6 +90,8 @@ CONV_SHAPES = [
     ((64, 28, 28, 1), (5, 5, 1, 6), 1),      # lenet-5 conv 1
     ((64, 14, 14, 6), (5, 5, 6, 16), 1),     # lenet-5 conv 2
 ]
+# Launches per training step: (conv kernel: fwd + dx, dw kernel, GEMM kernel).
+TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-100": (0, 0, 8)}
 
 
 def smi(query: str) -> str:
@@ -104,6 +134,14 @@ def require(cond: bool, what: str):
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
+def taps(n_out: int, n_in: int, k: int, stride: int, pad: int, real_every: int = 1) -> int:
+    """(output index, kernel tap) pairs of one spatial axis that land inside
+    the input, and on one of its real values when the input is dilated by
+    ``real_every`` (zeros inserted between them)."""
+    return sum(0 <= i < n_in and i % real_every == 0
+               for i in (y * stride + kk - pad for y in range(n_out) for kk in range(k)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -115,17 +153,33 @@ def main() -> int:
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.data.pipeline import vision_batches, vision_dataset
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.approx_conv import (approx_conv2d_fused, approx_conv2d_plain,
+    from repro_torch.kernels.approx_conv import (approx_conv2d_dw, approx_conv2d_dw_plain,
+                                                 approx_conv2d_fused, approx_conv2d_plain,
                                                  conv_out_shape, conv_pads)
     from repro_torch.kernels.approx_gemm import approx_gemm, approx_gemm_plain
     from repro_torch.kernels.common import lut_bytes, lut_in_smem, lut_tensor
-    from repro_torch.models.vision import init_vision, vision_forward
+    from repro_torch.models.vision import init_vision, vision_forward, vision_loss
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.convergence import build_policies, train_one
+    from repro_torch.train.step import make_train_step
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
+
+    def lut_case(lut_name, packed):
+        M = get_multiplier(lut_name).mantissa_bits
+        return lut_tensor(get_packed_lut(lut_name) if packed else get_lut(lut_name), dev), M
 
     # ---------------------------------------------------------- 1. card
     name = torch.cuda.get_device_name(0)
@@ -136,6 +190,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi_line}; max SM clock {sm_mhz:.0f} MHz")
     lookups_per_s = torch.cuda.get_device_properties(0).multi_processor_count \
         * LOOKUPS_PER_SM_PER_CLOCK * sm_mhz * 1e6
+    phase_done("1 card")
 
     # ---------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -145,12 +200,12 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
+    phase_done("2 build")
 
     # ------------------------------------- 3. kernels vs plain on the card
-    max_err = {"approx_gemm": 0.0, "approx_conv2d_fused": 0.0}
+    max_err = {"approx_gemm": 0.0, "approx_conv2d_fused": 0.0, "approx_conv2d_dw": 0.0}
     for lut_name, packed in LUT_CASES:
-        M = get_multiplier(lut_name).mantissa_bits
-        lut = lut_tensor(get_packed_lut(lut_name) if packed else get_lut(lut_name), dev)
+        lut, M = lut_case(lut_name, packed)
         where = "shared" if lut_in_smem(lut) else "global"
         for m, k, n in GEMM_SHAPES:
             a, b = randn(m, k), randn(k, n)
@@ -171,29 +226,67 @@ def main() -> int:
         print(f"kernels == plain (bitwise): {lut_name} M={M} "
               f"{'packed' if packed else 'canonical'} LUT ({lut_bytes(lut)} B, {where} memory): "
               f"{len(GEMM_SHAPES)} GEMM + {len(CONV_SHAPES)} conv shapes")
+    phase_done("3 forward kernels vs plain")
+
+    # ------------------- 3b/3c. the gradient kernels vs plain on the card
+    for lut_name, packed in LUT_CASES:
+        lut, M = lut_case(lut_name, packed)
+        batch = BATCH if (lut_name, packed) in FULL_BATCH_LUTS else SMALL_BATCH
+        for xs, ws, stride in CONV_SHAPES:
+            xs = (batch, *xs[1:])
+            kh, kw, _, o = ws
+            pads = conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
+            oh, ow = conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+            x, g = randn(*xs), randn(batch, oh, ow, o)
+            out = approx_conv2d_dw(x, g, lut, M, kh=kh, kw=kw, stride=stride, padding="SAME")
+            ref = approx_conv2d_dw_plain(x, g, lut, M, kh, kw, stride, pads)
+            err = (out - ref).abs().max().item()
+            require(torch.equal(out, ref), f"approx_conv2d_dw {lut_name} packed={packed} "
+                    f"{xs}x{ws}/s{stride}: max|d|={err}")
+            max_err["approx_conv2d_dw"] = max(max_err["approx_conv2d_dw"], err)
+            gd, w_rt, dpads = ops.conv_dx_operands(g, randn(*ws), xs[1:3], stride, pads)
+            out = approx_conv2d_fused(gd, w_rt, lut, M, stride=1, padding=dpads)
+            ref = approx_conv2d_plain(gd, w_rt, lut, M, 1, dpads)
+            err = (out - ref).abs().max().item()
+            require(out.shape == xs and torch.equal(out, ref),
+                    f"approx_conv2d_fused at the dx shape of {xs}x{ws}/s{stride} ({lut_name} "
+                    f"packed={packed}, dilated {tuple(gd.shape)}, pads {dpads}): max|d|={err}")
+            max_err["approx_conv2d_fused"] = max(max_err["approx_conv2d_fused"], err)
+        print(f"gradient kernels == plain (bitwise): {lut_name} "
+              f"{'packed' if packed else 'canonical'}, batch {batch}: dw kernel and the conv "
+              f"kernel at the dx shape of {len(CONV_SHAPES)} convs")
+    phase_done("3b/3c gradient kernels vs plain")
 
     # ----------------------------------------------------- 4. main path
     amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
     plain = NumericsPolicy(mode="amsim_torch", multiplier="afm16")
     native = NumericsPolicy()
     want = {"resnet-mini": (15, 1), "lenet-5": (2, 3), "lenet-300-100": (0, 3)}
-    runs, main_launches = {}, {}
+    runs, datasets = {}, {}
+    counters = {"approx_conv2d_fused": approx_conv2d_fused, "approx_conv2d_dw": approx_conv2d_dw,
+                "approx_gemm": approx_gemm}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return tuple(fn.launches for fn in counters.values())
+
     for model_name, (n_conv, n_gemm) in want.items():
         cfg = VISION_REGISTRY[model_name]
         model = init_vision(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
         data = vision_dataset(cfg.name, BATCH * N_BATCHES, 0, cfg.input_hw, cfg.input_ch,
                               cfg.n_classes, seed=SEED)
+        datasets[model_name] = data
         xs = [torch.from_numpy(bt["x"]).to(dev) for bt in vision_batches(data, BATCH, 0)]
-        approx_conv2d_fused.launches = 0
-        approx_gemm.launches = 0
+        zero_counts()
         logits = [vision_forward(model, x, amsim) for x in xs]
         torch.cuda.synchronize()
-        launches = (approx_conv2d_fused.launches, approx_gemm.launches)
-        require(launches == (n_conv * len(xs), n_gemm * len(xs)),
-                f"{model_name}: launches (conv, gemm) = {launches}, want "
-                f"{(n_conv * len(xs), n_gemm * len(xs))}")
-        if not main_launches:
-            main_launches = {"approx_conv2d_fused": launches[0], "approx_gemm": launches[1]}
+        launches = read_counts()
+        require(launches == (n_conv * len(xs), 0, n_gemm * len(xs)),
+                f"{model_name}: launches (conv, dw, gemm) = {launches}, want "
+                f"{(n_conv * len(xs), 0, n_gemm * len(xs))}")
         for x, out in zip(xs, logits):
             require(out.shape == (BATCH, cfg.n_classes) and bool(torch.isfinite(out).all()),
                     f"{model_name}: logits {tuple(out.shape)} not finite")
@@ -203,13 +296,89 @@ def main() -> int:
         agree = torch.cat([(vision_forward(model, x, native).argmax(-1) == out.argmax(-1))
                            for x, out in zip(xs, logits)]).float().mean().item()
         print(f"{model_name}: {len(xs)} batches of {BATCH}, launches conv {launches[0]} gemm "
-              f"{launches[1]}, logits finite and bitwise equal to amsim_torch; argmax agrees "
+              f"{launches[2]}, logits finite and bitwise equal to amsim_torch; argmax agrees "
               f"with native on {agree:.3f} of images")
         runs[model_name] = (model, xs[0])
+    phase_done("4 inference")
+
+    # ------------------------------------------------- 4b. training path
+    def train_batches(model_name):
+        return [{"x": torch.from_numpy(bt["x"]).to(dev), "y": torch.from_numpy(bt["y"]).to(dev)}
+                for bt in vision_batches(datasets[model_name], BATCH, 0)]
+
+    def fresh(model_name, policy):
+        """A model from the seed-0 weights, its sgdm state and its step."""
+        cfg = VISION_REGISTRY[model_name]
+        model = init_vision(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+        opt = make_optimizer("sgdm", 0.05)
+        step = make_train_step(lambda m, b: vision_loss(m, b, policy), opt, clip_norm=1.0)
+        return model, opt.init(dict(model.named_parameters())), step
+
+    main_launches = {}
+    for model_name, per_step in TRAIN_LAUNCHES.items():
+        batches = train_batches(model_name)[:TRAIN_STEPS]
+        model, state, step = fresh(model_name, amsim)
+        losses, step1 = [], None
+        torch.use_deterministic_algorithms(True)
+        try:
+            zero_counts()
+            for i, b in enumerate(batches):
+                before = read_counts()
+                state, metrics = step(model, state, b)
+                torch.cuda.synchronize()
+                got = tuple(a - c for a, c in zip(read_counts(), before))
+                require(got == per_step, f"{model_name} train step {i + 1}: launches (conv fwd+dx, "
+                        f"dw, gemm) = {got}, want {per_step}")
+                losses.append(metrics["loss"])
+                if i == 0:
+                    step1 = (metrics["loss"].clone(),
+                             [p.detach().clone() for p in model.parameters()])
+            total = read_counts()
+            ref_model, ref_state, ref_step = fresh(model_name, plain)
+            _, ref_metrics = ref_step(ref_model, ref_state, batches[0])
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            if "deterministic" in str(e):
+                raise SystemExit(f"chip_smoke FAILED: {model_name}: an op of the training step "
+                                 f"has no deterministic CUDA implementation: {e}")
+            raise
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(all(bool(torch.isfinite(v)) for v in losses), f"{model_name}: loss not finite")
+        require(torch.equal(step1[0], ref_metrics["loss"]),
+                f"{model_name}: step-1 loss under amsim {step1[0].item()} differs from "
+                f"amsim_torch {ref_metrics['loss'].item()}")
+        for (pname, p_ref), p in zip(ref_model.named_parameters(), step1[1]):
+            require(torch.equal(p, p_ref), f"{model_name}: parameter {pname} after step 1 "
+                    f"differs from amsim_torch by {(p - p_ref).abs().max().item()}")
+        if not main_launches:
+            main_launches = dict(zip(counters, total))
+        print(f"{model_name} training: {TRAIN_STEPS} steps of {BATCH}, launches per step (conv "
+              f"fwd+dx, dw, gemm) {per_step}, losses "
+              f"{' '.join(f'{float(v):.4f}' for v in losses)}; step 1 loss and parameters "
+              f"bitwise equal to amsim_torch")
+    phase_done("4b training step")
+
+    cfg = VISION_REGISTRY["lenet-300-100"]
+    conv_data = vision_dataset(cfg.name, 512, 512, cfg.input_hw, cfg.input_ch, cfg.n_classes,
+                               seed=SEED)
+    accs = {}
+    for pname, pol in build_policies("amsim").items():
+        curve, acc, _, losses = train_one(cfg, pol, conv_data, epochs=1, device=dev)
+        half = len(losses) // 2
+        require(sum(losses[half:]) / (len(losses) - half) < sum(losses[:half]) / half,
+                f"lenet-300-100 {pname}: loss did not fall: {losses}")
+        accs[pname] = acc
+        print(f"  lenet-300-100 {pname:6s} ({pol.mode}): loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} over {len(losses)} steps, train acc {curve[0]:.3f}, test acc "
+              f"{acc:.4f}")
+    print(f"  Table III deltas (1 epoch of 512): AFM32 - FP32 {accs['afm32'] - accs['fp32']:+.4f}, "
+          f"AFM16 - bfloat16 {accs['afm16'] - accs['bf16']:+.4f}")
+    phase_done("4b convergence (lenet-300-100, 4 multipliers)")
 
     # ------------------------------------------------------ 5. timings
     print(f"per-forward times at batch {BATCH} (CUDA events, after warm-up; device busy "
-          f"from torch.profiler; {name}, {smi_line}):")
+          f"from torch.profiler; {smi_line}):")
     for model_name, (model, x) in runs.items():
         t_nat = cuda_ms(lambda: vision_forward(model, x, native), reps=50, warmup=3)
         t_am = cuda_ms(lambda: vision_forward(model, x, amsim), reps=20, warmup=2)
@@ -220,68 +389,144 @@ def main() -> int:
               f"{t_am:.4f} ms (device busy {busy_am:.4f} ms, idle share "
               f"{1 - busy_am / t_am:.3f}), amsim_torch {t_pl:.2f} ms; amsim/native = "
               f"{t_am / t_nat:.2f}x (the paper's yardstick: native only 8x faster than AMSim)")
+    phase_done("5 forward timings")
 
-    # Each kernel at the shapes of one resnet-mini forward: capture its calls.
-    calls = {"approx_gemm": [], "approx_conv2d_fused": []}
-    orig_gemm, orig_conv = ops.approx_gemm, ops.approx_conv2d_fused
-    ops.approx_gemm = lambda *a, **kw: calls["approx_gemm"].append((a, kw)) or orig_gemm(*a, **kw)
-    ops.approx_conv2d_fused = lambda *a, **kw: (calls["approx_conv2d_fused"].append((a, kw))
-                                                or orig_conv(*a, **kw))
-    model, x = runs["resnet-mini"]
-    vision_forward(model, x, amsim)
-    ops.approx_gemm, ops.approx_conv2d_fused = orig_gemm, orig_conv
+    # --------------------------------------------------- 5b. step timings
+    print(f"per-training-step times at batch {BATCH} (sgdm, clip 1.0; CUDA events after "
+          f"warm-up; device busy from torch.profiler; {smi_line}):")
+    for model_name in TRAIN_LAUNCHES:
+        b = train_batches(model_name)[0]
+        times = {}
+        for pname, pol in (("native", native), ("amsim", amsim)):
+            model, state, step = fresh(model_name, pol)
+            box = [state]
+
+            def one():
+                box[0], _ = step(model, box[0], b)
+
+            wall = cuda_ms(one, reps=10, warmup=2)
+            busy = device_ms(one, None, reps=5)
+            times[pname] = (wall, busy)
+        (t_nat, b_nat), (t_am, b_am) = times["native"], times["amsim"]
+        print(f"  {model_name}: native (TFnG) {t_nat:.4f} ms (device busy {b_nat:.4f} ms, idle "
+              f"share {1 - b_nat / t_nat:.3f}), amsim (ATxG) {t_am:.4f} ms (device busy "
+              f"{b_am:.4f} ms, idle share {1 - b_am / t_am:.3f}); amsim/native = "
+              f"{t_am / t_nat:.2f}x by wall, {b_am / b_nat:.2f}x by device time")
+
+    # Each kernel at the shapes of one resnet-mini training step: capture its calls.
+    calls = {k: [] for k in counters}
+    dx_stride = [0]   # the forward stride while the data gradient runs, else 0
+    originals = {"approx_gemm": ops.approx_gemm, "approx_conv2d_fused": ops.approx_conv2d_fused,
+                 "approx_conv2d_dw": ops.approx_conv2d_dw, "_conv_dx": ops._conv_dx}
+
+    def capture(kname):
+        def wrapped(*a, **kw):
+            calls[kname].append((a, kw, dx_stride[0]))
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    def conv_dx(*a, **kw):
+        dx_stride[0] = a[3]
+        try:
+            return originals["_conv_dx"](*a, **kw)
+        finally:
+            dx_stride[0] = 0
+
+    for kname in counters:
+        setattr(ops, kname, capture(kname))
+    ops._conv_dx = conv_dx
+    try:
+        model, state, step = fresh("resnet-mini", amsim)
+        step(model, state, train_batches("resnet-mini")[0])
+        torch.cuda.synchronize()
+    finally:
+        for kname, fn in originals.items():
+            setattr(ops, kname, fn)
 
     def gemm_cost(a, b, lut, M):
         m, k = a.shape
         n = b.shape[1]
         nbytes = 4 * (m * k + k * n + m * n) + lut_bytes(lut)
-        return nbytes, m * k * n, lambda: approx_gemm_plain(a, b, lut, M)
+        return nbytes, m * k * n, m * k * n, lambda: approx_gemm_plain(a, b, lut, M)
 
-    def conv_cost(x, w, lut, M, stride=1, padding="SAME"):
+    def conv_cost(x, w, lut, M, stride=1, padding="SAME", real_every=1):
+        """Bytes, lookups the kernel makes, lookups on real values only (the
+        dx conv's dilated error is zero off every ``real_every``-th row and
+        column), and the plain version."""
         n, h, wid, c = x.shape
         kh, kw, _, o = w.shape
         pads = conv_pads(h, wid, kh, kw, stride, padding)
         oh, ow = conv_out_shape(h, wid, kh, kw, stride, pads)
-        # Padding taps are skipped: count the taps these inputs need.
-        rows = sum(0 <= oy * stride + ki - pads[0] < h for oy in range(oh) for ki in range(kh))
-        cols = sum(0 <= ox * stride + kj - pads[2] < wid for ox in range(ow) for kj in range(kw))
+        made = n * o * c * taps(oh, h, kh, stride, pads[0]) * taps(ow, wid, kw, stride, pads[2])
+        real = n * o * c * taps(oh, h, kh, stride, pads[0], real_every) \
+            * taps(ow, wid, kw, stride, pads[2], real_every)
         nbytes = 4 * (x.numel() + w.numel() + n * oh * ow * o) + lut_bytes(lut)
-        return nbytes, n * o * c * rows * cols, lambda: approx_conv2d_plain(x, w, lut, M, stride,
-                                                                            pads)
+        return nbytes, made, real, lambda: approx_conv2d_plain(x, w, lut, M, stride, pads)
+
+    def dw_cost(x, g, lut, M, kh, kw, stride=1, padding="SAME"):
+        n, h, wid, c = x.shape
+        _, oh, ow, o = g.shape
+        pads = conv_pads(h, wid, kh, kw, stride, padding)
+        lookups = n * c * o * taps(oh, h, kh, stride, pads[0]) * taps(ow, wid, kw, stride, pads[2])
+        nbytes = 4 * (x.numel() + g.numel() + kh * kw * c * o) + lut_bytes(lut)
+        return nbytes, lookups, lookups, lambda: approx_conv2d_dw_plain(x, g, lut, M, kh, kw,
+                                                                        stride, pads)
 
     rows_out = []
     # (source, TPU kernel it replaces, wrapper, cost model, device kernel name)
-    sources = {"approx_gemm": ("approx_gemm.cu", "src/repro/kernels/approx_gemm.py:57",
-                               orig_gemm, gemm_cost, "approx_gemm_kernel"),
-               "approx_conv2d_fused": ("approx_conv.cu", "src/repro/kernels/approx_conv.py:105",
-                                       orig_conv, conv_cost, "approx_conv_kernel")}
-    print("kernels at the shapes of one resnet-mini forward: device time from torch.profiler, "
-          "wrapper call time (host launch path included) from CUDA events:")
+    sources = {
+        "approx_gemm": ("approx_gemm.cu", "src/repro/kernels/approx_gemm.py:57",
+                        originals["approx_gemm"], gemm_cost, "approx_gemm_kernel"),
+        "approx_conv2d_fused": ("approx_conv.cu", "src/repro/kernels/approx_conv.py:105",
+                                originals["approx_conv2d_fused"], conv_cost, "approx_conv_kernel"),
+        "approx_conv2d_dw": ("approx_conv_dw.cu", "src/repro/kernels/approx_conv.py:225",
+                             originals["approx_conv2d_dw"], dw_cost, "approx_conv_dw_kernel"),
+    }
+    print("kernels at the shapes of one resnet-mini training step: device time from "
+          "torch.profiler, wrapper call time (host launch path included) from CUDA events:")
     for kname, (src, replaces, fn, cost, symbol) in sources.items():
-        ms = call_ms = plain_ms = bound = bytes_s = ops_s = 0.0
-        for args, kw in calls[kname]:
-            nbytes, lookups, plain_fn = cost(*args, **kw)
-            t_call = cuda_ms(lambda: fn(*args, **kw), reps=20, warmup=2)
-            t = device_ms(lambda: fn(*args, **kw), symbol, reps=10)
+        sums = {}   # pass -> [ms, call_ms, plain_ms, bound_ms, bound of real taps, n]
+        bytes_s = ops_s = 0.0
+        for args, kw, stride in calls[kname]:
+            extra = {"real_every": stride} if stride else {}
+            nbytes, made, real, plain_fn = cost(*args, **kw, **extra)
+            t_call = cuda_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
+            t = device_ms(lambda: fn(*args, **kw), symbol, reps=5)
             require(t > 0, f"torch.profiler saw no device time for {symbol}")
-            tp = cuda_ms(plain_fn, reps=1)
-            tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+            tp = cuda_ms(plain_fn, reps=1, warmup=0)
+            tb = max(nbytes / HBM_BYTES_PER_S, made / lookups_per_s) * 1e3
+            tb_real = max(nbytes / HBM_BYTES_PER_S, real / lookups_per_s) * 1e3
             shapes = " ".join(str(tuple(a.shape)) for a in args[:2])
-            print(f"  {kname} {shapes} {kw}: {t:.4f} ms on device, {t_call:.4f} ms per call "
-                  f"(plain {tp:.2f} ms, bound {tb:.4f} ms, {lookups} lookups, {nbytes} B)")
-            ms, call_ms, plain_ms, bound = ms + t, call_ms + t_call, plain_ms + tp, bound + tb
+            pass_ = "dx" if stride else {"approx_gemm": "fwd+dx+dw",
+                                         "approx_conv2d_dw": "dw"}.get(kname, "fwd")
+            print(f"  {kname} [{pass_}] {shapes} {kw}: {t:.4f} ms on device, {t_call:.4f} ms "
+                  f"per call (plain {tp:.2f} ms, bound {tb:.4f} ms, {made} lookups"
+                  + (f", {real} on real error values: bound {tb_real:.4f} ms" if stride else "")
+                  + f", {nbytes} B)")
+            s = sums.setdefault(pass_, [0.0] * 5 + [0])
+            for i, v in enumerate((t, t_call, tp, tb, tb_real, 1)):
+                s[i] += v
             bytes_s += nbytes / HBM_BYTES_PER_S
-            ops_s += lookups / lookups_per_s
+            ops_s += real / lookups_per_s
+        ms, call_ms, plain_ms, _, bound, n_calls = (sum(s[i] for s in sums.values())
+                                                   for i in range(6))
+        for pass_, (t, t_call, tp, tb, tb_real, n) in sums.items():
+            print(f"kernel {kname} [{pass_}]: {t:.4f} ms on device per resnet-mini step over {n} "
+                  f"launches ({t_call:.4f} ms per-call time), bound {tb_real:.4f} ms"
+                  + (f" on real error values ({tb:.4f} ms counting the inserted zeros)"
+                     if pass_ == "dx" else "") + f", plain {tp:.2f} ms")
         rows_out.append({
             "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": main_launches[kname],
             "max_abs_err": max_err[kname], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes", "library_ms": None})
         print(f"kernel {kname} (replaces {replaces}): {ms:.4f} ms on device per resnet-mini "
-              f"forward over {len(calls[kname])} launches ({call_ms:.4f} ms per-call time), "
-              f"bound {bound:.4f} ms "
-              f"({rows_out[-1]['bound_by']}), plain {plain_ms:.2f} ms, max|d| "
-              f"{max_err[kname]}; no PyTorch call computes a LUT product, so no library time")
+              f"step over {n_calls} launches ({call_ms:.4f} ms per-call time), bound "
+              f"{bound:.4f} ms ({rows_out[-1]['bound_by']}), plain {plain_ms:.2f} ms, max|d| "
+              f"{max_err[kname]}; {main_launches[kname]} launches in {TRAIN_STEPS} resnet-mini "
+              f"training steps; no PyTorch call computes a LUT product, so no library time")
+    phase_done("5b step and kernel timings")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)
     print(json.dumps({"kernels": rows_out}))

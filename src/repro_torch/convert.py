@@ -1,4 +1,4 @@
-"""Carry parameters of the JAX package's models across to the port.
+"""Carry parameters of the JAX package's models across to the port, and back.
 
 The port keeps the JAX layouts (NHWC, HWIO, (d_in, d_out)) and pytree
 names, so carrying weights across is a copy: no transpose, no reorder.
@@ -50,3 +50,22 @@ def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> Vision
                          f"unexpected {sorted(set(got) - set(want))}, shapes differ at "
                          f"{sorted(k for k in set(got) & set(want) if got[k] != want[k])}")
     return VisionModel(cfg, tensors).to(device)
+
+
+def vision_params_to_numpy(model: VisionModel) -> dict:
+    """The JAX-layout pytree (nested dicts and lists of numpy float32
+    arrays) of a port model: the inverse of ``vision_params_from_jax``."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        keys = [int(k) if k.isdigit() else k for k in name.split(".")]
+        node = tree
+        for key, nxt in zip(keys[:-1], keys[1:]):
+            empty = [] if isinstance(nxt, int) else {}
+            if isinstance(key, int):
+                if key == len(node):  # list items come in order
+                    node.append(empty)
+            else:
+                node.setdefault(key, empty)
+            node = node[key]
+        node[keys[-1]] = p.detach().cpu().numpy().copy()
+    return tree

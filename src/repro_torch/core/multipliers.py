@@ -9,6 +9,12 @@ Families: ``exact``, ``trunc<M>``, ``bf16``, ``mitchell<M>``, ``afm<M>``
 and ``realm<M>`` (see the JAX module for what each models).  The
 cross-format names (``fp16xbf16``...) are built by the staged generator
 ``fpstages``, which a later slice ports; asking for one raises.
+
+Each model also has a torch twin, ``Multiplier.torch_mul``, for the
+``direct`` mode (LUTs cap at M=12, so afm32 is simulated this way).  It
+carries words in int64, because torch on the CPU has no uint32 right
+shift, and is bitwise equal to ``np_mul``: the exact family forms the
+full 48-bit mantissa product, which fits int64.
 """
 from __future__ import annotations
 
@@ -19,8 +25,10 @@ from functools import partial
 from typing import Callable
 
 import numpy as np
+import torch
 
-from .float_bits import FLOAT_FORMATS, MNT_BITS, MNT_MASK, np_bits, np_float, np_pack
+from .float_bits import (FLOAT_FORMATS, MNT_BITS, MNT_MASK, np_bits, np_float, np_pack,
+                         torch_bits, torch_float)
 
 _MNT_ONE = 1 << MNT_BITS  # implicit leading 1 in fixed-point mantissa
 
@@ -131,6 +139,74 @@ def _full_multiply(core, a, b, M):
 
 
 # =====================================================================
+# Torch twins of the cores and of the full multiply, over int64 tensors
+# holding unsigned values; every shift is of a non-negative value.
+# =====================================================================
+
+_MASK = int(MNT_MASK)
+_SAT_INT = int(_SAT)
+_REALM_SEGS_LIST = [int(v) for v in _REALM_SEGS]
+
+
+def _keep_top_t(mnt, M):
+    if M < MNT_BITS:
+        mnt = mnt & ((0xFFFF_FFFF << (MNT_BITS - M)) & 0xFFFF_FFFF)
+    return mnt
+
+
+def _torch_core_exact(ma, mb, M, round_result=False):
+    p = (ma + _MNT_ONE) * (mb + _MNT_ONE)  # < 2^48
+    carry = (p >> (2 * MNT_BITS + 1)) & 1
+    tot = (2 * MNT_BITS - M) + carry
+    if round_result:
+        half = torch.ones_like(p) << (tot - 1)
+        lsb = (p >> tot) & 1
+        p = p + half - 1 + lsb
+        carry2 = (p >> (2 * MNT_BITS + 1)) & 1
+        tot = tot + (carry2 - carry)
+        carry = carry2
+    return ((p >> tot) << (MNT_BITS - M)) & _MASK, carry
+
+
+def _torch_core_mitchell(ma, mb, M):
+    s = ma + mb
+    return _keep_top_t(s & _MASK, M), (s >> MNT_BITS) & 1
+
+
+def _torch_core_afm(ma, mb, M):
+    s = torch.clamp(ma + mb + _AFM_C, max=_SAT_INT)
+    return _keep_top_t(s & _MASK, M), (s >> MNT_BITS) & 1
+
+
+def _torch_core_realm(ma, mb, M):
+    s = ma + mb
+    seg = (s >> (MNT_BITS - 2)) & 0x7
+    segs = torch.tensor(_REALM_SEGS_LIST, dtype=torch.int64, device=s.device)
+    s = torch.clamp(s + segs[seg], max=_SAT_INT)
+    return _keep_top_t(s & _MASK, M), (s >> MNT_BITS) & 1
+
+
+def _torch_full_multiply(core, a, b, M):
+    """``_full_multiply`` on float32 tensors (broadcastable)."""
+    ua, ub = torch_bits(a), torch_bits(b)
+    keep = ((0xFFFF_FFFF << (MNT_BITS - M)) & 0xFFFF_FFFF) if M < MNT_BITS else 0xFFFF_FFFF
+    ma = ua & _MASK & keep
+    mb = ub & _MASK & keep
+    ea = (ua >> MNT_BITS) & 0xFF
+    eb = (ub >> MNT_BITS) & 0xFF
+    sign = ((ua ^ ub) >> 31) & 1
+    mnt, carry = core(ma, mb, M)
+    e = ea + eb - 127 + carry
+    zero = (e <= 0) | (ea == 0) | (eb == 0)
+    inf = (e >= 255) & ~zero
+    e = torch.clamp(e, 0, 255)
+    out = (sign << 31) | (e << MNT_BITS) | (mnt & _MASK)
+    out = torch.where(inf, (sign << 31) | (255 << MNT_BITS), out)
+    out = torch.where(zero, sign << 31, out)
+    return torch_float(out)
+
+
+# =====================================================================
 # Public registry
 # =====================================================================
 
@@ -139,13 +215,15 @@ class Multiplier:
     """A functional approximate-FP-multiplier model.
 
     ``np_mul(a, b)`` is the numpy "user C model" consumed by Algorithm 1;
-    ``mantissa_bits`` is M, the number of significant mantissa bits of the
-    format (Table II: FP32 -> 23, bfloat16-like -> 7).
+    ``torch_mul(a, b)`` is its bitwise torch twin on float32 tensors (the
+    ``direct`` mode); ``mantissa_bits`` is M, the number of significant
+    mantissa bits of the format (Table II: FP32 -> 23, bfloat16-like -> 7).
     """
 
     name: str
     mantissa_bits: int
     np_mul: Callable
+    torch_mul: Callable
     exact_family: bool = False  # mantissa product exact up to truncation?
 
     def __call__(self, a, b):
@@ -160,6 +238,14 @@ _CORES = {
     "afm": _core_afm,
     "realm": _core_realm,
 }
+_TORCH_CORES = {
+    "exact": partial(_torch_core_exact, round_result=True),
+    "trunc": partial(_torch_core_exact, round_result=False),
+    "bf16": partial(_torch_core_exact, round_result=True),
+    "mitchell": _torch_core_mitchell,
+    "afm": _torch_core_afm,
+    "realm": _torch_core_realm,
+}
 _EXACT_FAMILY = {"exact", "trunc", "bf16"}
 
 
@@ -170,11 +256,12 @@ def make_multiplier(family: str, mantissa_bits: int = 23) -> Multiplier:
         raise ValueError(f"unknown multiplier family {family!r}; have {sorted(_CORES)}")
     if not 1 <= mantissa_bits <= 23:
         raise ValueError(f"mantissa_bits must be in [1,23], got {mantissa_bits}")
-    core = _CORES[family]
+    core, torch_core = _CORES[family], _TORCH_CORES[family]
     return Multiplier(
         name=f"{family}{mantissa_bits}",
         mantissa_bits=mantissa_bits,
         np_mul=lambda a, b: _full_multiply(core, a, b, mantissa_bits),
+        torch_mul=lambda a, b: _torch_full_multiply(torch_core, a, b, mantissa_bits),
         exact_family=family in _EXACT_FAMILY,
     )
 

@@ -11,9 +11,12 @@ Modes in the port:
   amsim        the hand-written CUDA LUT kernels (paper's ATxG)
   amsim_torch  the kernels' plain PyTorch versions (the twin of the JAX
                package's ``amsim_jnp``; the reference mode)
+  direct       the multiplier model's own bit arithmetic
+               (``Multiplier.torch_mul``) in a sequential-k GEMM; the
+               path for M > 12, where there is no LUT (afm32)
 
-``surrogate`` and ``direct``, and the per-site ``PolicyTable``, are not
-ported yet; asking for them raises.
+``surrogate`` and the per-site ``PolicyTable`` are not ported yet; asking
+for them raises.
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ import dataclasses
 
 from .multipliers import get_multiplier
 
-MODES = ("native", "amsim", "amsim_torch")
+MODES = ("native", "amsim", "amsim_torch", "direct")
 # Modes of the JAX package that later slices port.
-_LATER_MODES = ("surrogate", "direct", "amsim_jnp")
+_LATER_MODES = ("surrogate", "amsim_jnp")
 
 FAMILIES = ("gemm", "conv", "attention")
 PASSES = ("fwd", "dx", "dw")

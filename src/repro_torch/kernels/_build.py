@@ -33,6 +33,9 @@ LIBRARIES = {
     "approx_conv": ("approx_conv.cu", {
         "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
     }),
+    "approx_conv_dw": ("approx_conv_dw.cu", {
+        "approx_conv2d_dw_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
+    }),
 }
 _HEADERS = ("amsim.cuh",)
 

@@ -1,10 +1,17 @@
 """Plain PyTorch references for the LUT kernels.
 
 ``ref_amsim_gemm`` folds k strictly in order, one AMSim product at a time,
-from +0.0: the order of both CUDA kernels and of the JAX kernels at
+from +0.0: the order of the CUDA kernels and of the JAX kernels at
 chunk=1, so all of them agree bit for bit.  It is the ``amsim_torch``
 mode (the twin of the JAX package's ``amsim_jnp``) and the plain version
-the kernels are held against on the card.
+the kernels are held against on the card.  ``ref_direct_gemm`` folds the
+same way with the multiplier model's own bit arithmetic in place of the
+LUT (the ``direct`` mode).
+
+The products of a chunk of k are computed as one (m, kc, n) tensor, so a
+fold over k = 65 536 (a weight gradient at batch 64) is a few hundred
+elementwise launches plus k additions, not k launch chains; the chunk is
+sized so that each int64 temporary stays near ``_CHUNK_ELEMENTS``.
 """
 from __future__ import annotations
 
@@ -13,6 +20,23 @@ import torch.nn.functional as F
 
 from repro_torch.core.amsim import _amsim, lut_words
 from repro_torch.core.float_bits import torch_bits, torch_float
+from repro_torch.core.multipliers import Multiplier
+
+_CHUNK_ELEMENTS = 1 << 22
+
+
+def _sequential_gemm(a: torch.Tensor, b: torch.Tensor, products) -> torch.Tensor:
+    """out[i, j] = sum_k p[i, k, j], k in order from +0.0, f32 sums, where
+    ``products(a[:, k0:k1], b[k0:k1, :])`` gives p for a chunk of k."""
+    m, k = a.shape
+    n = b.shape[1]
+    kc = max(1, min(k, _CHUNK_ELEMENTS // max(1, m * n)))
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    for k0 in range(0, k, kc):
+        prod = products(a[:, k0:k0 + kc], b[k0:k0 + kc, :])
+        for j in range(prod.shape[1]):
+            acc = acc + prod[:, j, :]
+    return acc
 
 
 def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
@@ -21,16 +45,22 @@ def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
     a (m, k), b (k, n) float32; ``lut`` in kernel storage (int16 packed or
     int32 canonical).  Bit arithmetic runs on int64 words.
     """
-    m, k = a.shape
-    n = b.shape[1]
     words, packed = lut_words(lut)
     ua = torch_bits(a)
     ub = torch_bits(b)
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    for kk in range(k):
-        prod = _amsim(ua[:, kk:kk + 1], ub[kk:kk + 1, :], words, M, torch, packed=packed)
-        acc = acc + torch_float(prod)
-    return acc
+
+    def products(ac, bc):
+        return torch_float(_amsim(ac[:, :, None], bc[None, :, :], words, M, torch,
+                                  packed=packed))
+
+    return _sequential_gemm(ua, ub, products)
+
+
+def ref_direct_gemm(a: torch.Tensor, b: torch.Tensor, multiplier: Multiplier):
+    """out[i, j] = sum_k mul(a[i, k], b[k, j]) with the multiplier model's
+    torch twin (bitwise ``Multiplier.np_mul``), k in order, f32 sums."""
+    return _sequential_gemm(a, b, lambda ac, bc: multiplier.torch_mul(ac[:, :, None],
+                                                                      bc[None, :, :]))
 
 
 def ref_im2col(x: torch.Tensor, kh: int, kw: int, stride: int,

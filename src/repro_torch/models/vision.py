@@ -3,7 +3,8 @@
 Every conv goes through ``ops.approx_conv2d`` (AMCONV2D) and every dense
 layer through ``layers.linear`` (AMDENSE), so under ``mode="amsim"`` a
 resnet-mini forward is 15 launches of the conv kernel and one of the GEMM
-kernel.  Layouts are the JAX package's: activations NHWC, conv weights
+kernel, and a training step adds 14 conv-kernel launches for dx (the
+stem's input needs none), 15 of the dw kernel and 2 GEMM launches.  Layouts are the JAX package's: activations NHWC, conv weights
 HWIO, dense weights (d_in, d_out); the parameter names are its pytree's
 (``dense``; ``convs``; ``stem``/``stages``/``head`` with blocks
 ``c1``/``c2``/``proj``), so ``convert.vision_params_from_jax`` is a copy.
@@ -157,3 +158,15 @@ def vision_forward(model: VisionModel, x: torch.Tensor,
                    policy: NumericsPolicy) -> torch.Tensor:
     """Inference: x (B, H, W, C) -> logits (B, n_classes)."""
     return model(x, policy)
+
+
+def vision_loss(model: VisionModel, batch: dict, policy: NumericsPolicy):
+    """Mean softmax cross-entropy of a batch {"x": (B,H,W,C), "y": (B,)}
+    and {"acc": accuracy}; differentiable (the training entry point)."""
+    logits = model(batch["x"], policy)
+    labels = batch["y"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[:, None])[:, 0]
+    loss = torch.mean(lse - ll)
+    acc = torch.mean((logits.argmax(-1) == labels).to(torch.float32))
+    return loss, {"acc": acc}

@@ -27,10 +27,19 @@ from repro_torch.kernels import approx_conv, approx_gemm, ops  # noqa: E402
 from repro_torch.kernels.common import lut_tensor  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _own_lut_dir(tmp_path_factory):
+    """The JAX package caches LUTs on disk through one fixed temporary name
+    per table; give this module its own directory, so that it never writes
+    the shared one while another test process reads it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_LUT_DIR", str(tmp_path_factory.mktemp("luts")))
+        yield
+
+
 def _lut(name, packed):
     table = lutgen.get_packed_lut(name) if packed else lutgen.get_lut(name)
     return table, lutgen.get_multiplier(name).mantissa_bits
-
 
 
 # ------------------------------------------------------------------- GEMM

@@ -34,6 +34,17 @@ from repro_torch.models import vision  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _own_lut_dir(tmp_path_factory):
+    """The JAX package caches LUTs on disk through one fixed temporary name
+    per table; give this module its own directory, so that it never writes
+    the shared one while another test process reads it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_LUT_DIR", str(tmp_path_factory.mktemp("luts")))
+        yield
+
+
 SMALL = {
     "mlp": dict(name="mlp-small", kind="mlp", input_hw=6, input_ch=1, n_classes=5,
                 hidden=(12, 8)),
