@@ -37,11 +37,12 @@ caught:
     the mean loss of each second half of the epoch must be below the first
     half's, and the Table III deltas are printed;
  5. per-forward times (CUDA events) of native, amsim and amsim_torch with
-    the device's busy time (torch.profiler);
+    the device's busy time (torch.profiler; "not measured" when it records
+    no device activity);
  5b. per-training-step times of native and amsim for each model with the
     device's busy time and idle share, and each kernel's device time at
-    the shapes of one resnet-mini step beside its bound and its plain
-    version's time.
+    the shapes of one resnet-mini step (CUDA events around calls queued
+    behind a spin kernel) beside its bound and its plain version's time.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -113,20 +114,52 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, name_part: str | None, reps: int) -> float:
-    """Mean device time (ms) per ``fn()`` of the kernels whose name holds
-    ``name_part`` (every device activity when None), from torch.profiler."""
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` with the host out of the way: a
+    spin kernel holds the stream while ``reps`` calls queue up behind it, so
+    CUDA events around the calls time the card's work alone.  The spin grows
+    until all calls were queued before it ended."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 10_000_000                      # ~5 ms at 2 GHz
+    for _ in range(5):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()           # the spin still held the stream
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise SystemExit("chip_smoke FAILED: the host could not queue the calls ahead of the card")
+
+
+def busy_ms(fn, reps: int, tries: int = 3) -> float | None:
+    """Mean device busy time (ms) per ``fn()``: the summed durations of all
+    device activity torch.profiler records, None when a few profiles in a row
+    record none (CUPTI does not always deliver its records)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (name_part is None or name_part in e.name))
-    return us / reps / 1e3
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def busy_text(busy: float | None, wall: float) -> str:
+    if busy is None:
+        return "device busy not measured: torch.profiler recorded no device activity"
+    return f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}"
 
 
 def require(cond: bool, what: str):
@@ -383,12 +416,12 @@ def main() -> int:
         t_nat = cuda_ms(lambda: vision_forward(model, x, native), reps=50, warmup=3)
         t_am = cuda_ms(lambda: vision_forward(model, x, amsim), reps=20, warmup=2)
         t_pl = cuda_ms(lambda: vision_forward(model, x, plain), reps=2)
-        busy_nat = device_ms(lambda: vision_forward(model, x, native), None, reps=10)
-        busy_am = device_ms(lambda: vision_forward(model, x, amsim), None, reps=10)
-        print(f"  {model_name}: native {t_nat:.4f} ms (device busy {busy_nat:.4f} ms), amsim "
-              f"{t_am:.4f} ms (device busy {busy_am:.4f} ms, idle share "
-              f"{1 - busy_am / t_am:.3f}), amsim_torch {t_pl:.2f} ms; amsim/native = "
-              f"{t_am / t_nat:.2f}x (the paper's yardstick: native only 8x faster than AMSim)")
+        busy_nat = busy_ms(lambda: vision_forward(model, x, native), reps=10)
+        busy_am = busy_ms(lambda: vision_forward(model, x, amsim), reps=10)
+        print(f"  {model_name}: native {t_nat:.4f} ms ({busy_text(busy_nat, t_nat)}), amsim "
+              f"{t_am:.4f} ms ({busy_text(busy_am, t_am)}), amsim_torch {t_pl:.2f} ms; "
+              f"amsim/native = {t_am / t_nat:.2f}x (the paper's yardstick: native only 8x "
+              f"faster than AMSim)")
     phase_done("5 forward timings")
 
     # --------------------------------------------------- 5b. step timings
@@ -405,13 +438,14 @@ def main() -> int:
                 box[0], _ = step(model, box[0], b)
 
             wall = cuda_ms(one, reps=10, warmup=2)
-            busy = device_ms(one, None, reps=5)
+            busy = busy_ms(one, reps=5)
             times[pname] = (wall, busy)
         (t_nat, b_nat), (t_am, b_am) = times["native"], times["amsim"]
-        print(f"  {model_name}: native (TFnG) {t_nat:.4f} ms (device busy {b_nat:.4f} ms, idle "
-              f"share {1 - b_nat / t_nat:.3f}), amsim (ATxG) {t_am:.4f} ms (device busy "
-              f"{b_am:.4f} ms, idle share {1 - b_am / t_am:.3f}); amsim/native = "
-              f"{t_am / t_nat:.2f}x by wall, {b_am / b_nat:.2f}x by device time")
+        by_device = (f", {b_am / b_nat:.2f}x by device time"
+                     if b_nat is not None and b_am is not None else "")
+        print(f"  {model_name}: native (TFnG) {t_nat:.4f} ms ({busy_text(b_nat, t_nat)}), amsim "
+              f"(ATxG) {t_am:.4f} ms ({busy_text(b_am, t_am)}); amsim/native = "
+              f"{t_am / t_nat:.2f}x by wall{by_device}")
 
     # Each kernel at the shapes of one resnet-mini training step: capture its calls.
     calls = {k: [] for k in counters}
@@ -473,26 +507,27 @@ def main() -> int:
                                                                         stride, pads)
 
     rows_out = []
-    # (source, TPU kernel it replaces, wrapper, cost model, device kernel name)
+    # (source, TPU kernel it replaces, wrapper, cost model)
     sources = {
         "approx_gemm": ("approx_gemm.cu", "src/repro/kernels/approx_gemm.py:57",
-                        originals["approx_gemm"], gemm_cost, "approx_gemm_kernel"),
+                        originals["approx_gemm"], gemm_cost),
         "approx_conv2d_fused": ("approx_conv.cu", "src/repro/kernels/approx_conv.py:105",
-                                originals["approx_conv2d_fused"], conv_cost, "approx_conv_kernel"),
+                                originals["approx_conv2d_fused"], conv_cost),
         "approx_conv2d_dw": ("approx_conv_dw.cu", "src/repro/kernels/approx_conv.py:225",
-                             originals["approx_conv2d_dw"], dw_cost, "approx_conv_dw_kernel"),
+                             originals["approx_conv2d_dw"], dw_cost),
     }
-    print("kernels at the shapes of one resnet-mini training step: device time from "
-          "torch.profiler, wrapper call time (host launch path included) from CUDA events:")
-    for kname, (src, replaces, fn, cost, symbol) in sources.items():
+    print("kernels at the shapes of one resnet-mini training step, from CUDA events: device "
+          "time with the calls queued behind a spin kernel (a wrapper enqueues its one kernel "
+          "and nothing else), and wrapper call time (host launch path included):")
+    for kname, (src, replaces, fn, cost) in sources.items():
         sums = {}   # pass -> [ms, call_ms, plain_ms, bound_ms, bound of real taps, n]
         bytes_s = ops_s = 0.0
         for args, kw, stride in calls[kname]:
             extra = {"real_every": stride} if stride else {}
             nbytes, made, real, plain_fn = cost(*args, **kw, **extra)
             t_call = cuda_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
-            t = device_ms(lambda: fn(*args, **kw), symbol, reps=5)
-            require(t > 0, f"torch.profiler saw no device time for {symbol}")
+            t = queued_ms(lambda: fn(*args, **kw), reps=5)
+            require(t > 0, f"no device time measured for {kname} at {args[0].shape}")
             tp = cuda_ms(plain_fn, reps=1, warmup=0)
             tb = max(nbytes / HBM_BYTES_PER_S, made / lookups_per_s) * 1e3
             tb_real = max(nbytes / HBM_BYTES_PER_S, real / lookups_per_s) * 1e3
