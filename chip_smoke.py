@@ -42,7 +42,24 @@ caught:
  5b. per-training-step times of native and amsim for each model with the
     device's busy time and idle share, and each kernel's device time at
     the shapes of one resnet-mini step (CUDA events around calls queued
-    behind a spin kernel) beside its bound and its plain version's time.
+    behind a spin kernel) beside its bound and its plain version's time;
+LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
+ 3d. the attention kernel and the three decode-chain kernels against their
+    plain versions at the serving path's full-width shapes, with afm16
+    packed (shared memory) and afm10 packed (global memory): causal
+    prefill, decode over a ring with unwritten slots, both decode forms;
+    every result bitwise equal; and the kernels' expf/rsqrtf against
+    torch.exp/torch.rsqrt over a sweep of float32;
+ 4c. depth 2, batch 2, prompt 16, 8 new tokens, with a ring of 64 slots
+    (2 chain launches a layer) and of 160 (3): logits and tokens under
+    ``amsim`` bitwise equal to ``amsim_torch``; the counters must read 7
+    GEMM + 1 attention launches a layer and 1 head GEMM for the prefill,
+    and 2 or 3 chain/attention launches a layer plus 1 head GEMM a step;
+ 5c. full depth (40 layers), batch 4, prompt 64, 32 new tokens, under
+    ``amsim`` and ``native``: prefill ms, ms per decode step, tokens/s,
+    device idle share, the amsim/native ratio, and each serving kernel's
+    device time per prefill and per decode step beside its bound and its
+    plain version's time.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -93,6 +110,12 @@ CONV_SHAPES = [
 ]
 # Launches per training step: (conv kernel: fwd + dx, dw kernel, GEMM kernel).
 TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-100": (0, 0, 8)}
+# LM serving: the arch, the tables of phase 3d, and the runs of 4c and 5c.
+LM_ARCH = "granite-3-2b"
+SERVE_LUTS = [("afm16", True), ("afm10", True)]
+DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, rings=(64, 160))
+FULL = dict(batch=4, prompt=64, new=32)
+LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
 
 
 def smi(query: str) -> str:
@@ -173,6 +196,370 @@ def taps(n_out: int, n_in: int, k: int, stride: int, pad: int, real_every: int =
     ``real_every`` (zeros inserted between them)."""
     return sum(0 <= i < n_in and i % real_every == 0
                for i in (y * stride + kk - pad for y in range(n_out) for kk in range(k)))
+
+
+# ------------------------------------------------------------ LM serving
+def _ring_positions(T: int, written: int, device) -> torch.Tensor:
+    """Positions of a ring of T slots after ``written`` tokens; unwritten
+    slots hold the POS_PAD sentinel."""
+    from repro_torch.kernels.common import POS_PAD
+    pos = torch.full((T,), POS_PAD, dtype=torch.int32)
+    for p in range(max(0, written - T), written):
+        pos[p % T] = p
+    return pos.to(device)
+
+
+def serving_kernel_checks(dev, gen, lut_case) -> dict:
+    """Phase 3d: the four serving kernels against their plain versions at
+    granite-3-2b's full width; returns each kernel's largest |difference|."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import decode_chain as chain
+    cfg = get_arch(LM_ARCH)
+    d, F, H, KV, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S = FULL["batch"], FULL["prompt"]
+    T_short = FULL["prompt"] + FULL["new"]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen).to(dev) * scale
+
+    w = dict(g1=1 + 0.1 * randn(d), g2=1 + 0.1 * randn(d), wq=randn(d, H * dh, scale=d ** -0.5),
+             wk=randn(d, KV * dh, scale=d ** -0.5), wv=randn(d, KV * dh, scale=d ** -0.5),
+             wo=randn(H * dh, d, scale=(H * dh) ** -0.5), wg=randn(d, F, scale=d ** -0.5),
+             wu=randn(d, F, scale=d ** -0.5), wd=randn(F, d, scale=F ** -0.5))
+    x, attn = randn(B, d), randn(B, H * dh, scale=0.3)
+    back = [w[n] for n in ("g2", "wo", "wg", "wu", "wd")]
+    err = {k: 0.0 for k in ("approx_attention", "fused_qkv_norm", "fused_out_mlp",
+                            "fused_attn_out_mlp")}
+
+    def held(name, out, ref, what):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
+        require(all(torch.equal(a, b) for a, b in zip(outs, refs)), f"{name} {what}: max|d|={e}")
+        err[name] = max(err[name], e)
+
+    for lut_name, packed in SERVE_LUTS:
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        # Causal prefill of S tokens into a ring of T_short slots.
+        q, k, v = randn(B, S, H, dh), randn(B, T_short, KV, dh), randn(B, T_short, KV, dh)
+        args = (q, k, v, torch.arange(S, dtype=torch.int32, device=dev),
+                _ring_positions(T_short, S, dev))
+        held("approx_attention", attn_mod.approx_attention(*args, lut, M),
+             attn_mod.approx_attention_plain(*args, lut, M, causal=True, window=0),
+             f"{tag} prefill {tuple(q.shape)} over T={T_short}")
+        # Decode over a ring longer than 128 with unwritten slots.
+        written = 100
+        q1, k1, v1 = randn(B, 1, H, dh), randn(B, LONG_RING, KV, dh), randn(B, LONG_RING, KV, dh)
+        dargs = (q1, k1, v1, torch.tensor([written - 1], dtype=torch.int32, device=dev),
+                 _ring_positions(LONG_RING, written, dev))
+        held("approx_attention", attn_mod.approx_attention(*dargs, lut, M),
+             attn_mod.approx_attention_plain(*dargs, lut, M, causal=True, window=0),
+             f"{tag} decode over a ring of {LONG_RING}, {written} written")
+        qkv = (x, w["g1"], w["wq"], w["wk"], w["wv"])
+        held("fused_qkv_norm", chain.fused_qkv_norm(*qkv, lut, M, eps=cfg.norm_eps),
+             chain.fused_qkv_norm_plain(*qkv, lut, M, eps=cfg.norm_eps), tag)
+        held("fused_out_mlp", chain.fused_out_mlp(x, attn, *back, lut, M, eps=cfg.norm_eps),
+             chain.fused_out_mlp_plain(x, attn, *back, lut, M, eps=cfg.norm_eps), tag)
+        # The 2-launch form: a ring of T_short <= 128 slots, T_short - 10 written.
+        written = T_short - 10
+        sargs = (q1, k[:, :T_short].contiguous(), v[:, :T_short].contiguous(),
+                 torch.tensor([written - 1], dtype=torch.int32, device=dev),
+                 _ring_positions(T_short, written, dev))
+        held("fused_attn_out_mlp",
+             chain.fused_attn_out_mlp(x, *sargs, *back, lut, M, eps=cfg.norm_eps),
+             chain.fused_attn_out_mlp_plain(x, *sargs, *back, lut, M, eps=cfg.norm_eps,
+                                            causal=True, window=0), tag)
+        print(f"serving kernels == plain (bitwise): {tag} LUT at {LM_ARCH} widths: attention "
+              f"prefill {tuple(q.shape)} over a ring of {T_short} and decode over {LONG_RING}; "
+              f"qkv, out-mlp and attention+out-mlp at {B} rows")
+    # The kernels' transcendentals against torch's, over every 101st bit pattern.
+    bits = torch.arange(0, 2 ** 32, 101, dtype=torch.int64, device=dev)
+    xs = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+    xs = xs[~torch.isnan(xs)].contiguous()
+    e, r = chain.device_exp_rsqrt(xs)
+    for fname, got, want in (("expf", e, torch.exp(xs)), ("rsqrtf", r, torch.rsqrt(xs))):
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        differ = (got.view(torch.int32) != want.view(torch.int32)) & ~both_nan
+        ulps = (got.view(torch.int32).to(torch.int64) - want.view(torch.int32).to(torch.int64)
+                ).abs()[differ]
+        print(f"libm: kernel {fname} vs torch on {xs.numel()} float32 values: "
+              f"{int(differ.sum())} differ (max {int(ulps.max()) if ulps.numel() else 0} ulp)")
+        require(int(differ.sum()) == 0, f"kernel {fname} differs from torch on "
+                f"{int(differ.sum())} values, e.g. {xs[differ][:4].tolist()}")
+    return err
+
+
+def serving_counters():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    return {"approx_attention": attn_mod.approx_attention,
+            "fused_qkv_norm": chain.fused_qkv_norm, "fused_out_mlp": chain.fused_out_mlp,
+            "fused_attn_out_mlp": chain.fused_attn_out_mlp, "approx_gemm": gemm_mod.approx_gemm}
+
+
+def serving_depth2(dev, serve_launches: dict):
+    """Phase 4c: depth 2 at full width, amsim bitwise amsim_torch, launch
+    counts per prefill and per decode step."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=DEPTH2["n_layers"])
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = torch.randint(0, cfg.vocab, (DEPTH2["batch"], DEPTH2["prompt"]),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    counters = serving_counters()
+    L, steps = cfg.n_layers, DEPTH2["new"] - 1
+    for ring in DEPTH2["rings"]:
+        fused = ring <= 128
+        # (attention, qkv, out-mlp, attention+out-mlp, GEMM) per decode step
+        per_step = (0, L, 0, L, 1) if fused else (L, L, L, 0, 1)
+        want = dict(zip(counters, (L + per_step[0] * steps, per_step[1] * steps,
+                                   per_step[2] * steps, per_step[3] * steps,
+                                   7 * L + 1 + per_step[4] * steps)))
+        results, launches = {}, {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for mode in ("amsim", "amsim_torch"):
+                policy = NumericsPolicy(mode=mode, multiplier="afm16")
+                engine = ServingEngine(model, policy, max_len=ring)
+                for fn in counters.values():
+                    fn.launches = 0
+                toks, logits = engine.generate(prompts, DEPTH2["new"], return_logits=True)
+                torch.cuda.synchronize()
+                got = {k: fn.launches for k, fn in counters.items()}
+                full, _, _ = engine.prefill(prompts, init_lm_caches(cfg, prompts.shape[0], ring,
+                                                                    dev))
+                results[mode] = (toks, logits, full)
+                if mode == "amsim":
+                    require(got == want, f"depth-2 serving, ring {ring}: launches {got}, want "
+                            f"{want}")
+                    launches = got
+                    for k, n in got.items():
+                        serve_launches[k] = serve_launches.get(k, 0) + n
+        except RuntimeError as e:
+            if "deterministic" in str(e):
+                raise SystemExit(f"chip_smoke FAILED: serving has an op without a "
+                                 f"deterministic CUDA implementation: {e}")
+            raise
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (t_a, l_a, f_a), (t_p, l_p, f_p) = results["amsim"], results["amsim_torch"]
+        require(bool(torch.isfinite(l_a).all()) and bool(torch.isfinite(f_a).all()),
+                f"depth-2 serving, ring {ring}: logits not finite")
+        require(torch.equal(f_a, f_p), f"depth-2 prefill logits, ring {ring}: amsim differs from "
+                f"amsim_torch by {(f_a - f_p).abs().max().item()}")
+        require(torch.equal(l_a, l_p) and torch.equal(t_a, t_p),
+                f"depth-2 decode, ring {ring}: amsim differs from amsim_torch (logits max|d| "
+                f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
+        print(f"{LM_ARCH} depth {L}, batch {DEPTH2['batch']}, prompt {DEPTH2['prompt']}, "
+              f"{DEPTH2['new']} new tokens, ring {ring} ({'2' if fused else '3'} chain launches a "
+              f"layer): prefill logits, {steps} decode steps' logits and tokens bitwise equal to "
+              f"amsim_torch; amsim launches {launches}; tokens {t_a[0].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _live_keys(q_pos, k_pos, causal=True, window=0) -> int:
+    from repro_torch.kernels.common import attention_mask
+    return int(attention_mask(q_pos.cpu(), k_pos.cpu(), causal=causal, window=window).sum())
+
+
+def serving_costs(kname, args, kw, lut_bytes_):
+    """(bytes each input read once and each output written once, LUT
+    lookups this run's data needs) of one call of a serving kernel."""
+    f = 4
+    if kname == "approx_attention":
+        q, k, v, q_pos, k_pos = args[:5]
+        B, S, H, dh = q.shape
+        live = _live_keys(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
+        return (f * (2 * q.numel() + k.numel() + v.numel()) + 4 * (S + k.shape[1]) + lut_bytes_,
+                2 * B * H * live * dh)
+    if kname == "fused_qkv_norm":
+        x, g1, *ws = args[:5]
+        n = sum(wt.shape[1] for wt in ws)
+        return (f * (x.numel() + g1.numel() + sum(wt.numel() for wt in ws) + x.shape[0] * n)
+                + lut_bytes_, x.shape[0] * x.shape[1] * n)
+    if kname == "fused_out_mlp":
+        x, attn, g2, wo, wg, wu, wd = args[:7]
+        weights = wo.numel() + wg.numel() + wu.numel() + wd.numel()
+        return (f * (2 * x.numel() + attn.numel() + g2.numel() + weights) + lut_bytes_,
+                x.shape[0] * weights)
+    x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd = args[:11]
+    B, S, H, dh = q.shape
+    live = _live_keys(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
+    weights = wo.numel() + wg.numel() + wu.numel() + wd.numel()
+    return (f * (2 * x.numel() + q.numel() + k.numel() + v.numel() + g2.numel() + weights)
+            + 4 * (S + k.shape[1]) + lut_bytes_, x.shape[0] * weights + 2 * B * H * live * dh)
+
+
+# Where each serving wrapper takes its LUT.
+LUT_ARG = {"approx_attention": 5, "fused_qkv_norm": 5, "fused_out_mlp": 7,
+           "fused_attn_out_mlp": 11}
+SERVE_SOURCES = {
+    "approx_attention": ("approx_attention.cu", "src/repro/kernels/approx_attention.py:121"),
+    "fused_qkv_norm": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:102"),
+    "fused_out_mlp": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:213"),
+    "fused_attn_out_mlp": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:379"),
+}
+
+
+def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) -> list:
+    """Phase 5c: granite-3-2b at full width and depth, amsim and native;
+    returns the four serving kernels' JSON rows."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import lut_bytes
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch(LM_ARCH)
+    L, B, P, N = cfg.n_layers, FULL["batch"], FULL["prompt"], FULL["new"]
+    ring = P + N
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = 4 * sum(p.numel() for p in model.parameters())
+    print(f"{LM_ARCH} at full width and depth ({L} layers, {weight_bytes / 1e9:.2f} GB of float32 "
+          f"weights) drawn on the card in {time.perf_counter() - t0:.1f} s; batch {B}, prompt {P}, "
+          f"{N} new tokens, ring {ring} ({smi_line}):")
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(SEED))
+    prompts = prompts.to(dev)
+    counters = serving_counters()
+    want = dict(zip(counters, (L, L * (N - 1), 0, L * (N - 1), 7 * L + 1 + (N - 1))))
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+    res = {}
+    for pname, policy in (("native", NumericsPolicy()), ("amsim", amsim)):
+        engine = ServingEngine(model, policy, max_len=ring)
+        engine.generate(prompts, 2)          # warm-up: LUT upload, library handles
+        for fn in counters.values():
+            fn.launches = 0
+        timings = {}
+        toks = engine.generate(prompts, N, timings=timings)
+        got = {k: fn.launches for k, fn in counters.items()}
+        if pname == "amsim":
+            require(got == want, f"full-depth serving: launches {got}, want {want}")
+            for k, n in got.items():
+                serve_launches[k] = serve_launches.get(k, 0) + n
+        require(toks.shape == (B, N) and bool((toks >= 0).all() & (toks < cfg.vocab).all()),
+                f"full-depth {pname}: tokens out of range")
+        caches = init_lm_caches(cfg, B, ring, dev)
+        _, nxt, caches = engine.prefill(prompts, caches)
+        busy_step = busy_ms(lambda: engine.step(nxt, caches), reps=3)
+        busy_pre = busy_ms(lambda: engine.prefill(prompts, init_lm_caches(cfg, B, ring, dev)),
+                           reps=1)
+        pre_ms = timings["prefill_s"] * 1e3
+        step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
+        res[pname] = (pre_ms, step_ms)
+        print(f"  {pname}: prefill {pre_ms:.2f} ms ({busy_text(busy_pre, pre_ms)}), "
+              f"{step_ms:.3f} ms per decode step ({busy_text(busy_step, step_ms)}), "
+              f"{B * N / (timings['prefill_s'] + timings['decode_s']):.2f} tokens/s; tokens "
+              f"{toks[0, :8].tolist()}")
+    print(f"  amsim/native: prefill {res['amsim'][0] / res['native'][0]:.2f}x, decode step "
+          f"{res['amsim'][1] / res['native'][1]:.2f}x")
+
+    # Each serving kernel at the shapes of this run: capture its calls in an
+    # amsim prefill, a decode step, and a decode step over a ring of more
+    # than 128 slots (the 3-launch form).
+    names = list(SERVE_SOURCES) + ["approx_gemm"]
+    originals = {k: getattr(ops, k) for k in names}
+    calls = {}
+
+    def capture(ctx, kname):
+        def wrapped(*a, **kw):
+            kept = tuple(t.clone() if torch.is_tensor(t) and t.dtype == torch.int32 else t
+                         for t in a)
+            calls.setdefault((ctx, kname), []).append((kept, kw))
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    def captured_run(ctx, fn):
+        for k in names:
+            setattr(ops, k, capture(ctx, k))
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            for k, f in originals.items():
+                setattr(ops, k, f)
+
+    engine = ServingEngine(model, amsim, max_len=ring)
+    caches = init_lm_caches(cfg, B, ring, dev)
+    captured_run("prefill", lambda: engine.prefill(prompts, caches))
+    _, nxt, caches = engine.prefill(prompts, init_lm_caches(cfg, B, ring, dev))
+    captured_run("decode", lambda: engine.step(nxt, caches))
+    long_engine = ServingEngine(model, amsim, max_len=LONG_RING)
+    long_caches = init_lm_caches(cfg, B, LONG_RING, dev)
+    _, nxt_l, long_caches = long_engine.prefill(prompts, long_caches)
+    captured_run(f"decode, ring {LONG_RING}", lambda: long_engine.step(nxt_l, long_caches))
+
+    plains = {"approx_attention": attn_mod.approx_attention_plain,
+              "fused_qkv_norm": chain.fused_qkv_norm_plain,
+              "fused_out_mlp": chain.fused_out_mlp_plain,
+              "fused_attn_out_mlp": chain.fused_attn_out_mlp_plain}
+    per = {}   # (ctx, kernel) -> (launches, ms, plain ms, bound ms, ops-bound?)
+    print(f"serving kernels at the shapes of this run (device ms from CUDA events around 5 calls "
+          f"queued behind a spin kernel, times the launches; {smi_line}):")
+    for (ctx, kname), cl in sorted(calls.items()):
+        args, kw = cl[0]
+        fn = originals[kname]
+        n = len(cl)
+        if kname == "approx_gemm":
+            # One time per distinct GEMM shape, times its launches.
+            shapes = {}
+            for a, k in cl:
+                shapes.setdefault((tuple(a[0].shape), tuple(a[1].shape)), []).append((a, k))
+            total = 0.0
+            for (sa, sb), same in shapes.items():
+                a, k = same[0]
+                t = queued_ms(lambda: fn(*a, **k), reps=5)
+                total += t * len(same)
+                print(f"  {ctx}: approx_gemm {sa}x{sb}: {t * len(same):.4f} ms over "
+                      f"{len(same)} launches")
+            per[(ctx, kname)] = (n, total, None, None, None)
+            continue
+        t = queued_ms(lambda: fn(*args, **kw), reps=5)
+        require(t > 0, f"no device time measured for {kname} in the {ctx}")
+        nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(args[LUT_ARG[kname]]))
+        plain_kw = dict(kw)
+        if kname in ("approx_attention", "fused_attn_out_mlp"):
+            plain_kw.setdefault("causal", True)
+            plain_kw.setdefault("window", 0)
+        tp = cuda_ms(lambda: plains[kname](*args, **plain_kw), reps=1, warmup=0)
+        tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        ops_bound = lookups / lookups_per_s >= nbytes / HBM_BYTES_PER_S
+        per[(ctx, kname)] = (n, t * n, tp * n, tb * n, ops_bound)
+        print(f"  {ctx}: {kname}: {t * n:.4f} ms over {n} launches ({t:.4f} ms each), bound "
+              f"{tb * n:.4f} ms ({'operations' if ops_bound else 'bytes'}: {nbytes} B, "
+              f"{lookups} lookups a launch), plain {tp * n:.2f} ms")
+    rows = []
+    # The row's work: the kernel's launches in one full-depth prefill
+    # (attention) or decode step (the chain kernels; the 3-launch form's
+    # for fused_out_mlp).
+    ctx_of = {"approx_attention": "prefill", "fused_qkv_norm": "decode",
+              "fused_attn_out_mlp": "decode", "fused_out_mlp": f"decode, ring {LONG_RING}"}
+    for kname, (src, replaces) in SERVE_SOURCES.items():
+        require(serve_launches.get(kname, 0) > 0, f"{kname} never launched on the serving path")
+        n, ms, plain_ms, bound, ops_bound = per[(ctx_of[kname], kname)]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+                     "launches": serve_launches[kname], "max_abs_err": serve_err[kname],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if ops_bound else "bytes", "library_ms": None})
+        print(f"kernel {kname} (replaces {replaces}): {ms:.4f} ms on device per full-depth "
+              f"{ctx_of[kname]} over {n} launches, bound {bound:.4f} ms ({rows[-1]['bound_by']}), "
+              f"plain {plain_ms:.2f} ms, max|d| {serve_err[kname]}; {serve_launches[kname]} "
+              f"launches on the serving path (phases 4c and 5c); no PyTorch call computes a "
+              f"LUT product, so no library time")
+    del model, engine, long_engine, caches, long_caches, calls
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -289,6 +676,10 @@ def main() -> int:
               f"{'packed' if packed else 'canonical'}, batch {batch}: dw kernel and the conv "
               f"kernel at the dx shape of {len(CONV_SHAPES)} convs")
     phase_done("3b/3c gradient kernels vs plain")
+
+    # ------------------------------ 3d. serving kernels vs plain on the card
+    serve_err = serving_kernel_checks(dev, gen, lut_case)
+    phase_done("3d serving kernels vs plain")
 
     # ----------------------------------------------------- 4. main path
     amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
@@ -408,6 +799,11 @@ def main() -> int:
     print(f"  Table III deltas (1 epoch of 512): AFM32 - FP32 {accs['afm32'] - accs['fp32']:+.4f}, "
           f"AFM16 - bfloat16 {accs['afm16'] - accs['bf16']:+.4f}")
     phase_done("4b convergence (lenet-300-100, 4 multipliers)")
+
+    # ------------------------------------- 4c. LM serving at depth 2
+    serve_launches = {}
+    serving_depth2(dev, serve_launches)
+    phase_done("4c serving, depth 2")
 
     # ------------------------------------------------------ 5. timings
     print(f"per-forward times at batch {BATCH} (CUDA events, after warm-up; device busy "
@@ -561,6 +957,10 @@ def main() -> int:
               f"{max_err[kname]}; {main_launches[kname]} launches in {TRAIN_STEPS} resnet-mini "
               f"training steps; no PyTorch call computes a LUT product, so no library time")
     phase_done("5b step and kernel timings")
+
+    # ---------------------------- 5c. LM serving at full depth, timed
+    rows_out += serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err)
+    phase_done("5c serving, full depth")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

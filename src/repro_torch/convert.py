@@ -2,14 +2,17 @@
 
 The port keeps the JAX layouts (NHWC, HWIO, (d_in, d_out)) and pytree
 names, so carrying weights across is a copy: no transpose, no reorder.
+An LM's layer-stacked leaves are unstacked into one module per layer.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.paper_models import VisionConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import LM, lm_param_shapes
 from repro_torch.models.vision import VisionModel, init_tree
 
 
@@ -32,6 +35,14 @@ def _shapes(tree, prefix=""):
     return {prefix[:-1]: tuple(tree.shape)}
 
 
+def _check_shapes(got: dict, want: dict, name: str):
+    if got != want:
+        raise ValueError(f"parameter tree does not fit {name}: "
+                         f"missing {sorted(set(want) - set(got))}, "
+                         f"unexpected {sorted(set(got) - set(want))}, shapes differ at "
+                         f"{sorted(k for k in set(got) & set(want) if got[k] != want[k])}")
+
+
 def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> VisionModel:
     """The port's model holding the parameters of a JAX ``init_vision``
     pytree (numpy or JAX array leaves), on ``device`` (default: the card).
@@ -43,13 +54,30 @@ def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> Vision
     device = resolve_device(device)
     tensors = _to_tensors(tree)
     want = _shapes(init_tree(cfg, torch.Generator().manual_seed(0)))
-    got = _shapes(tensors)
-    if got != want:
-        raise ValueError(f"parameter tree does not fit {cfg.name}: "
-                         f"missing {sorted(set(want) - set(got))}, "
-                         f"unexpected {sorted(set(got) - set(want))}, shapes differ at "
-                         f"{sorted(k for k in set(got) & set(want) if got[k] != want[k])}")
+    _check_shapes(_shapes(tensors), want, cfg.name)
     return VisionModel(cfg, tensors).to(device)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
+    """The port's LM holding the parameters of a JAX ``init_lm`` pytree of
+    the dense family (numpy or JAX array leaves, layers stacked on a
+    leading axis), on ``device`` (default: the card).  The tied head's
+    ``emb.T`` is made contiguous here, once.  Raises if the tree's names or
+    shapes are not those ``cfg`` gives."""
+    device = resolve_device(device)
+    layers = tree["layers"]
+    n_layers = len(next(iter(layers["n1"].values())))
+    port = {k: v for k, v in tree.items() if k != "layers"}
+    port["layers"] = [_unstack(layers, i) for i in range(n_layers)]
+    tensors = _to_tensors(port)
+    _check_shapes(_shapes(tensors), lm_param_shapes(cfg), cfg.name)
+    return LM(cfg, tensors).to(device)
 
 
 def vision_params_to_numpy(model: VisionModel) -> dict:

@@ -125,3 +125,15 @@ class PolicyTable:
 
 
 NATIVE = NumericsPolicy()
+
+
+def load_numerics(numerics: str, multiplier: str = "fp32", **kw) -> NumericsPolicy:
+    """CLI helper: a flat policy of mode ``numerics`` with ``multiplier``
+    (``native`` ignores it).  A policy-table JSON path raises: tables are
+    not ported yet."""
+    if numerics.endswith(".json") or "/" in numerics:
+        raise NotImplementedError("policy-table JSON files need PolicyTable, which is not "
+                                  "ported yet; pass a mode name")
+    if numerics == "native":
+        return NumericsPolicy(**kw)
+    return NumericsPolicy(mode=numerics, multiplier=multiplier, **kw)

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> (source, {C function: argtypes}); every function returns a
 # cudaError_t code as an int.
 LIBRARIES = {
@@ -36,8 +36,17 @@ LIBRARIES = {
     "approx_conv_dw": ("approx_conv_dw.cu", {
         "approx_conv2d_dw_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
     }),
+    "approx_attention": ("approx_attention.cu", {
+        "approx_attention_f32": [_P] * 8 + [_I] * 13 + [_P],
+    }),
+    "decode_chain": ("decode_chain.cu", {
+        "fused_qkv_norm_f32": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+        "fused_out_mlp_f32": [_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+        "fused_attn_out_mlp_f32": [_P] * 19 + [_I] * 11 + [_F] + [_I] * 4 + [_P],
+        "libm_probe_f32": [_P] * 3 + [ctypes.c_longlong, _P],
+    }),
 }
-_HEADERS = ("amsim.cuh",)
+_HEADERS = ("amsim.cuh", "attention.cuh")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

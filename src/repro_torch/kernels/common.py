@@ -1,13 +1,17 @@
 """What the LUT kernels share on the host side: LUT placement, operand
-checks and the checked call into a kernel library.
+checks, the checked call into a kernel library, the attention mask and
+the kernels' order of a float32 sum.
 
 The gather brick itself (``repro/kernels/common.py:_gather_gemm_tile``)
 is the device function ``amsim::mul`` in ``csrc/amsim.cuh``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -15,6 +19,57 @@ from . import _build
 # (128 KiB), canonical up to M=7 (64 KiB).  Larger tables are read from
 # global memory.  Hopper gives a block at most 227 KiB.
 SMEM_LUT_MAX_BYTES = 128 * 1024
+
+NEG_INF = -1e30          # the score of a masked key (every lowering)
+POS_PAD = -(2 ** 30)     # the position of an unwritten ring-cache slot
+LANES = 32               # a warp: the width of the kernels' row sums
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                   window: int) -> torch.Tensor:
+    """(S, T) bool validity mask -- THE attention mask, shared by the
+    kernels' plain versions and the einsum lowering (the CUDA kernels test
+    the same three conditions per key).  A key is valid iff its absolute
+    position is non-negative (negative = unwritten ring slot), not after
+    the query (``causal``) and inside the sliding ``window`` (0 = off)."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    mask = (kp >= 0).expand(qp.shape[0], kp.shape[1])
+    if causal:
+        mask = mask & (kp <= qp)
+    if window:
+        mask = mask & (kp > qp - window)
+    return mask
+
+
+@functools.lru_cache(maxsize=None)
+def device_float(value: float, device: torch.device) -> torch.Tensor:
+    """A 0-d float32 tensor on ``device``, made once.  The plain versions
+    divide by such tensors: on the card a Python scalar divisor becomes a
+    multiplication by its reciprocal, and a tensor made per call would cost
+    a host-to-device copy that waits for the card."""
+    return torch.tensor(value, dtype=torch.float32).to(device)
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in the order of the kernels' warp sums.
+
+    Lane l of a warp adds x[l], x[l + 32], ... in order from +0.0; then
+    the 32 lane sums meet in a butterfly, lane l adding lane l ^ 16, l ^ 8,
+    ..., l ^ 1 (``__shfl_xor_sync``).  The rmsnorm sum of squares and the
+    softmax denominator of the attention and decode-chain kernels are
+    summed this way, so their plain versions agree with them bit for bit.
+    """
+    n = x.shape[-1]
+    x = F.pad(x, (0, (-n) % LANES))
+    lanes = torch.zeros((*x.shape[:-1], LANES), dtype=x.dtype, device=x.device)
+    for j in range(0, x.shape[-1], LANES):
+        lanes = lanes + x[..., j:j + LANES]
+    off = LANES // 2
+    while off:
+        lanes = lanes[..., :off] + lanes[..., off:2 * off]
+        off //= 2
+    return lanes[..., 0]
 
 
 def lut_tensor(lut: np.ndarray, device) -> torch.Tensor:

@@ -1,0 +1,372 @@
+// The dense decode chain: one transformer layer of a decode step in two
+// or three launches, every GEMM product simulated by AMSim.
+//
+//   fused_qkv_norm      h = rmsnorm(x; g1); q, k, v = h@wq, h@wk, h@wv
+//   fused_out_mlp       x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2);
+//                       out = x1 + (silu(h@wg) * (h@wu))@wd (+bd)
+//   fused_attn_out_mlp  the attention core of the step (attention.cuh),
+//                       then fused_out_mlp's phases
+//
+// Replace the TPU kernels repro/kernels/decode_chain.py:_qkv_kernel,
+// _out_mlp_kernel and _attn_out_mlp_kernel.  There a sequential grid
+// streams weight blocks through VMEM and carries the accumulators from
+// step to step.  Here the phases that need all of a row (the norms, the
+// FFN after the gate/up columns, the down projection after the wo
+// columns) are separated by grid-wide barriers of a cooperative launch
+// (cooperative_groups::this_grid().sync(), grid sized from occupancy so
+// every block is resident).  fused_qkv_norm needs no barrier: each block
+// computes the norm scale of every row itself.
+//
+// What bounds it on the H100: the weight stream.  x has `rows` = batch
+// rows, so each weight element is read once per launch and meets `rows`
+// LUT lookups: each thread owns one output column and the accumulators of
+// up to kRows rows, the block stages the activations a k-tile at a time in
+// shared memory, and consecutive threads read consecutive weight columns.
+// The LUT sits in shared memory when it is <= 128 KiB.
+//
+// Every output folds its products in contraction order from +0.0 (the
+// order of kernels/ref.py:ref_amsim_gemm), the rmsnorm sum of squares runs
+// in the lane_sum order and the elementwise steps are the float32
+// operations of kernels/decode_chain.py's plain versions, written with
+// _rn intrinsics so that nothing is contracted into an FMA; so each launch
+// is bitwise equal to its plain version.
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
+#include "attention.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kRows = 8;    // rows a thread accumulates at once
+constexpr int kKT = 128;    // contraction values staged per tile
+
+// Shared memory after the LUT: the activation tile, the norm scales, and
+// (attention phase) a q row per warp.
+constexpr int kTileBytes = kRows * kKT * 4;
+constexpr int kRinvBytes = kRows * 4;
+
+struct Chain {
+  const float* x;      // (rows, d) residual stream
+  const float* attn;   // (rows, K) attention output (written in-launch by fused_attn_out_mlp)
+  const float* g;      // (d,) norm scale
+  const float* wo;     // (K, d)
+  const float* wg;     // (d, F)
+  const float* wu;     // (d, F)
+  const float* wd;     // (F, d)
+  const float* bo;     // (d,) or null
+  const float* bd;     // (d,) or null
+  float* out;          // (rows, d)
+  float* x1;           // (rows, d) scratch
+  float* act;          // (rows, F) scratch
+  int rows, d, K, F;
+  float eps;
+};
+
+__device__ __forceinline__ float silu(float g) {
+  return __fdiv_rn(g, __fadd_rn(1.0f, expf(-g)));
+}
+
+// rinv[r] = rsqrt(lane_sum(x*x) / d + eps) for rows r0 .. r0 + nr of the
+// (rows, d) array src; one warp a row.  Ends with a block barrier.
+__device__ void row_rinv(const float* src, int d, int r0, int nr, float eps, float* rinv) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < nr; r += amsim::kWarps) {
+    const float* row = src + static_cast<size_t>(r0 + r) * d;
+    float ss = 0.0f;
+    for (int k = lane; k < d; k += 32) {
+      const float v = row[k];
+      ss = __fadd_rn(ss, __fmul_rn(v, v));
+    }
+    ss = amsim::warp_sum(ss);
+    if (lane == 0) rinv[r] = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)), eps));
+  }
+  __syncthreads();
+}
+
+// For rows r0 .. r0 + nr (nr <= kRows) and every column j of the (kdim, n)
+// weights w1 (and w2 when kDual): acc[r] = sum_k amsim(A(r, k), w[k, j]),
+// k in order from +0.0, then epi(r, j, acc1[r], acc2[r]).  stage(r, k)
+// gives A(r, k); the block stages it a tile at a time.  Blocks stride over
+// column tiles of kThreads; every thread of the block calls it.
+template <typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
+__device__ void column_fold(int n, int kdim, int nr, const float* w1, const float* w2,
+                            Stage stage, Epi epi, const LutT* lut, int M, float* tile) {
+  for (int c0 = blockIdx.x * amsim::kThreads; c0 < n; c0 += gridDim.x * amsim::kThreads) {
+    const int j = c0 + threadIdx.x;
+    const bool active = j < n;
+    float acc1[kRows], acc2[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc1[r] = acc2[r] = 0.0f;
+    for (int k0 = 0; k0 < kdim; k0 += kKT) {
+      const int kt = min(kKT, kdim - k0);
+      for (int i = threadIdx.x; i < nr * kKT; i += amsim::kThreads) {
+        const int r = i / kKT;
+        const int kk = i % kKT;
+        tile[i] = kk < kt ? stage(r, k0 + kk) : 0.0f;
+      }
+      __syncthreads();
+      if (active) {
+        for (int kk = 0; kk < kt; ++kk) {
+          const size_t widx = static_cast<size_t>(k0 + kk) * n + j;
+          const uint32_t u1 = __float_as_uint(w1[widx]);
+          const uint32_t u2 = kDual ? __float_as_uint(w2[widx]) : 0u;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            if (r < nr) {
+              const uint32_t hv = __float_as_uint(tile[r * kKT + kk]);
+              acc1[r] = acc1[r] + amsim::mul<LutT, kSmem>(hv, u1, lut, M);
+              if (kDual) acc2[r] = acc2[r] + amsim::mul<LutT, kSmem>(hv, u2, lut, M);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nr) epi(r, j, acc1[r], acc2[r]);
+      }
+    }
+  }
+}
+
+// Where the LUT and the scratch of a block live in shared memory.
+template <typename LutT, bool kSmem>
+struct Smem {
+  const LutT* lut;
+  float* tile;
+  float* rinv;
+  float* qrows;
+};
+
+template <typename LutT, bool kSmem>
+__device__ Smem<LutT, kSmem> carve(unsigned char* smem, const LutT* lut_g, int lut_bytes) {
+  Smem<LutT, kSmem> s;
+  int off = 0;
+  s.lut = lut_g;
+  if constexpr (kSmem) {
+    amsim::stage_lut(smem, lut_g, lut_bytes);
+    s.lut = reinterpret_cast<const LutT*>(smem);
+    off = amsim::align16(lut_bytes);
+  }
+  s.tile = reinterpret_cast<float*>(smem + off);
+  s.rinv = reinterpret_cast<float*>(smem + off + kTileBytes);
+  s.qrows = reinterpret_cast<float*>(smem + off + kTileBytes + amsim::align16(kRinvBytes));
+  return s;
+}
+
+int smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats) {
+  return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + kTileBytes + amsim::align16(kRinvBytes) +
+         amsim::kWarps * qrow_floats * 4;
+}
+
+// ---------------------------------------------------------- fused_qkv_norm
+struct Qkv {
+  const float* x;
+  const float* g;
+  const float* w[3];
+  float* out[3];
+  int n[3];
+  int rows, d;
+  float eps;
+};
+
+template <typename LutT, bool kSmem>
+__global__ void __launch_bounds__(amsim::kThreads)
+qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  for (int r0 = 0; r0 < p.rows; r0 += kRows) {
+    const int nr = min(kRows, p.rows - r0);
+    row_rinv(p.x, p.d, r0, nr, p.eps, sm.rinv);
+    auto stage = [&](int r, int k) {
+      return __fmul_rn(__fmul_rn(p.x[static_cast<size_t>(r0 + r) * p.d + k], sm.rinv[r]), p.g[k]);
+    };
+    for (int m = 0; m < 3; ++m) {
+      float* out = p.out[m];
+      const int n = p.n[m];
+      column_fold<LutT, kSmem, false>(
+          n, p.d, nr, p.w[m], nullptr, stage,
+          [&](int r, int j, float acc, float) { out[static_cast<size_t>(r0 + r) * n + j] = acc; },
+          sm.lut, M, sm.tile);
+    }
+    __syncthreads();  // rinv is rewritten for the next row group
+  }
+}
+
+// ------------------------------------------------- the back half's phases
+template <typename LutT, bool kSmem>
+__device__ void out_mlp_phases(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
+  cg::grid_group grid = cg::this_grid();
+  // Phase A: x1 = x + (attn @ wo (+ bo)).
+  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
+    const int nr = min(kRows, c.rows - r0);
+    column_fold<LutT, kSmem, false>(
+        c.d, c.K, nr, c.wo, nullptr,
+        [&](int r, int k) { return c.attn[static_cast<size_t>(r0 + r) * c.K + k]; },
+        [&](int r, int j, float acc, float) {
+          const float y = c.bo ? __fadd_rn(acc, c.bo[j]) : acc;
+          const size_t i = static_cast<size_t>(r0 + r) * c.d + j;
+          c.x1[i] = __fadd_rn(c.x[i], y);
+        },
+        sm.lut, M, sm.tile);
+  }
+  grid.sync();
+  // Phase B: h = rmsnorm(x1; g); act = silu(h @ wg) * (h @ wu).
+  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
+    const int nr = min(kRows, c.rows - r0);
+    row_rinv(c.x1, c.d, r0, nr, c.eps, sm.rinv);
+    column_fold<LutT, kSmem, true>(
+        c.F, c.d, nr, c.wg, c.wu,
+        [&](int r, int k) {
+          return __fmul_rn(__fmul_rn(c.x1[static_cast<size_t>(r0 + r) * c.d + k], sm.rinv[r]),
+                           c.g[k]);
+        },
+        [&](int r, int j, float g, float u) {
+          c.act[static_cast<size_t>(r0 + r) * c.F + j] = __fmul_rn(silu(g), u);
+        },
+        sm.lut, M, sm.tile);
+    __syncthreads();
+  }
+  grid.sync();
+  // Phase C: out = x1 + (act @ wd (+ bd)).
+  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
+    const int nr = min(kRows, c.rows - r0);
+    column_fold<LutT, kSmem, false>(
+        c.d, c.F, nr, c.wd, nullptr,
+        [&](int r, int k) { return c.act[static_cast<size_t>(r0 + r) * c.F + k]; },
+        [&](int r, int j, float acc, float) {
+          const float y = c.bd ? __fadd_rn(acc, c.bd[j]) : acc;
+          const size_t i = static_cast<size_t>(r0 + r) * c.d + j;
+          c.out[i] = __fadd_rn(c.x1[i], y);
+        },
+        sm.lut, M, sm.tile);
+  }
+}
+
+template <typename LutT, bool kSmem>
+__global__ void __launch_bounds__(amsim::kThreads)
+out_mlp_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  out_mlp_phases<LutT, kSmem>(c, sm, M);
+}
+
+template <typename LutT, bool kSmem>
+__global__ void __launch_bounds__(amsim::kThreads)
+attn_out_mlp_kernel(Chain c, amsim::Attn a, float* attn, float* scores, int scratch_warps,
+                    const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  amsim::attention_rows<LutT, kSmem>(a, sm.lut, M, sm.qrows, scores, scratch_warps, attn);
+  cg::this_grid().sync();
+  out_mlp_phases<LutT, kSmem>(c, sm, M);
+}
+
+template <typename Kernel>
+cudaError_t launch_cooperative(Kernel kernel, int smem, long long work_blocks, void** args,
+                               cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = amsim::grid_size(kernel, smem, work_blocks, &blocks);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks), dim3(amsim::kThreads), args,
+                                    smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+long long column_tiles(int n) { return (n + amsim::kThreads - 1) / amsim::kThreads; }
+
+}  // namespace
+
+// Each returns a cudaError_t code: 0 when the launch was accepted.
+// `packed` selects uint16 LUT entries; `smem_lut` stages the table in
+// shared memory (kernels/common.py:lut_in_smem).
+
+extern "C" int fused_qkv_norm_f32(const float* x, const float* g1, const float* wq,
+                                  const float* wk, const float* wv, const void* lut, float* oq,
+                                  float* ok, float* ov, int rows, int d, int nq, int nk, int nv,
+                                  float eps, int M, int packed, int smem_lut, int lut_bytes,
+                                  void* stream) {
+  const Qkv p{x, g1, {wq, wk, wv}, {oq, ok, ov}, {nq, nk, nv}, rows, d, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    auto kernel = qkv_kernel<LutT, kSmem>;
+    const int smem = smem_bytes(kSmem, lut_bytes, 0);
+    int blocks = 0;
+    cudaError_t err = amsim::grid_size(kernel, smem, column_tiles(std::max({nq, nk, nv})), &blocks);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, amsim::kThreads, smem, s>>>(p, static_cast<const LutT*>(lut), M, lut_bytes);
+    return cudaGetLastError();
+  }));
+}
+
+extern "C" int fused_out_mlp_f32(const float* x, const float* attn, const float* g2,
+                                 const float* wo, const float* wg, const float* wu,
+                                 const float* wd, const float* bo, const float* bd,
+                                 const void* lut, float* out, float* x1, float* act, int rows,
+                                 int d, int K, int F, float eps, int M, int packed, int smem_lut,
+                                 int lut_bytes, void* stream) {
+  Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    const LutT* lut_t = static_cast<const LutT*>(lut);
+    int m = M, lb = lut_bytes;
+    void* args[] = {&c, &lut_t, &m, &lb};
+    return launch_cooperative(out_mlp_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
+                              column_tiles(std::max(d, F)), args, s);
+  }));
+}
+
+extern "C" int fused_attn_out_mlp_f32(
+    const float* x, const float* q, const float* k, const float* v, const int* q_pos,
+    const int* k_pos, const float* g2, const float* wo, const float* wg, const float* wu,
+    const float* wd, const float* bo, const float* bd, const void* lut, float* out, float* x1,
+    float* act, float* attn, float* scores, int H, int KV, int T, int dh, int causal,
+    int window, int scratch_warps, int rows, int d, int K, int F, float eps, int M, int packed,
+    int smem_lut, int lut_bytes, void* stream) {
+  Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
+  amsim::Attn a{q, k, v, q_pos, k_pos, rows, 1, H, KV, T, dh, causal, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    const LutT* lut_t = static_cast<const LutT*>(lut);
+    int m = M, lb = lut_bytes, sw = scratch_warps;
+    void* args[] = {&c, &a, &attn, &scores, &sw, &lut_t, &m, &lb};
+    const long long attn_blocks = (static_cast<long long>(rows) * H + amsim::kWarps - 1) /
+                                  amsim::kWarps;
+    return launch_cooperative(attn_out_mlp_kernel<LutT, kSmem>,
+                              smem_bytes(kSmem, lut_bytes, dh),
+                              std::max(column_tiles(std::max(d, F)), attn_blocks), args, s);
+  }));
+}
+
+// expf and rsqrtf of every element, as the kernels above evaluate them:
+// the probe that holds them against torch.exp and torch.rsqrt on the card.
+namespace {
+__global__ void libm_kernel(const float* __restrict__ x, float* __restrict__ e,
+                            float* __restrict__ r, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    e[i] = expf(x[i]);
+    r[i] = rsqrtf(x[i]);
+  }
+}
+}  // namespace
+
+extern "C" int libm_probe_f32(const float* x, float* e, float* r, long long n, void* stream) {
+  const long long blocks = std::min<long long>((n + amsim::kThreads - 1) / amsim::kThreads, 4096);
+  libm_kernel<<<static_cast<int>(std::max<long long>(blocks, 1)), amsim::kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(x, e, r, n);
+  return static_cast<int>(cudaGetLastError());
+}

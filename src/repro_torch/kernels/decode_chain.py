@@ -1,0 +1,231 @@
+"""The dense decode chain: a whole transformer layer of one decode step in
+two or three CUDA launches (``csrc/decode_chain.cu``).
+
+    rmsnorm(x; g1) -> x@wq, x@wk, x@wv           fused_qkv_norm
+    attention core                                approx_attention
+    x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2)
+    out = x1 + (silu(h@wg) * (h@wu))@wd (+bd)     fused_out_mlp
+    the attention core, then fused_out_mlp        fused_attn_out_mlp
+
+They replace the TPU kernels ``repro/kernels/decode_chain.py``
+``_qkv_kernel``, ``_out_mlp_kernel`` and ``_attn_out_mlp_kernel``.  x is
+the (rows, d) residual stream of a decode step (rows = batch), so every
+weight is streamed from device memory once per launch and each element
+meets ``rows`` LUT lookups: the weight stream bounds a decode step.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain version (``*_plain``), which the kernel agrees
+with bit for bit: every product goes through AMSim and every output folds
+its products in contraction order from +0.0 (``ref_amsim_gemm``'s
+order), the rmsnorm sum of squares runs in the warp order of
+``common.lane_sum``, and the elementwise steps are the same float32
+operations in the same order:
+
+    rmsnorm(x; g) = (x * rsqrt(lane_sum(x * x) / d + eps)) * g
+    silu(g) * u   = (g / (1 + exp(-g))) * u
+
+So a chained launch is bit for bit the composition of its plain parts.
+
+``<wrapper>.launches`` counts each kernel's launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .approx_attention import (approx_attention_plain, check_attention_operands,
+                               scratch_warps)
+from .common import (call_kernel, check_contiguous, check_float32, check_lut, device_float,
+                     lane_sum, lut_bytes, lut_in_smem, operand_device)
+from .ref import ref_amsim_gemm
+
+
+def rmsnorm_lanes(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    """rmsnorm over the last dim in the chain kernels' arithmetic."""
+    var = lane_sum(x * x) / device_float(float(x.shape[-1]), x.device)
+    return (x * torch.rsqrt(var + eps)[..., None]) * g
+
+
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """silu(g) = g / (1 + exp(-g)): the port's one expression of it."""
+    return g / (1 + torch.exp(-g))
+
+
+# ------------------------------------------------------------ plain versions
+def fused_qkv_norm_plain(x, g1, wq, wk, wv, lut, M: int, *, eps: float):
+    h = rmsnorm_lanes(x, g1, eps)
+    return tuple(ref_amsim_gemm(h, w, lut, M) for w in (wq, wk, wv))
+
+
+def fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M: int, *, eps: float,
+                        bo=None, bd=None):
+    y = ref_amsim_gemm(attn, wo, lut, M)
+    if bo is not None:
+        y = y + bo
+    x1 = x + y
+    h = rmsnorm_lanes(x1, g2, eps)
+    a = silu(ref_amsim_gemm(h, wg, lut, M)) * ref_amsim_gemm(h, wu, lut, M)
+    y2 = ref_amsim_gemm(a, wd, lut, M)
+    if bd is not None:
+        y2 = y2 + bd
+    return x1 + y2
+
+
+def fused_attn_out_mlp_plain(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int, *,
+                             eps: float, causal: bool, window: int, bo=None, bd=None):
+    B, S, H, dh = q.shape
+    attn = approx_attention_plain(q, k, v, q_pos, k_pos, lut, M, causal=causal,
+                                  window=window).reshape(B * S, H * dh)
+    return fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M, eps=eps, bo=bo, bd=bd)
+
+
+# ------------------------------------------------------------------ checks
+def _check_rows(x, *vectors):
+    if x.ndim != 2:
+        raise ValueError(f"the decode chain takes x (rows, d), got {tuple(x.shape)}")
+    for vec in vectors:
+        if vec is not None and vec.shape != (x.shape[1],):
+            raise ValueError(f"norm scales and biases must be ({x.shape[1]},), got "
+                             f"{tuple(vec.shape)}")
+
+
+def _check_back_half(x, attn_cols, wo, wg, wu, wd):
+    d = x.shape[1]
+    F = wg.shape[1]
+    want = {"wo": (attn_cols, d), "wg": (d, F), "wu": (d, F), "wd": (F, d)}
+    got = {"wo": wo.shape, "wg": wg.shape, "wu": wu.shape, "wd": wd.shape}
+    if any(tuple(got[n]) != want[n] for n in want):
+        raise ValueError(f"back-half weights must be {want}, got "
+                         f"{ {n: tuple(s) for n, s in got.items()} }")
+
+
+def _present(*tensors):
+    return [t for t in tensors if t is not None]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------- wrappers
+def fused_qkv_norm(x, g1, wq, wk, wv, lut, M: int, *, eps: float):
+    """rmsnorm(x; g1) then x@wq, x@wk, x@wv in one launch; x (rows, d),
+    w* (d, n*) -> (q, k, v) float32."""
+    _check_rows(x, g1)
+    for w in (wq, wk, wv):
+        if w.ndim != 2 or w.shape[0] != x.shape[1]:
+            raise ValueError(f"projection weights must be ({x.shape[1]}, n), got "
+                             f"{tuple(w.shape)}")
+    check_float32(x, g1, wq, wk, wv)
+    check_lut(lut, M)
+    device = operand_device(x, g1, wq, wk, wv, lut)
+    if device.type == "cpu":
+        return fused_qkv_norm_plain(x, g1, wq, wk, wv, lut, M, eps=eps)
+    check_contiguous(x, g1, wq, wk, wv, lut)
+    rows, d = x.shape
+    outs = tuple(torch.empty((rows, w.shape[1]), dtype=torch.float32, device=device)
+                 for w in (wq, wk, wv))
+    call_kernel("decode_chain", "fused_qkv_norm_f32", device,
+                x.data_ptr(), g1.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                lut.data_ptr(), *(o.data_ptr() for o in outs),
+                rows, d, wq.shape[1], wk.shape[1], wv.shape[1], float(eps), M,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut))
+    fused_qkv_norm.launches += 1
+    return outs
+
+
+fused_qkv_norm.launches = 0
+
+
+def _launch_back_half(fn, device, x, attn_args, g2, wo, wg, wu, wd, bo, bd, lut, M, eps,
+                      extra):
+    rows, d = x.shape
+    F = wg.shape[1]
+    out = torch.empty((rows, d), dtype=torch.float32, device=device)
+    x1 = torch.empty((rows, d), dtype=torch.float32, device=device)
+    act = torch.empty((rows, F), dtype=torch.float32, device=device)
+    call_kernel("decode_chain", fn, device,
+                x.data_ptr(), *attn_args, g2.data_ptr(), wo.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), _ptr(bo), _ptr(bd), lut.data_ptr(),
+                out.data_ptr(), x1.data_ptr(), act.data_ptr(), *extra,
+                rows, d, wo.shape[0], F, float(eps), M,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut))
+    return out
+
+
+def fused_out_mlp(x, attn, g2, wo, wg, wu, wd, lut, M: int, *, eps: float, bo=None,
+                  bd=None):
+    """x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2); out = x1 +
+    (silu(h@wg) * (h@wu))@wd (+bd), in one launch: x (rows, d), attn
+    (rows, K), wo (K, d), wg/wu (d, F), wd (F, d) -> (rows, d)."""
+    _check_rows(x, g2, bo, bd)
+    if attn.ndim != 2 or attn.shape[0] != x.shape[0]:
+        raise ValueError(f"attn must be ({x.shape[0]}, K), got {tuple(attn.shape)}")
+    _check_back_half(x, attn.shape[1], wo, wg, wu, wd)
+    tensors = _present(x, attn, g2, wo, wg, wu, wd, bo, bd)
+    check_float32(*tensors)
+    check_lut(lut, M)
+    device = operand_device(*tensors, lut)
+    if device.type == "cpu":
+        return fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M, eps=eps, bo=bo,
+                                   bd=bd)
+    check_contiguous(*tensors, lut)
+    out = _launch_back_half("fused_out_mlp_f32", device, x, [attn.data_ptr()], g2, wo, wg,
+                            wu, wd, bo, bd, lut, M, eps, [])
+    fused_out_mlp.launches += 1
+    return out
+
+
+fused_out_mlp.launches = 0
+
+
+def fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int, *,
+                       eps: float, causal: bool = True, window: int = 0, bo=None, bd=None):
+    """The attention core of one decode step, then ``fused_out_mlp``, in
+    one launch: x (B, d) residual stream, q (B, 1, H, dh) roped queries,
+    k/v (B, T, KV, dh) the cache after this step's write, q_pos (1,),
+    k_pos (T,) -> (B, d)."""
+    _check_rows(x, g2, bo, bd)
+    check_attention_operands(q, k, v, q_pos, k_pos)
+    B, S, H, dh = q.shape
+    if S != 1 or B != x.shape[0]:
+        raise ValueError(f"fused_attn_out_mlp takes one decode step: q (B, 1, H, dh) with "
+                         f"B = rows, got q {tuple(q.shape)} and x {tuple(x.shape)}")
+    _check_back_half(x, H * dh, wo, wg, wu, wd)
+    tensors = _present(x, q, k, v, g2, wo, wg, wu, wd, bo, bd)
+    check_float32(*tensors)
+    check_lut(lut, M)
+    device = operand_device(*tensors, q_pos, k_pos, lut)
+    if device.type == "cpu":
+        return fused_attn_out_mlp_plain(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M,
+                                        eps=eps, causal=causal, window=window, bo=bo, bd=bd)
+    q_pos = q_pos.to(torch.int32)
+    k_pos = k_pos.to(torch.int32)
+    check_contiguous(*tensors, q_pos, k_pos, lut)
+    T, KV = k.shape[1], k.shape[2]
+    attn = torch.empty((B, H * dh), dtype=torch.float32, device=device)
+    warps = scratch_warps(device, B * H)
+    scores = torch.empty((warps, T), dtype=torch.float32, device=device)
+    out = _launch_back_half(
+        "fused_attn_out_mlp_f32", device, x,
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr()],
+        g2, wo, wg, wu, wd, bo, bd, lut, M, eps,
+        [attn.data_ptr(), scores.data_ptr(), H, KV, T, dh, int(causal), int(window), warps])
+    fused_attn_out_mlp.launches += 1
+    return out
+
+
+fused_attn_out_mlp.launches = 0
+
+
+def device_exp_rsqrt(x: torch.Tensor):
+    """(expf(x), rsqrtf(x)) as the attention and chain kernels evaluate
+    them, for a float32 CUDA tensor: the probe that holds the kernels'
+    transcendentals against ``torch.exp`` and ``torch.rsqrt``."""
+    check_float32(x)
+    if x.device.type != "cuda":
+        raise ValueError("device_exp_rsqrt probes the CUDA kernels' math; x must be on the card")
+    check_contiguous(x)
+    e, r = torch.empty_like(x), torch.empty_like(x)
+    call_kernel("decode_chain", "libm_probe_f32", x.device, x.data_ptr(), e.data_ptr(),
+                r.data_ptr(), x.numel())
+    return e, r

@@ -1,13 +1,16 @@
-"""Policy-routed matmul and conv2d: the port's AMDENSE/AMCONV2D ops (§VI).
+"""Policy-routed matmul, einsum, conv2d, attention and the dense decode
+chain: the port's AMDENSE/AMCONV2D ops (§VI) and the LM serving path.
 
-Every GEMM and conv of a model goes through ``policy_matmul`` or
-``approx_conv2d`` with a ``NumericsPolicy`` and a site label; the policy
-resolves the leaf ``(mode, multiplier)`` for the site and pass, and the
-leaf picks the lowering:
+Every GEMM, conv and attention contraction of a model goes through these
+ops with a ``NumericsPolicy`` and a site label; the policy resolves the
+leaf ``(mode, multiplier)`` for the site and pass, and the leaf picks the
+lowering:
 
-  native       ``torch.matmul`` / ``F.conv2d``, exact float32 (TF32 off)
+  native       ``torch.matmul`` / ``torch.einsum`` / ``F.conv2d``, exact
+               float32 (TF32 off)
   amsim        the CUDA kernels ``approx_gemm`` / ``approx_conv2d_fused`` /
-               ``approx_conv2d_dw``
+               ``approx_conv2d_dw`` / ``approx_attention`` and the decode
+               chain's three
   amsim_torch  their plain PyTorch versions (im2col for the conv)
   direct       im2col + the sequential-k GEMM over ``Multiplier.torch_mul``
 
@@ -17,19 +20,25 @@ and ``pass_="dw"`` (paper: approximate multipliers in the forward pass
 and in backpropagation), the twins of the JAX package's ``custom_vjp``s
 (``repro/kernels/ops.py`` ``_mm_fwd``/``_mm_bwd``, ``_conv_fwd``/
 ``_conv_bwd``).  A gradient whose input needs none is not computed, as
-JAX's ``jit`` drops it as dead code.
+JAX's ``jit`` drops it as dead code.  Batched products, attention and the
+decode chain run forward only: their gradients come with LM training.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lutgen import get_lut, get_packed_lut
 from repro_torch.core.multipliers import Multiplier, get_multiplier
-from repro_torch.core.policy import NumericsPolicy
+from repro_torch.core.policy import PASSES, NumericsPolicy
+from .approx_attention import approx_attention, softmax_scores
 from .approx_conv import approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads
 from .approx_gemm import approx_gemm
-from .common import lut_tensor
+from .common import attention_mask, lut_tensor
+from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_out_mlp,
+                           fused_out_mlp_plain, fused_qkv_norm, fused_qkv_norm_plain)
 from .ref import ref_amsim_gemm, ref_direct_gemm, ref_im2col
 
 _LUTS: dict[tuple, torch.Tensor] = {}
@@ -85,12 +94,32 @@ def _gemm2d(a, b, leaf: NumericsPolicy):
 
 
 def _matmul_nograd(a, b, leaf: NumericsPolicy):
-    """(..., m, k) @ (k, n): a 2-D weight folds a's batch into m, one GEMM."""
-    if a.ndim == 2:
-        return _gemm2d(a, b, leaf)
-    k = a.shape[-1]
-    out = _gemm2d(a.reshape(-1, k), b, leaf)
-    return out.reshape(*a.shape[:-1], b.shape[-1])
+    """(..., m, k) @ (k, n) or (..., m, k) @ (..., k, n) under ``leaf``.
+
+    A 2-D weight folds a's batch into m, one GEMM.  Equal batch dims (the
+    attention einsums) need the batched kernel under ``amsim``, which the
+    MoE serving slice ports; ``native``, ``amsim_torch`` and ``direct`` fold
+    the whole batch at once.  Other batch dims broadcast first.
+    """
+    if b.ndim == 2:
+        if a.ndim == 2:
+            return _gemm2d(a, b, leaf)
+        k = a.shape[-1]
+        out = _gemm2d(a.reshape(-1, k), b, leaf)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    if a.shape[:-2] != b.shape[:-2]:
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        return _matmul_nograd(a.expand(*batch, *a.shape[-2:]),
+                              b.expand(*batch, *b.shape[-2:]), leaf)
+    if leaf.is_native:
+        _exact_fp32()
+        return torch.matmul(a, b)
+    if leaf.mode == "amsim":
+        raise NotImplementedError(
+            "an equal-batch product under amsim needs approx_gemm_batched (the TPU kernel "
+            "_amsim_kernel_batched), which a later slice ports: slice 4, MoE serving; "
+            "attention under amsim runs the fused attention kernel instead")
+    return _GEMM_MODES[leaf.mode](a, b, get_multiplier(leaf.multiplier))
 
 
 class _PolicyMatmul(torch.autograd.Function):
@@ -105,6 +134,9 @@ class _PolicyMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
+        if b.ndim != 2:
+            raise NotImplementedError(
+                "the gradient of a batched product comes with LM training (slice 5)")
         da = db = None
         if ctx.needs_input_grad[0]:
             # dA = g @ B^T under the dx leaf.
@@ -120,16 +152,67 @@ class _PolicyMatmul(torch.autograd.Function):
 def policy_matmul(a, b, policy: NumericsPolicy, site: str | None = None):
     """Differentiable matmul (..., m, k) @ (k, n) under the numerics
     ``policy`` resolves at ``site``: forward under the ``fwd`` leaf, the
-    backward GEMMs under the ``dx``/``dw`` leaves.
-
-    The equal-batch layout (attention scores, MoE expert banks) needs the
-    batched kernel, which a later slice ports.
+    backward GEMMs under the ``dx``/``dw`` leaves.  (..., m, k) @
+    (..., k, n) runs forward only (its gradient comes with LM training).
     """
-    if b.ndim != 2 or a.ndim < 2:
-        raise NotImplementedError(
-            "only (..., m, k) @ (k, n) is ported; batched approximate GEMMs "
-            "need approx_gemm_batched, which comes in a later slice")
+    if a.ndim < 2 or b.ndim < 2:
+        raise ValueError(f"policy_matmul takes (..., m, k) @ (..., k, n), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
     return _PolicyMatmul.apply(a.to(torch.float32), b.to(torch.float32), policy, site)
+
+
+# =====================================================================
+# Einsum -> batched-matmul rewrite
+# =====================================================================
+
+def _parse_einsum(spec: str, a_shape, b_shape):
+    """Classify the labels of a 2-operand einsum into (batch, contract,
+    afree, bfree); no repeated labels within an operand and none summed
+    alone (the JAX package's ``_parse_einsum``)."""
+    lhs, out = spec.replace(" ", "").split("->")
+    sa, sb = lhs.split(",")
+    if len(set(sa)) != len(sa) or len(set(sb)) != len(sb):
+        raise ValueError(f"repeated labels unsupported: {spec}")
+    batch = [c for c in sa if c in sb and c in out]
+    contract = [c for c in sa if c in sb and c not in out]
+    afree = [c for c in sa if c not in sb]
+    bfree = [c for c in sb if c not in sa]
+    if not all(c in out for c in afree + bfree):
+        raise ValueError(f"lone-summed labels unsupported: {spec}")
+    dims = dict(zip(sa, a_shape))
+    for c, d in zip(sb, b_shape):
+        if c in dims and dims[c] != d and 1 not in (dims[c], d):
+            raise ValueError(f"dim mismatch for {c!r} in {spec}")
+        dims[c] = max(dims.get(c, d), d)
+    return sa, sb, out, batch, contract, afree, bfree, dims
+
+
+def _all_passes_native(policy: NumericsPolicy, site: str | None) -> bool:
+    return all(policy.resolve(site, pass_=p).is_native for p in PASSES)
+
+
+def policy_einsum(spec: str, a, b, policy: NumericsPolicy, site: str | None = None):
+    """2-operand einsum under policy numerics: ``torch.einsum`` when every
+    pass resolves native, else a (batch, m, k) @ (batch, k, n)
+    ``policy_matmul`` between two permutations."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    if _all_passes_native(policy, site):
+        _exact_fp32()
+        return torch.einsum(spec, a, b)
+    sa, sb, out, batch, contract, afree, bfree, dims = _parse_einsum(spec, a.shape, b.shape)
+    at = a.permute(*[sa.index(c) for c in batch + afree + contract])
+    bt = b.permute(*[sb.index(c) for c in batch + contract + bfree])
+    bshape = [dims[c] for c in batch]
+    at = at.expand(*bshape, *at.shape[len(batch):])
+    bt = bt.expand(*bshape, *bt.shape[len(batch):])
+    m = math.prod(dims[c] for c in afree)
+    k = math.prod(dims[c] for c in contract)
+    n = math.prod(dims[c] for c in bfree)
+    o = policy_matmul(at.reshape(*bshape, m, k), bt.reshape(*bshape, k, n), policy, site)
+    o = o.reshape(*bshape, *[dims[c] for c in afree], *[dims[c] for c in bfree])
+    cur = batch + afree + bfree
+    return o.permute(*[cur.index(c) for c in out])
 
 
 # =====================================================================
@@ -248,3 +331,151 @@ def approx_conv2d(x, w, stride: int, padding, policy: NumericsPolicy):
     w = w.to(torch.float32)
     pads = conv_pads(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride, padding)
     return _ApproxConv2d.apply(x, w, stride, pads, policy)
+
+
+# =====================================================================
+# Attention: the fused kernel and the einsum lowering
+#
+# ``policy_attention`` runs the one-launch kernel (approx_attention.py)
+# for an ``amsim`` leaf at every shape; every other mode runs
+# ``attend_einsum``.  Both contractions of the einsum lowering resolve
+# under their own sites ("attn_score" / "attn_value"); the kernel bakes
+# one LUT, so it needs the two to resolve alike.  The softmax of both is
+# ``softmax_scores``, so ``attend_einsum`` under ``amsim_torch`` is the
+# kernel's plain version, bit for bit.
+# =====================================================================
+
+def attend_einsum(q, k, v, q_pos, k_pos, policy: NumericsPolicy, *, causal: bool,
+                  window: int):
+    """Grouped-query einsum attention under ``policy`` numerics: q
+    (B,S,H,dh), k/v (B,T,KV,dh), q_pos (S,), k_pos (T,) absolute
+    positions (negative = unwritten ring slot, masked) -> (B,S,H,dh).  The
+    KV-head axis stays a batch axis, so K/V are never repeated G times."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, dh)
+    scores = policy_einsum("bqkgd,btkd->bkgqt", qg, k, policy, "attn_score")
+    mask = attention_mask(q_pos, k_pos, causal=causal, window=window)
+    probs = softmax_scores(scores, mask, dh)
+    out = policy_einsum("bkgqt,btkd->bqkgd", probs, v, policy, "attn_value")
+    return out.reshape(B, S, H, dh)
+
+
+def attention_fused_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+    """The one leaf both attention contractions resolve to, or None when
+    the score and value sites resolve differently."""
+    ls = policy.resolve("attn_score")
+    lv = policy.resolve("attn_value")
+    if (ls.mode, ls.multiplier) != (lv.mode, lv.multiplier):
+        return None
+    return ls
+
+
+def fused_attention_enabled(policy: NumericsPolicy) -> bool:
+    """The attention dispatch: the fused kernel for an ``amsim`` leaf,
+    at every shape (the kernel has no size guard)."""
+    leaf = attention_fused_leaf(policy)
+    return leaf is not None and leaf.mode == "amsim" and not leaf.is_native
+
+
+def _forward_only(what: str, *tensors):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is forward only here: its backward (by recompute through the per-op "
+            f"path) comes with LM training (slice 5)")
+
+
+def policy_attention(q, k, v, q_pos, k_pos, policy: NumericsPolicy, causal: bool,
+                     window: int):
+    """One-launch fused attention under the policy's ``amsim`` leaf
+    (forward only).  Callers check :func:`fused_attention_enabled`."""
+    _forward_only("policy_attention", q, k, v)
+    mult = get_multiplier(attention_fused_leaf(policy).multiplier)
+    return approx_attention(q.to(torch.float32).contiguous(), k.to(torch.float32).contiguous(),
+                            v.to(torch.float32).contiguous(), q_pos, k_pos,
+                            _amsim_lut(mult, q.device), mult.mantissa_bits,
+                            causal=causal, window=int(window))
+
+
+# =====================================================================
+# Dense decode chain (kernels/decode_chain.py)
+#
+# A single-token dense block runs as norm+qkv, attention, and the back
+# half (wo, residual, norm, FFN, residual) in two or three launches when
+# every chain site and both attention sites resolve to one ``amsim`` leaf
+# (the CUDA kernels) or one ``amsim_torch`` leaf (their plain versions, the
+# same structure, so ``amsim`` and ``amsim_torch`` decode bit for bit
+# alike).  The attention core folds into the back-half launch when the
+# ring holds at most ``FUSE_ATTN_MAX_T`` slots (the regime where the JAX
+# package folds it), else it runs in the attention kernel.  There is no
+# other guard: the kernels take every shape.
+# =====================================================================
+
+_CHAIN_SITES = ("qkv", "wo", "wg", "wu", "wd", "attn_score", "attn_value")
+_CHAIN_MODES = ("amsim", "amsim_torch")
+FUSE_ATTN_MAX_T = 128
+
+
+def decode_chain_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+    """The one forward leaf every chain and attention site resolves to, or
+    None when any two differ."""
+    leaves = [policy.resolve(s) for s in _CHAIN_SITES]
+    first = leaves[0]
+    if any((lf.mode, lf.multiplier) != (first.mode, first.multiplier) for lf in leaves[1:]):
+        return None
+    return first
+
+
+def decode_chain_enabled(policy: NumericsPolicy) -> bool:
+    leaf = decode_chain_leaf(policy)
+    return leaf is not None and leaf.mode in _CHAIN_MODES and not leaf.is_native
+
+
+def decode_fuse_attn_enabled(policy: NumericsPolicy, T: int) -> bool:
+    """Whether the attention core folds into the back-half launch (2
+    launches a layer instead of 3) for a ring of ``T`` slots."""
+    return decode_chain_enabled(policy) and T <= FUSE_ATTN_MAX_T
+
+
+def _chain_call(policy: NumericsPolicy, device):
+    """(plain?, lut, M) of the chain leaf: the kernels under ``amsim``
+    with the kernel LUT, the plain versions under ``amsim_torch``."""
+    leaf = decode_chain_leaf(policy)
+    mult = get_multiplier(leaf.multiplier)
+    if leaf.mode == "amsim":
+        return False, _amsim_lut(mult, device), mult.mantissa_bits
+    return True, _oracle_lut(mult, device), mult.mantissa_bits
+
+
+def decode_qkv(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
+    """rmsnorm(x; g1) and the q/k/v projections of a decode step, x
+    (rows, d) -> (q, k, v); forward only.  Callers check
+    :func:`decode_chain_enabled`."""
+    _forward_only("decode_qkv", x, g1, wq, wk, wv)
+    plain, lut, M = _chain_call(policy, x.device)
+    fn = fused_qkv_norm_plain if plain else fused_qkv_norm
+    return fn(x, g1, wq, wk, wv, lut, M, eps=eps)
+
+
+def decode_out_mlp_b(x, attn, g2, wo, wg, wu, wd, bo, bd, policy: NumericsPolicy,
+                     eps: float):
+    """The back half of a decode step with optional wo/wd biases (None
+    when absent): x (rows, d) residual stream, attn (rows, H*dh) ->
+    (rows, d); forward only."""
+    _forward_only("decode_out_mlp_b", x, attn, g2, wo, wg, wu, wd, bo, bd)
+    plain, lut, M = _chain_call(policy, x.device)
+    fn = fused_out_mlp_plain if plain else fused_out_mlp
+    return fn(x, attn, g2, wo, wg, wu, wd, lut, M, eps=eps, bo=bo, bd=bd)
+
+
+def decode_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd,
+                        policy: NumericsPolicy, eps: float, causal: bool, window: int):
+    """The attention core and the back half of a decode step in one launch:
+    x (B, d), q (B, 1, H, dh) roped, k/v (B, T, KV, dh) the cache after
+    this step's write -> (B, d); forward only.  Callers check
+    :func:`decode_fuse_attn_enabled`."""
+    _forward_only("decode_attn_out_mlp", x, q, k, v, g2, wo, wg, wu, wd, bo, bd)
+    plain, lut, M = _chain_call(policy, x.device)
+    fn = fused_attn_out_mlp_plain if plain else fused_attn_out_mlp
+    return fn(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M, eps=eps, causal=causal,
+              window=int(window), bo=bo, bd=bd)

@@ -15,6 +15,8 @@ sized so that each int64 temporary stays near ``_CHUNK_ELEMENTS``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -26,41 +28,49 @@ _CHUNK_ELEMENTS = 1 << 22
 
 
 def _sequential_gemm(a: torch.Tensor, b: torch.Tensor, products) -> torch.Tensor:
-    """out[i, j] = sum_k p[i, k, j], k in order from +0.0, f32 sums, where
-    ``products(a[:, k0:k1], b[k0:k1, :])`` gives p for a chunk of k."""
-    m, k = a.shape
-    n = b.shape[1]
-    kc = max(1, min(k, _CHUNK_ELEMENTS // max(1, m * n)))
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    """out[..., i, j] = sum_k p[..., i, k, j], k in order from +0.0, f32
+    sums, where ``products(a[..., :, k0:k1], b[..., k0:k1, :])`` gives p for
+    a chunk of k.  a (..., m, k) and b (..., k, n) share their leading
+    batch dims (none for a plain GEMM)."""
+    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"sequential GEMM takes (..., m, k) @ (..., k, n) with equal batch "
+                         f"dims, got {tuple(a.shape)} @ {tuple(b.shape)}")
+    k = a.shape[-1]
+    out_shape = (*a.shape[:-1], b.shape[-1])
+    kc = max(1, min(k, _CHUNK_ELEMENTS // max(1, math.prod(out_shape))))
+    acc = torch.zeros(out_shape, dtype=torch.float32, device=a.device)
     for k0 in range(0, k, kc):
-        prod = products(a[:, k0:k0 + kc], b[k0:k0 + kc, :])
-        for j in range(prod.shape[1]):
-            acc = acc + prod[:, j, :]
+        prod = products(a[..., :, k0:k0 + kc], b[..., k0:k0 + kc, :])
+        for j in range(prod.shape[-2]):
+            acc = acc + prod[..., :, j, :]
     return acc
 
 
 def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
-    """out[i, j] = sum_k amsim(a[i, k], b[k, j]), k in order, f32 sums.
+    """out[..., i, j] = sum_k amsim(a[..., i, k], b[..., k, j]), k in order,
+    f32 sums.
 
-    a (m, k), b (k, n) float32; ``lut`` in kernel storage (int16 packed or
-    int32 canonical).  Bit arithmetic runs on int64 words.
+    a (..., m, k), b (..., k, n) float32 with equal leading batch dims;
+    ``lut`` in kernel storage (int16 packed or int32 canonical).  Bit
+    arithmetic runs on int64 words.
     """
     words, packed = lut_words(lut)
     ua = torch_bits(a)
     ub = torch_bits(b)
 
     def products(ac, bc):
-        return torch_float(_amsim(ac[:, :, None], bc[None, :, :], words, M, torch,
+        return torch_float(_amsim(ac[..., :, :, None], bc[..., None, :, :], words, M, torch,
                                   packed=packed))
 
     return _sequential_gemm(ua, ub, products)
 
 
 def ref_direct_gemm(a: torch.Tensor, b: torch.Tensor, multiplier: Multiplier):
-    """out[i, j] = sum_k mul(a[i, k], b[k, j]) with the multiplier model's
-    torch twin (bitwise ``Multiplier.np_mul``), k in order, f32 sums."""
-    return _sequential_gemm(a, b, lambda ac, bc: multiplier.torch_mul(ac[:, :, None],
-                                                                      bc[None, :, :]))
+    """out[..., i, j] = sum_k mul(a[..., i, k], b[..., k, j]) with the
+    multiplier model's torch twin (bitwise ``Multiplier.np_mul``), k in
+    order, f32 sums; batched like ``ref_amsim_gemm``."""
+    return _sequential_gemm(a, b, lambda ac, bc: multiplier.torch_mul(ac[..., :, :, None],
+                                                                      bc[..., None, :, :]))
 
 
 def ref_im2col(x: torch.Tensor, kh: int, kw: int, stride: int,

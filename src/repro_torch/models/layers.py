@@ -1,8 +1,10 @@
 """Primitive layers, every multiplication routed through a NumericsPolicy.
 
 The AMDENSE analogue (paper §VI-C): ``linear`` sends its GEMM through
-``ops.policy_matmul`` under the layer's numerics site.  Weights keep the
-JAX layout, (d_in, d_out) applied as ``x @ w + b``.
+``ops.policy_matmul`` under the layer's numerics site, and ``unembed``
+(the tied LM head) under site "unembed".  Weights keep the JAX layout,
+(d_in, d_out) applied as ``x @ w + b``.  Elementwise products (norm
+scales, activations) stay native, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ class Linear(nn.Module):
 
 def init_linear(d_in: int, d_out: int, *, generator: torch.Generator, bias: bool = False,
                 scale: float | None = None) -> dict:
-    """JAX-layout parameters of a dense layer on the CPU: w ~ N(0, 1/d_in)."""
+    """JAX-layout parameters of a dense layer on the generator's device:
+    w ~ N(0, 1/d_in)."""
     scale = (1.0 / d_in) ** 0.5 if scale is None else scale
-    p = {"w": torch.randn((d_in, d_out), generator=generator) * scale}
+    device = generator.device
+    p = {"w": torch.randn((d_in, d_out), generator=generator, device=device) * scale}
     if bias:
-        p["b"] = torch.zeros((d_out,))
+        p["b"] = torch.zeros((d_out,), device=device)
     return p
 
 
@@ -38,3 +42,38 @@ def linear(p: Linear, x: torch.Tensor, policy: NumericsPolicy,
     if p.b is not None:
         y = y + p.b
     return y
+
+
+class Norm(nn.Module):
+    """An rmsnorm scale ``g`` (d,)."""
+
+    def __init__(self, g: torch.Tensor):
+        super().__init__()
+        self.g = nn.Parameter(g)
+
+
+def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)) * p.g
+
+
+class Embedding(nn.Module):
+    """A token embedding ``emb`` (vocab, d) and, for the tied LM head, its
+    transpose ``emb_t`` (d, vocab), made contiguous once here: the head's
+    GEMM takes contiguous operands, and transposing per decode step would
+    copy the whole table (400 MB at granite-3-2b) every step.  ``emb_t`` is
+    a buffer derived from ``emb``; nothing updates it if ``emb`` changes."""
+
+    def __init__(self, emb: torch.Tensor):
+        super().__init__()
+        self.emb = nn.Parameter(emb)
+        self.register_buffer("emb_t", emb.detach().T.contiguous(), persistent=False)
+
+
+def embed(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
+    return p.emb[ids]
+
+
+def unembed(p: Embedding, x: torch.Tensor, policy: NumericsPolicy) -> torch.Tensor:
+    """Tied LM head: x @ emb^T under numerics site "unembed"."""
+    return policy_matmul(x, p.emb_t, policy, "unembed")

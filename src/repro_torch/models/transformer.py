@@ -1,0 +1,174 @@
+"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+
+Every GEMM (projections, attention score/value, FFN, LM head) routes
+through the NumericsPolicy.  The stack is a plain loop over layers (the
+JAX package scans over stacked layer parameters).  A single-token decode
+step of a block under one ``amsim`` or ``amsim_torch`` leaf runs as the
+decode chain (``_dense_block_fused_decode``): the CUDA chain kernels, or
+their plain versions, in the same structure, so the two modes decode bit
+for bit alike.  Forward only: LM training comes with a later slice.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.policy import NumericsPolicy
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from .attention import attention, init_attention, init_cache
+from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm, unembed
+from .mlp import ffn, init_ffn
+
+
+class DenseLayer(nn.Module):
+    """One block: ``attn`` (wq/wk/wv/wo), norms ``n1``/``n2``, ``ffn``."""
+
+    def __init__(self, attn: dict, n1: dict, n2: dict, ffn: dict):
+        super().__init__()
+        self.attn = nn.ModuleDict({k: Linear(**v) for k, v in attn.items()})
+        self.n1 = Norm(**n1)
+        self.n2 = Norm(**n2)
+        self.ffn = nn.ModuleDict({k: Linear(**v) for k, v in ffn.items()})
+
+
+class LM(nn.Module):
+    """A dense decoder-only LM built from a JAX-layout tree of tensors
+    (``init_tree``, or ``convert.lm_params_from_jax``); parameter names
+    follow the JAX pytree with layers unstacked (``layers.<i>.attn.wq.w``)."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(f"only the dense family is ported, not {cfg.family!r}")
+        self.cfg = cfg
+        self.embed = Embedding(**tree["embed"])
+        self.final_norm = Norm(**tree["final_norm"])
+        self.layers = nn.ModuleList(DenseLayer(**lp) for lp in tree["layers"])
+        self.head = None if cfg.tie_embeddings else Linear(**tree["head"])
+
+
+def lm_param_shapes(cfg: ArchConfig) -> dict:
+    """{dotted name: shape} of the JAX-layout tree of ``cfg``, layers
+    unstacked, computed without allocating it."""
+    d, dh, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    shapes = {"embed.emb": (cfg.vocab, d), "final_norm.g": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["head.w"] = (d, cfg.vocab)
+    ffn_dims = {"wg": (d, F), "wu": (d, F), "wd": (F, d)}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        for name, shape in (("wq", (d, hq)), ("wk", (d, hkv)), ("wv", (d, hkv)),
+                            ("wo", (hq, d))):
+            shapes[f"{pre}attn.{name}.w"] = shape
+            if cfg.qkv_bias and name != "wo":
+                shapes[f"{pre}attn.{name}.b"] = (shape[1],)
+        shapes[f"{pre}n1.g"] = (d,)
+        shapes[f"{pre}n2.g"] = (d,)
+        for name in (("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")):
+            shapes[f"{pre}ffn.{name}.w"] = ffn_dims[name]
+    return shapes
+
+
+def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
+    """JAX-layout parameters on the generator's device, with the JAX
+    package's scales: N(0, 1/d_in) weights, N(0, 0.02^2) embeddings, unit
+    norm scales."""
+    g, dev = generator, generator.device
+    ones = lambda: {"g": torch.ones((cfg.d_model,), device=dev)}  # noqa: E731
+    tree = {"embed": {"emb": torch.randn((cfg.vocab, cfg.d_model), generator=g, device=dev)
+                      * 0.02},
+            "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        tree["head"] = init_linear(cfg.d_model, cfg.vocab, generator=g)
+    tree["layers"] = [{"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones(),
+                       "ffn": init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)}
+                      for _ in range(cfg.n_layers)]
+    return tree
+
+
+def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None, device=None) -> LM:
+    """Random parameters drawn from ``generator`` (default: seed 0 on the
+    CPU) on its device, then moved to ``device`` (default: the CUDA card).
+    A generator on the card draws a full-size model there directly."""
+    device = resolve_device(device)
+    generator = torch.Generator().manual_seed(0) if generator is None else generator
+    return LM(cfg, init_tree(cfg, generator)).to(device)
+
+
+# ---------------------------------------------------------------- blocks
+def _use_fused_decode_chain(x, cfg: ArchConfig, policy: NumericsPolicy, cache) -> bool:
+    """Single-token swiglu decode under one chain leaf (every chain and
+    attention site ``amsim``, or every one ``amsim_torch``)."""
+    return (cache is not None and x.shape[1] == 1 and cfg.act == "swiglu"
+            and ops.decode_chain_enabled(policy))
+
+
+def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy,
+                              cache, window: int):
+    """One decode step of a block as the chain: fused norm+qkv, then either
+    the attention core folded into the back-half launch (a ring of at most
+    ``ops.FUSE_ATTN_MAX_T`` slots: 2 launches) or attention and the back
+    half apart (3 launches).  Rope and the cache write stay in
+    ``attention``."""
+    B, S, d = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x2 = x.reshape(B * S, d)
+    at, mlp = p.attn, p.ffn
+    q2, k2, v2 = ops.decode_qkv(x2, p.n1.g, at["wq"].w, at["wk"].w, at["wv"].w, policy,
+                                cfg.norm_eps)
+    if at["wq"].b is not None:
+        q2, k2, v2 = q2 + at["wq"].b, k2 + at["wk"].b, v2 + at["wv"].b
+    qkv = (q2.reshape(B, S, H, dh), k2.reshape(B, S, KV, dh), v2.reshape(B, S, KV, dh))
+    back = (p.n2.g, at["wo"].w, mlp["wg"].w, mlp["wu"].w, mlp["wd"].w, at["wo"].b, mlp["wd"].b)
+    if ops.decode_fuse_attn_enabled(policy, cache["k"].shape[1]):
+        (qr, kr, vr, qp, kp), cache = attention(at, x, cfg, policy, cache=cache, window=window,
+                                                qkv=qkv, capture_attend=True)
+        y = ops.decode_attn_out_mlp(x2, qr, kr, vr, qp, kp, *back, policy, cfg.norm_eps,
+                                    True, window)
+        return y.reshape(B, S, d), cache
+    a2, cache = attention(at, x, cfg, policy, cache=cache, window=window, qkv=qkv,
+                          project_out=False)
+    y = ops.decode_out_mlp_b(x2, a2.reshape(B * S, H * dh), *back, policy, cfg.norm_eps)
+    return y.reshape(B, S, d), cache
+
+
+def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
+                 window: int):
+    if _use_fused_decode_chain(x, cfg, policy, cache):
+        return _dense_block_fused_decode(p, x, cfg, policy, cache, window)
+    a, cache = attention(p.attn, rmsnorm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
+                         window=window)
+    x = x + a
+    return x + ffn(p.ffn, rmsnorm(p.n2, x, cfg.norm_eps), policy, cfg.act), cache
+
+
+# ---------------------------------------------------------------- forward
+@torch.no_grad()
+def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, caches=None,
+               window: int | None = None):
+    """tokens (B, S) -> (logits (B, S, vocab), new caches or None).
+
+    ``caches`` (``init_lm_caches``) are updated in place.  ``window`` None
+    means the architecture's own sliding window (0 = off)."""
+    cfg = model.cfg
+    window = cfg.sliding_window if window is None else window
+    x = embed(model.embed, tokens)
+    new_caches = []
+    for i, layer in enumerate(model.layers):
+        x, cache = _dense_block(layer, x, cfg, policy, None if caches is None else caches[i],
+                                window)
+        new_caches.append(cache)
+    x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = unembed(model.embed, x, policy)
+    else:
+        logits = linear(model.head, x, policy, site="head")
+    return logits, (new_caches if caches is not None else None)
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> list:
+    """One ring cache per layer (the layout ``lm_forward`` takes)."""
+    return [init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers)]

@@ -1,0 +1,65 @@
+"""Batched greedy serving of an LM with optional approximate-multiplier
+numerics: the twin of ``examples/serve_lm.py``.
+
+    python -m repro_torch.serve --new-tokens 24                 # on the card
+    python -m repro_torch.serve --numerics native
+    python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
+
+Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
+takes the smoke-test widths of ``configs.base.reduced``.  Prints tokens/s,
+the prefill time and the time per decode step.
+"""
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import get_arch, reduced
+from repro_torch.core.policy import MODES, load_numerics
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_lm
+from repro_torch.serve.engine import ServingEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--new-tokens", type=int, default=24)
+    ap.add_argument("--numerics", default="amsim", help=f"one of {'|'.join(MODES)}")
+    ap.add_argument("--multiplier", default="afm16")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths stay)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-test widths of configs.base.reduced")
+    ap.add_argument("--device", default=None, help="default: the CUDA card")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    policy = load_numerics(args.numerics, args.multiplier)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_lm(cfg, generator=gen, device=device)
+    engine = ServingEngine(model, policy, max_len=args.prompt_len + args.new_tokens + 1)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
+                            device=device)
+    timings = {}
+    out = engine.generate(prompts, max_new_tokens=args.new_tokens, timings=timings)
+    total = timings["prefill_s"] + timings["decode_s"]
+    steps = max(timings["decode_steps"], 1)
+    print(f"[{args.numerics}/{args.multiplier}] {cfg.name}, {cfg.n_layers} layers, on "
+          f"{device}: generated {tuple(out.shape)} in {total:.3f} s "
+          f"({args.batch * args.new_tokens / total:.1f} tok/s); prefill "
+          f"{timings['prefill_s'] * 1e3:.1f} ms, {timings['decode_s'] * 1e3 / steps:.2f} ms "
+          f"per decode step")
+    for row in range(min(args.batch, 2)):
+        print("  seq", row, ":", out[row, :10].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -12,13 +12,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import get_arch, reduced  # noqa: E402
 from repro_torch.configs.paper_models import VISION_REGISTRY, VisionConfig  # noqa: E402
 from repro_torch.core import lutgen  # noqa: E402
 from repro_torch.core.multipliers import get_multiplier  # noqa: E402
 from repro_torch.core.policy import NumericsPolicy  # noqa: E402
-from repro_torch.kernels import approx_conv, approx_gemm, ops  # noqa: E402
-from repro_torch.kernels.common import lut_tensor  # noqa: E402
+from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
+                                 decode_chain, ops)
+from repro_torch.kernels.common import POS_PAD, lut_tensor  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
+from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.optim.optimizers import sgdm  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 
@@ -201,3 +205,159 @@ def test_amsim_backward_never_reaches_the_plain_versions(cuda, monkeypatch, rng)
     torch.cuda.synchronize()
     assert x.grad.shape == x.shape and w.grad.shape == w.shape
     assert a.grad.shape == a.shape and b.grad.shape == b.shape
+
+
+# ------------------------------------------------ attention and decode chain
+def _ring(T, written):
+    """Positions of a ring of T slots after `written` tokens (POS_PAD where
+    none was written yet)."""
+    pos = np.full(T, POS_PAD, np.int64)
+    for p in range(max(0, written - T), written):
+        pos[p % T] = p
+    return pos
+
+
+# (B, S, H, KV, dh, T, q_pos, k_pos, causal, window)
+ATTN_CASES = [
+    (2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
+    (2, 8, 4, 4, 64, 8, range(8), range(8), True, 3),
+    (3, 5, 6, 3, 48, 70, range(60, 65), _ring(70, 65), True, 0),
+    (2, 1, 8, 2, 64, 40, [44], _ring(40, 45), True, 0),
+    (2, 1, 8, 2, 64, 160, [29], _ring(160, 30), True, 8),
+]
+
+
+def _attention_inputs(case, rng, device):
+    B, S, H, KV, dh, T, q_pos, k_pos, causal, window = case
+    pos = [torch.tensor(list(p), dtype=torch.int32, device=device) for p in (q_pos, k_pos)]
+    return ([_randn(rng, (B, S, H, dh), device), _randn(rng, (B, T, KV, dh), device),
+             _randn(rng, (B, T, KV, dh), device), *pos], dict(causal=causal, window=window))
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("case", range(len(ATTN_CASES)))
+def test_attention_kernel_bitwise_vs_plain(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    args, kw = _attention_inputs(ATTN_CASES[case], rng, cuda)
+    out = approx_attention.approx_attention(*args, lut, M, **kw)
+    ref = approx_attention.approx_attention_plain(*args, lut, M, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+# (rows, d, H, KV, dh, F): two k-tiles and two column tiles of the chain
+# kernels at 160/300, two row groups at 9 rows; then granite-3-2b's widths.
+CHAIN_CASES = [(1, 160, 4, 2, 40, 300), (3, 160, 4, 2, 40, 300), (9, 160, 4, 2, 40, 300),
+               (4, 2048, 32, 8, 64, 8192)]
+
+
+def _chain_inputs(case, rng, device):
+    rows, d, H, KV, dh, F = case
+    w = lambda k, n: _randn(rng, (k, n), device) * k ** -0.5  # noqa: E731
+    return dict(x=_randn(rng, (rows, d), device), g=1 + 0.1 * _randn(rng, (d,), device),
+                wq=w(d, H * dh), wk=w(d, KV * dh), wv=w(d, KV * dh),
+                attn=_randn(rng, (rows, H * dh), device), wo=w(H * dh, d), wg=w(d, F),
+                wu=w(d, F), wd=w(F, d),
+                bo=0.1 * _randn(rng, (d,), device), bd=0.1 * _randn(rng, (d,), device))
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("case", range(len(CHAIN_CASES)))
+def test_chain_kernels_bitwise_vs_plain(cuda, name, packed, case, rng):
+    if case == len(CHAIN_CASES) - 1 and (name, packed) not in (("afm16", True), ("afm10", True)):
+        pytest.skip("full width only with one shared-memory and one global-memory table")
+    lut, M = _lut(name, packed, cuda)
+    o = _chain_inputs(CHAIN_CASES[case], rng, cuda)
+    qkv = [o[n] for n in ("x", "g", "wq", "wk", "wv")]
+    out = decode_chain.fused_qkv_norm(*qkv, lut, M, eps=1e-5)
+    ref = decode_chain.fused_qkv_norm_plain(*qkv, lut, M, eps=1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    back = [o[n] for n in ("x", "attn", "g", "wo", "wg", "wu", "wd")]
+    for bias in ({}, {"bo": o["bo"], "bd": o["bd"]}):
+        out = decode_chain.fused_out_mlp(*back, lut, M, eps=1e-5, **bias)
+        ref = decode_chain.fused_out_mlp_plain(*back, lut, M, eps=1e-5, **bias)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("T,written,window", [(20, 13, 0), (40, 45, 0), (128, 100, 16)])
+def test_attn_out_mlp_kernel_bitwise_vs_plain(cuda, name, packed, T, written, window, rng):
+    lut, M = _lut(name, packed, cuda)
+    rows, d, H, KV, dh, F = CHAIN_CASES[1]
+    o = _chain_inputs(CHAIN_CASES[1], rng, cuda)
+    args, _ = _attention_inputs((rows, 1, H, KV, dh, T, [written - 1], _ring(T, written), True,
+                                 window), rng, cuda)
+    tail = [o[n] for n in ("g", "wo", "wg", "wu", "wd")]
+    out = decode_chain.fused_attn_out_mlp(o["x"], *args, *tail, lut, M, eps=1e-5,
+                                          window=window, bo=o["bo"])
+    ref = decode_chain.fused_attn_out_mlp_plain(o["x"], *args, *tail, lut, M, eps=1e-5,
+                                                causal=True, window=window, bo=o["bo"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_kernel_exp_and_rsqrt_match_torch(cuda):
+    """The kernels' expf and rsqrtf against torch.exp and torch.rsqrt on the
+    card, over every 101st float32 bit pattern (NaNs left out)."""
+    bits = torch.arange(0, 2 ** 32, 101, dtype=torch.int64, device=cuda)
+    x = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+    x = x[~torch.isnan(x)].contiguous()
+    e, r = decode_chain.device_exp_rsqrt(x)
+    for got, want in ((e, torch.exp(x)), (r, torch.rsqrt(x))):
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        differ = (got.view(torch.int32) != want.view(torch.int32)) & ~both_nan
+        assert int(differ.sum()) == 0, x[differ][:8]
+
+
+def _serve(model, mode, max_len, prompts):
+    engine = ServingEngine(model, NumericsPolicy(mode=mode, multiplier="afm16"), max_len=max_len)
+    return engine.generate(prompts, 4, return_logits=True)
+
+
+@pytest.mark.parametrize("max_len,per_step", [(16, (2, 0, 0, 2, 1)), (136, (2, 2, 2, 0, 1))])
+def test_serving_runs_through_the_kernels_bitwise(cuda, max_len, per_step):
+    """reduced granite-3-2b, 2 layers: prefill is 7 GEMMs and one attention
+    a layer plus the head; each decode step qkv + fused attention/back half
+    a layer (ring <= 128) or qkv + attention + back half, plus the head;
+    tokens and logits bitwise equal to amsim_torch."""
+    cfg = reduced(get_arch("granite-3-2b"), n_layers=2)
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(1))
+    counters = (decode_chain.fused_qkv_norm, approx_attention.approx_attention,
+                decode_chain.fused_out_mlp, decode_chain.fused_attn_out_mlp,
+                approx_gemm.approx_gemm)
+    for fn in counters:
+        fn.launches = 0
+    out, logits = _serve(model, "amsim", max_len, prompts)
+    torch.cuda.synchronize()
+    got = tuple(fn.launches for fn in counters)
+    steps = 3
+    want = tuple(n * steps for n in per_step)
+    want = (want[0], want[1] + 2, want[2], want[3], want[4] + 2 * 7 + 1)
+    assert got == want
+    ref_out, ref_logits = _serve(model, "amsim_torch", max_len, prompts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(logits, ref_logits)
+
+
+def test_amsim_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    for module, names in ((decode_chain, ("fused_qkv_norm_plain", "fused_out_mlp_plain",
+                                          "fused_attn_out_mlp_plain")),
+                          (approx_attention, ("approx_attention_plain",)),
+                          (approx_gemm, ("approx_gemm_plain",)),
+                          (ops, ("fused_qkv_norm_plain", "fused_out_mlp_plain",
+                                 "fused_attn_out_mlp_plain", "attend_einsum"))):
+        for name in names:
+            monkeypatch.setattr(module, name, refuse)
+    cfg = reduced(get_arch("granite-3-2b"), n_layers=1)
+    model = init_lm(cfg, device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(1))
+    for max_len in (16, 136):
+        out, _ = _serve(model, "amsim", max_len, prompts)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 4)

@@ -160,6 +160,8 @@ def test_amsim_torch_conv_equals_plain_kernel_version(rng):
 
 
 def test_batched_matmul_waits_for_a_later_slice():
-    pol = NumericsPolicy(mode="amsim_torch", multiplier="afm16")
+    """Under amsim an equal-batch product needs the batched kernel, which
+    the MoE serving slice ports (amsim_torch folds it in plain PyTorch)."""
+    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
     with pytest.raises(NotImplementedError, match="later slice"):
         ops.policy_matmul(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5)), pol)
