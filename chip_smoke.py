@@ -60,6 +60,27 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     device idle share, the amsim/native ratio, and each serving kernel's
     device time per prefill and per decode step beside its bound and its
     plain version's time.
+MoE serving (granite-moe-3b-a800m at full width,
+``configs/granite_moe_3b_a800m.py``):
+ 3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
+    512 and a ragged shape, and the wo+norm and expert-bank chain kernels
+    at 4 rows (with and without the wo bias) and at capacities 8 and 64,
+    against their plain versions with afm16 packed (shared memory) and
+    afm10 packed (global memory); every result bitwise equal;
+ 4d. depth 2, batch 2, prompt 16, 8 new tokens, ring 64: prefill logits,
+    every decode step's logits and the tokens under ``amsim`` bitwise equal
+    to ``amsim_torch``; then a prefill of 4 x 512 tokens (capacity 512: the
+    expert FFN as three batched GEMMs), logits bitwise equal; the counters
+    must read 5 GEMM (wq, wk, wv, wo, router), 1 attention and 1 expert-bank
+    launch a layer plus 1 head GEMM for the short prefill, 5 GEMM, 1
+    attention and 3 batched GEMM a layer plus the head for the long one,
+    and qkv, attention, wo+norm, router GEMM and expert banks once a layer
+    plus the head a decode step;
+ 5d. full depth (32 layers), batch 4, prompt 64, 32 new tokens, ring 96,
+    under ``amsim`` and ``native``: prefill ms, ms per decode step,
+    tokens/s, device idle share, the amsim/native ratio; one timed prefill
+    of 4 x 512 tokens under both; and each new kernel's device time at the
+    shapes of these runs beside its bound and its plain version's time.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -116,6 +137,18 @@ SERVE_LUTS = [("afm16", True), ("afm10", True)]
 DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, rings=(64, 160))
 FULL = dict(batch=4, prompt=64, new=32)
 LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
+# MoE serving: the arch, and the runs of 4d and 5d.  4 x 64 tokens give a
+# capacity of 64 rows an expert and a decode step of 4 tokens one of 8 (the
+# expert-bank kernel); 4 x 512 tokens give 512 (the batched GEMM kernel).
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, ring=64)
+MOE_FULL = dict(batch=4, prompt=64, new=32)
+MOE_LONG = dict(batch=4, prompt=512)
+MOE_SOURCES = {
+    "approx_gemm_batched": ("approx_gemm.cu", "src/repro/kernels/approx_gemm.py:72"),
+    "fused_wo_norm": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:646"),
+    "fused_moe_ffn": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:739"),
+}
 
 
 def smi(query: str) -> str:
@@ -515,14 +548,19 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
             shapes = {}
             for a, k in cl:
                 shapes.setdefault((tuple(a[0].shape), tuple(a[1].shape)), []).append((a, k))
-            total = 0.0
+            total = bound = 0.0
             for (sa, sb), same in shapes.items():
                 a, k = same[0]
                 t = queued_ms(lambda: fn(*a, **k), reps=5)
                 total += t * len(same)
+                nbytes, lookups = gemm_costs(a[0], a[1], a[2])
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                bound += tb * len(same)
                 print(f"  {ctx}: approx_gemm {sa}x{sb}: {t * len(same):.4f} ms over "
-                      f"{len(same)} launches")
-            per[(ctx, kname)] = (n, total, None, None, None)
+                      f"{len(same)} launches, bound {tb * len(same):.4f} ms ("
+                      f"{bound_kind(nbytes, lookups, lookups_per_s)})")
+            print(f"  {ctx}: approx_gemm: {total:.4f} ms over {n} launches, bound {bound:.4f} ms")
+            per[(ctx, kname)] = (n, total, None, bound, None)
             continue
         t = queued_ms(lambda: fn(*args, **kw), reps=5)
         require(t > 0, f"no device time measured for {kname} in the {ctx}")
@@ -558,6 +596,376 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
               f"launches on the serving path (phases 4c and 5c); no PyTorch call computes a "
               f"LUT product, so no library time")
     del model, engine, long_engine, caches, long_caches, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gemm_costs(a, b, lut, live_rows=None, live_batches=None):
+    """(bytes, lookups) of a (batched) LUT GEMM a (..., m, k) @ b (..., k,
+    n): each input read once and the output written once.  ``live_rows``
+    (rows of a that are not all zero) and ``live_batches`` (batch elements
+    with such a row) count what the data needs: a zero row of a costs no
+    lookups and its batch element's b need not be read."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = a.numel() // (m * k)
+    rows = batch * m if live_rows is None else live_rows
+    batches = batch if live_batches is None else live_batches
+    from repro_torch.kernels.common import lut_bytes
+    return 4 * (rows * k + batches * k * n + batch * m * n) + lut_bytes(lut), rows * k * n
+
+
+def bound_kind(nbytes, lookups, lookups_per_s) -> str:
+    return "operations" if lookups / lookups_per_s >= nbytes / HBM_BYTES_PER_S else "bytes"
+
+
+def live(t) -> tuple[int, int]:
+    """(rows of the last dim that are not all zero, leading batch elements
+    holding such a row) of a (B, rows, n) tensor: the capacity rows that
+    hold a token, and the experts that hold one."""
+    nz = (t != 0).any(dim=-1)
+    return int(nz.sum()), int(nz.any(dim=-1).sum())
+
+
+def moe_costs(kname, args, kw):
+    """(bytes, lookups) of one call of an MoE serving kernel, counting what
+    this run's data needs (only capacity rows that hold a token)."""
+    from repro_torch.kernels.common import lut_bytes
+    if kname == "approx_gemm_batched":
+        a, b, lut = args[:3]
+        rows, batches = live(a)
+        return gemm_costs(a, b, lut, rows, batches)
+    if kname == "fused_wo_norm":
+        x, attn, g2, wo, lut = args[:5]
+        bo = kw.get("bo")
+        n_in = sum(t.numel() for t in (x, attn, g2, wo, bo) if t is not None)
+        return 4 * (n_in + 2 * x.numel()) + lut_bytes(lut), x.shape[0] * wo.numel()
+    h, wg, wu, wd, lut = args[:5]
+    rows, experts = live(h)
+    E, C, d = h.shape
+    F = wg.shape[-1]
+    return (4 * (rows * d + experts * 3 * d * F + E * C * d) + lut_bytes(lut),
+            rows * 3 * d * F)
+
+
+def moe_counters():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    return {"approx_gemm": gemm_mod.approx_gemm,
+            "approx_gemm_batched": gemm_mod.approx_gemm_batched,
+            "approx_attention": attn_mod.approx_attention, "fused_qkv_norm": chain.fused_qkv_norm,
+            "fused_wo_norm": chain.fused_wo_norm, "fused_moe_ffn": chain.fused_moe_ffn}
+
+
+def moe_want(L: int, *, prefill: bool, steps: int, batched: bool = False) -> dict:
+    """Launches of a prefill (or none) and ``steps`` decode steps of an L-layer
+    MoE stack under amsim."""
+    pre = int(prefill)
+    return {"approx_gemm": (5 * L + 1) * pre + (L + 1) * steps,
+            "approx_gemm_batched": 3 * L * pre if batched else 0,
+            "approx_attention": L * (pre + steps), "fused_qkv_norm": L * steps,
+            "fused_wo_norm": L * steps,
+            "fused_moe_ffn": L * (pre * (not batched) + steps)}
+
+
+def zero_launches(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def launches_of(counters) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def moe_kernel_checks(dev, gen, lut_case) -> dict:
+    """Phase 3e: the three MoE serving kernels against their plain versions
+    at granite-moe-3b-a800m's full width; returns each one's largest
+    |difference|."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    cfg = get_arch(MOE_ARCH)
+    d, K, E, F = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.moe.n_experts, cfg.moe.d_ff
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen).to(dev) * scale
+
+    err = {k: 0.0 for k in MOE_SOURCES}
+
+    def held(name, out, ref, what):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
+        require(all(torch.equal(a, b) for a, b in zip(outs, refs)), f"{name} {what}: max|d|={e}")
+        err[name] = max(err[name], e)
+
+    for lut_name, packed in SERVE_LUTS:
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        for B, m, k, n in ((E, 512, d, F), (E, 512, F, d), (3, 67, 130, 33)):
+            a, b = randn(B, m, k), randn(B, k, n, scale=k ** -0.5)
+            held("approx_gemm_batched", gemm_mod.approx_gemm_batched(a, b, lut, M),
+                 gemm_mod.approx_gemm_batched_plain(a, b, lut, M), f"{tag} {(B, m, k, n)}")
+        x, attn = randn(4, d), randn(4, K, scale=0.3)
+        g2, wo, bo = 1 + 0.1 * randn(d), randn(K, d, scale=K ** -0.5), 0.1 * randn(d)
+        for bias in ({}, {"bo": bo}):
+            held("fused_wo_norm", chain.fused_wo_norm(x, attn, g2, wo, lut, M, eps=cfg.norm_eps,
+                                                      **bias),
+                 chain.fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=cfg.norm_eps, **bias),
+                 f"{tag} 4 rows {'with' if bias else 'without'} bo")
+        banks = (randn(E, d, F, scale=d ** -0.5), randn(E, d, F, scale=d ** -0.5),
+                 randn(E, F, d, scale=F ** -0.5))
+        for C in (8, 64):
+            h = randn(E, C, d)
+            held("fused_moe_ffn", chain.fused_moe_ffn(h, *banks, lut, M),
+                 chain.fused_moe_ffn_plain(h, *banks, lut, M), f"{tag} C={C}")
+        print(f"MoE serving kernels == plain (bitwise): {tag} LUT at {MOE_ARCH} widths: batched "
+              f"GEMM ({E}, 512, {d})x({E}, {d}, {F}), ({E}, 512, {F})x({E}, {F}, {d}) and (3, 67, "
+              f"130)x(3, 130, 33); wo+norm at 4 rows with and without bo; expert banks at C=8, 64")
+    return err
+
+
+def moe_serving_depth2(dev, moe_launches: dict):
+    """Phase 4d: depth 2 at full width, amsim bitwise amsim_torch for a
+    short prefill and decode and for a 4 x 512 prefill, with launch counts."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_DEPTH2["n_layers"])
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (MOE_DEPTH2["batch"], MOE_DEPTH2["prompt"]),
+                            generator=cpu_gen).to(dev)
+    long_prompts = torch.randint(0, cfg.vocab, (MOE_LONG["batch"], MOE_LONG["prompt"]),
+                                 generator=cpu_gen).to(dev)
+    counters = moe_counters()
+    L, ring, steps = cfg.n_layers, MOE_DEPTH2["ring"], MOE_DEPTH2["new"] - 1
+    want = moe_want(L, prefill=True, steps=steps)
+    want_long = moe_want(L, prefill=True, steps=0, batched=True)
+    results = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            policy = NumericsPolicy(mode=mode, multiplier="afm16")
+            engine = ServingEngine(model, policy, max_len=ring)
+            zero_launches(counters)
+            toks, logits = engine.generate(prompts, MOE_DEPTH2["new"], return_logits=True)
+            torch.cuda.synchronize()
+            got = launches_of(counters)
+            full, _, _ = engine.prefill(prompts, init_lm_caches(cfg, prompts.shape[0], ring, dev))
+            zero_launches(counters)
+            long_logits, _, _ = ServingEngine(model, policy, max_len=MOE_LONG["prompt"]).prefill(
+                long_prompts, init_lm_caches(cfg, MOE_LONG["batch"], MOE_LONG["prompt"], dev))
+            torch.cuda.synchronize()
+            got_long = launches_of(counters)
+            results[mode] = (toks, logits, full, long_logits)
+            if mode == "amsim":
+                require(got == want, f"{MOE_ARCH} depth-2 serving: launches {got}, want {want}")
+                require(got_long == want_long, f"{MOE_ARCH} depth-2 prefill of {MOE_LONG}: "
+                        f"launches {got_long}, want {want_long}")
+                for k in counters:
+                    moe_launches[k] = moe_launches.get(k, 0) + got[k] + got_long[k]
+                launches = (got, got_long)
+    except RuntimeError as e:
+        if "deterministic" in str(e):
+            raise SystemExit(f"chip_smoke FAILED: MoE serving has an op without a deterministic "
+                             f"CUDA implementation: {e}")
+        raise
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (t_a, l_a, f_a, g_a), (t_p, l_p, f_p, g_p) = results["amsim"], results["amsim_torch"]
+    require(all(bool(torch.isfinite(v).all()) for v in (l_a, f_a, g_a)),
+            f"{MOE_ARCH} depth-2 serving: logits not finite")
+    require(torch.equal(f_a, f_p), f"{MOE_ARCH} depth-2 prefill logits: amsim differs from "
+            f"amsim_torch by {(f_a - f_p).abs().max().item()}")
+    require(torch.equal(l_a, l_p) and torch.equal(t_a, t_p),
+            f"{MOE_ARCH} depth-2 decode: amsim differs from amsim_torch (logits max|d| "
+            f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
+    require(torch.equal(g_a, g_p), f"{MOE_ARCH} depth-2 prefill of {MOE_LONG}: amsim logits "
+            f"differ from amsim_torch by {(g_a - g_p).abs().max().item()}")
+    print(f"{MOE_ARCH} depth {L}, batch {MOE_DEPTH2['batch']}, prompt {MOE_DEPTH2['prompt']}, "
+          f"{MOE_DEPTH2['new']} new tokens, ring {ring}: prefill logits (capacity 8), {steps} "
+          f"decode steps' logits and tokens bitwise equal to amsim_torch; amsim launches "
+          f"{launches[0]}; tokens {t_a[0].tolist()}")
+    print(f"{MOE_ARCH} depth {L}, prefill of {MOE_LONG['batch']} x {MOE_LONG['prompt']} tokens "
+          f"(capacity 512: the batched route): logits {tuple(g_a.shape)} bitwise equal to "
+          f"amsim_torch; amsim launches {launches[1]}")
+    del model, results
+    torch.cuda.empty_cache()
+
+
+def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) -> list:
+    """Phase 5d: granite-moe-3b-a800m at full width and depth, amsim and
+    native; returns the three MoE kernels' JSON rows."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import lut_bytes
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch(MOE_ARCH)
+    L, B, P, N = cfg.n_layers, MOE_FULL["batch"], MOE_FULL["prompt"], MOE_FULL["new"]
+    ring = P + N
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = 4 * sum(p.numel() for p in model.parameters())
+    print(f"{MOE_ARCH} at full width and depth ({L} layers, {weight_bytes / 1e9:.2f} GB of float32 "
+          f"weights) drawn on the card in {time.perf_counter() - t0:.1f} s; batch {B}, prompt {P}, "
+          f"{N} new tokens, ring {ring} ({smi_line}):")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=cpu_gen).to(dev)
+    long_prompts = torch.randint(0, cfg.vocab, (MOE_LONG["batch"], MOE_LONG["prompt"]),
+                                 generator=cpu_gen).to(dev)
+    counters = moe_counters()
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+    res = {}
+    for pname, policy in (("native", NumericsPolicy()), ("amsim", amsim)):
+        engine = ServingEngine(model, policy, max_len=ring)
+        engine.generate(prompts, 2)          # warm-up: LUT upload, library handles
+        zero_launches(counters)
+        timings = {}
+        toks = engine.generate(prompts, N, timings=timings)
+        got = launches_of(counters)
+        if pname == "amsim":
+            want = moe_want(L, prefill=True, steps=N - 1)
+            require(got == want, f"{MOE_ARCH} full-depth serving: launches {got}, want {want}")
+            for k, n in got.items():
+                moe_launches[k] = moe_launches.get(k, 0) + n
+        require(toks.shape == (B, N) and bool((toks >= 0).all() & (toks < cfg.vocab).all()),
+                f"{MOE_ARCH} full-depth {pname}: tokens out of range")
+        caches = init_lm_caches(cfg, B, ring, dev)
+        _, nxt, caches = engine.prefill(prompts, caches)
+        busy_step = busy_ms(lambda: engine.step(nxt, caches), reps=3)
+        busy_pre = busy_ms(lambda: engine.prefill(prompts, init_lm_caches(cfg, B, ring, dev)),
+                           reps=1)
+        pre_ms = timings["prefill_s"] * 1e3
+        step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
+        # The long prefill: capacity 512, the expert FFN as three batched GEMMs.
+        long_engine = ServingEngine(model, policy, max_len=MOE_LONG["prompt"])
+        long_caches = init_lm_caches(cfg, MOE_LONG["batch"], MOE_LONG["prompt"], dev)
+        zero_launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long_logits, _, _ = long_engine.prefill(long_prompts, long_caches)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+        got = launches_of(counters)
+        if pname == "amsim":
+            want = moe_want(L, prefill=True, steps=0, batched=True)
+            require(got == want, f"{MOE_ARCH} full-depth prefill of {MOE_LONG}: launches {got}, "
+                    f"want {want}")
+            for k, n in got.items():
+                moe_launches[k] = moe_launches.get(k, 0) + n
+        require(bool(torch.isfinite(long_logits).all()), f"{MOE_ARCH} long prefill {pname}: "
+                f"logits not finite")
+        del long_logits, long_caches
+        res[pname] = (pre_ms, step_ms, long_ms)
+        print(f"  {pname}: prefill {pre_ms:.2f} ms ({busy_text(busy_pre, pre_ms)}), "
+              f"{step_ms:.3f} ms per decode step ({busy_text(busy_step, step_ms)}), "
+              f"{B * N / (timings['prefill_s'] + timings['decode_s']):.2f} tokens/s; prefill of "
+              f"{MOE_LONG['batch']} x {MOE_LONG['prompt']} tokens {long_ms:.2f} ms; tokens "
+              f"{toks[0, :8].tolist()}")
+    print(f"  amsim/native: prefill {res['amsim'][0] / res['native'][0]:.2f}x, decode step "
+          f"{res['amsim'][1] / res['native'][1]:.2f}x, prefill of {MOE_LONG['batch']} x "
+          f"{MOE_LONG['prompt']} {res['amsim'][2] / res['native'][2]:.2f}x")
+
+    # Each kernel of the path at the shapes of this run: keep the first call
+    # of every distinct shape and count the calls, in an amsim prefill, a
+    # decode step and the long prefill.  The MoE kernels are also held
+    # against their plain versions' time; the others are timed for the
+    # breakdown only (their rows come from phases 5b and 5c).
+    names = ["approx_gemm", "approx_attention", "fused_qkv_norm", *MOE_SOURCES]
+    originals = {k: getattr(ops, k) for k in names}
+    calls = {}   # (ctx, kernel, shapes) -> [args, kw, count]
+
+    def capture(ctx, kname):
+        def wrapped(*a, **kw):
+            key = (ctx, kname, tuple(tuple(t.shape) for t in a if torch.is_tensor(t)))
+            if key not in calls:
+                kept = tuple(t.clone() if torch.is_tensor(t) and t.dtype == torch.int32 else t
+                             for t in a)
+                calls[key] = [kept, kw, 0]
+            calls[key][2] += 1
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    def captured_run(ctx, fn):
+        for k in names:
+            setattr(ops, k, capture(ctx, k))
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            for k, f in originals.items():
+                setattr(ops, k, f)
+
+    engine = ServingEngine(model, amsim, max_len=ring)
+    captured_run("prefill", lambda: engine.prefill(prompts, init_lm_caches(cfg, B, ring, dev)))
+    _, nxt, caches = engine.prefill(prompts, init_lm_caches(cfg, B, ring, dev))
+    captured_run("decode", lambda: engine.step(nxt, caches))
+    long_engine = ServingEngine(model, amsim, max_len=MOE_LONG["prompt"])
+    captured_run(f"prefill {MOE_LONG['batch']}x{MOE_LONG['prompt']}", lambda: long_engine.prefill(
+        long_prompts, init_lm_caches(cfg, MOE_LONG["batch"], MOE_LONG["prompt"], dev)))
+
+    plains = {"approx_gemm": gemm_mod.approx_gemm_plain,
+              "approx_gemm_batched": gemm_mod.approx_gemm_batched_plain,
+              "fused_wo_norm": chain.fused_wo_norm_plain,
+              "fused_moe_ffn": chain.fused_moe_ffn_plain}
+    per = {}   # (ctx, kernel) -> [launches, ms, plain ms, bound ms, bytes s, lookups s]
+    print(f"MoE serving kernels at the shapes of this run (device ms from CUDA events around 5 "
+          f"calls queued behind a spin kernel, times the launches; bounds count the capacity rows "
+          f"that hold a token; {smi_line}):")
+    for (ctx, kname, shapes), (args, kw, n) in calls.items():
+        fn = originals[kname]
+        t = queued_ms(lambda: fn(*args, **kw), reps=5)
+        require(t > 0, f"no device time measured for {kname} in the {ctx}")
+        tp = 0.0
+        if kname == "approx_gemm":
+            nbytes, lookups = gemm_costs(*args[:3])
+        elif kname in LUT_ARG:
+            nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(args[LUT_ARG[kname]]))
+        else:
+            nbytes, lookups = moe_costs(kname, args, kw)
+            tp = cuda_ms(lambda: plains[kname](*args, **kw), reps=1, warmup=0)
+        tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        acc = per.setdefault((ctx, kname), [0, 0.0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((n, t * n, tp * n, tb * n, n * nbytes / HBM_BYTES_PER_S,
+                               n * lookups / lookups_per_s)):
+            acc[i] += v
+        extra = f", plain {tp * n:.2f} ms" if kname in MOE_SOURCES else ""
+        print(f"  {ctx}: {kname} {list(shapes)}: {t * n:.4f} ms over {n} launches ({t:.4f} ms "
+              f"each), bound {tb * n:.4f} ms ({bound_kind(nbytes, lookups, lookups_per_s)}: "
+              f"{nbytes} B, {lookups} lookups a launch){extra}")
+    for (ctx, kname), (n, ms, tp, tb, _, _) in sorted(per.items()):
+        print(f"  {ctx}: {kname}: {ms:.4f} ms over {n} launches, bound {tb:.4f} ms"
+              + (f", plain {tp:.2f} ms" if kname in MOE_SOURCES else ""))
+    rows = []
+    # The row's work: the kernel's launches in one full-depth decode step
+    # (the chain kernels) or one full-depth prefill of 4 x 512 tokens (the
+    # batched GEMM).
+    ctx_of = {"approx_gemm_batched": f"prefill {MOE_LONG['batch']}x{MOE_LONG['prompt']}",
+              "fused_wo_norm": "decode", "fused_moe_ffn": "decode"}
+    for kname, (src, replaces) in MOE_SOURCES.items():
+        require(moe_launches.get(kname, 0) > 0, f"{kname} never launched on the MoE serving path")
+        n, ms, plain_ms, bound, bytes_s, ops_s = per[(ctx_of[kname], kname)]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+                     "launches": moe_launches[kname], "max_abs_err": moe_err[kname],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                     "library_ms": None})
+        print(f"kernel {kname} (replaces {replaces}): {ms:.4f} ms on device per full-depth "
+              f"{ctx_of[kname]} over {n} launches, bound {bound:.4f} ms ({rows[-1]['bound_by']}), "
+              f"plain {plain_ms:.2f} ms, max|d| {moe_err[kname]}; {moe_launches[kname]} launches "
+              f"on the MoE serving path (phases 4d and 5d); no PyTorch call computes a LUT "
+              f"product, so no library time")
+    del model, engine, long_engine, caches, calls
     torch.cuda.empty_cache()
     return rows
 
@@ -680,6 +1088,8 @@ def main() -> int:
     # ------------------------------ 3d. serving kernels vs plain on the card
     serve_err = serving_kernel_checks(dev, gen, lut_case)
     phase_done("3d serving kernels vs plain")
+    moe_err = moe_kernel_checks(dev, gen, lut_case)
+    phase_done("3e MoE serving kernels vs plain")
 
     # ----------------------------------------------------- 4. main path
     amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
@@ -804,6 +1214,9 @@ def main() -> int:
     serve_launches = {}
     serving_depth2(dev, serve_launches)
     phase_done("4c serving, depth 2")
+    moe_launches = {}
+    moe_serving_depth2(dev, moe_launches)
+    phase_done("4d MoE serving, depth 2")
 
     # ------------------------------------------------------ 5. timings
     print(f"per-forward times at batch {BATCH} (CUDA events, after warm-up; device busy "
@@ -961,6 +1374,8 @@ def main() -> int:
     # ---------------------------- 5c. LM serving at full depth, timed
     rows_out += serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err)
     phase_done("5c serving, full depth")
+    rows_out += moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err)
+    phase_done("5d MoE serving, full depth")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

@@ -1,21 +1,38 @@
-"""Language-model architecture configs: the fields the dense serving path reads.
+"""Language-model architecture configs: the fields the serving path reads.
 
 The port's twin of ``repro.configs.base``: a frozen ``ArchConfig`` per
 architecture, registered by name (``get_arch``), and ``reduced`` for the
-smoke-test shape the JAX package's tests use.  Only the dense family is
-ported; MoE, SSM, hybrid and encoder-decoder fields come with their
-slices.
+smoke-test shape the JAX package's tests use.  The dense and MoE families
+are ported (MoE with an MoE FFN in every layer and no shared expert);
+SSM, hybrid and encoder-decoder fields come with their slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden width
+    interleave: int = 1          # MoE every `interleave`-th layer (1 = all)
+    n_shared_experts: int = 0    # llama4-style always-on shared expert(s)
+    capacity_factor: float = 1.25
+
+    def __post_init__(self):
+        if self.interleave != 1 or self.n_shared_experts:
+            raise NotImplementedError(
+                "interleaved MoE stacks and shared experts are not ported yet: they come "
+                "with the slice that serves llama4-style MoE models")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense (the only family ported so far)
+    family: str                  # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,11 +41,19 @@ class ArchConfig:
     vocab: int
     d_head: int = 0              # 0 -> d_model // n_heads
     qkv_bias: bool = False
+    moe: Optional[MoEConfig] = None
     sliding_window: int = 0      # 0 = full attention
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "swiglu"          # swiglu | gelu
+
+    def __post_init__(self):
+        if self.family not in ("dense", "moe"):
+            raise NotImplementedError(f"only the dense and moe families are ported, not "
+                                      f"{self.family!r}")
+        if (self.family == "moe") != (self.moe is not None):
+            raise ValueError(f"family {self.family!r} and moe={self.moe!r} disagree")
 
     @property
     def head_dim(self) -> int:
@@ -39,7 +64,7 @@ class ArchConfig:
 
 ARCH_REGISTRY: dict[str, ArchConfig] = {}
 # Modules that register an architecture when imported.
-_ARCH_MODULES = ("granite_3_2b",)
+_ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -58,8 +83,6 @@ def get_arch(name: str) -> ArchConfig:
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """Smoke-test variant: same family and topology, tiny widths (the
     values of ``repro.configs.base.reduced``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"only the dense family is ported, not {cfg.family!r}")
     base = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
@@ -69,5 +92,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=512,
         d_head=32,
     )
+    if cfg.moe is not None:
+        base["moe"] = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 8),
+                                          top_k=min(cfg.moe.top_k, 2), d_ff=64)
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

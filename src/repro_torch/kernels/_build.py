@@ -29,6 +29,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES = {
     "approx_gemm": ("approx_gemm.cu", {
         "approx_gemm_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+        "approx_gemm_batched_f32": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     }),
     "approx_conv": ("approx_conv.cu", {
         "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
@@ -43,6 +44,8 @@ LIBRARIES = {
         "fused_qkv_norm_f32": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
         "fused_out_mlp_f32": [_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
         "fused_attn_out_mlp_f32": [_P] * 19 + [_I] * 11 + [_F] + [_I] * 4 + [_P],
+        "fused_wo_norm_f32": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+        "fused_moe_ffn_f32": [_P] * 7 + [_I] * 8 + [_P],
         "libm_probe_f32": [_P] * 3 + [ctypes.c_longlong, _P],
     }),
 }

@@ -1,28 +1,40 @@
-// The dense decode chain: one transformer layer of a decode step in two
-// or three launches, every GEMM product simulated by AMSim.
+// The decode chain: one transformer layer of a decode step in two or
+// three launches (dense) or four (MoE), every GEMM product simulated by
+// AMSim.
 //
 //   fused_qkv_norm      h = rmsnorm(x; g1); q, k, v = h@wq, h@wk, h@wv
 //   fused_out_mlp       x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2);
 //                       out = x1 + (silu(h@wg) * (h@wu))@wd (+bd)
 //   fused_attn_out_mlp  the attention core of the step (attention.cuh),
 //                       then fused_out_mlp's phases
+//   fused_wo_norm       x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2): the
+//                       MoE back half's prefix, x1 and h both written out
+//   fused_moe_ffn       for every expert e of the stacked banks:
+//                       out[e] = (silu(h[e]@wg[e]) * (h[e]@wu[e]))@wd[e]
 //
 // Replace the TPU kernels repro/kernels/decode_chain.py:_qkv_kernel,
-// _out_mlp_kernel and _attn_out_mlp_kernel.  There a sequential grid
-// streams weight blocks through VMEM and carries the accumulators from
-// step to step.  Here the phases that need all of a row (the norms, the
-// FFN after the gate/up columns, the down projection after the wo
-// columns) are separated by grid-wide barriers of a cooperative launch
-// (cooperative_groups::this_grid().sync(), grid sized from occupancy so
-// every block is resident).  fused_qkv_norm needs no barrier: each block
-// computes the norm scale of every row itself.
+// _out_mlp_kernel, _attn_out_mlp_kernel, _wo_norm_kernel and
+// _moe_ffn_kernel.  There a sequential grid streams weight blocks through
+// VMEM and carries the accumulators from step to step.  Here the phases
+// that need all of a row (the norms, the FFN after the gate/up columns,
+// the down projection after the wo columns) are separated by grid-wide
+// barriers of a cooperative launch (cooperative_groups::this_grid().sync(),
+// grid sized from occupancy so every block is resident).  fused_qkv_norm
+// needs no barrier: each block computes the norm scale of every row
+// itself.  fused_wo_norm has one barrier between the wo columns and the
+// norm, then one block a row writes h; fused_moe_ffn one between the
+// gate/up columns of every expert (into an (E, C, F) scratch) and the down
+// projection.
 //
 // What bounds it on the H100: the weight stream.  x has `rows` = batch
 // rows, so each weight element is read once per launch and meets `rows`
 // LUT lookups: each thread owns one output column and the accumulators of
 // up to kRows rows, the block stages the activations a k-tile at a time in
 // shared memory, and consecutive threads read consecutive weight columns.
-// The LUT sits in shared memory when it is <= 128 KiB.
+// The expert banks hold C capacity rows an expert; blocks walk (expert,
+// row group of kRows, column tile) work items, so C > kRows re-reads the
+// expert's weights once a row group (from L2 when the group's items run
+// together).  The LUT sits in shared memory when it is <= 128 KiB.
 //
 // Every output folds its products in contraction order from +0.0 (the
 // order of kernels/ref.py:ref_amsim_gemm), the rmsnorm sum of squares runs
@@ -87,51 +99,58 @@ __device__ void row_rinv(const float* src, int d, int r0, int nr, float eps, flo
   __syncthreads();
 }
 
-// For rows r0 .. r0 + nr (nr <= kRows) and every column j of the (kdim, n)
-// weights w1 (and w2 when kDual): acc[r] = sum_k amsim(A(r, k), w[k, j]),
-// k in order from +0.0, then epi(r, j, acc1[r], acc2[r]).  stage(r, k)
-// gives A(r, k); the block stages it a tile at a time.  Blocks stride over
-// column tiles of kThreads; every thread of the block calls it.
+// For rows r0 .. r0 + nr (nr <= kRows) and the columns j = c0 ..
+// c0 + kThreads of the (kdim, n) weights w1 (and w2 when kDual):
+// acc[r] = sum_k amsim(A(r, k), w[k, j]), k in order from +0.0, then
+// epi(r, j, acc1[r], acc2[r]).  stage(r, k) gives A(r, k); the block
+// stages it a tile at a time.  Every thread of the block calls it.
+template <typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
+__device__ void fold_tile(int c0, int n, int kdim, int nr, const float* w1, const float* w2,
+                          Stage stage, Epi epi, const LutT* lut, int M, float* tile) {
+  const int j = c0 + threadIdx.x;
+  const bool active = j < n;
+  float acc1[kRows], acc2[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc1[r] = acc2[r] = 0.0f;
+  for (int k0 = 0; k0 < kdim; k0 += kKT) {
+    const int kt = min(kKT, kdim - k0);
+    for (int i = threadIdx.x; i < nr * kKT; i += amsim::kThreads) {
+      const int r = i / kKT;
+      const int kk = i % kKT;
+      tile[i] = kk < kt ? stage(r, k0 + kk) : 0.0f;
+    }
+    __syncthreads();
+    if (active) {
+      for (int kk = 0; kk < kt; ++kk) {
+        const size_t widx = static_cast<size_t>(k0 + kk) * n + j;
+        const uint32_t u1 = __float_as_uint(w1[widx]);
+        const uint32_t u2 = kDual ? __float_as_uint(w2[widx]) : 0u;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if (r < nr) {
+            const uint32_t hv = __float_as_uint(tile[r * kKT + kk]);
+            acc1[r] = acc1[r] + amsim::mul<LutT, kSmem>(hv, u1, lut, M);
+            if (kDual) acc2[r] = acc2[r] + amsim::mul<LutT, kSmem>(hv, u2, lut, M);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < nr) epi(r, j, acc1[r], acc2[r]);
+    }
+  }
+}
+
+// fold_tile over every column tile, blocks striding over the tiles.
 template <typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
 __device__ void column_fold(int n, int kdim, int nr, const float* w1, const float* w2,
                             Stage stage, Epi epi, const LutT* lut, int M, float* tile) {
   for (int c0 = blockIdx.x * amsim::kThreads; c0 < n; c0 += gridDim.x * amsim::kThreads) {
-    const int j = c0 + threadIdx.x;
-    const bool active = j < n;
-    float acc1[kRows], acc2[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc1[r] = acc2[r] = 0.0f;
-    for (int k0 = 0; k0 < kdim; k0 += kKT) {
-      const int kt = min(kKT, kdim - k0);
-      for (int i = threadIdx.x; i < nr * kKT; i += amsim::kThreads) {
-        const int r = i / kKT;
-        const int kk = i % kKT;
-        tile[i] = kk < kt ? stage(r, k0 + kk) : 0.0f;
-      }
-      __syncthreads();
-      if (active) {
-        for (int kk = 0; kk < kt; ++kk) {
-          const size_t widx = static_cast<size_t>(k0 + kk) * n + j;
-          const uint32_t u1 = __float_as_uint(w1[widx]);
-          const uint32_t u2 = kDual ? __float_as_uint(w2[widx]) : 0u;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            if (r < nr) {
-              const uint32_t hv = __float_as_uint(tile[r * kKT + kk]);
-              acc1[r] = acc1[r] + amsim::mul<LutT, kSmem>(hv, u1, lut, M);
-              if (kDual) acc2[r] = acc2[r] + amsim::mul<LutT, kSmem>(hv, u2, lut, M);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nr) epi(r, j, acc1[r], acc2[r]);
-      }
-    }
+    fold_tile<LutT, kSmem, kDual>(c0, n, kdim, nr, w1, w2, stage, epi, lut, M, tile);
   }
 }
 
@@ -200,10 +219,9 @@ qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
 }
 
 // ------------------------------------------------- the back half's phases
+// Phase A of the back half: x1 = x + (attn @ wo (+ bo)) for every row.
 template <typename LutT, bool kSmem>
-__device__ void out_mlp_phases(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
-  cg::grid_group grid = cg::this_grid();
-  // Phase A: x1 = x + (attn @ wo (+ bo)).
+__device__ void wo_residual(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
   for (int r0 = 0; r0 < c.rows; r0 += kRows) {
     const int nr = min(kRows, c.rows - r0);
     column_fold<LutT, kSmem, false>(
@@ -216,6 +234,13 @@ __device__ void out_mlp_phases(const Chain& c, const Smem<LutT, kSmem>& sm, int 
         },
         sm.lut, M, sm.tile);
   }
+}
+
+template <typename LutT, bool kSmem>
+__device__ void out_mlp_phases(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
+  cg::grid_group grid = cg::this_grid();
+  // Phase A: x1 = x + (attn @ wo (+ bo)).
+  wo_residual<LutT, kSmem>(c, sm, M);
   grid.sync();
   // Phase B: h = rmsnorm(x1; g); act = silu(h @ wg) * (h @ wu).
   for (int r0 = 0; r0 < c.rows; r0 += kRows) {
@@ -268,6 +293,86 @@ attn_out_mlp_kernel(Chain c, amsim::Attn a, float* attn, float* scores, int scra
   out_mlp_phases<LutT, kSmem>(c, sm, M);
 }
 
+// ----------------------------------------------------------- fused_wo_norm
+// Chain's x, attn, g (= g2), wo, bo, x1, rows, d, K, eps; `out` holds h.
+template <typename LutT, bool kSmem>
+__global__ void __launch_bounds__(amsim::kThreads)
+wo_norm_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  wo_residual<LutT, kSmem>(c, sm, M);
+  cg::this_grid().sync();
+  // h = rmsnorm(x1; g): one block a row.
+  for (int r = blockIdx.x; r < c.rows; r += gridDim.x) {
+    row_rinv(c.x1, c.d, r, 1, c.eps, sm.rinv);
+    for (int j = threadIdx.x; j < c.d; j += amsim::kThreads) {
+      const size_t i = static_cast<size_t>(r) * c.d + j;
+      c.out[i] = __fmul_rn(__fmul_rn(c.x1[i], sm.rinv[0]), c.g[j]);
+    }
+    __syncthreads();  // rinv is rewritten for the next row
+  }
+}
+
+// ----------------------------------------------------------- fused_moe_ffn
+struct Moe {
+  const float* h;      // (E, C, d) capacity buffer
+  const float* wg;     // (E, d, F)
+  const float* wu;     // (E, d, F)
+  const float* wd;     // (E, F, d)
+  float* act;          // (E, C, F) scratch
+  float* out;          // (E, C, d)
+  int E, C, d, F;
+};
+
+__host__ __device__ long long column_tiles(int n) {
+  return (n + amsim::kThreads - 1) / amsim::kThreads;
+}
+
+// Work items of one phase: (expert, row group, column tile), tile fastest.
+__host__ __device__ long long moe_items(const Moe& p, int n) {
+  return static_cast<long long>(p.E) * ((p.C + kRows - 1) / kRows) * column_tiles(n);
+}
+
+template <typename LutT, bool kSmem>
+__global__ void __launch_bounds__(amsim::kThreads)
+moe_ffn_kernel(Moe p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  const int groups = (p.C + kRows - 1) / kRows;
+  // Phase 1: act[e] = silu(h[e] @ wg[e]) * (h[e] @ wu[e]).
+  const int tiles_f = static_cast<int>(column_tiles(p.F));
+  for (long long w = blockIdx.x; w < moe_items(p, p.F); w += gridDim.x) {
+    const int t = static_cast<int>(w % tiles_f);
+    const int r0 = static_cast<int>((w / tiles_f) % groups) * kRows;
+    const size_t e = static_cast<size_t>(w / tiles_f / groups);
+    const float* h = p.h + e * p.C * p.d;
+    float* act = p.act + e * p.C * p.F;
+    fold_tile<LutT, kSmem, true>(
+        t * amsim::kThreads, p.F, p.d, min(kRows, p.C - r0), p.wg + e * p.d * p.F,
+        p.wu + e * p.d * p.F,
+        [&](int r, int k) { return h[static_cast<size_t>(r0 + r) * p.d + k]; },
+        [&](int r, int j, float g, float u) {
+          act[static_cast<size_t>(r0 + r) * p.F + j] = __fmul_rn(silu(g), u);
+        },
+        sm.lut, M, sm.tile);
+  }
+  cg::this_grid().sync();
+  // Phase 2: out[e] = act[e] @ wd[e].
+  const int tiles_d = static_cast<int>(column_tiles(p.d));
+  for (long long w = blockIdx.x; w < moe_items(p, p.d); w += gridDim.x) {
+    const int t = static_cast<int>(w % tiles_d);
+    const int r0 = static_cast<int>((w / tiles_d) % groups) * kRows;
+    const size_t e = static_cast<size_t>(w / tiles_d / groups);
+    const float* act = p.act + e * p.C * p.F;
+    float* out = p.out + e * p.C * p.d;
+    fold_tile<LutT, kSmem, false>(
+        t * amsim::kThreads, p.d, p.F, min(kRows, p.C - r0), p.wd + e * p.F * p.d, nullptr,
+        [&](int r, int k) { return act[static_cast<size_t>(r0 + r) * p.F + k]; },
+        [&](int r, int j, float acc, float) { out[static_cast<size_t>(r0 + r) * p.d + j] = acc; },
+        sm.lut, M, sm.tile);
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch_cooperative(Kernel kernel, int smem, long long work_blocks, void** args,
                                cudaStream_t stream) {
@@ -279,8 +384,6 @@ cudaError_t launch_cooperative(Kernel kernel, int smem, long long work_blocks, v
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
-
-long long column_tiles(int n) { return (n + amsim::kThreads - 1) / amsim::kThreads; }
 
 }  // namespace
 
@@ -348,6 +451,41 @@ extern "C" int fused_attn_out_mlp_f32(
     return launch_cooperative(attn_out_mlp_kernel<LutT, kSmem>,
                               smem_bytes(kSmem, lut_bytes, dh),
                               std::max(column_tiles(std::max(d, F)), attn_blocks), args, s);
+  }));
+}
+
+extern "C" int fused_wo_norm_f32(const float* x, const float* attn, const float* g2,
+                                 const float* wo, const float* bo, const void* lut, float* x1,
+                                 float* h, int rows, int d, int K, float eps, int M, int packed,
+                                 int smem_lut, int lut_bytes, void* stream) {
+  Chain c{x, attn, g2, wo, nullptr, nullptr, nullptr, bo, nullptr, h, x1, nullptr, rows, d, K,
+          0, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    const LutT* lut_t = static_cast<const LutT*>(lut);
+    int m = M, lb = lut_bytes;
+    void* args[] = {&c, &lut_t, &m, &lb};
+    return launch_cooperative(wo_norm_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
+                              std::max<long long>(column_tiles(d), rows), args, s);
+  }));
+}
+
+extern "C" int fused_moe_ffn_f32(const float* h, const float* wg, const float* wu,
+                                 const float* wd, const void* lut, float* out, float* act, int E,
+                                 int C, int d, int F, int M, int packed, int smem_lut,
+                                 int lut_bytes, void* stream) {
+  Moe p{h, wg, wu, wd, act, out, E, C, d, F};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    const LutT* lut_t = static_cast<const LutT*>(lut);
+    int m = M, lb = lut_bytes;
+    void* args[] = {&p, &lut_t, &m, &lb};
+    return launch_cooperative(moe_ffn_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
+                              std::max(moe_items(p, F), moe_items(p, d)), args, s);
   }));
 }
 

@@ -1,5 +1,5 @@
-"""The dense decode chain: a whole transformer layer of one decode step in
-two or three CUDA launches (``csrc/decode_chain.cu``).
+"""The decode chain: a whole transformer layer of one decode step in two
+or three CUDA launches (dense) or four (MoE) (``csrc/decode_chain.cu``).
 
     rmsnorm(x; g1) -> x@wq, x@wk, x@wv           fused_qkv_norm
     attention core                                approx_attention
@@ -7,11 +7,17 @@ two or three CUDA launches (``csrc/decode_chain.cu``).
     out = x1 + (silu(h@wg) * (h@wu))@wd (+bd)     fused_out_mlp
     the attention core, then fused_out_mlp        fused_attn_out_mlp
 
+    MoE: x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2)    fused_wo_norm
+         routing on h (models/moe.py), then per expert e of the stacked
+         banks (silu(h_e@wg_e) * (h_e@wu_e))@wd_e       fused_moe_ffn
+
 They replace the TPU kernels ``repro/kernels/decode_chain.py``
-``_qkv_kernel``, ``_out_mlp_kernel`` and ``_attn_out_mlp_kernel``.  x is
-the (rows, d) residual stream of a decode step (rows = batch), so every
-weight is streamed from device memory once per launch and each element
-meets ``rows`` LUT lookups: the weight stream bounds a decode step.
+``_qkv_kernel``, ``_out_mlp_kernel``, ``_attn_out_mlp_kernel``,
+``_wo_norm_kernel`` and ``_moe_ffn_kernel``.  x is the (rows, d) residual
+stream of a decode step (rows = batch), so every weight is streamed from
+device memory once per launch and each element meets ``rows`` LUT lookups:
+the weight stream bounds a decode step.  The expert banks meet the C rows
+of each expert's capacity buffer instead.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``*_plain``), which the kernel agrees
@@ -56,15 +62,23 @@ def fused_qkv_norm_plain(x, g1, wq, wk, wv, lut, M: int, *, eps: float):
     return tuple(ref_amsim_gemm(h, w, lut, M) for w in (wq, wk, wv))
 
 
-def fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M: int, *, eps: float,
-                        bo=None, bd=None):
+def fused_wo_norm_plain(x, attn, g2, wo, lut, M: int, *, eps: float, bo=None):
     y = ref_amsim_gemm(attn, wo, lut, M)
     if bo is not None:
         y = y + bo
     x1 = x + y
-    h = rmsnorm_lanes(x1, g2, eps)
+    return x1, rmsnorm_lanes(x1, g2, eps)
+
+
+def fused_moe_ffn_plain(h, wg, wu, wd, lut, M: int):
     a = silu(ref_amsim_gemm(h, wg, lut, M)) * ref_amsim_gemm(h, wu, lut, M)
-    y2 = ref_amsim_gemm(a, wd, lut, M)
+    return ref_amsim_gemm(a, wd, lut, M)
+
+
+def fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M: int, *, eps: float,
+                        bo=None, bd=None):
+    x1, h = fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=eps, bo=bo)
+    y2 = fused_moe_ffn_plain(h, wg, wu, wd, lut, M)
     if bd is not None:
         y2 = y2 + bd
     return x1 + y2
@@ -215,6 +229,67 @@ def fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int
 
 
 fused_attn_out_mlp.launches = 0
+
+
+def fused_wo_norm(x, attn, g2, wo, lut, M: int, *, eps: float, bo=None):
+    """x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2), in one launch: x (rows,
+    d), attn (rows, K), wo (K, d) -> (x1, h), both (rows, d)."""
+    _check_rows(x, g2, bo)
+    if attn.ndim != 2 or attn.shape[0] != x.shape[0]:
+        raise ValueError(f"attn must be ({x.shape[0]}, K), got {tuple(attn.shape)}")
+    if tuple(wo.shape) != (attn.shape[1], x.shape[1]):
+        raise ValueError(f"wo must be ({attn.shape[1]}, {x.shape[1]}), got {tuple(wo.shape)}")
+    tensors = _present(x, attn, g2, wo, bo)
+    check_float32(*tensors)
+    check_lut(lut, M)
+    device = operand_device(*tensors, lut)
+    if device.type == "cpu":
+        return fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=eps, bo=bo)
+    check_contiguous(*tensors, lut)
+    rows, d = x.shape
+    x1 = torch.empty((rows, d), dtype=torch.float32, device=device)
+    h = torch.empty((rows, d), dtype=torch.float32, device=device)
+    call_kernel("decode_chain", "fused_wo_norm_f32", device,
+                x.data_ptr(), attn.data_ptr(), g2.data_ptr(), wo.data_ptr(), _ptr(bo),
+                lut.data_ptr(), x1.data_ptr(), h.data_ptr(), rows, d, attn.shape[1], float(eps),
+                M, int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut))
+    fused_wo_norm.launches += 1
+    return x1, h
+
+
+fused_wo_norm.launches = 0
+
+
+def fused_moe_ffn(h, wg, wu, wd, lut, M: int):
+    """The swiglu FFN of every expert over its capacity rows, in one
+    launch: h (E, C, d), wg/wu (E, d, F), wd (E, F, d) -> (E, C, d)."""
+    if h.ndim != 3:
+        raise ValueError(f"fused_moe_ffn takes h (E, C, d), got {tuple(h.shape)}")
+    E, C, d = h.shape
+    F = wg.shape[-1]
+    want = {"wg": (E, d, F), "wu": (E, d, F), "wd": (E, F, d)}
+    got = {"wg": tuple(wg.shape), "wu": tuple(wu.shape), "wd": tuple(wd.shape)}
+    if got != want:
+        raise ValueError(f"expert banks must be {want}, got {got}")
+    check_float32(h, wg, wu, wd)
+    check_lut(lut, M)
+    device = operand_device(h, wg, wu, wd, lut)
+    if device.type == "cpu":
+        return fused_moe_ffn_plain(h, wg, wu, wd, lut, M)
+    check_contiguous(h, wg, wu, wd, lut)
+    out = torch.empty((E, C, d), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    act = torch.empty((E, C, F), dtype=torch.float32, device=device)
+    call_kernel("decode_chain", "fused_moe_ffn_f32", device,
+                h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), act.data_ptr(), E, C, d, F, M, int(lut.dtype == torch.int16),
+                int(lut_in_smem(lut)), lut_bytes(lut))
+    fused_moe_ffn.launches += 1
+    return out
+
+
+fused_moe_ffn.launches = 0
 
 
 def device_exp_rsqrt(x: torch.Tensor):

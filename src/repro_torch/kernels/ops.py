@@ -1,5 +1,5 @@
-"""Policy-routed matmul, einsum, conv2d, attention and the dense decode
-chain: the port's AMDENSE/AMCONV2D ops (§VI) and the LM serving path.
+"""Policy-routed matmul, einsum, conv2d, attention and the decode chain:
+the port's AMDENSE/AMCONV2D ops (§VI) and the LM serving path.
 
 Every GEMM, conv and attention contraction of a model goes through these
 ops with a ``NumericsPolicy`` and a site label; the policy resolves the
@@ -8,9 +8,9 @@ lowering:
 
   native       ``torch.matmul`` / ``torch.einsum`` / ``F.conv2d``, exact
                float32 (TF32 off)
-  amsim        the CUDA kernels ``approx_gemm`` / ``approx_conv2d_fused`` /
-               ``approx_conv2d_dw`` / ``approx_attention`` and the decode
-               chain's three
+  amsim        the CUDA kernels ``approx_gemm`` / ``approx_gemm_batched`` /
+               ``approx_conv2d_fused`` / ``approx_conv2d_dw`` /
+               ``approx_attention`` and the decode chain's five
   amsim_torch  their plain PyTorch versions (im2col for the conv)
   direct       im2col + the sequential-k GEMM over ``Multiplier.torch_mul``
 
@@ -35,10 +35,12 @@ from repro_torch.core.multipliers import Multiplier, get_multiplier
 from repro_torch.core.policy import PASSES, NumericsPolicy
 from .approx_attention import approx_attention, softmax_scores
 from .approx_conv import approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads
-from .approx_gemm import approx_gemm
+from .approx_gemm import approx_gemm, approx_gemm_batched
 from .common import attention_mask, lut_tensor
-from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_out_mlp,
-                           fused_out_mlp_plain, fused_qkv_norm, fused_qkv_norm_plain)
+from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_moe_ffn,
+                           fused_moe_ffn_plain, fused_out_mlp, fused_out_mlp_plain,
+                           fused_qkv_norm, fused_qkv_norm_plain, fused_wo_norm,
+                           fused_wo_norm_plain)
 from .ref import ref_amsim_gemm, ref_direct_gemm, ref_im2col
 
 _LUTS: dict[tuple, torch.Tensor] = {}
@@ -97,9 +99,10 @@ def _matmul_nograd(a, b, leaf: NumericsPolicy):
     """(..., m, k) @ (k, n) or (..., m, k) @ (..., k, n) under ``leaf``.
 
     A 2-D weight folds a's batch into m, one GEMM.  Equal batch dims (the
-    attention einsums) need the batched kernel under ``amsim``, which the
-    MoE serving slice ports; ``native``, ``amsim_torch`` and ``direct`` fold
-    the whole batch at once.  Other batch dims broadcast first.
+    MoE expert banks, the attention einsums) flatten into one batch dim:
+    one launch of the batched kernel under ``amsim``; ``native``,
+    ``amsim_torch`` and ``direct`` fold the whole batch at once.  Other
+    batch dims broadcast first.
     """
     if b.ndim == 2:
         if a.ndim == 2:
@@ -115,10 +118,12 @@ def _matmul_nograd(a, b, leaf: NumericsPolicy):
         _exact_fp32()
         return torch.matmul(a, b)
     if leaf.mode == "amsim":
-        raise NotImplementedError(
-            "an equal-batch product under amsim needs approx_gemm_batched (the TPU kernel "
-            "_amsim_kernel_batched), which a later slice ports: slice 4, MoE serving; "
-            "attention under amsim runs the fused attention kernel instead")
+        mult = get_multiplier(leaf.multiplier)
+        batch, (m, k), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
+        out = approx_gemm_batched(a.reshape(-1, m, k).contiguous(),
+                                  b.reshape(-1, k, n).contiguous(),
+                                  _amsim_lut(mult, a.device), mult.mantissa_bits)
+        return out.reshape(*batch, m, n)
     return _GEMM_MODES[leaf.mode](a, b, get_multiplier(leaf.multiplier))
 
 
@@ -398,7 +403,7 @@ def policy_attention(q, k, v, q_pos, k_pos, policy: NumericsPolicy, causal: bool
 
 
 # =====================================================================
-# Dense decode chain (kernels/decode_chain.py)
+# Decode chain (kernels/decode_chain.py)
 #
 # A single-token dense block runs as norm+qkv, attention, and the back
 # half (wo, residual, norm, FFN, residual) in two or three launches when
@@ -407,28 +412,60 @@ def policy_attention(q, k, v, q_pos, k_pos, policy: NumericsPolicy, causal: bool
 # same structure, so ``amsim`` and ``amsim_torch`` decode bit for bit
 # alike).  The attention core folds into the back-half launch when the
 # ring holds at most ``FUSE_ATTN_MAX_T`` slots (the regime where the JAX
-# package folds it), else it runs in the attention kernel.  There is no
-# other guard: the kernels take every shape.
+# package folds it), else it runs in the attention kernel.  An MoE block
+# runs norm+qkv, attention, then wo+residual+norm (``decode_wo_norm``),
+# the routing in plain PyTorch and the stacked expert banks
+# (``decode_moe_ffn``).  The expert-bank launch also serves any MoE FFN
+# (prefill too) whose capacity C is at most ``MOE_FFN_MAX_C`` (the regime
+# where the JAX package runs it); larger buffers run three batched GEMMs.
+# There is no other guard: the kernels take every shape.
 # =====================================================================
 
 _CHAIN_SITES = ("qkv", "wo", "wg", "wu", "wd", "attn_score", "attn_value")
+_MOE_FFN_SITES = ("wg", "wu", "wd")
 _CHAIN_MODES = ("amsim", "amsim_torch")
 FUSE_ATTN_MAX_T = 128
+# The JAX package runs the stacked expert-bank kernel when its VMEM budget
+# model admits the launch (repro/kernels/vmem.py:moe_ffn_fits).  At
+# granite-moe-3b-a800m's widths (40 experts, d 1536, expert d_ff 512, an
+# M=7 table) that holds for C = 8 ... 256 and fails at C = 512 (11.27 MB
+# against 10 MiB), so capacities up to 256 take the one launch and larger
+# ones the three batched GEMMs, as there.
+MOE_FFN_MAX_C = 256
 
 
-def decode_chain_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
-    """The one forward leaf every chain and attention site resolves to, or
-    None when any two differ."""
-    leaves = [policy.resolve(s) for s in _CHAIN_SITES]
+def _one_leaf(policy: NumericsPolicy, sites) -> NumericsPolicy | None:
+    leaves = [policy.resolve(s) for s in sites]
     first = leaves[0]
     if any((lf.mode, lf.multiplier) != (first.mode, first.multiplier) for lf in leaves[1:]):
         return None
     return first
 
 
-def decode_chain_enabled(policy: NumericsPolicy) -> bool:
-    leaf = decode_chain_leaf(policy)
+def _chain_leaf_ok(leaf: NumericsPolicy | None) -> bool:
     return leaf is not None and leaf.mode in _CHAIN_MODES and not leaf.is_native
+
+
+def decode_chain_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+    """The one forward leaf every chain and attention site resolves to, or
+    None when any two differ."""
+    return _one_leaf(policy, _CHAIN_SITES)
+
+
+def decode_chain_enabled(policy: NumericsPolicy) -> bool:
+    return _chain_leaf_ok(decode_chain_leaf(policy))
+
+
+def moe_ffn_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+    """The one leaf the expert banks' wg/wu/wd resolve to, or None when they
+    differ (the router stays a GEMM of its own either way)."""
+    return _one_leaf(policy, _MOE_FFN_SITES)
+
+
+def decode_moe_ffn_enabled(policy: NumericsPolicy, C: int) -> bool:
+    """Whether an MoE FFN over a capacity of ``C`` rows an expert runs as
+    the one stacked expert-bank launch (``decode_moe_ffn``)."""
+    return _chain_leaf_ok(moe_ffn_leaf(policy)) and C <= MOE_FFN_MAX_C
 
 
 def decode_fuse_attn_enabled(policy: NumericsPolicy, T: int) -> bool:
@@ -437,10 +474,11 @@ def decode_fuse_attn_enabled(policy: NumericsPolicy, T: int) -> bool:
     return decode_chain_enabled(policy) and T <= FUSE_ATTN_MAX_T
 
 
-def _chain_call(policy: NumericsPolicy, device):
-    """(plain?, lut, M) of the chain leaf: the kernels under ``amsim``
-    with the kernel LUT, the plain versions under ``amsim_torch``."""
-    leaf = decode_chain_leaf(policy)
+def _chain_call(policy: NumericsPolicy, device, leaf: NumericsPolicy | None = None):
+    """(plain?, lut, M) of the chain leaf (or ``leaf``): the kernels under
+    ``amsim`` with the kernel LUT, the plain versions under
+    ``amsim_torch``."""
+    leaf = decode_chain_leaf(policy) if leaf is None else leaf
     mult = get_multiplier(leaf.multiplier)
     if leaf.mode == "amsim":
         return False, _amsim_lut(mult, device), mult.mantissa_bits
@@ -479,3 +517,24 @@ def decode_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd,
     fn = fused_attn_out_mlp_plain if plain else fused_attn_out_mlp
     return fn(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M, eps=eps, causal=causal,
               window=int(window), bo=bo, bd=bd)
+
+
+def decode_wo_norm(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
+    """The MoE back half's prefix of a decode step: x (rows, d) residual
+    stream, attn (rows, H*dh) -> (x1, h), x1 = x + attn@wo (+bo) and h =
+    rmsnorm(x1; g2); forward only.  Callers check
+    :func:`decode_chain_enabled`."""
+    _forward_only("decode_wo_norm", x, attn, g2, wo, bo)
+    plain, lut, M = _chain_call(policy, x.device)
+    fn = fused_wo_norm_plain if plain else fused_wo_norm
+    return fn(x, attn, g2, wo, lut, M, eps=eps, bo=bo)
+
+
+def decode_moe_ffn(buf, wg, wu, wd, policy: NumericsPolicy):
+    """The swiglu FFN of every expert over its capacity buffer: buf (E, C,
+    d), wg/wu (E, d, F), wd (E, F, d) -> (E, C, d); forward only.  Callers
+    check :func:`decode_moe_ffn_enabled`."""
+    _forward_only("decode_moe_ffn", buf, wg, wu, wd)
+    plain, lut, M = _chain_call(policy, buf.device, moe_ffn_leaf(policy))
+    fn = fused_moe_ffn_plain if plain else fused_moe_ffn
+    return fn(buf.contiguous(), wg, wu, wd, lut, M)

@@ -17,7 +17,9 @@ def init_ffn(d: int, d_ff: int, act: str = "swiglu", *, generator: torch.Generat
 
 def ffn(p, x: torch.Tensor, policy: NumericsPolicy, act: str = "swiglu") -> torch.Tensor:
     """The FFN of a block; its sites ("wg"/"wu"/"wd") name the projections.
-    ``p`` maps those names to ``layers.Linear``s."""
+    ``p`` maps those names to ``layers.Linear``s.  With (E, d, F) expert
+    banks and x (E, C, d) it is every expert's FFN at once: each projection
+    is one E-batched product."""
     if act == "swiglu":
         return linear(p["wd"], silu(linear(p["wg"], x, policy, site="wg"))
                       * linear(p["wu"], x, policy, site="wu"), policy, site="wd")

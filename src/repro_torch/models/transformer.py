@@ -1,12 +1,14 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+"""Decoder-only LM, dense and MoE families: the port of
+``repro.models.transformer``.
 
-Every GEMM (projections, attention score/value, FFN, LM head) routes
-through the NumericsPolicy.  The stack is a plain loop over layers (the
-JAX package scans over stacked layer parameters).  A single-token decode
-step of a block under one ``amsim`` or ``amsim_torch`` leaf runs as the
-decode chain (``_dense_block_fused_decode``): the CUDA chain kernels, or
-their plain versions, in the same structure, so the two modes decode bit
-for bit alike.  Forward only: LM training comes with a later slice.
+Every GEMM (projections, attention score/value, FFN, router, experts, LM
+head) routes through the NumericsPolicy.  The stack is a plain loop over
+layers (the JAX package scans over stacked layer parameters).  A
+single-token decode step of a block under one ``amsim`` or ``amsim_torch``
+leaf runs as the decode chain (``_dense_block_fused_decode``): the CUDA
+chain kernels, or their plain versions, in the same structure, so the two
+modes decode bit for bit alike.  Forward only: LM training comes with a
+later slice, and with it the MoE aux loss, which ``lm_forward`` drops.
 """
 from __future__ import annotations
 
@@ -20,28 +22,37 @@ from repro_torch.kernels import ops
 from .attention import attention, init_attention, init_cache
 from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm, unembed
 from .mlp import ffn, init_ffn
+from .moe import init_moe, moe_ffn
+
+
+def _linears(tree: dict) -> nn.ModuleDict:
+    return nn.ModuleDict({k: Linear(**v) for k, v in tree.items()})
 
 
 class DenseLayer(nn.Module):
-    """One block: ``attn`` (wq/wk/wv/wo), norms ``n1``/``n2``, ``ffn``."""
+    """One block: ``attn`` (wq/wk/wv/wo), norms ``n1``/``n2``, and ``ffn``
+    (wg/wu/wd) or, in an MoE layer, ``moe`` (``router`` and the
+    ``experts`` banks wg/wu/wd)."""
 
-    def __init__(self, attn: dict, n1: dict, n2: dict, ffn: dict):
+    def __init__(self, attn: dict, n1: dict, n2: dict, ffn: dict | None = None,
+                 moe: dict | None = None):
         super().__init__()
-        self.attn = nn.ModuleDict({k: Linear(**v) for k, v in attn.items()})
+        self.attn = _linears(attn)
         self.n1 = Norm(**n1)
         self.n2 = Norm(**n2)
-        self.ffn = nn.ModuleDict({k: Linear(**v) for k, v in ffn.items()})
+        self.ffn = None if ffn is None else _linears(ffn)
+        self.moe = None if moe is None else nn.ModuleDict(
+            {"router": Linear(**moe["router"]), "experts": _linears(moe["experts"])})
 
 
 class LM(nn.Module):
-    """A dense decoder-only LM built from a JAX-layout tree of tensors
-    (``init_tree``, or ``convert.lm_params_from_jax``); parameter names
-    follow the JAX pytree with layers unstacked (``layers.<i>.attn.wq.w``)."""
+    """A dense or MoE decoder-only LM built from a JAX-layout tree of
+    tensors (``init_tree``, or ``convert.lm_params_from_jax``); parameter
+    names follow the JAX pytree with layers unstacked
+    (``layers.<i>.attn.wq.w``, ``layers.<i>.moe.experts.wg.w``)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"only the dense family is ported, not {cfg.family!r}")
         self.cfg = cfg
         self.embed = Embedding(**tree["embed"])
         self.final_norm = Norm(**tree["final_norm"])
@@ -57,7 +68,12 @@ def lm_param_shapes(cfg: ArchConfig) -> dict:
     shapes = {"embed.emb": (cfg.vocab, d), "final_norm.g": (d,)}
     if not cfg.tie_embeddings:
         shapes["head.w"] = (d, cfg.vocab)
-    ffn_dims = {"wg": (d, F), "wu": (d, F), "wd": (F, d)}
+    ffn_names = ("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")
+    if cfg.moe is None:
+        ffn, ffn_dims = "ffn", {"wg": (d, F), "wu": (d, F), "wd": (F, d)}
+    else:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        ffn, ffn_dims = "moe.experts", {"wg": (E, d, Fe), "wu": (E, d, Fe), "wd": (E, Fe, d)}
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         for name, shape in (("wq", (d, hq)), ("wk", (d, hkv)), ("wv", (d, hkv)),
@@ -67,8 +83,10 @@ def lm_param_shapes(cfg: ArchConfig) -> dict:
                 shapes[f"{pre}attn.{name}.b"] = (shape[1],)
         shapes[f"{pre}n1.g"] = (d,)
         shapes[f"{pre}n2.g"] = (d,)
-        for name in (("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")):
-            shapes[f"{pre}ffn.{name}.w"] = ffn_dims[name]
+        if cfg.moe is not None:
+            shapes[f"{pre}moe.router.w"] = (d, E)
+        for name in ffn_names:
+            shapes[f"{pre}{ffn}.{name}.w"] = ffn_dims[name]
     return shapes
 
 
@@ -83,9 +101,14 @@ def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
             "final_norm": ones()}
     if not cfg.tie_embeddings:
         tree["head"] = init_linear(cfg.d_model, cfg.vocab, generator=g)
-    tree["layers"] = [{"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones(),
-                       "ffn": init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)}
-                      for _ in range(cfg.n_layers)]
+    tree["layers"] = []
+    for _ in range(cfg.n_layers):
+        layer = {"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones()}
+        if cfg.moe is None:
+            layer["ffn"] = init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)
+        else:
+            layer["moe"] = init_moe(cfg, generator=g)
+        tree["layers"].append(layer)
     return tree
 
 
@@ -108,30 +131,39 @@ def _use_fused_decode_chain(x, cfg: ArchConfig, policy: NumericsPolicy, cache) -
 
 def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy,
                               cache, window: int):
-    """One decode step of a block as the chain: fused norm+qkv, then either
-    the attention core folded into the back-half launch (a ring of at most
-    ``ops.FUSE_ATTN_MAX_T`` slots: 2 launches) or attention and the back
-    half apart (3 launches).  Rope and the cache write stay in
-    ``attention``."""
+    """One decode step of a block as the chain: fused norm+qkv, then for a
+    dense block either the attention core folded into the back-half launch
+    (a ring of at most ``ops.FUSE_ATTN_MAX_T`` slots: 2 launches) or
+    attention and the back half apart (3 launches); for an MoE block
+    attention, then wo+residual+norm (emitting x1 and h) and ``moe_ffn`` on
+    h.  Rope and the cache write stay in ``attention``."""
     B, S, d = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x2 = x.reshape(B * S, d)
-    at, mlp = p.attn, p.ffn
+    at = p.attn
     q2, k2, v2 = ops.decode_qkv(x2, p.n1.g, at["wq"].w, at["wk"].w, at["wv"].w, policy,
                                 cfg.norm_eps)
     if at["wq"].b is not None:
         q2, k2, v2 = q2 + at["wq"].b, k2 + at["wk"].b, v2 + at["wv"].b
     qkv = (q2.reshape(B, S, H, dh), k2.reshape(B, S, KV, dh), v2.reshape(B, S, KV, dh))
-    back = (p.n2.g, at["wo"].w, mlp["wg"].w, mlp["wu"].w, mlp["wd"].w, at["wo"].b, mlp["wd"].b)
-    if ops.decode_fuse_attn_enabled(policy, cache["k"].shape[1]):
+    if p.moe is None and ops.decode_fuse_attn_enabled(policy, cache["k"].shape[1]):
+        mlp = p.ffn
         (qr, kr, vr, qp, kp), cache = attention(at, x, cfg, policy, cache=cache, window=window,
                                                 qkv=qkv, capture_attend=True)
-        y = ops.decode_attn_out_mlp(x2, qr, kr, vr, qp, kp, *back, policy, cfg.norm_eps,
-                                    True, window)
+        y = ops.decode_attn_out_mlp(x2, qr, kr, vr, qp, kp, p.n2.g, at["wo"].w, mlp["wg"].w,
+                                    mlp["wu"].w, mlp["wd"].w, at["wo"].b, mlp["wd"].b, policy,
+                                    cfg.norm_eps, True, window)
         return y.reshape(B, S, d), cache
     a2, cache = attention(at, x, cfg, policy, cache=cache, window=window, qkv=qkv,
                           project_out=False)
-    y = ops.decode_out_mlp_b(x2, a2.reshape(B * S, H * dh), *back, policy, cfg.norm_eps)
+    a2 = a2.reshape(B * S, H * dh)
+    if p.moe is not None:
+        x1, h = ops.decode_wo_norm(x2, a2, p.n2.g, at["wo"].w, at["wo"].b, policy, cfg.norm_eps)
+        y, _ = moe_ffn(p.moe, h.reshape(B, S, d), cfg, policy)
+        return x1.reshape(B, S, d) + y, cache
+    mlp = p.ffn
+    y = ops.decode_out_mlp_b(x2, a2, p.n2.g, at["wo"].w, mlp["wg"].w, mlp["wu"].w, mlp["wd"].w,
+                             at["wo"].b, mlp["wd"].b, policy, cfg.norm_eps)
     return y.reshape(B, S, d), cache
 
 
@@ -142,7 +174,12 @@ def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cach
     a, cache = attention(p.attn, rmsnorm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
                          window=window)
     x = x + a
-    return x + ffn(p.ffn, rmsnorm(p.n2, x, cfg.norm_eps), policy, cfg.act), cache
+    h = rmsnorm(p.n2, x, cfg.norm_eps)
+    if p.moe is not None:
+        y, _ = moe_ffn(p.moe, h, cfg, policy)
+    else:
+        y = ffn(p.ffn, h, policy, cfg.act)
+    return x + y, cache
 
 
 # ---------------------------------------------------------------- forward

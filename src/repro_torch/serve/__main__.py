@@ -3,6 +3,7 @@ numerics: the twin of ``examples/serve_lm.py``.
 
     python -m repro_torch.serve --new-tokens 24                 # on the card
     python -m repro_torch.serve --numerics native
+    python -m repro_torch.serve --arch granite-moe-3b-a800m     # MoE, 40 experts
     python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
 
 Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
@@ -23,7 +24,8 @@ from repro_torch.serve.engine import ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="granite-3-2b (dense) or granite-moe-3b-a800m (MoE)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=24)

@@ -168,12 +168,14 @@ def test_lane_sum_is_the_warp_order(n):
 
 
 def test_batched_products_need_the_batched_kernel_under_amsim():
-    a = torch.ones((2, 3, 4))
-    b = torch.ones((2, 4, 5))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ops.policy_matmul(a, b, NumericsPolicy(mode="amsim", multiplier=MULT))
-    out = ops.policy_matmul(a, b, NumericsPolicy(mode="amsim_torch", multiplier=MULT))
-    assert out.shape == (2, 3, 5)
+    """Under amsim an equal-batch product runs the batched kernel (on CPU
+    tensors its plain version): the bits of amsim_torch."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 4, 5)).astype(np.float32))
+    out = ops.policy_matmul(a, b, NumericsPolicy(mode="amsim", multiplier=MULT))
+    ref = ops.policy_matmul(a, b, NumericsPolicy(mode="amsim_torch", multiplier=MULT))
+    assert out.shape == (2, 3, 5) and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("spec,sa,sb", [("bqkgd,btkd->bkgqt", (2, 3, 2, 2, 4), (2, 5, 2, 4)),

@@ -361,3 +361,154 @@ def test_amsim_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
         out, _ = _serve(model, "amsim", max_len, prompts)
         torch.cuda.synchronize()
         assert out.shape == (2, 4)
+
+
+# --------------------------------------------------------------- MoE serving
+# (batch, m, k, n): ragged shapes, then granite-moe-3b-a800m's expert banks
+# at C = 512 (the batched route) with one shared- and one global-memory table.
+BATCHED_CASES = [(3, 67, 130, 33), (2, 1, 5, 1), (40, 8, 40, 17)]
+BATCHED_FULL = [(40, 512, 1536, 512), (40, 512, 512, 1536)]
+FULL_LUTS = [("afm16", True), ("afm10", True)]
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("B,m,k,n", BATCHED_CASES)
+def test_batched_gemm_kernel_bitwise_vs_plain(cuda, name, packed, B, m, k, n, rng):
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (B, m, k), cuda), _randn(rng, (B, k, n), cuda)
+    out = approx_gemm.approx_gemm_batched(a, b, lut, M)
+    ref = approx_gemm.approx_gemm_batched_plain(a, b, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("B,m,k,n", BATCHED_FULL)
+def test_batched_gemm_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, B, m, k, n, rng):
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (B, m, k), cuda), _randn(rng, (B, k, n), cuda) * k ** -0.5
+    out = approx_gemm.approx_gemm_batched(a, b, lut, M)
+    ref = approx_gemm.approx_gemm_batched_plain(a, b, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+# (rows, d, K): two k-tiles and two column tiles at 160/300, two row groups
+# at 9 rows; then granite-moe-3b-a800m's wo at 4 rows.
+WO_NORM_CASES = [(1, 160, 300), (3, 300, 160), (9, 160, 300)]
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("rows,d,K", WO_NORM_CASES)
+def test_wo_norm_kernel_bitwise_vs_plain(cuda, name, packed, rows, d, K, rng):
+    lut, M = _lut(name, packed, cuda)
+    x, attn = _randn(rng, (rows, d), cuda), _randn(rng, (rows, K), cuda)
+    g2, wo = 1 + 0.1 * _randn(rng, (d,), cuda), _randn(rng, (K, d), cuda) * K ** -0.5
+    for bias in ({}, {"bo": 0.1 * _randn(rng, (d,), cuda)}):
+        out = decode_chain.fused_wo_norm(x, attn, g2, wo, lut, M, eps=1e-5, **bias)
+        ref = decode_chain.fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=1e-5, **bias)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_wo_norm_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, rng):
+    lut, M = _lut(name, packed, cuda)
+    cfg = get_arch("granite-moe-3b-a800m")
+    d, K = cfg.d_model, cfg.n_heads * cfg.head_dim
+    x, attn = _randn(rng, (4, d), cuda), _randn(rng, (4, K), cuda)
+    g2, wo = 1 + 0.1 * _randn(rng, (d,), cuda), _randn(rng, (K, d), cuda) * K ** -0.5
+    for bias in ({}, {"bo": 0.1 * _randn(rng, (d,), cuda)}):
+        out = decode_chain.fused_wo_norm(x, attn, g2, wo, lut, M, eps=1e-5, **bias)
+        ref = decode_chain.fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=1e-5, **bias)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+# (E, C, d, F): ragged shapes with two k-tiles, two column tiles and two row
+# groups; then granite-moe-3b-a800m's banks at a decode step (C = 8) and a
+# prefill of 4 x 64 tokens (C = 64).
+MOE_CASES = [(3, 8, 160, 300), (2, 13, 130, 40), (1, 1, 5, 3)]
+MOE_FULL = [(40, 8, 1536, 512), (40, 64, 1536, 512)]
+
+
+def _moe_inputs(E, C, d, F, rng, device):
+    return (_randn(rng, (E, C, d), device), _randn(rng, (E, d, F), device) * d ** -0.5,
+            _randn(rng, (E, d, F), device) * d ** -0.5, _randn(rng, (E, F, d), device) * F ** -0.5)
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("E,C,d,F", MOE_CASES)
+def test_moe_ffn_kernel_bitwise_vs_plain(cuda, name, packed, E, C, d, F, rng):
+    lut, M = _lut(name, packed, cuda)
+    args = _moe_inputs(E, C, d, F, rng, cuda)
+    out = decode_chain.fused_moe_ffn(*args, lut, M)
+    ref = decode_chain.fused_moe_ffn_plain(*args, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("E,C,d,F", MOE_FULL)
+def test_moe_ffn_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, E, C, d, F, rng):
+    lut, M = _lut(name, packed, cuda)
+    args = _moe_inputs(E, C, d, F, rng, cuda)
+    out = decode_chain.fused_moe_ffn(*args, lut, M)
+    ref = decode_chain.fused_moe_ffn_plain(*args, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+MOE_COUNTERS = (approx_gemm.approx_gemm, approx_gemm.approx_gemm_batched,
+                approx_attention.approx_attention, decode_chain.fused_qkv_norm,
+                decode_chain.fused_wo_norm, decode_chain.fused_moe_ffn)
+
+
+@pytest.mark.parametrize("max_c", [ops.MOE_FFN_MAX_C, 0])
+def test_moe_serving_runs_through_the_kernels_bitwise(cuda, monkeypatch, max_c):
+    """reduced granite-moe-3b-a800m, 2 layers: the prefill is 5 GEMMs
+    (wq, wk, wv, wo, router), one attention and the expert-bank launch a
+    layer (or, with the capacity bound at 0, three batched GEMMs a layer)
+    plus the head; each decode step qkv, attention, wo+norm, the router
+    GEMM and the expert-bank launch a layer plus the head; tokens and
+    logits bitwise equal to amsim_torch."""
+    monkeypatch.setattr(ops, "MOE_FFN_MAX_C", max_c)
+    cfg = reduced(get_arch("granite-moe-3b-a800m"), n_layers=2)
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(1))
+    for fn in MOE_COUNTERS:
+        fn.launches = 0
+    out, logits = _serve(model, "amsim", 16, prompts)
+    torch.cuda.synchronize()
+    got = tuple(fn.launches for fn in MOE_COUNTERS)
+    L, steps = cfg.n_layers, 3
+    batched = max_c == 0
+    banks = L * (1 + steps)        # expert FFNs: one a layer, prefill and every step
+    want = (5 * L + 1 + (L + 1) * steps, 3 * banks if batched else 0, L * (1 + steps),
+            L * steps, L * steps, 0 if batched else banks)
+    assert got == want
+    ref_out, ref_logits = _serve(model, "amsim_torch", 16, prompts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref_out) and torch.equal(logits, ref_logits)
+
+
+def test_amsim_moe_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    for module, names in ((decode_chain, ("fused_qkv_norm_plain", "fused_wo_norm_plain",
+                                          "fused_moe_ffn_plain")),
+                          (approx_attention, ("approx_attention_plain",)),
+                          (approx_gemm, ("approx_gemm_plain", "approx_gemm_batched_plain")),
+                          (ops, ("fused_qkv_norm_plain", "fused_wo_norm_plain",
+                                 "fused_moe_ffn_plain", "attend_einsum", "ref_amsim_gemm"))):
+        for name in names:
+            monkeypatch.setattr(module, name, refuse)
+    cfg = reduced(get_arch("granite-moe-3b-a800m"), n_layers=1)
+    model = init_lm(cfg, device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 5), generator=torch.Generator().manual_seed(1))
+    for max_c in (ops.MOE_FFN_MAX_C, 0):
+        monkeypatch.setattr(ops, "MOE_FFN_MAX_C", max_c)
+        out, _ = _serve(model, "amsim", 16, prompts)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 4)

@@ -159,9 +159,11 @@ def test_amsim_torch_conv_equals_plain_kernel_version(rng):
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
-def test_batched_matmul_waits_for_a_later_slice():
-    """Under amsim an equal-batch product needs the batched kernel, which
-    the MoE serving slice ports (amsim_torch folds it in plain PyTorch)."""
-    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ops.policy_matmul(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5)), pol)
+def test_batched_matmul_waits_for_a_later_slice(rng):
+    """Under amsim an equal-batch product runs ``approx_gemm_batched``; on
+    CPU tensors its plain version, which gives the bits of amsim_torch."""
+    a = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 4, 5)).astype(np.float32))
+    out = ops.policy_matmul(a, b, NumericsPolicy(mode="amsim", multiplier="afm16"))
+    ref = ops.policy_matmul(a, b, NumericsPolicy(mode="amsim_torch", multiplier="afm16"))
+    assert torch.equal(out, ref)
