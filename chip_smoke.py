@@ -48,8 +48,9 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     plain versions at the serving path's full-width shapes, with afm16
     packed (shared memory) and afm10 packed (global memory): causal
     prefill, decode over a ring with unwritten slots, both decode forms;
-    every result bitwise equal; and the kernels' expf/rsqrtf against
-    torch.exp/torch.rsqrt over a sweep of float32;
+    every result bitwise equal; the back half's cooperative grid (blocks
+    on the card's SMs, work items of each phase); and the kernels'
+    expf/rsqrtf against torch.exp/torch.rsqrt over a sweep of float32;
  4c. depth 2, batch 2, prompt 16, 8 new tokens, with a ring of 64 slots
     (2 chain launches a layer) and of 160 (3): logits and tokens under
     ``amsim`` bitwise equal to ``amsim_torch``; the counters must read 7
@@ -59,7 +60,7 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     ``amsim`` and ``native``: prefill ms, ms per decode step, tokens/s,
     device idle share, the amsim/native ratio, and each serving kernel's
     device time per prefill and per decode step beside its bound and its
-    plain version's time.
+    plain version's time, and the back half's grid at the run's shapes.
 MoE serving (granite-moe-3b-a800m at full width,
 ``configs/granite_moe_3b_a800m.py``):
  3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
@@ -304,6 +305,10 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
              chain.fused_attn_out_mlp(x, *sargs, *back, lut, M, eps=cfg.norm_eps),
              chain.fused_attn_out_mlp_plain(x, *sargs, *back, lut, M, eps=cfg.norm_eps,
                                             causal=True, window=0), tag)
+        for kname, heads in (("fused_out_mlp", 0), ("fused_attn_out_mlp", H)):
+            print(f"{tag}: {kname} grid at {B} rows (blocks on "
+                  f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, work items "
+                  f"a phase): {chain.back_half_grid(B, d, F, lut, heads=heads, dh=dh)}")
         print(f"serving kernels == plain (bitwise): {tag} LUT at {LM_ARCH} widths: attention "
               f"prefill {tuple(q.shape)} over a ring of {T_short} and decode over {LONG_RING}; "
               f"qkv, out-mlp and attention+out-mlp at {B} rows")
@@ -573,6 +578,11 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
         tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
         ops_bound = lookups / lookups_per_s >= nbytes / HBM_BYTES_PER_S
         per[(ctx, kname)] = (n, t * n, tp * n, tb * n, ops_bound)
+        if kname in ("fused_out_mlp", "fused_attn_out_mlp"):
+            heads = cfg.n_heads if kname == "fused_attn_out_mlp" else 0
+            grid = chain.back_half_grid(B, cfg.d_model, cfg.d_ff, args[LUT_ARG[kname]],
+                                        heads=heads, dh=cfg.head_dim)
+            print(f"  {ctx}: {kname} grid at {B} rows (work items a phase): {grid}")
         print(f"  {ctx}: {kname}: {t * n:.4f} ms over {n} launches ({t:.4f} ms each), bound "
               f"{tb * n:.4f} ms ({'operations' if ops_bound else 'bytes'}: {nbytes} B, "
               f"{lookups} lookups a launch), plain {tp * n:.2f} ms")

@@ -26,15 +26,34 @@
 // gate/up columns of every expert (into an (E, C, F) scratch) and the down
 // projection.
 //
-// What bounds it on the H100: the weight stream.  x has `rows` = batch
-// rows, so each weight element is read once per launch and meets `rows`
-// LUT lookups: each thread owns one output column and the accumulators of
-// up to kRows rows, the block stages the activations a k-tile at a time in
-// shared memory, and consecutive threads read consecutive weight columns.
-// The expert banks hold C capacity rows an expert; blocks walk (expert,
-// row group of kRows, column tile) work items, so C > kRows re-reads the
-// expert's weights once a row group (from L2 when the group's items run
-// together).  The LUT sits in shared memory when it is <= 128 KiB.
+// What bounds it on the H100.  x has `rows` = batch rows, so each weight
+// element is read once per launch and meets `rows` LUT lookups: the bytes
+// bound is the weight stream, but at a few rows the ~20 integer
+// instructions of a lookup (amsim::mul) cost more than the bytes, and what
+// a design has to buy is SMs kept busy and weight loads kept out of the
+// lookups' way.
+//
+// fused_qkv_norm, fused_wo_norm and fused_moe_ffn fold with fold_tile: each
+// thread owns one output column and the accumulators of up to kRows rows,
+// the block stages the activations a k-tile at a time in shared memory,
+// and consecutive threads read consecutive weight columns.  The expert
+// banks hold C capacity rows an expert; blocks walk (expert, row group of
+// kRows, column tile) work items, so C > kRows re-reads the expert's
+// weights once a row group (from L2 when the group's items run together).
+//
+// fused_out_mlp and fused_attn_out_mlp fold with fold_cols, which splits
+// each output's products from its adds.  A work item is a row group and a
+// narrow tile of CT columns (32 for the gate/up columns, 8 for wo and wd,
+// whose n = d is 4x smaller), so every phase has hundreds of items and the
+// cooperative grid fills every SM (granite-3-2b at 4 rows: 256 items a
+// phase, 2 blocks a SM).  The item's weight columns come into shared
+// memory a k-chunk at a time by cp.async, in a ring of kStages chunks, so
+// the next chunks are in flight while one is folded.  All 256 threads
+// compute a chunk's products (each an independent lookup) into shared
+// memory; the thread that owns an output then adds its chunk's products in
+// k order, one chunk behind.  The tile and chunk sizes were chosen by
+// timing on the H100 (PERF.md).
+// The LUT sits in shared memory when it is <= 128 KiB.
 //
 // Every output folds its products in contraction order from +0.0 (the
 // order of kernels/ref.py:ref_amsim_gemm), the rmsnorm sum of squares runs
@@ -54,6 +73,12 @@ namespace {
 
 constexpr int kRows = 8;    // rows a thread accumulates at once
 constexpr int kKT = 128;    // contraction values staged per tile
+// fold_cols: weight floats a k-chunk stages (k steps x CT columns of one
+// matrix, or of two side by side), and the depth of the cp.async ring.
+constexpr int kChunk = 1024;
+constexpr int kStages = 3;
+constexpr int kWideCols = 32;    // gate/up column tile: one 128-byte segment a weight row
+constexpr int kNarrowCols = 8;   // wo and wd column tile: one 32-byte sector
 
 // Shared memory after the LUT: the activation tile, the norm scales, and
 // (attention phase) a q row per warp.
@@ -154,6 +179,169 @@ __device__ void column_fold(int n, int kdim, int nr, const float* w1, const floa
   }
 }
 
+// 4 bytes from global to shared memory, asynchronously; zeros when !full.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// fold_cols's shared memory: the weight ring, the activations of a chunk
+// and its products, both double-buffered; products of up to `nrmax` rows.
+// A matrix's chunk of KCN = kChunk / (1 + kDual) floats holds KC = KCN / CT
+// k steps; a row's products of a chunk are padded by a column tile so that
+// the owners of rows r and r + 1 read other banks.
+constexpr int kActFloats = kChunk / kNarrowCols * kRows;
+constexpr int kProdFloats = kChunk + 2 * kWideCols;   // a row's products, both matrices
+struct FoldBufs {
+  float* w;   // kStages x kChunk: matrix m's (kk, j) at [m * KCN + kk * CT + j]
+  float* a;   // 2 x kActFloats: A(r, k0 + kk) at [kk * kRows + r]
+  float* p;   // 2 x nrmax x kProdFloats: matrix m's (r, kk, j) at
+              // [m * nrmax * (KCN + CT) + r * (KCN + CT) + kk * CT + j]
+  int nrmax;
+};
+
+// The rows whose products a block buffers: one row group at most, so the
+// buffers do not grow with the batch.
+__host__ __device__ constexpr int fold_nrmax(int rows) { return rows < kRows ? rows : kRows; }
+
+__host__ __device__ constexpr int fold_bytes(int rows) {
+  return (kStages * kChunk + 2 * kActFloats + 2 * fold_nrmax(rows) * kProdFloats) * 4;
+}
+
+// Work items of fold_cols: (row group of kRows, tile of CT columns).
+template <int CT>
+__host__ __device__ long long fold_items(int rows, int n) {
+  return static_cast<long long>((rows + kRows - 1) / kRows) * ((n + CT - 1) / CT);
+}
+
+// For every row r < rows and column j < n of the (kdim, n) weights w1 (and
+// w2 when kDual): acc[r, j] = sum_k amsim(A(r, k), w[k, j]), k in order
+// from +0.0, then epi(r, j, acc1, acc2).  stage(r, k) gives A(r, k);
+// prep(r0, nr) runs before each item of rows r0 .. r0 + nr (a block-wide
+// call, or nothing).  Blocks stride over the items; every thread of the
+// block calls it.
+//
+// An item folds kdim / KC chunks.  Iteration i waits for weight chunk i,
+// issues chunk i + kStages - 1, computes chunk i's products, adds chunk
+// i - 1's and stores A of chunk i + 1, loaded into registers before the
+// products.  One block barrier an iteration orders all of it.  Thread t
+// stages and multiplies the chunk's elements e = t + p * kThreads (k step
+// e / CT, column t % CT) for every row, rows outermost, so that the
+// kElems x (1 + kDual) products of a row are independent of each other;
+// past kdim and n both operands are staged as zeros, and no owner reads
+// those products.  The owner of (r, j) is thread r * CT + j.
+template <int CT, typename LutT, bool kSmem, bool kDual, typename Prep, typename Stage,
+          typename Epi>
+__device__ void fold_cols(int rows, int n, int kdim, const float* w1, const float* w2, Prep prep,
+                          Stage stage, Epi epi, const LutT* lut, int M, const FoldBufs& fb) {
+  constexpr int KCN = kDual ? kChunk / 2 : kChunk;
+  constexpr int KC = KCN / CT;
+  constexpr int kElems = KCN / amsim::kThreads;
+  constexpr int kA = (KC * kRows + amsim::kThreads - 1) / amsim::kThreads;
+  static_assert(KC * CT == KCN && KCN % amsim::kThreads == 0 && KC * kRows <= kActFloats &&
+                    (1 + kDual) * (KCN + CT) <= kProdFloats,
+                "a chunk's elements fill the block's threads and its buffers");
+  const int tiles = (n + CT - 1) / CT;
+  const int nchunks = (kdim + KC - 1) / KC;
+  const long long items = fold_items<CT>(rows, n);
+  const int own_r = threadIdx.x / CT;
+  const int own_j = threadIdx.x % CT;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int c0 = static_cast<int>(it % tiles) * CT;
+    const int r0 = static_cast<int>(it / tiles) * kRows;
+    const int nr = min(kRows, rows - r0);
+    const int col = c0 + own_j;
+    __syncthreads();  // the previous item is done with every buffer
+    prep(r0, nr);
+    auto issue = [&](int c) {
+      if (c < nchunks) {
+        float* dst = fb.w + (c % kStages) * kChunk;
+#pragma unroll
+        for (int p = 0; p < kElems; ++p) {
+          const int e = threadIdx.x + p * amsim::kThreads;
+          const int k = c * KC + e / CT;
+          const bool ok = k < kdim && col < n;
+          const size_t g = ok ? static_cast<size_t>(k) * n + col : 0;
+          cp_async4(dst + e, w1 + g, ok);
+          if (kDual) cp_async4(dst + KCN + e, w2 + g, ok);
+        }
+      }
+      cp_async_commit();
+    };
+    auto load_a = [&](int c, float (&regs)[kA]) {
+#pragma unroll
+      for (int q = 0; q < kA; ++q) {
+        const int e = threadIdx.x + q * amsim::kThreads;
+        const int r = e % kRows;
+        const int k = c * KC + e / kRows;
+        regs[q] = (e < KC * kRows && r < nr && k < kdim) ? stage(r0 + r, k) : 0.0f;
+      }
+    };
+    auto store_a = [&](int buf, const float (&regs)[kA]) {
+#pragma unroll
+      for (int q = 0; q < kA; ++q) {
+        const int e = threadIdx.x + q * amsim::kThreads;
+        if (e < KC * kRows) fb.a[buf * kActFloats + e] = regs[q];
+      }
+    };
+    for (int c = 0; c < kStages - 1; ++c) issue(c);
+    float regs[kA];
+    load_a(0, regs);
+    store_a(0, regs);
+    float acc1 = 0.0f, acc2 = 0.0f;
+    for (int i = 0; i <= nchunks; ++i) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      issue(i + kStages - 1);
+      if (i + 1 < nchunks) load_a(i + 1, regs);
+      if (i < nchunks) {
+        const float* ws = fb.w + (i % kStages) * kChunk;
+        const float* as = fb.a + (i & 1) * kActFloats;
+        float* p1 = fb.p + (i & 1) * fb.nrmax * kProdFloats;
+        float* p2 = p1 + fb.nrmax * (KCN + CT);
+        uint32_t u1[kElems], u2[kElems];
+#pragma unroll
+        for (int p = 0; p < kElems; ++p) {
+          u1[p] = __float_as_uint(ws[threadIdx.x + p * amsim::kThreads]);
+          u2[p] = kDual ? __float_as_uint(ws[KCN + threadIdx.x + p * amsim::kThreads]) : 0u;
+        }
+#pragma unroll 2
+        for (int r = 0; r < nr; ++r) {
+#pragma unroll
+          for (int p = 0; p < kElems; ++p) {
+            const int e = threadIdx.x + p * amsim::kThreads;
+            const uint32_t hv = __float_as_uint(as[(e / CT) * kRows + r]);
+            const int o = r * (KCN + CT) + e;
+            p1[o] = amsim::mul<LutT, kSmem>(hv, u1[p], lut, M);
+            if (kDual) p2[o] = amsim::mul<LutT, kSmem>(hv, u2[p], lut, M);
+          }
+        }
+      }
+      if (i >= 1 && own_r < nr) {
+        const int kt = min(KC, kdim - (i - 1) * KC);
+        const float* q1 = fb.p + ((i - 1) & 1) * fb.nrmax * kProdFloats + own_r * (KCN + CT) +
+                          own_j;
+        const float* q2 = q1 + fb.nrmax * (KCN + CT);
+#pragma unroll 8
+        for (int kk = 0; kk < kt; ++kk) {
+          acc1 = __fadd_rn(acc1, q1[kk * CT]);
+          if (kDual) acc2 = __fadd_rn(acc2, q2[kk * CT]);
+        }
+      }
+      if (i + 1 < nchunks) store_a((i + 1) & 1, regs);
+    }
+    if (own_r < nr && col < n) epi(r0 + own_r, col, acc1, acc2);
+  }
+}
+
 // Where the LUT and the scratch of a block live in shared memory.
 template <typename LutT, bool kSmem>
 struct Smem {
@@ -182,6 +370,43 @@ __device__ Smem<LutT, kSmem> carve(unsigned char* smem, const LutT* lut_g, int l
 int smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats) {
   return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + kTileBytes + amsim::align16(kRinvBytes) +
          amsim::kWarps * qrow_floats * 4;
+}
+
+// The shared memory of the two fold_cols kernels: the LUT, the norm
+// scales, a q row a warp (attention phase) and fold_cols's buffers.
+template <typename LutT>
+struct FoldSmem {
+  const LutT* lut;
+  float* rinv;
+  float* qrows;
+  FoldBufs fb;
+};
+
+int fold_smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats, int rows) {
+  return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + amsim::align16(kRinvBytes) +
+         amsim::align16(amsim::kWarps * qrow_floats * 4) + fold_bytes(rows);
+}
+
+template <typename LutT, bool kSmem>
+__device__ FoldSmem<LutT> carve_fold(unsigned char* smem, const LutT* lut_g, int lut_bytes,
+                                     int qrow_floats, int rows) {
+  FoldSmem<LutT> s;
+  int off = 0;
+  s.lut = lut_g;
+  if constexpr (kSmem) {
+    amsim::stage_lut(smem, lut_g, lut_bytes);
+    s.lut = reinterpret_cast<const LutT*>(smem);
+    off = amsim::align16(lut_bytes);
+  }
+  s.rinv = reinterpret_cast<float*>(smem + off);
+  off += amsim::align16(kRinvBytes);
+  s.qrows = reinterpret_cast<float*>(smem + off);
+  off += amsim::align16(amsim::kWarps * qrow_floats * 4);
+  s.fb.nrmax = fold_nrmax(rows);
+  s.fb.w = reinterpret_cast<float*>(smem + off);
+  s.fb.a = s.fb.w + kStages * kChunk;
+  s.fb.p = s.fb.a + 2 * kActFloats;
+  return s;
 }
 
 // ---------------------------------------------------------- fused_qkv_norm
@@ -218,8 +443,8 @@ qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   }
 }
 
-// ------------------------------------------------- the back half's phases
-// Phase A of the back half: x1 = x + (attn @ wo (+ bo)) for every row.
+// ----------------------------------------------------------- fused_wo_norm
+// Its first phase: x1 = x + (attn @ wo (+ bo)) for every row.
 template <typename LutT, bool kSmem>
 __device__ void wo_residual(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
   for (int r0 = 0; r0 < c.rows; r0 += kRows) {
@@ -236,49 +461,53 @@ __device__ void wo_residual(const Chain& c, const Smem<LutT, kSmem>& sm, int M) 
   }
 }
 
+// ------------------------------------------------- the back half's phases
 template <typename LutT, bool kSmem>
-__device__ void out_mlp_phases(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
+__device__ void out_mlp_phases(const Chain& c, const FoldSmem<LutT>& sm, int M) {
   cg::grid_group grid = cg::this_grid();
+  auto no_prep = [](int, int) {};
   // Phase A: x1 = x + (attn @ wo (+ bo)).
-  wo_residual<LutT, kSmem>(c, sm, M);
+  fold_cols<kNarrowCols, LutT, kSmem, false>(
+      c.rows, c.d, c.K, c.wo, nullptr, no_prep,
+      [&](int r, int k) { return c.attn[static_cast<size_t>(r) * c.K + k]; },
+      [&](int r, int j, float acc, float) {
+        const float y = c.bo ? __fadd_rn(acc, c.bo[j]) : acc;
+        const size_t i = static_cast<size_t>(r) * c.d + j;
+        c.x1[i] = __fadd_rn(c.x[i], y);
+      },
+      sm.lut, M, sm.fb);
   grid.sync();
-  // Phase B: h = rmsnorm(x1; g); act = silu(h @ wg) * (h @ wu).
-  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
-    const int nr = min(kRows, c.rows - r0);
-    row_rinv(c.x1, c.d, r0, nr, c.eps, sm.rinv);
-    column_fold<LutT, kSmem, true>(
-        c.F, c.d, nr, c.wg, c.wu,
-        [&](int r, int k) {
-          return __fmul_rn(__fmul_rn(c.x1[static_cast<size_t>(r0 + r) * c.d + k], sm.rinv[r]),
-                           c.g[k]);
-        },
-        [&](int r, int j, float g, float u) {
-          c.act[static_cast<size_t>(r0 + r) * c.F + j] = __fmul_rn(silu(g), u);
-        },
-        sm.lut, M, sm.tile);
-    __syncthreads();
-  }
+  // Phase B: h = rmsnorm(x1; g); act = silu(h @ wg) * (h @ wu).  Each item
+  // computes the norm scales of its row group.
+  fold_cols<kWideCols, LutT, kSmem, true>(
+      c.rows, c.F, c.d, c.wg, c.wu,
+      [&](int r0, int nr) { row_rinv(c.x1, c.d, r0, nr, c.eps, sm.rinv); },
+      [&](int r, int k) {
+        return __fmul_rn(__fmul_rn(c.x1[static_cast<size_t>(r) * c.d + k], sm.rinv[r % kRows]),
+                         c.g[k]);
+      },
+      [&](int r, int j, float g, float u) {
+        c.act[static_cast<size_t>(r) * c.F + j] = __fmul_rn(silu(g), u);
+      },
+      sm.lut, M, sm.fb);
   grid.sync();
   // Phase C: out = x1 + (act @ wd (+ bd)).
-  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
-    const int nr = min(kRows, c.rows - r0);
-    column_fold<LutT, kSmem, false>(
-        c.d, c.F, nr, c.wd, nullptr,
-        [&](int r, int k) { return c.act[static_cast<size_t>(r0 + r) * c.F + k]; },
-        [&](int r, int j, float acc, float) {
-          const float y = c.bd ? __fadd_rn(acc, c.bd[j]) : acc;
-          const size_t i = static_cast<size_t>(r0 + r) * c.d + j;
-          c.out[i] = __fadd_rn(c.x1[i], y);
-        },
-        sm.lut, M, sm.tile);
-  }
+  fold_cols<kNarrowCols, LutT, kSmem, false>(
+      c.rows, c.d, c.F, c.wd, nullptr, no_prep,
+      [&](int r, int k) { return c.act[static_cast<size_t>(r) * c.F + k]; },
+      [&](int r, int j, float acc, float) {
+        const float y = c.bd ? __fadd_rn(acc, c.bd[j]) : acc;
+        const size_t i = static_cast<size_t>(r) * c.d + j;
+        c.out[i] = __fadd_rn(c.x1[i], y);
+      },
+      sm.lut, M, sm.fb);
 }
 
 template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 out_mlp_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, c.rows);
   out_mlp_phases<LutT, kSmem>(c, sm, M);
 }
 
@@ -287,13 +516,12 @@ __global__ void __launch_bounds__(amsim::kThreads)
 attn_out_mlp_kernel(Chain c, amsim::Attn a, float* attn, float* scores, int scratch_warps,
                     const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, a.dh, c.rows);
   amsim::attention_rows<LutT, kSmem>(a, sm.lut, M, sm.qrows, scores, scratch_warps, attn);
   cg::this_grid().sync();
   out_mlp_phases<LutT, kSmem>(c, sm, M);
 }
 
-// ----------------------------------------------------------- fused_wo_norm
 // Chain's x, attn, g (= g2), wo, bo, x1, rows, d, K, eps; `out` holds h.
 template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
@@ -385,6 +613,32 @@ cudaError_t launch_cooperative(Kernel kernel, int smem, long long work_blocks, v
   return cudaGetLastError();
 }
 
+// The work of a back-half launch: items[0..2] are the work items of the
+// wo, gate/up and down phases, items[3] the attention phase's blocks (a
+// warp a query row); the grid is sized to the largest.
+long long back_half_work(int rows, int d, int F, int heads, long long items[4]) {
+  items[0] = fold_items<kNarrowCols>(rows, d);
+  items[1] = fold_items<kWideCols>(rows, F);
+  items[2] = items[0];
+  items[3] = (static_cast<long long>(rows) * heads + amsim::kWarps - 1) / amsim::kWarps;
+  return std::max({items[0], items[1], items[2], items[3]});
+}
+
+// f(kernel, shared memory bytes) of fused_attn_out_mlp (heads > 0) or
+// fused_out_mlp for the LUT layout.
+template <typename F>
+cudaError_t with_back_half(int heads, int dh, int rows, int packed, int smem_lut, int lut_bytes,
+                           F&& f) {
+  return amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    if (heads > 0) {
+      return f(attn_out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, dh, rows));
+    }
+    return f(out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows));
+  });
+}
+
 }  // namespace
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
@@ -418,16 +672,14 @@ extern "C" int fused_out_mlp_f32(const float* x, const float* attn, const float*
                                  int d, int K, int F, float eps, int M, int packed, int smem_lut,
                                  int lut_bytes, void* stream) {
   Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
-    using LutT = typename decltype(kind)::T;
-    constexpr bool kSmem = decltype(kind)::smem;
-    const LutT* lut_t = static_cast<const LutT*>(lut);
-    int m = M, lb = lut_bytes;
-    void* args[] = {&c, &lut_t, &m, &lb};
-    return launch_cooperative(out_mlp_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
-                              column_tiles(std::max(d, F)), args, s);
-  }));
+  int m = M, lb = lut_bytes;
+  void* args[] = {&c, &lut, &m, &lb};
+  long long items[4];
+  const long long work = back_half_work(rows, d, F, 0, items);
+  return static_cast<int>(
+      with_back_half(0, 0, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+        return launch_cooperative(kernel, smem, work, args, static_cast<cudaStream_t>(stream));
+      }));
 }
 
 extern "C" int fused_attn_out_mlp_f32(
@@ -439,19 +691,31 @@ extern "C" int fused_attn_out_mlp_f32(
     int smem_lut, int lut_bytes, void* stream) {
   Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
   amsim::Attn a{q, k, v, q_pos, k_pos, rows, 1, H, KV, T, dh, causal, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
-    using LutT = typename decltype(kind)::T;
-    constexpr bool kSmem = decltype(kind)::smem;
-    const LutT* lut_t = static_cast<const LutT*>(lut);
-    int m = M, lb = lut_bytes, sw = scratch_warps;
-    void* args[] = {&c, &a, &attn, &scores, &sw, &lut_t, &m, &lb};
-    const long long attn_blocks = (static_cast<long long>(rows) * H + amsim::kWarps - 1) /
-                                  amsim::kWarps;
-    return launch_cooperative(attn_out_mlp_kernel<LutT, kSmem>,
-                              smem_bytes(kSmem, lut_bytes, dh),
-                              std::max(column_tiles(std::max(d, F)), attn_blocks), args, s);
-  }));
+  int m = M, lb = lut_bytes, sw = scratch_warps;
+  void* args[] = {&c, &a, &attn, &scores, &sw, &lut, &m, &lb};
+  long long items[4];
+  const long long work = back_half_work(rows, d, F, H, items);
+  return static_cast<int>(
+      with_back_half(H, dh, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+        return launch_cooperative(kernel, smem, work, args, static_cast<cudaStream_t>(stream));
+      }));
+}
+
+// The grid a back-half launch of these shapes takes, without launching:
+// out = {blocks, wo items, gate/up items, down items, attention blocks}
+// (heads = 0: fused_out_mlp, no attention phase).
+extern "C" int back_half_grid(int rows, int d, int F, int heads, int dh, int packed,
+                              int smem_lut, int lut_bytes, long long* out, void*) {
+  long long items[4];
+  const long long work = back_half_work(rows, d, F, heads, items);
+  for (int i = 0; i < 4; ++i) out[i + 1] = items[i];
+  return static_cast<int>(
+      with_back_half(heads, dh, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+        int blocks = 0;
+        const cudaError_t err = amsim::grid_size(kernel, smem, work, &blocks);
+        out[0] = blocks;
+        return err;
+      }));
 }
 
 extern "C" int fused_wo_norm_f32(const float* x, const float* attn, const float* g2,

@@ -36,6 +36,8 @@ So a chained launch is bit for bit the composition of its plain parts.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .approx_attention import (approx_attention_plain, check_attention_operands,
@@ -290,6 +292,18 @@ def fused_moe_ffn(h, wg, wu, wd, lut, M: int):
 
 
 fused_moe_ffn.launches = 0
+
+
+def back_half_grid(rows: int, d: int, F: int, lut, *, heads: int = 0, dh: int = 0) -> dict:
+    """The grid that ``fused_out_mlp`` (``heads`` = 0) or
+    ``fused_attn_out_mlp`` takes at these shapes on the current card,
+    without launching: the cooperative blocks and each phase's work items
+    (``wo``, ``gate_up``, ``down``; ``attention``: blocks of a warp a query
+    row).  ``lut`` is the CUDA table the launch would read."""
+    out = (ctypes.c_longlong * 5)()
+    call_kernel("decode_chain", "back_half_grid", lut.device, rows, d, F, heads, dh,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
+    return dict(zip(("blocks", "wo", "gate_up", "down", "attention"), out))
 
 
 def device_exp_rsqrt(x: torch.Tensor):

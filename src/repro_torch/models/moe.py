@@ -52,10 +52,14 @@ def init_moe(cfg: ArchConfig, *, generator: torch.Generator) -> dict:
 
 def route(router, xf: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy):
     """xf (T, d) -> (router probs (T, E), renormalised gates (T, k), chosen
-    experts (T, k)), the top-k of the float32 softmax of the router GEMM."""
+    experts (T, k)), the top-k of the float32 softmax of the router GEMM.
+    Among equal probabilities the lower expert index comes first, as in
+    ``jax.lax.top_k`` (``torch.topk`` fixes no order for ties): the first k
+    of a stable descending sort."""
     logits = linear(router, xf, policy, site="router")
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    gate, sel = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, sel = gate[:, :cfg.moe.top_k], sel[:, :cfg.moe.top_k]
     return probs, gate / gate.sum(dim=-1, keepdim=True), sel
 
 

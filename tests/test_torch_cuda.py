@@ -20,7 +20,8 @@ from repro_torch.core.policy import NumericsPolicy  # noqa: E402
 from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
                                  decode_chain, ops)
 from repro_torch.kernels.common import POS_PAD, lut_tensor  # noqa: E402
-from repro_torch.models import vision  # noqa: E402
+from repro_torch.models import moe, vision  # noqa: E402
+from repro_torch.models.layers import Linear  # noqa: E402
 from repro_torch.models.transformer import init_lm  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.optim.optimizers import sgdm  # noqa: E402
@@ -246,9 +247,16 @@ def test_attention_kernel_bitwise_vs_plain(cuda, name, packed, case, rng):
 
 
 # (rows, d, H, KV, dh, F): two k-tiles and two column tiles of the chain
-# kernels at 160/300, two row groups at 9 rows; then granite-3-2b's widths.
+# kernels at 160/300, two row groups at 9 rows; rows 4 and 8 at a d and F
+# that are multiples of neither the back half's column tiles (8, 32) nor
+# its k-chunks (128 k steps for wo and wd, 16 for gate/up); four row groups
+# at 32 rows, with a wo contraction of 148 (a full k-chunk, then a partial
+# one); then granite-3-2b's widths.
 CHAIN_CASES = [(1, 160, 4, 2, 40, 300), (3, 160, 4, 2, 40, 300), (9, 160, 4, 2, 40, 300),
+               (4, 130, 2, 1, 37, 301), (8, 130, 2, 1, 37, 301), (32, 130, 4, 1, 37, 301),
                (4, 2048, 32, 8, 64, 8192)]
+SMALL_CHAIN = range(len(CHAIN_CASES) - 1)
+FULL_LUTS = [("afm16", True), ("afm10", True)]     # one shared-memory, one global-memory table
 
 
 def _chain_inputs(case, rng, device):
@@ -264,7 +272,7 @@ def _chain_inputs(case, rng, device):
 @pytest.mark.parametrize("name,packed", LUTS)
 @pytest.mark.parametrize("case", range(len(CHAIN_CASES)))
 def test_chain_kernels_bitwise_vs_plain(cuda, name, packed, case, rng):
-    if case == len(CHAIN_CASES) - 1 and (name, packed) not in (("afm16", True), ("afm10", True)):
+    if case == len(CHAIN_CASES) - 1 and (name, packed) not in FULL_LUTS:
         pytest.skip("full width only with one shared-memory and one global-memory table")
     lut, M = _lut(name, packed, cuda)
     o = _chain_inputs(CHAIN_CASES[case], rng, cuda)
@@ -281,21 +289,53 @@ def test_chain_kernels_bitwise_vs_plain(cuda, name, packed, case, rng):
         assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("name,packed", LUTS)
-@pytest.mark.parametrize("T,written,window", [(20, 13, 0), (40, 45, 0), (128, 100, 16)])
-def test_attn_out_mlp_kernel_bitwise_vs_plain(cuda, name, packed, T, written, window, rng):
-    lut, M = _lut(name, packed, cuda)
-    rows, d, H, KV, dh, F = CHAIN_CASES[1]
-    o = _chain_inputs(CHAIN_CASES[1], rng, cuda)
+def _attn_out_mlp_bitwise(case, T, written, window, lut, M, rng, device, biases=()):
+    rows, d, H, KV, dh, F = case
+    o = _chain_inputs(case, rng, device)
     args, _ = _attention_inputs((rows, 1, H, KV, dh, T, [written - 1], _ring(T, written), True,
-                                 window), rng, cuda)
+                                 window), rng, device)
     tail = [o[n] for n in ("g", "wo", "wg", "wu", "wd")]
+    bias = {n: o[n] for n in biases}
     out = decode_chain.fused_attn_out_mlp(o["x"], *args, *tail, lut, M, eps=1e-5,
-                                          window=window, bo=o["bo"])
+                                          window=window, **bias)
     ref = decode_chain.fused_attn_out_mlp_plain(o["x"], *args, *tail, lut, M, eps=1e-5,
-                                                causal=True, window=window, bo=o["bo"])
+                                                causal=True, window=window, **bias)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("T,written,window", [(20, 13, 0), (40, 45, 0), (128, 100, 16)])
+@pytest.mark.parametrize("case", SMALL_CHAIN)
+def test_attn_out_mlp_kernel_bitwise_vs_plain(cuda, name, packed, T, written, window, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    _attn_out_mlp_bitwise(CHAIN_CASES[case], T, written, window, lut, M, rng, cuda, ("bo",))
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_attn_out_mlp_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, rng):
+    """granite-3-2b's widths, 4 rows, a ring of 96 slots with 70 written:
+    the 2-launch form of a decode step, with and without the biases."""
+    lut, M = _lut(name, packed, cuda)
+    for biases in ((), ("bo", "bd")):
+        _attn_out_mlp_bitwise(CHAIN_CASES[-1], 96, 70, 0, lut, M, rng, cuda, biases)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_back_half_grid_covers_every_sm(cuda, name, packed):
+    """granite-3-2b at 4 rows: 256 work items in each fold phase, and the
+    cooperative grid has a block on every SM, no more blocks than items; at
+    32 rows four row groups of them, in the same shared memory a block."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (4, 32):
+        groups = (rows + 7) // 8
+        for heads, dh in ((0, 0), (32, 64)):
+            g = decode_chain.back_half_grid(rows, 2048, 8192, lut, heads=heads, dh=dh)
+            items = 256 * groups
+            assert (g["wo"], g["gate_up"], g["down"], g["attention"]) == (
+                items, items, items, rows * heads // 8)
+            assert sms <= g["blocks"] <= items
 
 
 def test_kernel_exp_and_rsqrt_match_torch(cuda):
@@ -490,6 +530,29 @@ def test_moe_serving_runs_through_the_kernels_bitwise(cuda, monkeypatch, max_c):
     ref_out, ref_logits = _serve(model, "amsim_torch", 16, prompts)
     torch.cuda.synchronize()
     assert torch.equal(out, ref_out) and torch.equal(logits, ref_logits)
+
+
+@torch.no_grad()
+def test_tied_router_routes_alike_under_amsim_and_amsim_torch(cuda, rng):
+    """Router weights of zero tie every probability: under amsim and
+    amsim_torch every token picks experts 0 .. k-1 (the lower index first,
+    as jax.lax.top_k), and moe_ffn gives the same bits."""
+    cfg = reduced(get_arch("granite-moe-3b-a800m"), n_layers=1)
+    E, d, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    banks = {n: Linear(_randn(rng, shape, cuda) * shape[1] ** -0.5)
+             for n, shape in (("wg", (E, d, F)), ("wu", (E, d, F)), ("wd", (E, F, d)))}
+    p = torch.nn.ModuleDict({"router": Linear(torch.zeros(d, E, device=cuda)),
+                             "experts": torch.nn.ModuleDict(banks)})
+    x = _randn(rng, (2, 8, d), cuda)
+    results = {}
+    for mode in ("amsim", "amsim_torch"):
+        policy = NumericsPolicy(mode=mode, multiplier="afm16")
+        _, _, sel = moe.route(p["router"], x.reshape(-1, d), cfg, policy)
+        assert torch.equal(sel.cpu(), torch.arange(cfg.moe.top_k).expand(16, -1))
+        results[mode] = moe.moe_ffn(p, x, cfg, policy)
+    torch.cuda.synchronize()
+    (y, aux), (y_ref, aux_ref) = results["amsim"], results["amsim_torch"]
+    assert torch.equal(y, y_ref) and torch.equal(aux, aux_ref)
 
 
 def test_amsim_moe_serving_never_reaches_the_plain_versions(cuda, monkeypatch):

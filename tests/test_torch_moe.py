@@ -284,6 +284,49 @@ def test_moe_ffn_matches_jax(name, cf):
     np.testing.assert_allclose(aux.item(), float(jaux), **TOL)
 
 
+# Tied router probabilities: 40 equal ones (granite-moe-3b-a800m's experts,
+# top-8) and a row with three equal maxima (top-2).
+TIES = [(np.full(40, 1 / 40, np.float32), 8),
+        (np.array([0.1, 0.3, 0.3, 0.2, 0.3, 0.05], np.float32), 2)]
+
+
+@pytest.mark.parametrize("case", range(len(TIES)))
+@torch.no_grad()
+def test_route_breaks_ties_like_jax_top_k(case):
+    """Among equal probabilities the lower expert index comes first, as in
+    ``jax.lax.top_k``; the gates follow the chosen order.  A router of one
+    input holding log(probs) gives logits whose softmax keeps the ties."""
+    probs, k = TIES[case]
+    E = probs.shape[0]
+    cfg = dataclasses.replace(CFG, moe=dataclasses.replace(CFG.moe, n_experts=E, top_k=k))
+    router = Linear(torch.log(torch.from_numpy(probs))[None, :])
+    got_probs, gate, sel = moe.route(router, torch.ones(2, 1), cfg, NumericsPolicy())
+    jgate, jsel = jax.lax.top_k(jnp.asarray(got_probs.numpy()), k)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    np.testing.assert_array_equal(
+        gate.numpy(), np.asarray(jgate / jnp.sum(jgate, axis=-1, keepdims=True)))
+
+
+@torch.no_grad()
+def test_moe_ffn_matches_jax_with_a_tied_router():
+    """Router weights of zero tie every probability: both packages send
+    every token to experts 0 and 1 (the drops follow), y within TOL."""
+    p = jax.tree_util.tree_map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(2), JAX_CFG))
+    p["router"]["w"] = np.zeros_like(p["router"]["w"])
+    x = _r(np.random.default_rng(7), 4, 16, CFG.d_model)
+    T = x.shape[0] * x.shape[1]
+    policy, jpolicy = POLICIES["native"]
+    pm = _port_moe(p)
+    _, _, sel = moe.route(pm["router"], torch.from_numpy(x.reshape(T, -1)), CFG, policy)
+    jsel = _jax_route(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x.reshape(T, -1)),
+                      JAX_CFG, jpolicy)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    assert (sel.numpy() == np.arange(CFG.moe.top_k)).all()
+    y, _ = moe.moe_ffn(pm, torch.from_numpy(x), CFG, policy)
+    jy, _ = jmoe.moe_ffn(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x), JAX_CFG, jpolicy)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+
+
 @pytest.mark.parametrize("cf", [8.0, 0.5])
 @torch.no_grad()
 def test_moe_ffn_amsim_is_bitwise_amsim_torch(cf):
