@@ -60,14 +60,18 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     ``amsim`` and ``native``: prefill ms, ms per decode step, tokens/s,
     device idle share, the amsim/native ratio, and each serving kernel's
     device time per prefill and per decode step beside its bound and its
-    plain version's time, and the back half's grid at the run's shapes.
+    plain version's time, and the qkv and back-half grids at the run's
+    shapes (blocks, work items).
 MoE serving (granite-moe-3b-a800m at full width,
 ``configs/granite_moe_3b_a800m.py``):
  3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
     512 and a ragged shape, and the wo+norm and expert-bank chain kernels
     at 4 rows (with and without the wo bias) and at capacities 8 and 64,
-    against their plain versions with afm16 packed (shared memory) and
-    afm10 packed (global memory); every result bitwise equal;
+    on the buffer ``moe_ffn`` scatters for a decode step of 4 tokens, and
+    on one with dead rows (zero, -0.0 and subnormal rows between live ones,
+    an all-dead expert whose banks hold inf and NaN), against their plain
+    versions with afm16 packed (shared memory) and afm10 packed (global
+    memory); every result bit for bit equal (+0.0 and -0.0 differ);
  4d. depth 2, batch 2, prompt 16, 8 new tokens, ring 64: prefill logits,
     every decode step's logits and the tokens under ``amsim`` bitwise equal
     to ``amsim_torch``; then a prefill of 4 x 512 tokens (capacity 512: the
@@ -80,8 +84,12 @@ MoE serving (granite-moe-3b-a800m at full width,
  5d. full depth (32 layers), batch 4, prompt 64, 32 new tokens, ring 96,
     under ``amsim`` and ``native``: prefill ms, ms per decode step,
     tokens/s, device idle share, the amsim/native ratio; one timed prefill
-    of 4 x 512 tokens under both; and each new kernel's device time at the
-    shapes of these runs beside its bound and its plain version's time.
+    of 4 x 512 tokens under both; each kernel's device time at the
+    shapes of these runs beside its bound and its plain version's time,
+    the qkv grid, and the live rows, banks and grid of the measured decode
+    step's expert banks; and layer 0's expert FFN on the 4 x 512 prefill's
+    capacity-512 buffer by both routes (the expert-bank kernel and three
+    batched GEMMs): same bits, the device time of each.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -446,6 +454,13 @@ SERVE_SOURCES = {
 }
 
 
+def qkv_grid_of(args) -> dict:
+    """``decode_chain.qkv_grid`` of a captured ``fused_qkv_norm`` call."""
+    from repro_torch.kernels import decode_chain as chain
+    x, _, wq, wk, wv, lut = args[:6]
+    return chain.qkv_grid(x.shape[0], wq.shape[1], wk.shape[1], wv.shape[1], lut)
+
+
 def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) -> list:
     """Phase 5c: granite-3-2b at full width and depth, amsim and native;
     returns the four serving kernels' JSON rows."""
@@ -583,6 +598,8 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
             grid = chain.back_half_grid(B, cfg.d_model, cfg.d_ff, args[LUT_ARG[kname]],
                                         heads=heads, dh=cfg.head_dim)
             print(f"  {ctx}: {kname} grid at {B} rows (work items a phase): {grid}")
+        if kname == "fused_qkv_norm":
+            print(f"  {ctx}: {kname} grid at {B} rows: {qkv_grid_of(args)}")
         print(f"  {ctx}: {kname}: {t * n:.4f} ms over {n} launches ({t:.4f} ms each), bound "
               f"{tb * n:.4f} ms ({'operations' if ops_bound else 'bytes'}: {nbytes} B, "
               f"{lookups} lookups a launch), plain {tp * n:.2f} ms")
@@ -704,11 +721,22 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
     err = {k: 0.0 for k in MOE_SOURCES}
 
     def held(name, out, ref, what):
+        """Bit for bit: +0.0 and -0.0 differ here."""
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
         e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
-        require(all(torch.equal(a, b) for a, b in zip(outs, refs)), f"{name} {what}: max|d|={e}")
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(outs, refs)), f"{name} {what}: max|d|={e}")
         err[name] = max(err[name], e)
+
+    routed = routed_decode_buffer(dev, gen, cfg)
+    live = chain.live_rows(routed)
+    dead_rows = randn(E, 64, d)
+    tiny = (torch.randn((64, d), generator=gen) * 1e-39).to(dev)      # subnormal
+    dead_rows[0] = -tiny                          # expert 0: every row dead (inf/NaN banks)
+    dead_rows[1:, 1::4] = 0.0
+    dead_rows[1:, 2::4] = -0.0
+    dead_rows[1:, 3::4] = tiny[3::4]
 
     for lut_name, packed in SERVE_LUTS:
         lut, M = lut_case(lut_name, packed)
@@ -730,10 +758,36 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
             h = randn(E, C, d)
             held("fused_moe_ffn", chain.fused_moe_ffn(h, *banks, lut, M),
                  chain.fused_moe_ffn_plain(h, *banks, lut, M), f"{tag} C={C}")
+        held("fused_moe_ffn", chain.fused_moe_ffn(routed, *banks, lut, M),
+             chain.fused_moe_ffn_plain(routed, *banks, lut, M), f"{tag} routed decode buffer")
+        bad = [b.clone() for b in banks]
+        for b in bad:
+            b[0, ::3], b[0, 1::3], b[0, 2::3] = float("inf"), float("nan"), -float("inf")
+        held("fused_moe_ffn", chain.fused_moe_ffn(dead_rows, *bad, lut, M),
+             chain.fused_moe_ffn_plain(dead_rows, *bad, lut, M), f"{tag} dead rows")
+        del bad
         print(f"MoE serving kernels == plain (bitwise): {tag} LUT at {MOE_ARCH} widths: batched "
               f"GEMM ({E}, 512, {d})x({E}, {d}, {F}), ({E}, 512, {F})x({E}, {F}, {d}) and (3, 67, "
-              f"130)x(3, 130, 33); wo+norm at 4 rows with and without bo; expert banks at C=8, 64")
+              f"130)x(3, 130, 33); wo+norm at 4 rows with and without bo; expert banks at C=8, 64, "
+              f"on the buffer moe_ffn scatters for a decode step of 4 tokens ({int(live.sum())} "
+              f"live rows in {int((live > 0).sum())} of {E} banks) and at C=64 with "
+              f"{int((chain.live_rows(dead_rows) == 0).sum())} all-dead expert (inf/NaN banks) and "
+              f"zero, -0.0 and subnormal rows between live ones in the others")
     return err
+
+
+def routed_decode_buffer(dev, gen, cfg):
+    """The capacity buffer ``moe.moe_ffn`` scatters at ``cfg``'s widths for a
+    decode step of 4 tokens (C = 8), with a random router."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels.time_chain import routed_buffer
+    d, E = cfg.d_model, cfg.moe.n_experts
+    h = routed_buffer(cfg, (torch.randn((d, E), generator=gen) * d ** -0.5).to(dev),
+                      torch.randn((1, 4, d), generator=gen).to(dev),
+                      NumericsPolicy(mode="amsim", multiplier="afm16"))
+    require(h.shape == (E, 8, d), f"moe_ffn scattered a buffer of {tuple(h.shape)}, want "
+            f"{(E, 8, d)}")
+    return h
 
 
 def moe_serving_depth2(dev, moe_launches: dict):
@@ -805,6 +859,36 @@ def moe_serving_depth2(dev, moe_launches: dict):
           f"amsim_torch; amsim launches {launches[1]}")
     del model, results
     torch.cuda.empty_cache()
+
+
+def expert_banks_at_long_capacity(model, cfg, policy, calls, smi_line):
+    """The two routes of layer 0's expert FFN on the 4 x 512 prefill's
+    capacity buffer (C = 512): the expert-bank kernel against the three
+    batched GEMMs (``mlp.ffn``, the route taken above ``ops.MOE_FFN_MAX_C``),
+    same bits, device time of each."""
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import ffn
+    ctx = f"prefill {MOE_LONG['batch']}x{MOE_LONG['prompt']}"
+    (buf, _, lut, M), _, _ = next(v for (c, k, _), v in calls.items()
+                                  if c == ctx and k == "approx_gemm_batched"
+                                  and v[0][0].shape[-1] == cfg.d_model)
+    ew = model.layers[0].moe["experts"]
+    banks = [ew[n].w for n in ("wg", "wu", "wd")]
+    with torch.no_grad():
+        fused = chain.fused_moe_ffn(buf, *banks, lut, M)
+        batched = ffn(ew, buf, policy, cfg.act)
+    require(torch.equal(fused.view(torch.int32), batched.view(torch.int32)),
+            f"expert banks at C={buf.shape[1]}: the kernel differs from the batched GEMMs by "
+            f"{(fused - batched).abs().max().item()}")
+    live = chain.live_rows(buf)
+    with torch.no_grad():
+        t_fused = queued_ms(lambda: chain.fused_moe_ffn(buf, *banks, lut, M), reps=3)
+        t_batched = queued_ms(lambda: ffn(ew, buf, policy, cfg.act), reps=3)
+    print(f"  {ctx}: layer 0's expert FFN at C={buf.shape[1]} ({int(live.sum())} live rows of "
+          f"{buf.shape[0] * buf.shape[1]}; routes split at MOE_FFN_MAX_C = {ops.MOE_FFN_MAX_C}): "
+          f"expert-bank kernel {t_fused:.4f} ms, three batched GEMMs {t_batched:.4f} ms, same "
+          f"bits ({smi_line})")
 
 
 def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) -> list:
@@ -949,12 +1033,21 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
                                n * lookups / lookups_per_s)):
             acc[i] += v
         extra = f", plain {tp * n:.2f} ms" if kname in MOE_SOURCES else ""
+        if kname == "fused_qkv_norm":
+            extra += f"; grid {qkv_grid_of(args)}"
+        if kname == "fused_moe_ffn":
+            h = args[0]
+            live = chain.live_rows(h)
+            grid = chain.moe_ffn_grid(*h.shape, args[1].shape[-1], args[4], live=live.tolist())
+            extra += (f"; layer 0: {int(live.sum())} live rows of {h.shape[0] * h.shape[1]} in "
+                      f"{int((live > 0).sum())} of {h.shape[0]} banks, grid {grid}")
         print(f"  {ctx}: {kname} {list(shapes)}: {t * n:.4f} ms over {n} launches ({t:.4f} ms "
               f"each), bound {tb * n:.4f} ms ({bound_kind(nbytes, lookups, lookups_per_s)}: "
               f"{nbytes} B, {lookups} lookups a launch){extra}")
     for (ctx, kname), (n, ms, tp, tb, _, _) in sorted(per.items()):
         print(f"  {ctx}: {kname}: {ms:.4f} ms over {n} launches, bound {tb:.4f} ms"
               + (f", plain {tp:.2f} ms" if kname in MOE_SOURCES else ""))
+    expert_banks_at_long_capacity(model, cfg, amsim, calls, smi_line)
     rows = []
     # The row's work: the kernel's launches in one full-depth decode step
     # (the chain kernels) or one full-depth prefill of 4 x 512 tokens (the

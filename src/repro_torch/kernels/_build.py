@@ -45,9 +45,11 @@ LIBRARIES = {
         "fused_out_mlp_f32": [_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
         "fused_attn_out_mlp_f32": [_P] * 19 + [_I] * 11 + [_F] + [_I] * 4 + [_P],
         "fused_wo_norm_f32": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
-        "fused_moe_ffn_f32": [_P] * 7 + [_I] * 8 + [_P],
+        "fused_moe_ffn_f32": [_P] * 8 + [_I] * 8 + [_P],
         "libm_probe_f32": [_P] * 3 + [ctypes.c_longlong, _P],
         "back_half_grid": [_I] * 8 + [_P, _P],
+        "qkv_grid": [_I] * 7 + [_P, _P],
+        "moe_ffn_grid": [_I] * 4 + [_P] + [_I] * 3 + [_P, _P],
     }),
 }
 _HEADERS = ("amsim.cuh", "attention.cuh")

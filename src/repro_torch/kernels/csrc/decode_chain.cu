@@ -20,11 +20,11 @@
 // the down projection after the wo columns) are separated by grid-wide
 // barriers of a cooperative launch (cooperative_groups::this_grid().sync(),
 // grid sized from occupancy so every block is resident).  fused_qkv_norm
-// needs no barrier: each block computes the norm scale of every row
+// needs no barrier: each work item computes the norm scales of its rows
 // itself.  fused_wo_norm has one barrier between the wo columns and the
-// norm, then one block a row writes h; fused_moe_ffn one between the
-// gate/up columns of every expert (into an (E, C, F) scratch) and the down
-// projection.
+// norm, then one block a row writes h; fused_moe_ffn one after its live
+// rows are listed and one between the gate/up columns of every expert
+// (into an (E, C, F) scratch) and the down projection.
 //
 // What bounds it on the H100.  x has `rows` = batch rows, so each weight
 // element is read once per launch and meets `rows` LUT lookups: the bytes
@@ -33,26 +33,43 @@
 // a design has to buy is SMs kept busy and weight loads kept out of the
 // lookups' way.
 //
-// fused_qkv_norm, fused_wo_norm and fused_moe_ffn fold with fold_tile: each
-// thread owns one output column and the accumulators of up to kRows rows,
-// the block stages the activations a k-tile at a time in shared memory,
-// and consecutive threads read consecutive weight columns.  The expert
-// banks hold C capacity rows an expert; blocks walk (expert, row group of
-// kRows, column tile) work items, so C > kRows re-reads the expert's
-// weights once a row group (from L2 when the group's items run together).
+// fused_wo_norm folds with fold_tile: each thread owns one output column
+// and the accumulators of up to kRows rows, the block stages the
+// activations a k-tile at a time in shared memory, and consecutive threads
+// read consecutive weight columns.
 //
-// fused_out_mlp and fused_attn_out_mlp fold with fold_cols, which splits
-// each output's products from its adds.  A work item is a row group and a
-// narrow tile of CT columns (32 for the gate/up columns, 8 for wo and wd,
-// whose n = d is 4x smaller), so every phase has hundreds of items and the
-// cooperative grid fills every SM (granite-3-2b at 4 rows: 256 items a
-// phase, 2 blocks a SM).  The item's weight columns come into shared
-// memory a k-chunk at a time by cp.async, in a ring of kStages chunks, so
-// the next chunks are in flight while one is folded.  All 256 threads
-// compute a chunk's products (each an independent lookup) into shared
-// memory; the thread that owns an output then adds its chunk's products in
-// k order, one chunk behind.  The tile and chunk sizes were chosen by
-// timing on the H100 (PERF.md).
+// The other four fold with fold_cols, which splits each output's products
+// from its adds.  A work item is a row group of up to kRows rows and a
+// narrow tile of CT columns (32 for the gate/up columns, 8 for q/k/v, wo
+// and wd), so a launch has hundreds of items and the grid fills every SM
+// (granite-3-2b at 4 rows: 384 qkv items, 256 items in each back-half
+// phase).  The item's weight columns come into shared memory a k-chunk at
+// a time by cp.async, in a ring of kStages chunks, so the next chunks are
+// in flight while one is folded.  All 256 threads compute a chunk's
+// products (each an independent lookup) into shared memory; the thread
+// that owns an output then adds its chunk's products in k order, one
+// chunk behind.  fold_item is one item; each kernel walks its own items:
+//   fused_qkv_norm   q, k and v are one item space, each matrix with its
+//                    own column tiles (an item never straddles two); each
+//                    item computes its row group's norm scales; a plain
+//                    launch, no barrier.
+//   the back half    three phases of (row group, tile) items (fold_cols)
+//                    between grid barriers.
+//   fused_moe_ffn    phase 0, a block an expert, lists the expert's live
+//                    capacity rows; then (expert, group of 6 live rows,
+//                    tile) items for gate/up and, after a barrier, for
+//                    down (tiles of 16 or 32 and of 32 columns).
+// The tile and chunk sizes were chosen by timing on the H100 (PERF.md).
+//
+// Dead capacity rows.  amsim::mul returns the bare sign when either
+// operand's exponent field is 0, whatever the other operand is (inf and
+// NaN included).  So a capacity row whose every element is +-0 or
+// subnormal makes +-0 products only; each gate/up sum, folded from +0.0,
+// is +0.0, silu(+0) * (+0) is +0.0, and so is every down output.
+// fused_moe_ffn writes +0.0 over such a row and gives it no item: it costs
+// no lookup and no weight read, and an expert with no live row has no
+// items at all.  The bits are those of the plain version for every input.
+//
 // The LUT sits in shared memory when it is <= 128 KiB.
 //
 // Every output folds its products in contraction order from +0.0 (the
@@ -71,14 +88,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;    // rows a thread accumulates at once
-constexpr int kKT = 128;    // contraction values staged per tile
+constexpr int kRows = 8;    // rows of a work item (fold_tile: a thread's accumulators)
+constexpr int kKT = 128;    // fold_tile: contraction values staged per tile
 // fold_cols: weight floats a k-chunk stages (k steps x CT columns of one
 // matrix, or of two side by side), and the depth of the cp.async ring.
 constexpr int kChunk = 1024;
 constexpr int kStages = 3;
 constexpr int kWideCols = 32;    // gate/up column tile: one 128-byte segment a weight row
-constexpr int kNarrowCols = 8;   // wo and wd column tile: one 32-byte sector
+constexpr int kNarrowCols = 8;   // q/k/v, wo and wd column tile: one 32-byte sector
 
 // Shared memory after the LUT: the activation tile, the norm scales, and
 // (attention phase) a q row per warp.
@@ -222,14 +239,14 @@ __host__ __device__ long long fold_items(int rows, int n) {
   return static_cast<long long>((rows + kRows - 1) / kRows) * ((n + CT - 1) / CT);
 }
 
-// For every row r < rows and column j < n of the (kdim, n) weights w1 (and
-// w2 when kDual): acc[r, j] = sum_k amsim(A(r, k), w[k, j]), k in order
-// from +0.0, then epi(r, j, acc1, acc2).  stage(r, k) gives A(r, k);
-// prep(r0, nr) runs before each item of rows r0 .. r0 + nr (a block-wide
-// call, or nothing).  Blocks stride over the items; every thread of the
-// block calls it.
+// One work item: for the rows r0 .. r0 + nr (nr <= kRows) and the columns
+// j = c0 .. c0 + CT of the (kdim, n) weights w1 (and w2 when kDual):
+// acc[r, j] = sum_k amsim(A(r, k), w[k, j]), k in order from +0.0, then
+// epi(r, j, acc1, acc2).  stage(r, k) gives A(r, k).  Every thread of the
+// block calls it, after a block barrier since its previous item (the
+// caller's), so that no thread still reads a buffer it overwrites.
 //
-// An item folds kdim / KC chunks.  Iteration i waits for weight chunk i,
+// The item folds kdim / KC chunks.  Iteration i waits for weight chunk i,
 // issues chunk i + kStages - 1, computes chunk i's products, adds chunk
 // i - 1's and stores A of chunk i + 1, loaded into registers before the
 // products.  One block barrier an iteration orders all of it.  Thread t
@@ -237,11 +254,11 @@ __host__ __device__ long long fold_items(int rows, int n) {
 // e / CT, column t % CT) for every row, rows outermost, so that the
 // kElems x (1 + kDual) products of a row are independent of each other;
 // past kdim and n both operands are staged as zeros, and no owner reads
-// those products.  The owner of (r, j) is thread r * CT + j.
-template <int CT, typename LutT, bool kSmem, bool kDual, typename Prep, typename Stage,
-          typename Epi>
-__device__ void fold_cols(int rows, int n, int kdim, const float* w1, const float* w2, Prep prep,
-                          Stage stage, Epi epi, const LutT* lut, int M, const FoldBufs& fb) {
+// those products.  The owner of (r0 + r, c0 + j) is thread r * CT + j.
+template <int CT, typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
+__device__ __forceinline__ void fold_item(int r0, int nr, int c0, int n, int kdim,
+                                          const float* w1, const float* w2, Stage stage, Epi epi,
+                                          const LutT* lut, int M, const FoldBufs& fb) {
   constexpr int KCN = kDual ? kChunk / 2 : kChunk;
   constexpr int KC = KCN / CT;
   constexpr int kElems = KCN / amsim::kThreads;
@@ -249,96 +266,107 @@ __device__ void fold_cols(int rows, int n, int kdim, const float* w1, const floa
   static_assert(KC * CT == KCN && KCN % amsim::kThreads == 0 && KC * kRows <= kActFloats &&
                     (1 + kDual) * (KCN + CT) <= kProdFloats,
                 "a chunk's elements fill the block's threads and its buffers");
-  const int tiles = (n + CT - 1) / CT;
   const int nchunks = (kdim + KC - 1) / KC;
-  const long long items = fold_items<CT>(rows, n);
   const int own_r = threadIdx.x / CT;
   const int own_j = threadIdx.x % CT;
+  const int col = c0 + own_j;
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      float* dst = fb.w + (c % kStages) * kChunk;
+#pragma unroll
+      for (int p = 0; p < kElems; ++p) {
+        const int e = threadIdx.x + p * amsim::kThreads;
+        const int k = c * KC + e / CT;
+        const bool ok = k < kdim && col < n;
+        const size_t g = ok ? static_cast<size_t>(k) * n + col : 0;
+        cp_async4(dst + e, w1 + g, ok);
+        if (kDual) cp_async4(dst + KCN + e, w2 + g, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  auto load_a = [&](int c, float (&regs)[kA]) {
+#pragma unroll
+    for (int q = 0; q < kA; ++q) {
+      const int e = threadIdx.x + q * amsim::kThreads;
+      const int r = e % kRows;
+      const int k = c * KC + e / kRows;
+      regs[q] = (e < KC * kRows && r < nr && k < kdim) ? stage(r0 + r, k) : 0.0f;
+    }
+  };
+  auto store_a = [&](int buf, const float (&regs)[kA]) {
+#pragma unroll
+    for (int q = 0; q < kA; ++q) {
+      const int e = threadIdx.x + q * amsim::kThreads;
+      if (e < KC * kRows) fb.a[buf * kActFloats + e] = regs[q];
+    }
+  };
+  for (int c = 0; c < kStages - 1; ++c) issue(c);
+  float regs[kA];
+  load_a(0, regs);
+  store_a(0, regs);
+  float acc1 = 0.0f, acc2 = 0.0f;
+  for (int i = 0; i <= nchunks; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(i + kStages - 1);
+    if (i + 1 < nchunks) load_a(i + 1, regs);
+    if (i < nchunks) {
+      const float* ws = fb.w + (i % kStages) * kChunk;
+      const float* as = fb.a + (i & 1) * kActFloats;
+      float* p1 = fb.p + (i & 1) * fb.nrmax * kProdFloats;
+      float* p2 = p1 + fb.nrmax * (KCN + CT);
+      uint32_t u1[kElems], u2[kElems];
+#pragma unroll
+      for (int p = 0; p < kElems; ++p) {
+        u1[p] = __float_as_uint(ws[threadIdx.x + p * amsim::kThreads]);
+        u2[p] = kDual ? __float_as_uint(ws[KCN + threadIdx.x + p * amsim::kThreads]) : 0u;
+      }
+#pragma unroll 2
+      for (int r = 0; r < nr; ++r) {
+#pragma unroll
+        for (int p = 0; p < kElems; ++p) {
+          const int e = threadIdx.x + p * amsim::kThreads;
+          const uint32_t hv = __float_as_uint(as[(e / CT) * kRows + r]);
+          const int o = r * (KCN + CT) + e;
+          p1[o] = amsim::mul<LutT, kSmem>(hv, u1[p], lut, M);
+          if (kDual) p2[o] = amsim::mul<LutT, kSmem>(hv, u2[p], lut, M);
+        }
+      }
+    }
+    if (i >= 1 && own_r < nr) {
+      const int kt = min(KC, kdim - (i - 1) * KC);
+      const float* q1 = fb.p + ((i - 1) & 1) * fb.nrmax * kProdFloats + own_r * (KCN + CT) +
+                        own_j;
+      const float* q2 = q1 + fb.nrmax * (KCN + CT);
+#pragma unroll 8
+      for (int kk = 0; kk < kt; ++kk) {
+        acc1 = __fadd_rn(acc1, q1[kk * CT]);
+        if (kDual) acc2 = __fadd_rn(acc2, q2[kk * CT]);
+      }
+    }
+    if (i + 1 < nchunks) store_a((i + 1) & 1, regs);
+  }
+  if (own_r < nr && col < n) epi(r0 + own_r, col, acc1, acc2);
+}
+
+// fold_item over the (row group, column tile) items of every row r < rows
+// and column j < n, tile fastest, blocks striding over the items.
+// prep(r0, nr) runs before each item of rows r0 .. r0 + nr (a block-wide
+// call, or nothing).
+template <int CT, typename LutT, bool kSmem, bool kDual, typename Prep, typename Stage,
+          typename Epi>
+__device__ void fold_cols(int rows, int n, int kdim, const float* w1, const float* w2, Prep prep,
+                          Stage stage, Epi epi, const LutT* lut, int M, const FoldBufs& fb) {
+  const int tiles = (n + CT - 1) / CT;
+  const long long items = fold_items<CT>(rows, n);
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const int c0 = static_cast<int>(it % tiles) * CT;
     const int r0 = static_cast<int>(it / tiles) * kRows;
     const int nr = min(kRows, rows - r0);
-    const int col = c0 + own_j;
     __syncthreads();  // the previous item is done with every buffer
     prep(r0, nr);
-    auto issue = [&](int c) {
-      if (c < nchunks) {
-        float* dst = fb.w + (c % kStages) * kChunk;
-#pragma unroll
-        for (int p = 0; p < kElems; ++p) {
-          const int e = threadIdx.x + p * amsim::kThreads;
-          const int k = c * KC + e / CT;
-          const bool ok = k < kdim && col < n;
-          const size_t g = ok ? static_cast<size_t>(k) * n + col : 0;
-          cp_async4(dst + e, w1 + g, ok);
-          if (kDual) cp_async4(dst + KCN + e, w2 + g, ok);
-        }
-      }
-      cp_async_commit();
-    };
-    auto load_a = [&](int c, float (&regs)[kA]) {
-#pragma unroll
-      for (int q = 0; q < kA; ++q) {
-        const int e = threadIdx.x + q * amsim::kThreads;
-        const int r = e % kRows;
-        const int k = c * KC + e / kRows;
-        regs[q] = (e < KC * kRows && r < nr && k < kdim) ? stage(r0 + r, k) : 0.0f;
-      }
-    };
-    auto store_a = [&](int buf, const float (&regs)[kA]) {
-#pragma unroll
-      for (int q = 0; q < kA; ++q) {
-        const int e = threadIdx.x + q * amsim::kThreads;
-        if (e < KC * kRows) fb.a[buf * kActFloats + e] = regs[q];
-      }
-    };
-    for (int c = 0; c < kStages - 1; ++c) issue(c);
-    float regs[kA];
-    load_a(0, regs);
-    store_a(0, regs);
-    float acc1 = 0.0f, acc2 = 0.0f;
-    for (int i = 0; i <= nchunks; ++i) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      issue(i + kStages - 1);
-      if (i + 1 < nchunks) load_a(i + 1, regs);
-      if (i < nchunks) {
-        const float* ws = fb.w + (i % kStages) * kChunk;
-        const float* as = fb.a + (i & 1) * kActFloats;
-        float* p1 = fb.p + (i & 1) * fb.nrmax * kProdFloats;
-        float* p2 = p1 + fb.nrmax * (KCN + CT);
-        uint32_t u1[kElems], u2[kElems];
-#pragma unroll
-        for (int p = 0; p < kElems; ++p) {
-          u1[p] = __float_as_uint(ws[threadIdx.x + p * amsim::kThreads]);
-          u2[p] = kDual ? __float_as_uint(ws[KCN + threadIdx.x + p * amsim::kThreads]) : 0u;
-        }
-#pragma unroll 2
-        for (int r = 0; r < nr; ++r) {
-#pragma unroll
-          for (int p = 0; p < kElems; ++p) {
-            const int e = threadIdx.x + p * amsim::kThreads;
-            const uint32_t hv = __float_as_uint(as[(e / CT) * kRows + r]);
-            const int o = r * (KCN + CT) + e;
-            p1[o] = amsim::mul<LutT, kSmem>(hv, u1[p], lut, M);
-            if (kDual) p2[o] = amsim::mul<LutT, kSmem>(hv, u2[p], lut, M);
-          }
-        }
-      }
-      if (i >= 1 && own_r < nr) {
-        const int kt = min(KC, kdim - (i - 1) * KC);
-        const float* q1 = fb.p + ((i - 1) & 1) * fb.nrmax * kProdFloats + own_r * (KCN + CT) +
-                          own_j;
-        const float* q2 = q1 + fb.nrmax * (KCN + CT);
-#pragma unroll 8
-        for (int kk = 0; kk < kt; ++kk) {
-          acc1 = __fadd_rn(acc1, q1[kk * CT]);
-          if (kDual) acc2 = __fadd_rn(acc2, q2[kk * CT]);
-        }
-      }
-      if (i + 1 < nchunks) store_a((i + 1) & 1, regs);
-    }
-    if (own_r < nr && col < n) epi(r0 + own_r, col, acc1, acc2);
+    fold_item<CT, LutT, kSmem, kDual>(r0, nr, c0, n, kdim, w1, w2, stage, epi, lut, M, fb);
   }
 }
 
@@ -372,8 +400,8 @@ int smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats) {
          amsim::kWarps * qrow_floats * 4;
 }
 
-// The shared memory of the two fold_cols kernels: the LUT, the norm
-// scales, a q row a warp (attention phase) and fold_cols's buffers.
+// The shared memory of the fold_cols kernels: the LUT, the norm scales, a
+// q row a warp (attention phase) and fold_item's buffers.
 template <typename LutT>
 struct FoldSmem {
   const LutT* lut;
@@ -382,7 +410,8 @@ struct FoldSmem {
   FoldBufs fb;
 };
 
-int fold_smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats, int rows) {
+__host__ __device__ int fold_smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats,
+                                        int rows) {
   return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + amsim::align16(kRinvBytes) +
          amsim::align16(amsim::kWarps * qrow_floats * 4) + fold_bytes(rows);
 }
@@ -420,26 +449,47 @@ struct Qkv {
   float eps;
 };
 
+// Work items: (row group of kRows, column tile) over the concatenated
+// column tiles of wq, wk and wv, tile fastest; matrix m has its own
+// ceil(n[m] / kNarrowCols) tiles.
+__host__ __device__ int qkv_tiles(int n) { return (n + kNarrowCols - 1) / kNarrowCols; }
+
+__host__ __device__ long long qkv_items(int rows, const int n[3]) {
+  return static_cast<long long>((rows + kRows - 1) / kRows) *
+         (qkv_tiles(n[0]) + qkv_tiles(n[1]) + qkv_tiles(n[2]));
+}
+
 template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
-  for (int r0 = 0; r0 < p.rows; r0 += kRows) {
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, p.rows);
+  const int tq = qkv_tiles(p.n[0]), tk = qkv_tiles(p.n[1]);
+  const int tiles = tq + tk + qkv_tiles(p.n[2]);
+  const long long items = qkv_items(p.rows, p.n);
+  int rinv_r0 = -1;   // the row group whose norm scales rinv holds
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    int t = static_cast<int>(it % tiles);
+    const int r0 = static_cast<int>(it / tiles) * kRows;
     const int nr = min(kRows, p.rows - r0);
-    row_rinv(p.x, p.d, r0, nr, p.eps, sm.rinv);
-    auto stage = [&](int r, int k) {
-      return __fmul_rn(__fmul_rn(p.x[static_cast<size_t>(r0 + r) * p.d + k], sm.rinv[r]), p.g[k]);
-    };
-    for (int m = 0; m < 3; ++m) {
-      float* out = p.out[m];
-      const int n = p.n[m];
-      column_fold<LutT, kSmem, false>(
-          n, p.d, nr, p.w[m], nullptr, stage,
-          [&](int r, int j, float acc, float) { out[static_cast<size_t>(r0 + r) * n + j] = acc; },
-          sm.lut, M, sm.tile);
+    const int m = t < tq ? 0 : t < tq + tk ? 1 : 2;
+    t -= m == 0 ? 0 : m == 1 ? tq : tq + tk;
+    const float* w = m == 0 ? p.w[0] : m == 1 ? p.w[1] : p.w[2];
+    float* out = m == 0 ? p.out[0] : m == 1 ? p.out[1] : p.out[2];
+    const int n = m == 0 ? p.n[0] : m == 1 ? p.n[1] : p.n[2];
+    __syncthreads();  // the previous item is done with every buffer and rinv
+    if (r0 != rinv_r0) {
+      row_rinv(p.x, p.d, r0, nr, p.eps, sm.rinv);
+      rinv_r0 = r0;
     }
-    __syncthreads();  // rinv is rewritten for the next row group
+    fold_item<kNarrowCols, LutT, kSmem, false>(
+        r0, nr, t * kNarrowCols, n, p.d, w, nullptr,
+        [&](int r, int k) {
+          return __fmul_rn(__fmul_rn(p.x[static_cast<size_t>(r) * p.d + k], sm.rinv[r % kRows]),
+                           p.g[k]);
+        },
+        [&](int r, int j, float acc, float) { out[static_cast<size_t>(r) * n + j] = acc; },
+        sm.lut, M, sm.fb);
   }
 }
 
@@ -547,58 +597,168 @@ struct Moe {
   const float* wg;     // (E, d, F)
   const float* wu;     // (E, d, F)
   const float* wd;     // (E, F, d)
-  float* act;          // (E, C, F) scratch
+  float* act;          // (E, C, F) scratch (live rows only)
   float* out;          // (E, C, d)
+  int* live;           // scratch: (E, C) each expert's live slots in ascending order,
+                       // then (E,) their counts
   int E, C, d, F;
 };
 
-__host__ __device__ long long column_tiles(int n) {
-  return (n + amsim::kThreads - 1) / amsim::kThreads;
+// Work items of the expert banks: a row group of up to kMoeRows live rows
+// of one expert and a column tile.  Chosen by timing on the H100
+// (PERF.md): 6 rows, the most whose fold buffers leave two blocks a SM
+// beside a 32 KiB LUT; gate/up tiles of 16 columns with a shared-memory
+// LUT and 32 with a global one; down tiles of 32.
+constexpr int kMoeRows = 6;
+static_assert(kMoeRows <= kRows, "fold_item stages at most kRows rows");
+constexpr int kDownCols = kWideCols;
+
+__host__ __device__ constexpr int gate_up_cols(bool lut_in_smem) {
+  return lut_in_smem ? 16 : kWideCols;
 }
 
-// Work items of one phase: (expert, row group, column tile), tile fastest.
-__host__ __device__ long long moe_items(const Moe& p, int n) {
-  return static_cast<long long>(p.E) * ((p.C + kRows - 1) / kRows) * column_tiles(n);
+// Phase 0 for expert e, by the whole block: list its live capacity rows (a
+// row is live when any element has a non-zero exponent field) in ascending
+// order into live[e * C ...] and their count into live[E * C + e], and write
+// +0.0 over every output of each dead row.  flags: 32 ints of shared memory.
+__device__ void list_live_rows(const Moe& p, int e, int* flags) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* slots = p.live + static_cast<size_t>(e) * p.C;
+  int count = 0;   // warp 0's
+  for (int c0 = 0; c0 < p.C; c0 += 32) {
+    const int nc = min(32, p.C - c0);
+    for (int c = warp; c < nc; c += amsim::kWarps) {
+      const uint32_t* row =
+          reinterpret_cast<const uint32_t*>(p.h + (static_cast<size_t>(e) * p.C + c0 + c) * p.d);
+      bool any = false;
+      for (int k0 = 0; k0 < p.d && !any; k0 += 32) {
+        const int k = k0 + lane;
+        any = __any_sync(0xffffffffu, k < p.d && ((row[k] >> 23) & 0xFFu) != 0);
+      }
+      if (lane == 0) flags[c] = any;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const bool mine = lane < nc && flags[lane];
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      if (mine) slots[count + __popc(ballot & ((1u << lane) - 1u))] = c0 + lane;
+      count += __popc(ballot);
+    }
+    for (int c = 0; c < nc; ++c) {
+      if (flags[c]) continue;
+      float* o = p.out + (static_cast<size_t>(e) * p.C + c0 + c) * p.d;
+      for (int j = threadIdx.x; j < p.d; j += amsim::kThreads) o[j] = 0.0f;
+    }
+    __syncthreads();  // flags are rewritten for the next 32 rows
+  }
+  if (threadIdx.x == 0) p.live[static_cast<size_t>(p.E) * p.C + e] = count;
+}
+
+// The shared memory of fused_moe_ffn: fold_cols's for a row group, then
+// E + 1 ints.
+__host__ __device__ int moe_group_rows(int C) { return C < kMoeRows ? C : kMoeRows; }
+
+__host__ __device__ int moe_smem_bytes(bool lut_in_smem, int lut_bytes, int E, int C) {
+  return fold_smem_bytes(lut_in_smem, lut_bytes, 0, moe_group_rows(C)) +
+         amsim::align16((E + 1) * 4);
 }
 
 template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 moe_ffn_kernel(Moe p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
-  const int groups = (p.C + kRows - 1) / kRows;
-  // Phase 1: act[e] = silu(h[e] @ wg[e]) * (h[e] @ wu[e]).
-  const int tiles_f = static_cast<int>(column_tiles(p.F));
-  for (long long w = blockIdx.x; w < moe_items(p, p.F); w += gridDim.x) {
-    const int t = static_cast<int>(w % tiles_f);
-    const int r0 = static_cast<int>((w / tiles_f) % groups) * kRows;
-    const size_t e = static_cast<size_t>(w / tiles_f / groups);
-    const float* h = p.h + e * p.C * p.d;
-    float* act = p.act + e * p.C * p.F;
-    fold_tile<LutT, kSmem, true>(
-        t * amsim::kThreads, p.F, p.d, min(kRows, p.C - r0), p.wg + e * p.d * p.F,
-        p.wu + e * p.d * p.F,
-        [&](int r, int k) { return h[static_cast<size_t>(r0 + r) * p.d + k]; },
+  const int group_rows = moe_group_rows(p.C);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, group_rows);
+  // first[e]: the live row groups of the experts before e.
+  int* first =
+      reinterpret_cast<int*>(smem_raw + fold_smem_bytes(kSmem, lut_bytes, 0, group_rows));
+  cg::grid_group grid = cg::this_grid();
+  for (int e = blockIdx.x; e < p.E; e += gridDim.x) {
+    list_live_rows(p, e, reinterpret_cast<int*>(sm.fb.a));
+  }
+  grid.sync();
+  const int* count = p.live + static_cast<size_t>(p.E) * p.C;
+  for (int e = threadIdx.x; e < p.E; e += amsim::kThreads) {
+    first[e + 1] = (count[e] + kMoeRows - 1) / kMoeRows;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    first[0] = 0;
+    for (int e = 0; e < p.E; ++e) first[e + 1] += first[e];
+  }
+  __syncthreads();
+  const long long groups = first[p.E];
+  // Live row group g is rows r0 .. r0 + kMoeRows of expert e's list: e is the
+  // last expert whose first group is <= g.
+  auto group = [&](long long g, int& e, int& r0) {
+    int lo = 0, hi = p.E;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (first[mid] <= g) {
+        lo = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    e = lo;
+    r0 = static_cast<int>(g - first[lo]) * kMoeRows;
+  };
+  // Phase 1: act[e, s] = silu(h[e, s] @ wg[e]) * (h[e, s] @ wu[e]) for every
+  // live slot s; items (expert, live row group, column tile), tile fastest.
+  constexpr int kGateUpCols = gate_up_cols(kSmem);
+  const int tiles_f = (p.F + kGateUpCols - 1) / kGateUpCols;
+  for (long long it = blockIdx.x; it < groups * tiles_f; it += gridDim.x) {
+    int e, r0;
+    group(it / tiles_f, e, r0);
+    const int* slot = p.live + static_cast<size_t>(e) * p.C;
+    const float* h = p.h + static_cast<size_t>(e) * p.C * p.d;
+    float* act = p.act + static_cast<size_t>(e) * p.C * p.F;
+    const size_t bank = static_cast<size_t>(e) * p.d * p.F;
+    __syncthreads();  // the previous item is done with every buffer
+    fold_item<kGateUpCols, LutT, kSmem, true>(
+        r0, min(kMoeRows, count[e] - r0), static_cast<int>(it % tiles_f) * kGateUpCols, p.F,
+        p.d, p.wg + bank, p.wu + bank,
+        [&](int r, int k) { return h[static_cast<size_t>(slot[r]) * p.d + k]; },
         [&](int r, int j, float g, float u) {
-          act[static_cast<size_t>(r0 + r) * p.F + j] = __fmul_rn(silu(g), u);
+          act[static_cast<size_t>(slot[r]) * p.F + j] = __fmul_rn(silu(g), u);
         },
-        sm.lut, M, sm.tile);
+        sm.lut, M, sm.fb);
   }
-  cg::this_grid().sync();
-  // Phase 2: out[e] = act[e] @ wd[e].
-  const int tiles_d = static_cast<int>(column_tiles(p.d));
-  for (long long w = blockIdx.x; w < moe_items(p, p.d); w += gridDim.x) {
-    const int t = static_cast<int>(w % tiles_d);
-    const int r0 = static_cast<int>((w / tiles_d) % groups) * kRows;
-    const size_t e = static_cast<size_t>(w / tiles_d / groups);
-    const float* act = p.act + e * p.C * p.F;
-    float* out = p.out + e * p.C * p.d;
-    fold_tile<LutT, kSmem, false>(
-        t * amsim::kThreads, p.d, p.F, min(kRows, p.C - r0), p.wd + e * p.F * p.d, nullptr,
-        [&](int r, int k) { return act[static_cast<size_t>(r0 + r) * p.F + k]; },
-        [&](int r, int j, float acc, float) { out[static_cast<size_t>(r0 + r) * p.d + j] = acc; },
-        sm.lut, M, sm.tile);
+  grid.sync();
+  // Phase 2: out[e, s] = act[e, s] @ wd[e] for every live slot s.
+  const int tiles_d = (p.d + kDownCols - 1) / kDownCols;
+  for (long long it = blockIdx.x; it < groups * tiles_d; it += gridDim.x) {
+    int e, r0;
+    group(it / tiles_d, e, r0);
+    const int* slot = p.live + static_cast<size_t>(e) * p.C;
+    const float* act = p.act + static_cast<size_t>(e) * p.C * p.F;
+    float* out = p.out + static_cast<size_t>(e) * p.C * p.d;
+    __syncthreads();  // the previous item is done with every buffer
+    fold_item<kDownCols, LutT, kSmem, false>(
+        r0, min(kMoeRows, count[e] - r0), static_cast<int>(it % tiles_d) * kDownCols, p.d, p.F,
+        p.wd + static_cast<size_t>(e) * p.F * p.d, nullptr,
+        [&](int r, int k) { return act[static_cast<size_t>(slot[r]) * p.F + k]; },
+        [&](int r, int j, float acc, float) { out[static_cast<size_t>(slot[r]) * p.d + j] = acc; },
+        sm.lut, M, sm.fb);
   }
+}
+
+// The gate/up and down items of an expert-bank launch over `groups` live
+// row groups.
+void moe_items(long long groups, int d, int F, bool lut_in_smem, long long items[2]) {
+  const int gate_up = gate_up_cols(lut_in_smem);
+  items[0] = groups * ((F + gate_up - 1) / gate_up);
+  items[1] = groups * ((d + kDownCols - 1) / kDownCols);
+}
+
+// The grid of an expert-bank launch: sized for a full buffer (every row
+// live, since the host does not know the live rows), and for phase 0's E.
+long long moe_work(int E, int C, int d, int F, bool lut_in_smem) {
+  long long items[2];
+  moe_items(static_cast<long long>(E) * ((C + kMoeRows - 1) / kMoeRows), d, F, lut_in_smem,
+            items);
+  return std::max({static_cast<long long>(E), items[0], items[1]});
 }
 
 template <typename Kernel>
@@ -639,6 +799,28 @@ cudaError_t with_back_half(int heads, int dh, int rows, int packed, int smem_lut
   });
 }
 
+// f(kernel, shared memory bytes, a null LUT pointer of the kernel's type)
+// of fused_qkv_norm and of fused_moe_ffn for the LUT layout.
+template <typename F>
+cudaError_t with_qkv(int rows, int packed, int smem_lut, int lut_bytes, F&& f) {
+  return amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    return f(qkv_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows),
+             static_cast<const LutT*>(nullptr));
+  });
+}
+
+template <typename F>
+cudaError_t with_moe(int E, int C, int packed, int smem_lut, int lut_bytes, F&& f) {
+  return amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    return f(moe_ffn_kernel<LutT, kSmem>, moe_smem_bytes(kSmem, lut_bytes, E, C),
+             static_cast<const LutT*>(nullptr));
+  });
+}
+
 }  // namespace
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
@@ -652,17 +834,30 @@ extern "C" int fused_qkv_norm_f32(const float* x, const float* g1, const float* 
                                   void* stream) {
   const Qkv p{x, g1, {wq, wk, wv}, {oq, ok, ov}, {nq, nk, nv}, rows, d, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
-    using LutT = typename decltype(kind)::T;
-    constexpr bool kSmem = decltype(kind)::smem;
-    auto kernel = qkv_kernel<LutT, kSmem>;
-    const int smem = smem_bytes(kSmem, lut_bytes, 0);
-    int blocks = 0;
-    cudaError_t err = amsim::grid_size(kernel, smem, column_tiles(std::max({nq, nk, nv})), &blocks);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, amsim::kThreads, smem, s>>>(p, static_cast<const LutT*>(lut), M, lut_bytes);
-    return cudaGetLastError();
-  }));
+  return static_cast<int>(
+      with_qkv(rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto null_lut) {
+        int blocks = 0;
+        cudaError_t err = amsim::grid_size(kernel, smem, qkv_items(rows, p.n), &blocks);
+        if (err != cudaSuccess) return err;
+        kernel<<<blocks, amsim::kThreads, smem, s>>>(
+            p, static_cast<decltype(null_lut)>(lut), M, lut_bytes);
+        return cudaGetLastError();
+      }));
+}
+
+// The grid a fused_qkv_norm launch of these shapes takes, without
+// launching: out = {blocks, work items}.
+extern "C" int qkv_grid(int rows, int nq, int nk, int nv, int packed, int smem_lut,
+                        int lut_bytes, long long* out, void*) {
+  const int n[3] = {nq, nk, nv};
+  out[1] = qkv_items(rows, n);
+  return static_cast<int>(
+      with_qkv(rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto) {
+        int blocks = 0;
+        const cudaError_t err = amsim::grid_size(kernel, smem, out[1], &blocks);
+        out[0] = blocks;
+        return err;
+      }));
 }
 
 extern "C" int fused_out_mlp_f32(const float* x, const float* attn, const float* g2,
@@ -732,25 +927,42 @@ extern "C" int fused_wo_norm_f32(const float* x, const float* attn, const float*
     int m = M, lb = lut_bytes;
     void* args[] = {&c, &lut_t, &m, &lb};
     return launch_cooperative(wo_norm_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
-                              std::max<long long>(column_tiles(d), rows), args, s);
+                              std::max((d + amsim::kThreads - 1) / amsim::kThreads, rows), args,
+                              s);
   }));
 }
 
 extern "C" int fused_moe_ffn_f32(const float* h, const float* wg, const float* wu,
-                                 const float* wd, const void* lut, float* out, float* act, int E,
-                                 int C, int d, int F, int M, int packed, int smem_lut,
-                                 int lut_bytes, void* stream) {
-  Moe p{h, wg, wu, wd, act, out, E, C, d, F};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
-    using LutT = typename decltype(kind)::T;
-    constexpr bool kSmem = decltype(kind)::smem;
-    const LutT* lut_t = static_cast<const LutT*>(lut);
-    int m = M, lb = lut_bytes;
-    void* args[] = {&p, &lut_t, &m, &lb};
-    return launch_cooperative(moe_ffn_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
-                              std::max(moe_items(p, F), moe_items(p, d)), args, s);
-  }));
+                                 const float* wd, const void* lut, float* out, float* act,
+                                 int* live, int E, int C, int d, int F, int M, int packed,
+                                 int smem_lut, int lut_bytes, void* stream) {
+  Moe p{h, wg, wu, wd, act, out, live, E, C, d, F};
+  const long long work = moe_work(E, C, d, F, smem_lut);
+  return static_cast<int>(
+      with_moe(E, C, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto null_lut) {
+        auto lut_t = static_cast<decltype(null_lut)>(lut);
+        int m = M, lb = lut_bytes;
+        void* args[] = {&p, &lut_t, &m, &lb};
+        return launch_cooperative(kernel, smem, work, args, static_cast<cudaStream_t>(stream));
+      }));
+}
+
+// The grid an expert-bank launch of these shapes takes, without launching:
+// out = {blocks, gate/up items, down items} for the live row counts
+// live[0 .. E) (a host array), or for a full buffer when live is null.
+extern "C" int moe_ffn_grid(int E, int C, int d, int F, const int* live, int packed,
+                            int smem_lut, int lut_bytes, long long* out, void*) {
+  long long groups = 0;
+  for (int e = 0; e < E; ++e) groups += ((live ? live[e] : C) + kMoeRows - 1) / kMoeRows;
+  moe_items(groups, d, F, smem_lut, out + 1);
+  return static_cast<int>(
+      with_moe(E, C, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto) {
+        int blocks = 0;
+        const cudaError_t err =
+            amsim::grid_size(kernel, smem, moe_work(E, C, d, F, smem_lut), &blocks);
+        out[0] = blocks;
+        return err;
+      }));
 }
 
 // expf and rsqrtf of every element, as the kernels above evaluate them:

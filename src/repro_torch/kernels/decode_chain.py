@@ -19,6 +19,17 @@ device memory once per launch and each element meets ``rows`` LUT lookups:
 the weight stream bounds a decode step.  The expert banks meet the C rows
 of each expert's capacity buffer instead.
 
+Every kernel but ``fused_wo_norm`` folds with the card's ``fold_cols``:
+work items of a row group and a narrow column tile, so that every SM is
+busy, with the weights staged ahead by ``cp.async``.  ``fused_qkv_norm``
+walks q, k and v as one item space (``qkv_grid``).  ``fused_moe_ffn``
+computes only the live capacity rows (``live_rows``), those with an
+element whose exponent field is not 0: AMSim returns a bare signed zero
+when an operand's exponent field is 0, whatever the other operand is, so
+every product of a dead row is +-0, each of its sums from +0.0 is +0.0,
+and the kernel writes +0.0 over it without a lookup or a weight read
+(``moe_ffn_grid``).  The plain version computes every row; the bits agree.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``*_plain``), which the kernel agrees
 with bit for bit: every product goes through AMSim and every output folds
@@ -283,10 +294,11 @@ def fused_moe_ffn(h, wg, wu, wd, lut, M: int):
     if out.numel() == 0:
         return out
     act = torch.empty((E, C, F), dtype=torch.float32, device=device)
+    live = torch.empty((E * C + E,), dtype=torch.int32, device=device)
     call_kernel("decode_chain", "fused_moe_ffn_f32", device,
                 h.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), lut.data_ptr(),
-                out.data_ptr(), act.data_ptr(), E, C, d, F, M, int(lut.dtype == torch.int16),
-                int(lut_in_smem(lut)), lut_bytes(lut))
+                out.data_ptr(), act.data_ptr(), live.data_ptr(), E, C, d, F, M,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut))
     fused_moe_ffn.launches += 1
     return out
 
@@ -304,6 +316,39 @@ def back_half_grid(rows: int, d: int, F: int, lut, *, heads: int = 0, dh: int = 
     call_kernel("decode_chain", "back_half_grid", lut.device, rows, d, F, heads, dh,
                 int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
     return dict(zip(("blocks", "wo", "gate_up", "down", "attention"), out))
+
+
+def qkv_grid(rows: int, nq: int, nk: int, nv: int, lut) -> dict:
+    """The grid that ``fused_qkv_norm`` takes at these shapes on the current
+    card, without launching: its blocks and its work items (row group,
+    column tile of wq, wk or wv).  ``lut`` is the CUDA table the launch
+    would read."""
+    out = (ctypes.c_longlong * 2)()
+    call_kernel("decode_chain", "qkv_grid", lut.device, rows, nq, nk, nv,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
+    return dict(zip(("blocks", "items"), out))
+
+
+def live_rows(h: torch.Tensor) -> torch.Tensor:
+    """(E,) the capacity rows of each expert of h (E, C, d) that
+    ``fused_moe_ffn`` computes: those with an element whose exponent field
+    is not 0.  Every product of another row is +-0, so its output is +0.0
+    and the kernel writes that without a lookup."""
+    exponent = (h.contiguous().view(torch.int32) >> 23) & 0xFF
+    return (exponent != 0).any(dim=-1).sum(dim=-1)
+
+
+def moe_ffn_grid(E: int, C: int, d: int, F: int, lut, *, live=None) -> dict:
+    """The grid that ``fused_moe_ffn`` takes at these shapes on the current
+    card, without launching: its cooperative blocks (sized for a full
+    buffer) and the work items of its gate/up and down phases (expert, live
+    row group, column tile) when each expert e has ``live[e]`` live rows
+    (``live_rows``), or every row when ``live`` is None."""
+    out = (ctypes.c_longlong * 3)()
+    counts = None if live is None else (ctypes.c_int * E)(*(int(n) for n in live))
+    call_kernel("decode_chain", "moe_ffn_grid", lut.device, E, C, d, F, counts,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
+    return dict(zip(("blocks", "gate_up", "down"), out))
 
 
 def device_exp_rsqrt(x: torch.Tensor):

@@ -1,0 +1,158 @@
+"""Time the decode-chain kernels on the card at the full-width decode shapes.
+
+    python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
+
+Needs an NVIDIA GPU and nvcc.  ``--src`` imports ``repro_torch`` from
+another checkout's ``src`` (its kernels built there), so that two trees
+are timed by one script in one call on one card: run it for each tree in
+turns (A, B, B, A).  Weights and activations are random, from a seed; the
+expert banks get the capacity buffers that ``moe.moe_ffn`` scatters for 4
+decode tokens (C = 8) and for a prefill of 4 x 64 tokens (C = 64).  Each
+time is the mean device time of a launch from CUDA events around 5 calls
+queued behind a spin kernel, for afm16 packed (a shared-memory LUT) and
+afm10 packed (global memory).  Prints one line a kernel and shape, then
+one JSON object {"tag", "device", "power_limit", "ms": {name: ms}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def queued_ms(fn, reps: int = 5) -> float:
+    """Mean device ms of ``fn()`` with the host out of the way: a spin kernel
+    holds the stream while the calls queue up behind it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 10_000_000
+    for _ in range(5):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise SystemExit("time_chain: the host could not queue the calls ahead of the card")
+
+
+def routed_buffer(cfg, router, x, policy):
+    """The (E, C, d) capacity buffer that ``moe.moe_ffn`` scatters for the
+    tokens x (B, S, d) with the router weights (d, E) under ``policy`` (one
+    that takes the expert-bank launch)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Linear
+    E, d, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    banks = {"wg": (E, d, F), "wu": (E, d, F), "wd": (E, F, d)}
+    p = torch.nn.ModuleDict({
+        "router": Linear(router),
+        "experts": torch.nn.ModuleDict({n: Linear(torch.zeros(shape, device=x.device))
+                                        for n, shape in banks.items()})})
+    seen, original = [], ops.decode_moe_ffn
+    ops.decode_moe_ffn = lambda buf, *a: seen.append(buf) or torch.zeros_like(buf)
+    try:
+        with torch.no_grad():
+            moe.moe_ffn(p, x, cfg, policy)
+    finally:
+        ops.decode_moe_ffn = original
+    return seen[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
+                    help="the src directory whose repro_torch is timed")
+    ap.add_argument("--tag", default="", help="a name for this tree in the output")
+    ap.add_argument("--match", default="", help="time only the kernels whose line holds this")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_chain: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.lutgen import get_packed_lut
+    from repro_torch.core.multipliers import get_multiplier
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels.common import POS_PAD, lut_tensor
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    ms = {}
+
+    def timed(name, fn):
+        if args.match not in name:
+            return
+        ms[name] = queued_ms(fn)
+        print(f"{args.tag} {name}: {ms[name]:.4f} ms a launch", flush=True)
+
+    dense, moe_cfg = get_arch("granite-3-2b"), get_arch("granite-moe-3b-a800m")
+    B = 4
+    for lut_name in ("afm16", "afm10"):
+        lut = lut_tensor(get_packed_lut(lut_name), dev)
+        M = get_multiplier(lut_name).mantissa_bits
+        for cfg in (dense, moe_cfg):
+            d, nq, nkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+            qkv = (randn(B, d), 1 + 0.1 * randn(d), randn(d, nq, scale=d ** -0.5),
+                   randn(d, nkv, scale=d ** -0.5), randn(d, nkv, scale=d ** -0.5))
+            timed(f"{lut_name} fused_qkv_norm {cfg.name} {B} rows",
+                  lambda: chain.fused_qkv_norm(*qkv, lut, M, eps=cfg.norm_eps))
+            del qkv
+        if lut_name == "afm16":
+            cfg = dense
+            d, F, H, KV, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            K = H * dh
+            back = (1 + 0.1 * randn(d), randn(K, d, scale=K ** -0.5), randn(d, F, scale=d ** -0.5),
+                    randn(d, F, scale=d ** -0.5), randn(F, d, scale=F ** -0.5))
+            x, attn = randn(B, d), randn(B, K, scale=0.3)
+            timed(f"{lut_name} fused_out_mlp {cfg.name} {B} rows",
+                  lambda: chain.fused_out_mlp(x, attn, *back, lut, M, eps=cfg.norm_eps))
+            T, written = 96, 80
+            k_pos = torch.full((T,), POS_PAD, dtype=torch.int32)
+            k_pos[:written] = torch.arange(written, dtype=torch.int32)
+            att = (randn(B, 1, H, dh), randn(B, T, KV, dh), randn(B, T, KV, dh),
+                   torch.tensor([written - 1], dtype=torch.int32, device=dev), k_pos.to(dev))
+            timed(f"{lut_name} fused_attn_out_mlp {cfg.name} {B} rows ring {T}",
+                  lambda: chain.fused_attn_out_mlp(x, *att, *back, lut, M, eps=cfg.norm_eps))
+            del back, att
+        cfg = moe_cfg
+        d, E, F, K = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff, cfg.n_heads * cfg.head_dim
+        x, attn = randn(B, d), randn(B, K, scale=0.3)
+        wo_args = (1 + 0.1 * randn(d), randn(K, d, scale=K ** -0.5))
+        timed(f"{lut_name} fused_wo_norm {cfg.name} {B} rows",
+              lambda: chain.fused_wo_norm(x, attn, *wo_args, lut, M, eps=cfg.norm_eps))
+        banks = (randn(E, d, F, scale=d ** -0.5), randn(E, d, F, scale=d ** -0.5),
+                 randn(E, F, d, scale=F ** -0.5))
+        router = randn(d, E, scale=d ** -0.5)
+        policy = NumericsPolicy(mode="amsim", multiplier="afm16")
+        for tokens in ((1, 4), (4, 64)):
+            h = routed_buffer(cfg, router, randn(*tokens, d), policy)
+            live = int(((h.view(torch.int32) >> 23) & 0xFF).bool().any(-1).sum())
+            timed(f"{lut_name} fused_moe_ffn {cfg.name} C={h.shape[1]} ({live} live rows)",
+                  lambda: chain.fused_moe_ffn(h, *banks, lut, M))
+        del banks
+        torch.cuda.empty_cache()
+    print(json.dumps({"tag": args.tag, "device": torch.cuda.get_device_name(0),
+                      "power_limit": smi.split(", ")[-1], "ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,8 +18,8 @@ from repro_torch.core import lutgen  # noqa: E402
 from repro_torch.core.multipliers import get_multiplier  # noqa: E402
 from repro_torch.core.policy import NumericsPolicy  # noqa: E402
 from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
-                                 decode_chain, ops)
-from repro_torch.kernels.common import POS_PAD, lut_tensor  # noqa: E402
+                                 decode_chain, ops, time_chain)
+from repro_torch.kernels.common import POS_PAD, lut_in_smem, lut_tensor  # noqa: E402
 from repro_torch.models import moe, vision  # noqa: E402
 from repro_torch.models.layers import Linear  # noqa: E402
 from repro_torch.models.transformer import init_lm  # noqa: E402
@@ -465,9 +465,9 @@ def test_wo_norm_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, rng):
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
-# (E, C, d, F): ragged shapes with two k-tiles, two column tiles and two row
-# groups; then granite-moe-3b-a800m's banks at a decode step (C = 8) and a
-# prefill of 4 x 64 tokens (C = 64).
+# (E, C, d, F): ragged shapes with partial k-chunks and column tiles and
+# two or three row groups (of 6 rows); then granite-moe-3b-a800m's banks at
+# a decode step (C = 8) and a prefill of 4 x 64 tokens (C = 64).
 MOE_CASES = [(3, 8, 160, 300), (2, 13, 130, 40), (1, 1, 5, 3)]
 MOE_FULL = [(40, 8, 1536, 512), (40, 64, 1536, 512)]
 
@@ -497,6 +497,120 @@ def test_moe_ffn_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, E, C,
     ref = decode_chain.fused_moe_ffn_plain(*args, lut, M)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+def _same_bits(a, b):
+    """Bitwise equality, which tells +0.0 from -0.0 (torch.equal does not)."""
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+# Capacity buffers with dead rows (every element +-0 or subnormal), at a
+# ragged shape (E 3, C 13, d 130, F 40): the kernel computes only the live
+# rows and writes +0.0 over the others.
+DEAD_ROW_CASES = ["zero", "negative_zero", "subnormal", "between_live_rows",
+                  "dead_expert_inf_nan_banks", "all_dead"]
+
+
+def _dead_row_inputs(case, rng, device):
+    h, wg, wu, wd = _moe_inputs(3, 13, 130, 40, rng, device)
+    subnormal = torch.from_numpy(
+        (rng.standard_normal((13, 130)) * 1e-39).astype(np.float32)).to(device)
+    fill = {"zero": torch.zeros_like(subnormal), "negative_zero": -torch.zeros_like(subnormal),
+            "subnormal": subnormal}
+    if case in fill:
+        h[1, ::2] = fill[case][::2]
+    elif case == "between_live_rows":
+        # expert 0: rows 0, 4, 8, 12 live, the three kinds of dead row
+        # between them; expert 2: only its last row live.
+        kinds = ("zero", "negative_zero", "subnormal")
+        for r in range(13):
+            if r % 4:
+                h[0, r] = fill[kinds[r % 3]][r]
+        h[2, :12] = subnormal[:12]
+    elif case == "dead_expert_inf_nan_banks":
+        h[1] = -subnormal
+        for w in (wg, wu, wd):
+            w[1, ::3] = float("inf")
+            w[1, 1::3] = float("nan")
+            w[1, 2::3] = -float("inf")
+    else:
+        h[:] = subnormal
+        h[:, ::2] = 0.0
+    return h, wg, wu, wd
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("case", DEAD_ROW_CASES)
+def test_moe_ffn_kernel_bitwise_vs_plain_with_dead_rows(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    args = _dead_row_inputs(case, rng, cuda)
+    dead = decode_chain.live_rows(args[0]) < args[0].shape[1]
+    assert bool(dead.any())
+    out = decode_chain.fused_moe_ffn(*args, lut, M)
+    ref = decode_chain.fused_moe_ffn_plain(*args, lut, M)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+    rows_dead = ~((args[0].view(torch.int32) >> 23) & 0xFF).bool().any(dim=-1)
+    assert int((out[rows_dead].view(torch.int32) != 0).sum()) == 0
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_moe_ffn_kernel_bitwise_vs_plain_on_a_routed_decode_buffer(cuda, name, packed, rng):
+    """The buffer ``moe.moe_ffn`` scatters at granite-moe-3b-a800m's widths
+    for a decode step of 4 tokens (C = 8): 32 live rows of 320, most
+    experts empty."""
+    lut, M = _lut(name, packed, cuda)
+    cfg = get_arch("granite-moe-3b-a800m")
+    E, d, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    banks = _moe_inputs(E, 1, d, F, rng, cuda)[1:]
+    h = time_chain.routed_buffer(cfg, _randn(rng, (d, E), cuda) * d ** -0.5,
+                                 _randn(rng, (1, 4, d), cuda),
+                                 NumericsPolicy(mode="amsim", multiplier="afm16"))
+    live = decode_chain.live_rows(h)
+    assert h.shape == (E, 8, d) and int(live.sum()) == 4 * cfg.moe.top_k
+    out = decode_chain.fused_moe_ffn(h, *banks, lut, M)
+    ref = decode_chain.fused_moe_ffn_plain(h, *banks, lut, M)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("rows", [4, 32])
+def test_qkv_kernel_bitwise_vs_plain_at_moe_widths(cuda, name, packed, rows, rng):
+    """granite-moe-3b-a800m's q/k/v (d 1536, nq 1536, nk = nv 512) at a
+    decode step's 4 rows and at 32 rows (four row groups)."""
+    lut, M = _lut(name, packed, cuda)
+    o = _chain_inputs((rows, 1536, 24, 8, 64, 512), rng, cuda)
+    qkv = [o[n] for n in ("x", "g", "wq", "wk", "wv")]
+    out = decode_chain.fused_qkv_norm(*qkv, lut, M, eps=1e-5)
+    ref = decode_chain.fused_qkv_norm_plain(*qkv, lut, M, eps=1e-5)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_qkv_and_moe_grids_cover_every_sm(cuda, name, packed):
+    """granite-3-2b's qkv at 4 rows: 384 items (256 q, 64 k, 64 v column
+    tiles of 8) and a block on every SM; at 32 rows four row groups of
+    them.  granite-moe-3b-a800m's expert banks at C = 8 (two row groups of
+    at most 6 an expert): a full buffer has 40 x 2 x 32 gate/up items (16
+    columns a tile; 16 tiles of 32 with a global-memory LUT) and 40 x 2 x
+    48 down items, a buffer with 1 and 7 live rows in two experts 3 row
+    groups' worth, and an empty one none."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (4, 32):
+        g = decode_chain.qkv_grid(rows, 2048, 512, 512, lut)
+        assert g["items"] == 384 * (rows // 8 or 1)
+        assert sms <= g["blocks"] <= g["items"]
+    gate_up_tiles = 32 if lut_in_smem(lut) else 16
+    full = decode_chain.moe_ffn_grid(40, 8, 1536, 512, lut)
+    assert (full["gate_up"], full["down"]) == (80 * gate_up_tiles, 80 * 48)
+    assert sms <= full["blocks"] <= 80 * 48
+    some = decode_chain.moe_ffn_grid(40, 8, 1536, 512, lut, live=[1, 7] + [0] * 38)
+    assert (some["gate_up"], some["down"]) == (3 * gate_up_tiles, 3 * 48)
+    assert decode_chain.moe_ffn_grid(40, 8, 1536, 512, lut, live=[0] * 40)["down"] == 0
 
 
 MOE_COUNTERS = (approx_gemm.approx_gemm, approx_gemm.approx_gemm_batched,

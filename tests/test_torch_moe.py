@@ -193,6 +193,41 @@ def test_moe_ffn_plain_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(fused), **TOL)
 
 
+def _dead_row(kind, rng, d):
+    return {"zero": np.zeros(d, np.float32), "negative_zero": -np.zeros(d, np.float32),
+            "subnormal": _r(rng, d, scale=1e-39)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["zero", "negative_zero", "subnormal"])
+def test_dead_capacity_rows_give_positive_zero(kind):
+    """A capacity row whose every element is +-0 or subnormal has only +-0
+    AMSim products, whatever the weights (inf and NaN here, in an expert
+    that holds only dead rows), so the expert FFN gives +0.0 there: exactly,
+    sign bit clear, in the port's plain version and in the JAX kernel in
+    interpret mode.  This is what lets the CUDA kernel write +0.0 over such
+    a row without computing it.  The live rows agree at the file's TOL."""
+    o = _chain_operands(3)
+    rng = np.random.default_rng(4)
+    E, C, d = o["h"].shape
+    o["h"][1] = _dead_row(kind, rng, d)                  # expert 1: every row dead
+    o["h"][0, 1:C:2] = _dead_row(kind, rng, d)           # expert 0: dead rows between live ones
+    for n in ("wg", "wu", "wd"):
+        o[n][1, ::3], o[n][1, 1::3], o[n][1, 2::3] = np.inf, np.nan, -np.inf
+    dead = np.zeros((E, C), bool)
+    dead[1], dead[0, 1::2] = True, True
+    lut, _, jlut, M = _luts()
+    names = ("h", "wg", "wu", "wd")
+    out = decode_chain.fused_moe_ffn_plain(*_t(*(o[n] for n in names)), lut, M).numpy()
+    fused = np.asarray(jchain.fused_moe_ffn(*_j(*(o[n] for n in names)), jlut, M,
+                                            interpret=True))
+    for got in (out, fused):
+        assert not got[dead].view(np.int32).any()
+        assert np.isfinite(got[~dead]).all()
+    np.testing.assert_allclose(out[~dead], fused[~dead], **TOL)
+    assert decode_chain.live_rows(torch.from_numpy(o["h"])).tolist() == \
+        (C - dead.sum(axis=1)).tolist()
+
+
 def test_wrappers_run_the_plain_versions_on_the_cpu():
     """On CPU tensors each wrapper runs its plain version; with the packed
     LUT it gives the canonical table's bits."""
