@@ -43,14 +43,21 @@ caught:
     device's busy time and idle share, and each kernel's device time at
     the shapes of one resnet-mini step (CUDA events around calls queued
     behind a spin kernel) beside its bound and its plain version's time;
+    each GEMM shape also with its launch plan (``approx_gemm.gemm_plan``:
+    path, tile, table) and its grid (``approx_gemm.gemm_grid``: blocks on
+    the SMs) and the time of exact-fp32 ``torch.matmul`` at
+    the same shape (a different function, no LUT: the paper's Table V
+    native yardstick, not a library time);
 LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
  3d. the attention kernel and the three decode-chain kernels against their
     plain versions at the serving path's full-width shapes, with afm16
     packed (shared memory) and afm10 packed (global memory): causal
     prefill, decode over a ring with unwritten slots, both decode forms;
     every result bitwise equal; the back half's cooperative grid (blocks
-    on the card's SMs, work items of each phase); and the kernels'
-    expf/rsqrtf against torch.exp/torch.rsqrt over a sweep of float32;
+    on the card's SMs, work items of each phase); the GEMM kernel at the
+    head (4 rows, the column path) and at every projection of a 4 x 64
+    prefill (q, k/v, gate/up, down: each register tile those launch); and the kernels' expf/rsqrtf against torch.exp/torch.rsqrt
+    over a sweep of float32;
  4c. depth 2, batch 2, prompt 16, 8 new tokens, with a ring of 64 slots
     (2 chain launches a layer) and of 160 (3): logits and tokens under
     ``amsim`` bitwise equal to ``amsim_torch``; the counters must read 7
@@ -61,12 +68,15 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     device idle share, the amsim/native ratio, and each serving kernel's
     device time per prefill and per decode step beside its bound and its
     plain version's time, and the qkv and back-half grids at the run's
-    shapes (blocks, work items).
+    shapes (blocks, work items); each GEMM shape with its plan and the
+    exact-fp32 torch.matmul time as in 5b.
 MoE serving (granite-moe-3b-a800m at full width,
 ``configs/granite_moe_3b_a800m.py``):
  3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
-    512 and a ragged shape, and the wo+norm and expert-bank chain kernels
-    at 4 rows (with and without the wo bias) and at capacities 8 and 64,
+    512 (also with dead tail rows, an all-dead expert's B holding inf and
+    NaN) and a ragged shape, the router GEMM at 4 rows, and the wo+norm
+    and expert-bank chain kernels at 4 rows (with and without the wo bias)
+    and at capacities 8 and 64,
     on the buffer ``moe_ffn`` scatters for a decode step of 4 tokens, and
     on one with dead rows (zero, -0.0 and subnormal rows between live ones,
     an all-dead expert whose banks hold inf and NaN), against their plain
@@ -87,9 +97,11 @@ MoE serving (granite-moe-3b-a800m at full width,
     of 4 x 512 tokens under both; each kernel's device time at the
     shapes of these runs beside its bound and its plain version's time,
     the qkv grid, and the live rows, banks and grid of the measured decode
-    step's expert banks; and layer 0's expert FFN on the 4 x 512 prefill's
-    capacity-512 buffer by both routes (the expert-bank kernel and three
-    batched GEMMs): same bits, the device time of each.
+    step's expert banks; each GEMM shape with its plan (and the live row
+    tiles of the capacity-512 buffers) and the exact-fp32 torch.matmul
+    time; and layer 0's expert FFN on the 4 x 512 prefill's capacity-512
+    buffer by both routes (the expert-bank kernel and three batched
+    GEMMs): same bits, the device time of each.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -272,7 +284,7 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
     x, attn = randn(B, d), randn(B, H * dh, scale=0.3)
     back = [w[n] for n in ("g2", "wo", "wg", "wu", "wd")]
     err = {k: 0.0 for k in ("approx_attention", "fused_qkv_norm", "fused_out_mlp",
-                            "fused_attn_out_mlp")}
+                            "fused_attn_out_mlp", "approx_gemm")}
 
     def held(name, out, ref, what):
         outs = out if isinstance(out, tuple) else (out,)
@@ -313,13 +325,24 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
              chain.fused_attn_out_mlp(x, *sargs, *back, lut, M, eps=cfg.norm_eps),
              chain.fused_attn_out_mlp_plain(x, *sargs, *back, lut, M, eps=cfg.norm_eps,
                                             causal=True, window=0), tag)
+        from repro_torch.kernels import approx_gemm as gemm_mod
+        # the head at decode, then every prefill projection: each tile
+        # instance the main path launches, at its own shape
+        for m, k, n in ((B, d, cfg.vocab), (B * S, d, KV * dh), (B * S, d, H * dh),
+                        (B * S, d, F), (B * S, F, d)):
+            a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+            held("approx_gemm", gemm_mod.approx_gemm(a, b, lut, M),
+                 gemm_mod.approx_gemm_plain(a, b, lut, M), f"{tag} {(m, k, n)}")
+            print(f"{tag}: approx_gemm {(m, k, n)} {gemm_plan_text(a, b, lut)}")
+            del a, b
         for kname, heads in (("fused_out_mlp", 0), ("fused_attn_out_mlp", H)):
             print(f"{tag}: {kname} grid at {B} rows (blocks on "
                   f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, work items "
                   f"a phase): {chain.back_half_grid(B, d, F, lut, heads=heads, dh=dh)}")
         print(f"serving kernels == plain (bitwise): {tag} LUT at {LM_ARCH} widths: attention "
               f"prefill {tuple(q.shape)} over a ring of {T_short} and decode over {LONG_RING}; "
-              f"qkv, out-mlp and attention+out-mlp at {B} rows")
+              f"qkv, out-mlp and attention+out-mlp at {B} rows; GEMM at the head and every "
+              f"prefill projection")
     # The kernels' transcendentals against torch's, over every 101st bit pattern.
     bits = torch.arange(0, 2 ** 32, 101, dtype=torch.int64, device=dev)
     xs = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
@@ -577,8 +600,9 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
                 tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
                 bound += tb * len(same)
                 print(f"  {ctx}: approx_gemm {sa}x{sb}: {t * len(same):.4f} ms over "
-                      f"{len(same)} launches, bound {tb * len(same):.4f} ms ("
-                      f"{bound_kind(nbytes, lookups, lookups_per_s)})")
+                      f"{len(same)} launches ({t:.4f} ms each), bound {tb * len(same):.4f} ms ("
+                      f"{bound_kind(nbytes, lookups, lookups_per_s)}); "
+                      f"{gemm_plan_text(a[0], a[1], a[2])}; {matmul_text(a[0], a[1])}")
             print(f"  {ctx}: approx_gemm: {total:.4f} ms over {n} launches, bound {bound:.4f} ms")
             per[(ctx, kname)] = (n, total, None, bound, None)
             continue
@@ -640,6 +664,31 @@ def gemm_costs(a, b, lut, live_rows=None, live_batches=None):
     batches = batch if live_batches is None else live_batches
     from repro_torch.kernels.common import lut_bytes
     return 4 * (rows * k + batches * k * n + batch * m * n) + lut_bytes(lut), rows * k * n
+
+
+def gemm_plan_text(a, b, lut) -> str:
+    """The launch plan of approx_gemm(_batched)(a, b, lut) and the grid the
+    launch gives it, and for a batched product the row tiles that hold a
+    live row."""
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    batch = a.shape[0] if a.ndim == 3 else 1
+    m, n = a.shape[-2], b.shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = gemm_mod.gemm_plan(batch, m, a.shape[-1], n, lut, sms)
+    grid = gemm_mod.gemm_grid(plan, batch, m, n, lut)
+    text = (f"plan: {plan}; grid {grid['blocks']} blocks on {sms} SMs, {grid['smem']} B "
+            f"shared a block")
+    if a.ndim == 3:
+        live_tiles, total = gemm_mod.live_row_tiles(a, plan)
+        text += f"; {live_tiles} of {total} row tiles live"
+    return text
+
+
+def matmul_text(a, b) -> str:
+    """Device time of exact-fp32 torch.matmul at the GEMM's shape."""
+    require(not torch.backends.cuda.matmul.allow_tf32, "torch.matmul would run in TF32")
+    t = queued_ms(lambda: torch.matmul(a, b), reps=5)
+    return f"exact-fp32 torch.matmul {t:.4f} ms (another function: no LUT)"
 
 
 def bound_kind(nbytes, lookups, lookups_per_s) -> str:
@@ -718,7 +767,7 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen).to(dev) * scale
 
-    err = {k: 0.0 for k in MOE_SOURCES}
+    err = {k: 0.0 for k in (*MOE_SOURCES, "approx_gemm")}
 
     def held(name, out, ref, what):
         """Bit for bit: +0.0 and -0.0 differ here."""
@@ -745,6 +794,23 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
             a, b = randn(B, m, k), randn(B, k, n, scale=k ** -0.5)
             held("approx_gemm_batched", gemm_mod.approx_gemm_batched(a, b, lut, M),
                  gemm_mod.approx_gemm_batched_plain(a, b, lut, M), f"{tag} {(B, m, k, n)}")
+        # Dead tail rows as moe_ffn leaves them; expert 0 all dead, inf/NaN in its B.
+        a, b = randn(E, 512, d), randn(E, d, F, scale=d ** -0.5)
+        tail = torch.zeros((512, d), device=dev)
+        tail[1::3], tail[2::3] = -0.0, tiny[0]
+        for e, n_live in enumerate(torch.randint(0, 512, (E,), generator=gen).tolist()):
+            a[e, n_live:] = tail[n_live:]
+        a[0] = tail
+        b[0, ::3], b[0, 1::3], b[0, 2::3] = float("inf"), float("nan"), -float("inf")
+        held("approx_gemm_batched", gemm_mod.approx_gemm_batched(a, b, lut, M),
+             gemm_mod.approx_gemm_batched_plain(a, b, lut, M), f"{tag} dead tail rows")
+        print(f"{tag}: approx_gemm_batched {(E, 512, d, F)} with dead tail rows "
+              f"{gemm_plan_text(a, b, lut)}")
+        del a, b
+        a, b = randn(4, d), randn(d, E, scale=d ** -0.5)
+        held("approx_gemm", gemm_mod.approx_gemm(a, b, lut, M),
+             gemm_mod.approx_gemm_plain(a, b, lut, M), f"{tag} router {(4, d, E)}")
+        print(f"{tag}: approx_gemm router {(4, d, E)} {gemm_plan_text(a, b, lut)}")
         x, attn = randn(4, d), randn(4, K, scale=0.3)
         g2, wo, bo = 1 + 0.1 * randn(d), randn(K, d, scale=K ** -0.5), 0.1 * randn(d)
         for bias in ({}, {"bo": bo}):
@@ -767,8 +833,9 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
              chain.fused_moe_ffn_plain(dead_rows, *bad, lut, M), f"{tag} dead rows")
         del bad
         print(f"MoE serving kernels == plain (bitwise): {tag} LUT at {MOE_ARCH} widths: batched "
-              f"GEMM ({E}, 512, {d})x({E}, {d}, {F}), ({E}, 512, {F})x({E}, {F}, {d}) and (3, 67, "
-              f"130)x(3, 130, 33); wo+norm at 4 rows with and without bo; expert banks at C=8, 64, "
+              f"GEMM ({E}, 512, {d})x({E}, {d}, {F}) (also with dead tail rows), ({E}, 512, "
+              f"{F})x({E}, {F}, {d}) and (3, 67, 130)x(3, 130, 33), the router GEMM; wo+norm "
+              f"at 4 rows with and without bo; expert banks at C=8, 64, "
               f"on the buffer moe_ffn scatters for a decode step of 4 tokens ({int(live.sum())} "
               f"live rows in {int((live > 0).sum())} of {E} banks) and at C=64 with "
               f"{int((chain.live_rows(dead_rows) == 0).sum())} all-dead expert (inf/NaN banks) and "
@@ -1033,6 +1100,8 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
                                n * lookups / lookups_per_s)):
             acc[i] += v
         extra = f", plain {tp * n:.2f} ms" if kname in MOE_SOURCES else ""
+        if kname in ("approx_gemm", "approx_gemm_batched"):
+            extra += f"; {gemm_plan_text(*args[:3])}; {matmul_text(*args[:2])}"
         if kname == "fused_qkv_norm":
             extra += f"; grid {qkv_grid_of(args)}"
         if kname == "fused_moe_ffn":
@@ -1190,8 +1259,10 @@ def main() -> int:
 
     # ------------------------------ 3d. serving kernels vs plain on the card
     serve_err = serving_kernel_checks(dev, gen, lut_case)
+    max_err["approx_gemm"] = max(max_err["approx_gemm"], serve_err.pop("approx_gemm"))
     phase_done("3d serving kernels vs plain")
     moe_err = moe_kernel_checks(dev, gen, lut_case)
+    max_err["approx_gemm"] = max(max_err["approx_gemm"], moe_err.pop("approx_gemm"))
     phase_done("3e MoE serving kernels vs plain")
 
     # ----------------------------------------------------- 4. main path
@@ -1449,7 +1520,9 @@ def main() -> int:
             print(f"  {kname} [{pass_}] {shapes} {kw}: {t:.4f} ms on device, {t_call:.4f} ms "
                   f"per call (plain {tp:.2f} ms, bound {tb:.4f} ms, {made} lookups"
                   + (f", {real} on real error values: bound {tb_real:.4f} ms" if stride else "")
-                  + f", {nbytes} B)")
+                  + f", {nbytes} B)"
+                  + (f"; {gemm_plan_text(*args[:3])}; {matmul_text(*args[:2])}"
+                     if kname == "approx_gemm" else ""))
             s = sums.setdefault(pass_, [0.0] * 5 + [0])
             for i, v in enumerate((t, t_call, tp, tb, tb_real, 1)):
                 s[i] += v

@@ -28,8 +28,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t code as an int.
 LIBRARIES = {
     "approx_gemm": ("approx_gemm.cu", {
-        "approx_gemm_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-        "approx_gemm_batched_f32": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        "approx_gemm_f32": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+        "approx_gemm_batched_f32": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+        "approx_gemm_grid": [_I] * 9 + [_P, _P],
     }),
     "approx_conv": ("approx_conv.cu", {
         "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],

@@ -3,7 +3,9 @@ checks, the checked call into a kernel library, the attention mask and
 the kernels' order of a float32 sum.
 
 The gather brick itself (``repro/kernels/common.py:_gather_gemm_tile``)
-is the device function ``amsim::mul`` in ``csrc/amsim.cuh``.
+is the device function ``amsim::mul`` in ``csrc/amsim.cuh``; the GEMM
+kernel has its own form of it, ``product`` in ``csrc/approx_gemm.cu``,
+on operands decoded once (its torch twin: ``ref.ref_kernel_product``).
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@
 
 namespace amsim {
 
-// Block size of both kernels (the GEMM as 16x16).
+// Default block size of the grid-stride kernels.
 constexpr int kThreads = 256;
 
 template <typename LutT, bool kSmem>
@@ -75,12 +75,13 @@ __device__ __forceinline__ void stage_lut(void* dst, const void* src, int bytes)
   __syncthreads();
 }
 
-// Grid size for a grid-stride kernel: as many blocks as fit on the card at
-// once, no more than there is work for.  Staging the LUT costs each block
-// a copy of the table, so blocks loop over work instead of being many.
+// Grid size for a grid-stride kernel of `threads` a block: as many blocks
+// as fit on the card at once, no more than there is work for.  Staging the
+// LUT costs each block a copy of the table, so blocks loop over work
+// instead of being many.
 template <typename Kernel>
 inline cudaError_t grid_size(Kernel kernel, int smem_bytes, long long work_blocks,
-                             int* blocks) {
+                             int* blocks, int threads = kThreads) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -91,7 +92,7 @@ inline cudaError_t grid_size(Kernel kernel, int smem_bytes, long long work_block
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem_bytes);
   if (err != cudaSuccess) return err;
   long long cap = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
   *blocks = static_cast<int>(work_blocks < cap ? work_blocks : cap);

@@ -65,6 +65,38 @@ def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
     return _sequential_gemm(ua, ub, products)
 
 
+def ref_kernel_product(ua: torch.Tensor, ub: torch.Tensor, lut: torch.Tensor, M: int, *,
+                       expand: bool = True) -> torch.Tensor:
+    """amsim(a, b) as the CUDA GEMM kernel computes it, on int64 words
+    holding uint32 values: each operand decoded once (``decode_a``,
+    ``decode_b`` in ``csrc/approx_gemm.cu``), then ``product``.  Used only
+    by the tests, which hold it bit for bit against ``core.amsim._amsim``.
+    ``expand`` reads a packed table as the kernel does once it has expanded
+    it to canonical words at staging, else as it unpacks a packed entry a
+    product."""
+    words, packed = lut_words(lut)
+    mask = (1 << M) - 1
+    sign = 0x8000_0000
+
+    def exponent(u, bias):
+        e = (u >> 23) & 0xFF
+        return torch.where(e == 0, torch.full_like(e, -1024), e - bias)
+
+    ixa = (ua & sign) | (((ua >> (23 - M)) & mask) << M)
+    ixb = (ub & sign) | ((ub >> (23 - M)) & mask)
+    w = ixa ^ ixb
+    entry = words[w & 0xFF_FFFF]
+    if not packed:
+        entry = entry & 0xFF_FFFF
+    elif expand:
+        entry = (((entry >> M) & 1) << 23) | ((entry & mask) << (23 - M))
+    else:
+        entry = (entry << (23 - M)) & 0xFF_FFFF
+    e0 = exponent(ua, 127) + exponent(ub, 0)
+    v = torch.clamp(((e0 << 23) + entry) & 0xFFFF_FFFF, max=0x7F80_0000)
+    return torch.where(e0 > 0, v, torch.zeros_like(v)) | (w & sign)
+
+
 def ref_direct_gemm(a: torch.Tensor, b: torch.Tensor, multiplier: Multiplier):
     """out[..., i, j] = sum_k mul(a[..., i, k], b[..., k, j]) with the
     multiplier model's torch twin (bitwise ``Multiplier.np_mul``), k in

@@ -1,4 +1,4 @@
-"""Time the decode-chain kernels on the card at the full-width decode shapes.
+"""Time the decode-chain and GEMM kernels on the card at the path's shapes.
 
     python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
 
@@ -7,11 +7,18 @@ another checkout's ``src`` (its kernels built there), so that two trees
 are timed by one script in one call on one card: run it for each tree in
 turns (A, B, B, A).  Weights and activations are random, from a seed; the
 expert banks get the capacity buffers that ``moe.moe_ffn`` scatters for 4
-decode tokens (C = 8) and for a prefill of 4 x 64 tokens (C = 64).  Each
-time is the mean device time of a launch from CUDA events around 5 calls
-queued behind a spin kernel, for afm16 packed (a shared-memory LUT) and
-afm10 packed (global memory).  Prints one line a kernel and shape, then
-one JSON object {"tag", "device", "power_limit", "ms": {name: ms}}.
+decode tokens (C = 8) and for a prefill of 4 x 64 tokens (C = 64).  The
+GEMM kernel (``--match approx_gemm``) is timed at granite-3-2b's four
+prefill projection shapes (4 x 64 tokens) and its head at 4 rows,
+granite-moe-3b-a800m's router and head at 4 rows and its expert banks on
+the capacity-512 buffers of a 4 x 512 prefill, and at the vision models'
+fc GEMMs at batch 64 (forward, dx and dw).  Each time is the mean device
+time of a launch from CUDA events around 5 calls queued behind a spin
+kernel, for afm16 packed (a shared-memory LUT) and afm10 packed (global
+memory); the GEMM also with afm16's packed table kept packed in shared
+memory ("raw"), where the tree has that choice.  Prints one line a kernel
+and shape, then one JSON object {"tag", "device", "power_limit", "ms":
+{name: ms}}.
 """
 from __future__ import annotations
 
@@ -44,6 +51,12 @@ def queued_ms(fn, reps: int = 5) -> float:
     raise SystemExit("time_chain: the host could not queue the calls ahead of the card")
 
 
+# The fc GEMMs of LeNet-300-100, LeNet-5 and resnet-mini at batch 64, and a
+# ragged one: (m, k, n) of the forward product (chip_smoke.py's GEMM_SHAPES).
+VISION_GEMMS = [(64, 784, 120), (64, 120, 84), (64, 84, 10), (64, 784, 300),
+                (64, 300, 100), (64, 100, 10), (64, 64, 10), (67, 130, 33)]
+
+
 def routed_buffer(cfg, router, x, policy):
     """The (E, C, d) capacity buffer that ``moe.moe_ffn`` scatters for the
     tokens x (B, S, d) with the router weights (d, E) under ``policy`` (one
@@ -58,14 +71,64 @@ def routed_buffer(cfg, router, x, policy):
         "router": Linear(router),
         "experts": torch.nn.ModuleDict({n: Linear(torch.zeros(shape, device=x.device))
                                         for n, shape in banks.items()})})
-    seen, original = [], ops.decode_moe_ffn
+    seen, original, max_c = [], ops.decode_moe_ffn, ops.MOE_FFN_MAX_C
     ops.decode_moe_ffn = lambda buf, *a: seen.append(buf) or torch.zeros_like(buf)
+    ops.MOE_FFN_MAX_C = 1 << 30      # capture the buffer at any capacity
     try:
         with torch.no_grad():
             moe.moe_ffn(p, x, cfg, policy)
     finally:
-        ops.decode_moe_ffn = original
+        ops.decode_moe_ffn, ops.MOE_FFN_MAX_C = original, max_c
     return seen[0]
+
+
+def time_gemms(timed, randn, lut_name, lut, M, dense, moe_cfg, B, policy):
+    """The GEMM kernel at the serving and training shapes (module doc)."""
+    import torch
+    from repro_torch.kernels import approx_gemm as gemm
+    d = dense.d_model
+    shapes = {f"{dense.name} prefill {64 * B}x{k}x{n}": (64 * B, k, n)
+              for k, n in ((d, dense.n_heads * dense.head_dim),
+                           (d, dense.n_kv_heads * dense.head_dim), (d, dense.d_ff),
+                           (dense.d_ff, d))}
+    shapes[f"{dense.name} head {B}x{d}x{dense.vocab}"] = (B, d, dense.vocab)
+    dm = moe_cfg.d_model
+    shapes[f"{moe_cfg.name} router {B}x{dm}x{moe_cfg.moe.n_experts}"] = (
+        B, dm, moe_cfg.moe.n_experts)
+    shapes[f"{moe_cfg.name} head {B}x{dm}x{moe_cfg.vocab}"] = (B, dm, moe_cfg.vocab)
+    for m, k, n in VISION_GEMMS:
+        for pass_, shape in (("fwd", (m, k, n)), ("dx", (m, n, k)), ("dw", (k, m, n))):
+            shapes[f"vision {pass_} {'x'.join(map(str, shape))}"] = shape
+    # (tag, EXPAND_MIN_K): the plan's own table form, then afm16's packed
+    # table kept packed at every k, where the tree has that choice
+    min_k = getattr(gemm, "EXPAND_MIN_K", None)
+    variants = [("", min_k)]
+    if lut_name == "afm16" and min_k is not None:
+        variants.append((" raw", sys.maxsize))
+    for tag, expand_min_k in variants:
+        if min_k is not None:
+            gemm.EXPAND_MIN_K = expand_min_k
+        for label, (m, k, n) in shapes.items():
+            name = f"{lut_name}{tag} approx_gemm {label}"
+            if not timed.wants(name):
+                continue
+            a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+            timed(name, lambda: gemm.approx_gemm(a, b, lut, M))
+        E, F = moe_cfg.moe.n_experts, moe_cfg.moe.d_ff
+        name = f"{lut_name}{tag} approx_gemm_batched {moe_cfg.name} C=512"
+        if not timed.wants(name):
+            continue
+        router = randn(dm, E, scale=dm ** -0.5)
+        h = routed_buffer(moe_cfg, router, randn(B, 512, dm), policy)
+        live = ((h.view(torch.int32) >> 23) & 0xFF).bool().any(-1)
+        act = randn(E, h.shape[1], F) * live[..., None]
+        for what, a, b in (("gate", h, randn(E, dm, F, scale=dm ** -0.5)),
+                           ("down", act, randn(E, F, dm, scale=F ** -0.5))):
+            timed(f"{name} {what} {tuple(a.shape)}x{tuple(b.shape)} ({int(live.sum())} "
+                  f"live rows)", lambda: gemm.approx_gemm_batched(a, b, lut, M))
+        del h, act
+    if min_k is not None:
+        gemm.EXPAND_MIN_K = min_k
 
 
 def main() -> int:
@@ -103,11 +166,15 @@ def main() -> int:
         ms[name] = queued_ms(fn)
         print(f"{args.tag} {name}: {ms[name]:.4f} ms a launch", flush=True)
 
+    timed.wants = lambda name: args.match in name
+
     dense, moe_cfg = get_arch("granite-3-2b"), get_arch("granite-moe-3b-a800m")
     B = 4
     for lut_name in ("afm16", "afm10"):
         lut = lut_tensor(get_packed_lut(lut_name), dev)
         M = get_multiplier(lut_name).mantissa_bits
+        time_gemms(timed, randn, lut_name, lut, M, dense, moe_cfg, B,
+                   NumericsPolicy(mode="amsim", multiplier="afm16"))
         for cfg in (dense, moe_cfg):
             d, nq, nkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
             qkv = (randn(B, d), 1 + 0.1 * randn(d), randn(d, nq, scale=d ** -0.5),

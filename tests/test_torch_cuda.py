@@ -433,6 +433,157 @@ def test_batched_gemm_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, 
     assert torch.equal(out, ref)
 
 
+# The GEMM kernel's two paths.  First each shape with the plan a launch
+# takes (gemm_plan): m on both sides of the small-m threshold, the router's
+# 40 columns, a ragged wide n, k off the 16-step slab and the 256-step
+# chunk, m and n one off the tiled path's 64x64 and 32x64 tiles, and
+# granite-3-2b's gate/up projection at prefill.  Then every tile shape of
+# each path, forced, at its edges and at a batch of more tiles than the
+# card holds blocks (each block walks several).
+GEMM_PLANNED = [(1, 300, 70), (4, 1000, 300), (8, 500, 300), (9, 500, 300), (4, 1536, 40),
+                (4, 2048, 4099), (65, 37, 8193), (63, 64, 8257), (129, 100, 4161)]
+GEMM_FORCED = [("tiled", 8, 2), ("tiled", 4, 2), ("tiled", 2, 1), ("tiled", 1, 1),
+               ("column", 1, 128), ("column", 2, 64), ("column", 4, 32), ("column", 8, 16)]
+# (name, packed, expand): the table forms a plan can choose; expand False
+# keeps a packed table packed at every k.
+GEMM_TABLES = [("afm16", True, True), ("afm16", True, False), ("afm16", False, True),
+               ("mitchell8", True, True), ("mitchell8", False, True), ("afm10", True, True),
+               ("afm10", False, True)]
+
+
+def _expand(monkeypatch, expand):
+    """Expand a packed table that fits twice at every k, or at none."""
+    monkeypatch.setattr(approx_gemm, "EXPAND_MIN_K", 0 if expand else 1 << 62)
+
+
+def _gemm_bits(a, b, lut, M):
+    out = (approx_gemm.approx_gemm(a, b, lut, M) if a.ndim == 2
+           else approx_gemm.approx_gemm_batched(a, b, lut, M))
+    ref = (approx_gemm.approx_gemm_plain(a, b, lut, M) if a.ndim == 2
+           else approx_gemm.approx_gemm_batched_plain(a, b, lut, M))
+    torch.cuda.synchronize()
+    return _same_bits(out, ref)
+
+
+@pytest.mark.parametrize("name,packed,expand", GEMM_TABLES)
+@pytest.mark.parametrize("m,k,n", GEMM_PLANNED)
+def test_gemm_kernel_bitwise_vs_plain_at_planned_shapes(cuda, monkeypatch, name, packed, expand,
+                                                        m, k, n, rng):
+    _expand(monkeypatch, expand)
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+    assert _gemm_bits(a, b, lut, M)
+
+
+@pytest.mark.parametrize("name,packed,expand", GEMM_TABLES)
+@pytest.mark.parametrize("path,rows,cols", GEMM_FORCED)
+def test_gemm_kernel_bitwise_vs_plain_on_every_tile_shape(cuda, monkeypatch, name, packed,
+                                                          expand, path, rows, cols, rng):
+    import dataclasses
+    _expand(monkeypatch, expand)
+    lut, M = _lut(name, packed, cuda)
+    plan_of = approx_gemm.gemm_plan
+    bm, bn = (8 * rows, 32 * cols) if path == "tiled" else (rows, cols)
+
+    def forced(batch, m, k, n, lut_, sms):
+        return dataclasses.replace(plan_of(batch, m, k, n, lut_, sms),
+                                   path=path, rows=rows, cols=cols, tile=(bm, bn))
+
+    monkeypatch.setattr(approx_gemm, "gemm_plan", forced)
+    # one off the tile each way, k off the slab and across a 256-step chunk
+    shapes = [(bm + 1, 37, bn - 1), (max(1, bm - 1), 300, 2 * bn + 1), (2 * bm, 16, bn),
+              (3 * bm + 5, 1, 33), (17, 260, 40)]
+    for m, k, n in shapes:
+        a, b = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda)
+        assert _gemm_bits(a, b, lut, M), (m, k, n)
+        ab, bb = _randn(rng, (3, m, k), cuda), _randn(rng, (3, k, n), cuda)
+        assert _gemm_bits(ab, bb, lut, M), (3, m, k, n)
+    # 3 x 40 x 40 tiles, more than the card holds blocks of this kernel
+    m, n = 39 * bm + 1, 39 * bn + 1
+    grid = approx_gemm.gemm_grid(forced(3, m, 5, n, lut, 0), 3, m, n, lut)
+    assert grid["tiles"] == 3 * 40 * 40 and grid["blocks"] < grid["tiles"], grid
+    ab, bb = _randn(rng, (3, m, 5), cuda), _randn(rng, (3, 5, n), cuda)
+    assert _gemm_bits(ab, bb, lut, M), (3, m, 5, n)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_gemm_kernel_bitwise_vs_plain_at_the_prefill_shape(cuda, name, packed, rng):
+    """granite-3-2b's gate/up projection at a prefill of 4 x 64 tokens."""
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (256, 2048), cuda), _randn(rng, (2048, 8192), cuda) * 2048 ** -0.5
+    assert _gemm_bits(a, b, lut, M)
+
+
+def _dead_tail_rows(B, m, k, n, rng, device):
+    """Capacity buffers as moe_ffn scatters them: each expert's live rows
+    first, then dead rows (+0.0, -0.0 and subnormal in turn); expert 1
+    wholly dead with inf and NaN in its B."""
+    a, b = _randn(rng, (B, m, k), device), _randn(rng, (B, k, n), device) * k ** -0.5
+    fill = torch.from_numpy((rng.standard_normal((m, k)) * 1e-39).astype(np.float32)).to(device)
+    fill[0::3], fill[1::3] = 0.0, -0.0
+    for e, live in enumerate(rng.integers(0, m, size=B)):
+        a[e, live:] = fill[live:]
+    a[1] = fill
+    b[1, ::3], b[1, 1::3], b[1, 2::3] = float("inf"), float("nan"), -float("inf")
+    return a, b
+
+
+@pytest.mark.parametrize("name,packed,expand", GEMM_TABLES)
+@pytest.mark.parametrize("B,m,k,n", [(5, 70, 130, 90), (4, 200, 64, 300), (3, 8, 40, 17)])
+def test_batched_gemm_kernel_bitwise_vs_plain_with_dead_tail_rows(cuda, monkeypatch, name,
+                                                                  packed, expand, B, m, k, n,
+                                                                  rng):
+    _expand(monkeypatch, expand)
+    lut, M = _lut(name, packed, cuda)
+    a, b = _dead_tail_rows(B, m, k, n, rng, cuda)
+    out = approx_gemm.approx_gemm_batched(a, b, lut, M)
+    assert _gemm_bits(a, b, lut, M)
+    dead = ~((a.view(torch.int32) >> 23) & 0xFF).bool().any(dim=-1)
+    assert bool(dead.any()) and int((out[dead].view(torch.int32) != 0).sum()) == 0
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_batched_gemm_kernel_bitwise_vs_plain_at_full_width_with_dead_tail_rows(cuda, name,
+                                                                               packed, rng):
+    """granite-moe-3b-a800m's gate bank at capacity 512 with dead tails."""
+    lut, M = _lut(name, packed, cuda)
+    a, b = _dead_tail_rows(40, 512, 1536, 512, rng, cuda)
+    plan = approx_gemm.gemm_plan(40, 512, 1536, 512, lut,
+                                 torch.cuda.get_device_properties(cuda).multi_processor_count)
+    live, total = approx_gemm.live_row_tiles(a, plan)
+    assert 0 < live < total
+    assert _gemm_bits(a, b, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_gemm_grid_keeps_busy_every_sm_the_old_grid_did(cuda, name, packed):
+    """The grid as the C launch sizes it: at least min(the 16x16 grid's
+    blocks, the SMs) blocks and no more than the plan's tiles, at the
+    vision models' fc shapes (forward, dx, dw) and at granite-3-2b's and
+    granite-moe-3b-a800m's serving shapes."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dense, moe_cfg = get_arch("granite-3-2b"), get_arch("granite-moe-3b-a800m")
+    shapes = []
+    for m, k, n in ((64, 784, 120), (64, 120, 84), (64, 84, 10), (64, 784, 300),
+                    (64, 300, 100), (64, 64, 10)):
+        shapes += [(1, m, k, n), (1, m, n, k), (1, k, m, n)]
+    d, F = dense.d_model, dense.d_ff
+    for rows in (4, 32, 256):
+        shapes += [(1, rows, d, n) for n in (dense.n_heads * dense.head_dim,
+                                             dense.n_kv_heads * dense.head_dim, F, dense.vocab)]
+        shapes.append((1, rows, F, d))
+    dm, E = moe_cfg.d_model, moe_cfg.moe.n_experts
+    shapes += [(1, 4, dm, E), (1, 2048, dm, E), (E, 512, dm, moe_cfg.moe.d_ff),
+               (E, 512, moe_cfg.moe.d_ff, dm)]
+    for batch, m, k, n in shapes:
+        plan = approx_gemm.gemm_plan(batch, m, k, n, lut, sms)
+        grid = approx_gemm.gemm_grid(plan, batch, m, n, lut)
+        assert grid["tiles"] == plan.tiles, (batch, m, k, n, plan, grid)
+        assert min(plan.old_blocks, sms) <= grid["blocks"] <= plan.tiles, (batch, m, k, n, plan,
+                                                                           grid)
+
+
 # (rows, d, K): two k-tiles and two column tiles at 160/300, two row groups
 # at 9 rows; then granite-moe-3b-a800m's wo at 4 rows.
 WO_NORM_CASES = [(1, 160, 300), (3, 300, 160), (9, 160, 300)]

@@ -61,6 +61,41 @@ def test_plain_gemm_bitwise_vs_jax_chunk1(shape, name, packed, rng):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("kind", ["zero", "negative_zero", "subnormal"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_dead_rows_give_positive_zero_in_plain_and_jax_gemm(kind, batched, rng):
+    """A row of A whose exponent fields are all 0 makes every AMSim product
+    +-0 whatever B holds (inf and NaN too), and its sum from +0.0 is +0.0:
+    in the plain GEMM and in the JAX kernels at chunk=1, bit for bit.  The
+    CUDA kernel writes +0.0 over such row tiles without reading B."""
+    table, M = _lut("afm16", True)
+    B, m, k, n = 2, 6, 40, 9
+    a = rng.standard_normal((B, m, k)).astype(np.float32)
+    b = rng.standard_normal((B, k, n)).astype(np.float32)
+    dead = {"zero": np.zeros(k, np.float32), "negative_zero": -np.zeros(k, np.float32),
+            "subnormal": (rng.standard_normal(k) * 1e-39).astype(np.float32)}[kind]
+    a[:, 1], a[:, 4:] = dead, dead
+    b[:, ::3, :3], b[:, 1::3, :3], b[:, 2::3, :3] = np.inf, np.nan, -np.inf
+    lut = lut_tensor(table, "cpu")
+    if batched:
+        out = approx_gemm.approx_gemm_batched(torch.from_numpy(a), torch.from_numpy(b), lut,
+                                              M).numpy()
+        ref = np.asarray(japprox_gemm.approx_gemm_batched(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(table), M, bm=128, bn=128, bk=128,
+            chunk=1, interpret=True))
+    else:
+        out = approx_gemm.approx_gemm(torch.from_numpy(a[0]), torch.from_numpy(b[0]), lut,
+                                      M).numpy()[None]
+        ref = np.asarray(japprox_gemm.approx_gemm(
+            jnp.asarray(a[0]), jnp.asarray(b[0]), jnp.asarray(table), M, bm=128, bn=128,
+            bk=128, chunk=1, interpret=True))[None]
+    rows = [1, 4, 5]
+    assert not out[:, rows].view(np.int32).any()
+    assert not ref[:, rows].view(np.int32).any()
+    np.testing.assert_array_equal(out, ref)
+    assert np.isfinite(out[:, [0, 2, 3], 3:]).all()
+
+
 def test_plain_gemm_close_to_jax_default_tiling(rng):
     """At its default tiling JAX sums each chunk of products before adding
     it, so the order of the float32 sum differs.  Two orders of summing the
