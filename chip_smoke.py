@@ -16,7 +16,10 @@ caught:
     global memory); every result must be bitwise equal;
  3b. the conv weight-gradient kernel the same way, at every conv of
     resnet-mini and LeNet-5: batch 64 for afm16 packed (shared memory) and
-    afm10 packed (global memory), batch 4 for the other four tables;
+    afm10 packed (global memory), batch 4 for the other four tables; then
+    each shape's plan (printed with its grid: ``approx_conv.dw_plan``,
+    ``dw_grid``) on batch 4 buffers mixing zeros, -0.0, subnormals, inf and
+    NaN into x and g, held bit for bit (+0.0 and -0.0 differ);
  3c. the conv forward kernel at every data-gradient shape of those convs
     (dilated error, flipped IO-transposed weights, explicit pads), split
     over the tables as in 3b;
@@ -47,7 +50,9 @@ caught:
     path, tile, table) and its grid (``approx_gemm.gemm_grid``: blocks on
     the SMs) and the time of exact-fp32 ``torch.matmul`` at
     the same shape (a different function, no LUT: the paper's Table V
-    native yardstick, not a library time);
+    native yardstick, not a library time); each dw shape with its plan,
+    grid and chain floor (its positions x the clocks of a dependent float
+    add at the max SM clock: no fold order that keeps the bits is shorter);
 LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
  3d. the attention kernel and the three decode-chain kernels against their
     plain versions at the serving path's full-width shapes, with afm16
@@ -75,7 +80,8 @@ MoE serving (granite-moe-3b-a800m at full width,
  3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
     512 (also with dead tail rows, an all-dead expert's B holding inf and
     NaN) and a ragged shape, the router GEMM at 4 rows, and the wo+norm
-    and expert-bank chain kernels at 4 rows (with and without the wo bias)
+    and expert-bank chain kernels at 4 rows (with and without the wo bias;
+    the wo+norm grid printed: ``decode_chain.wo_norm_grid``)
     and at capacities 8 and 64,
     on the buffer ``moe_ffn`` scatters for a decode step of 4 tokens, and
     on one with dead rows (zero, -0.0 and subnormal rows between live ones,
@@ -97,7 +103,8 @@ MoE serving (granite-moe-3b-a800m at full width,
     of 4 x 512 tokens under both; each kernel's device time at the
     shapes of these runs beside its bound and its plain version's time,
     the qkv grid, and the live rows, banks and grid of the measured decode
-    step's expert banks; each GEMM shape with its plan (and the live row
+    step's expert banks and the wo+norm grid; each GEMM shape with its
+    plan (and the live row
     tiles of the capacity-512 buffers) and the exact-fp32 torch.matmul
     time; and layer 0's expert FFN on the 4 x 512 prefill's capacity-512
     buffer by both routes (the expert-bank kernel and three batched
@@ -127,6 +134,7 @@ N_BATCHES = 3
 TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 LOOKUPS_PER_SM_PER_CLOCK = 32      # shared-memory gathers: one per bank
+FADD_CLOCKS = 4                    # latency of a dependent float add (the dw chain floor)
 LUT_CASES = [("afm16", True), ("afm16", False), ("mitchell8", True),
              ("mitchell8", False), ("afm10", True), ("afm10", False)]
 # The gradient kernels are checked at batch 64 with one shared-memory and
@@ -242,6 +250,29 @@ def busy_text(busy: float | None, wall: float) -> str:
 def require(cond: bool, what: str):
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def special_values(shape, gen, dev):
+    """Random normals with zeros, -0.0, subnormals, inf, -inf and NaN mixed
+    in, one element in 12 each."""
+    v = torch.randn(shape, generator=gen)
+    pick = torch.randint(0, 12, shape, generator=gen)
+    v[pick == 0] = 0.0
+    v[pick == 1] = -0.0
+    v[pick == 2] = v[pick == 2] * 1e-39
+    v[pick == 3] = float("inf")
+    v[pick == 4] = -float("inf")
+    v[pick == 5] = float("nan")
+    return v.to(dev)
+
+
+def dw_plan_of(w_shape, lut):
+    """The dw plan and its C grid for a (kh, kw, c, o) gradient."""
+    from repro_torch.kernels import approx_conv
+    kh, kw, c, o = w_shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = approx_conv.dw_plan(kh, kw, c, o, lut, sms)
+    return plan, approx_conv.dw_grid(plan, kh, kw, c, o, lut)
 
 
 def taps(n_out: int, n_in: int, k: int, stride: int, pad: int, real_every: int = 1) -> int:
@@ -818,6 +849,8 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
                                                       **bias),
                  chain.fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=cfg.norm_eps, **bias),
                  f"{tag} 4 rows {'with' if bias else 'without'} bo")
+        print(f"{tag}: fused_wo_norm (4, {d}) x ({K}, {d}) grid {chain.wo_norm_grid(4, d, lut)} "
+              f"(cooperative blocks, wo items of 8 columns)")
         banks = (randn(E, d, F, scale=d ** -0.5), randn(E, d, F, scale=d ** -0.5),
                  randn(E, F, d, scale=F ** -0.5))
         for C in (8, 64):
@@ -1104,6 +1137,8 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
             extra += f"; {gemm_plan_text(*args[:3])}; {matmul_text(*args[:2])}"
         if kname == "fused_qkv_norm":
             extra += f"; grid {qkv_grid_of(args)}"
+        if kname == "fused_wo_norm":
+            extra += f"; grid {chain.wo_norm_grid(*args[0].shape, args[4])}"
         if kname == "fused_moe_ffn":
             h = args[0]
             live = chain.live_rows(h)
@@ -1255,6 +1290,23 @@ def main() -> int:
         print(f"gradient kernels == plain (bitwise): {lut_name} "
               f"{'packed' if packed else 'canonical'}, batch {batch}: dw kernel and the conv "
               f"kernel at the dx shape of {len(CONV_SHAPES)} convs")
+        # Each shape's plan (the batch does not enter it) on special values.
+        for xs, ws, stride in CONV_SHAPES:
+            kh, kw, _, o = ws
+            plan, grid = dw_plan_of(ws, lut)
+            if (lut_name, packed) in FULL_BATCH_LUTS:
+                print(f"  dw {xs}x{ws}/s{stride}: {plan}; grid {grid}")
+            xs = (SMALL_BATCH, *xs[1:])
+            pads = conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
+            oh, ow = conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+            x, g = special_values(xs, gen, dev), special_values((xs[0], oh, ow, o), gen, dev)
+            out = approx_conv2d_dw(x, g, lut, M, kh=kh, kw=kw, stride=stride, padding="SAME")
+            ref = approx_conv2d_dw_plain(x, g, lut, M, kh, kw, stride, pads)
+            require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                    f"approx_conv2d_dw {lut_name} packed={packed} {xs}x{ws}/s{stride} on special "
+                    f"values, plan {plan}: the bits differ")
+        print(f"  dw kernel == plain (bit for bit) on x and g with zeros, -0.0, subnormals, inf "
+              f"and NaN, batch {SMALL_BATCH}")
     phase_done("3b/3c gradient kernels vs plain")
 
     # ------------------------------ 3d. serving kernels vs plain on the card
@@ -1504,6 +1556,7 @@ def main() -> int:
           "and nothing else), and wrapper call time (host launch path included):")
     for kname, (src, replaces, fn, cost) in sources.items():
         sums = {}   # pass -> [ms, call_ms, plain_ms, bound_ms, bound of real taps, n]
+        floors = {}  # pass -> the dw chain floor, ms
         bytes_s = ops_s = 0.0
         for args, kw, stride in calls[kname]:
             extra = {"real_every": stride} if stride else {}
@@ -1517,12 +1570,19 @@ def main() -> int:
             shapes = " ".join(str(tuple(a.shape)) for a in args[:2])
             pass_ = "dx" if stride else {"approx_gemm": "fwd+dx+dw",
                                          "approx_conv2d_dw": "dw"}.get(kname, "fwd")
+            note = ""
+            if kname == "approx_gemm":
+                note = f"; {gemm_plan_text(*args[:3])}; {matmul_text(*args[:2])}"
+            if kname == "approx_conv2d_dw":
+                x, g = args[:2]
+                floor = g.numel() // g.shape[3] * FADD_CLOCKS / (sm_mhz * 1e3)
+                plan, grid = dw_plan_of((kw["kh"], kw["kw"], x.shape[3], g.shape[3]), args[2])
+                note = f"; chain floor {floor:.4f} ms; {plan}; grid {grid}"
+                floors[pass_] = floors.get(pass_, 0.0) + floor
             print(f"  {kname} [{pass_}] {shapes} {kw}: {t:.4f} ms on device, {t_call:.4f} ms "
                   f"per call (plain {tp:.2f} ms, bound {tb:.4f} ms, {made} lookups"
                   + (f", {real} on real error values: bound {tb_real:.4f} ms" if stride else "")
-                  + f", {nbytes} B)"
-                  + (f"; {gemm_plan_text(*args[:3])}; {matmul_text(*args[:2])}"
-                     if kname == "approx_gemm" else ""))
+                  + f", {nbytes} B){note}")
             s = sums.setdefault(pass_, [0.0] * 5 + [0])
             for i, v in enumerate((t, t_call, tp, tb, tb_real, 1)):
                 s[i] += v
@@ -1534,7 +1594,9 @@ def main() -> int:
             print(f"kernel {kname} [{pass_}]: {t:.4f} ms on device per resnet-mini step over {n} "
                   f"launches ({t_call:.4f} ms per-call time), bound {tb_real:.4f} ms"
                   + (f" on real error values ({tb:.4f} ms counting the inserted zeros)"
-                     if pass_ == "dx" else "") + f", plain {tp:.2f} ms")
+                     if pass_ == "dx" else "")
+                  + (f", chain floor {floors[pass_]:.4f} ms" if pass_ in floors else "")
+                  + f", plain {tp:.2f} ms")
         rows_out.append({
             "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": main_launches[kname],

@@ -36,7 +36,8 @@ LIBRARIES = {
         "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
     }),
     "approx_conv_dw": ("approx_conv_dw.cu", {
-        "approx_conv2d_dw_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
+        "approx_conv2d_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
+        "approx_conv_dw_grid": [_I] * 9 + [_P, _P],
     }),
     "approx_attention": ("approx_attention.cu", {
         "approx_attention_f32": [_P] * 8 + [_I] * 13 + [_P],
@@ -50,10 +51,11 @@ LIBRARIES = {
         "libm_probe_f32": [_P] * 3 + [ctypes.c_longlong, _P],
         "back_half_grid": [_I] * 8 + [_P, _P],
         "qkv_grid": [_I] * 7 + [_P, _P],
+        "wo_norm_grid": [_I] * 5 + [_P, _P],
         "moe_ffn_grid": [_I] * 4 + [_P] + [_I] * 3 + [_P, _P],
     }),
 }
-_HEADERS = ("amsim.cuh", "attention.cuh")
+_HEADERS = ("amsim.cuh", "amsim_decoded.cuh", "attention.cuh")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

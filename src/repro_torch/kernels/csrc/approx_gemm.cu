@@ -24,7 +24,8 @@
 //   negative number, so AMSim's three flush tests are one compare of the
 //   exponent sum; a product is then an xor (index and sign at once), the
 //   gather, an add, a shift-add of the exponent onto the table entry, the
-//   overflow clamp, the zero select, an or and the FADD (`product`).
+//   overflow clamp, the zero select, an or and the FADD (`product`, in
+//   amsim_decoded.cuh, which the conv weight-gradient kernel shares).
 // - Tiled path (m > 8): 8 warps a block, lanes along n so that the 32
 //   lanes of a gather read 32 different columns' indices; each thread
 //   holds a TM x TN register tile, so a decoded A word serves TN products
@@ -61,9 +62,11 @@
 // (kernels/ref.py:ref_amsim_gemm): no split-k, no atomics, no
 // reassociation, so results are bitwise equal to both.  Built without
 // fast-math flags: the sum must round, and keep denormals, as the CPU does.
-#include "amsim.cuh"
+#include "amsim_decoded.cuh"
 
 namespace {
+
+using namespace amsim;
 
 constexpr int kWarps = 8;            // tiled path: 8 warps a block
 constexpr int kTiledThreads = 32 * kWarps;
@@ -72,89 +75,6 @@ constexpr int kBK = 16;              // tiled path: k steps a slab
 // that 3 blocks of 4 rows fit an SM beside a 64 KiB table (the decode heads).
 constexpr int kChunkWords = 1024;
 constexpr int kColumnMaxThreads = 128;
-constexpr int kZeroExp = -1024;      // a zero exponent field: every sum with it is <= 0
-
-// Where the table is read from, and in which form (the plan's `table`).
-enum TableKind { kSmemCanon = 0, kSmemPacked = 1, kGlobalCanon = 2, kGlobalPacked = 3 };
-
-// A word of A: sign | top-M mantissa bits << M, and its exponent - 127.
-__device__ __forceinline__ void decode_a(uint32_t u, int M, uint32_t& ix, uint32_t& ex) {
-  const uint32_t e = (u >> 23) & 0xFFu;
-  ix = (u & 0x80000000u) | (((u >> (23 - M)) & ((1u << M) - 1u)) << M);
-  ex = static_cast<uint32_t>(e ? static_cast<int>(e) - 127 : kZeroExp);
-}
-
-// A word of B: sign | top-M mantissa bits, and its exponent.
-__device__ __forceinline__ void decode_b(uint32_t u, int M, uint32_t& ix, uint32_t& ex) {
-  const uint32_t e = (u >> 23) & 0xFFu;
-  ix = (u & 0x80000000u) | ((u >> (23 - M)) & ((1u << M) - 1u));
-  ex = static_cast<uint32_t>(e ? static_cast<int>(e) : kZeroExp);
-}
-
-// The table: entry(w) is the canonical entry (carry << 23 | 23-bit
-// mantissa) at the index in the low 24 bits of w; w's sign bit is ignored.
-template <int kKind>
-struct Table;
-
-template <>
-struct Table<kSmemCanon> {
-  uint32_t base;  // shared-memory address of the table
-  __device__ __forceinline__ uint32_t entry(uint32_t w, int) const {
-    uint32_t v;   // w << 2 drops the sign bit: idx < 2^24
-    asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(base + (w << 2)));
-    return v;
-  }
-};
-
-template <>
-struct Table<kSmemPacked> {
-  uint32_t base;
-  __device__ __forceinline__ uint32_t entry(uint32_t w, int M) const {
-    unsigned short v;
-    asm("ld.shared.u16 %0, [%1];" : "=h"(v) : "r"(base + (w << 1)));
-    // carry << M | top-M mantissa  ->  carry << 23 | mantissa
-    return (static_cast<uint32_t>(v) << (23 - M)) & 0xFFFFFFu;
-  }
-};
-
-template <>
-struct Table<kGlobalCanon> {
-  const uint32_t* lut;
-  __device__ __forceinline__ uint32_t entry(uint32_t w, int) const {
-    return __ldg(lut + (w & 0xFFFFFFu)) & 0xFFFFFFu;
-  }
-};
-
-template <>
-struct Table<kGlobalPacked> {
-  const uint16_t* lut;
-  __device__ __forceinline__ uint32_t entry(uint32_t w, int M) const {
-    return (static_cast<uint32_t>(__ldg(lut + (w & 0xFFFFFFu))) << (23 - M)) & 0xFFFFFFu;
-  }
-};
-
-// amsim(a, b) from the decoded words: bit for bit amsim::mul.
-//   zero:  ea == 0 || eb == 0 || ea + eb - 127 <= 0  <=>  e0 <= 0
-//   v = (e0 << 23) + (carry << 23 | mnt) = (e0 + carry) << 23 | mnt, which is
-//   >= 0x7F800000 exactly when e0 + carry >= 255 (inf); e0 <= 381 so the
-//   unsigned sum does not wrap.
-template <class Tab>
-__device__ __forceinline__ float product(uint32_t ixa, uint32_t exa, uint32_t ixb, uint32_t exb,
-                                         const Tab& tab, int M) {
-  const uint32_t w = ixa ^ ixb;  // index (disjoint bits) and sign
-  const int e0 = static_cast<int>(exa) + static_cast<int>(exb);
-  uint32_t v = min((static_cast<uint32_t>(e0) << 23) + tab.entry(w, M), 0x7F800000u);
-  v = e0 > 0 ? v : 0u;
-  return __uint_as_float(v | (w & 0x80000000u));
-}
-
-__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) & ~15; }
-
-__host__ __device__ inline int table_smem_bytes(int kind, int M) {
-  if (kind == kSmemCanon) return align16(4 << (2 * M));
-  if (kind == kSmemPacked) return align16(2 << (2 * M));
-  return 0;
-}
 
 struct Args {
   const float* a;
@@ -163,61 +83,6 @@ struct Args {
   float* out;
   int batch, m, k, n, M, packed;
 };
-
-// carry << M | top-M mantissa (a packed entry)  ->  carry << 23 | mantissa
-__device__ __forceinline__ uint32_t expand(uint32_t v, int M) {
-  return (((v >> M) & 1u) << 23) | ((v & ((1u << M) - 1u)) << (23 - M));
-}
-
-// Stage the table (every thread of the block takes part) and return it.
-// 16 bytes a load, so that a block's staging is a few rounds of loads in
-// flight, not one round trip an entry.
-template <int kKind>
-__device__ Table<kKind> make_table(const Args& p, unsigned char* smem) {
-  const int entries = 1 << (2 * p.M);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if constexpr (kKind == kSmemCanon) {
-    uint32_t* t = reinterpret_cast<uint32_t*>(smem);
-    uint4* t4 = reinterpret_cast<uint4*>(smem);
-    if (p.packed) {  // expand 8 packed entries a load
-      const uint16_t* s = static_cast<const uint16_t*>(p.lut);
-      const uint4* s4 = static_cast<const uint4*>(p.lut);
-#pragma unroll 4
-      for (int i = tid; i < entries / 8; i += nt) {
-        const uint4 q = __ldg(s4 + i);
-        t4[2 * i] = make_uint4(expand(q.x & 0xFFFFu, p.M), expand(q.x >> 16, p.M),
-                               expand(q.y & 0xFFFFu, p.M), expand(q.y >> 16, p.M));
-        t4[2 * i + 1] = make_uint4(expand(q.z & 0xFFFFu, p.M), expand(q.z >> 16, p.M),
-                                   expand(q.w & 0xFFFFu, p.M), expand(q.w >> 16, p.M));
-      }
-      for (int i = entries / 8 * 8 + tid; i < entries; i += nt) t[i] = expand(__ldg(s + i), p.M);
-    } else {
-      const uint32_t* s = static_cast<const uint32_t*>(p.lut);
-      const uint4* s4 = static_cast<const uint4*>(p.lut);
-#pragma unroll 4
-      for (int i = tid; i < entries / 4; i += nt) {
-        const uint4 q = __ldg(s4 + i);
-        t4[i] = make_uint4(q.x & 0xFFFFFFu, q.y & 0xFFFFFFu, q.z & 0xFFFFFFu, q.w & 0xFFFFFFu);
-      }
-      for (int i = entries / 4 * 4 + tid; i < entries; i += nt) t[i] = __ldg(s + i) & 0xFFFFFFu;
-    }
-    __syncthreads();
-    return {static_cast<uint32_t>(__cvta_generic_to_shared(smem))};
-  } else if constexpr (kKind == kSmemPacked) {
-    const uint16_t* s = static_cast<const uint16_t*>(p.lut);
-    const uint4* s4 = static_cast<const uint4*>(p.lut);
-    uint16_t* t = reinterpret_cast<uint16_t*>(smem);
-#pragma unroll 4
-    for (int i = tid; i < entries / 8; i += nt) reinterpret_cast<uint4*>(smem)[i] = __ldg(s4 + i);
-    for (int i = entries / 8 * 8 + tid; i < entries; i += nt) t[i] = __ldg(s + i);
-    __syncthreads();
-    return {static_cast<uint32_t>(__cvta_generic_to_shared(smem))};
-  } else if constexpr (kKind == kGlobalCanon) {
-    return {static_cast<const uint32_t*>(p.lut)};
-  } else {
-    return {static_cast<const uint16_t*>(p.lut)};
-  }
-}
 
 // Whether `count` consecutive words from w hold a non-zero exponent field;
 // each thread stops at its first one.

@@ -21,10 +21,11 @@
 // barriers of a cooperative launch (cooperative_groups::this_grid().sync(),
 // grid sized from occupancy so every block is resident).  fused_qkv_norm
 // needs no barrier: each work item computes the norm scales of its rows
-// itself.  fused_wo_norm has one barrier between the wo columns and the
-// norm, then one block a row writes h; fused_moe_ffn one after its live
-// rows are listed and one between the gate/up columns of every expert
-// (into an (E, C, F) scratch) and the down projection.
+// itself.  fused_wo_norm has one barrier between the wo columns (the back
+// half's phase A) and the norm, then one block a row writes h;
+// fused_moe_ffn one after its live rows are listed and one between the
+// gate/up columns of every expert (into an (E, C, F) scratch) and the down
+// projection.
 //
 // What bounds it on the H100.  x has `rows` = batch rows, so each weight
 // element is read once per launch and meets `rows` LUT lookups: the bytes
@@ -33,12 +34,7 @@
 // a design has to buy is SMs kept busy and weight loads kept out of the
 // lookups' way.
 //
-// fused_wo_norm folds with fold_tile: each thread owns one output column
-// and the accumulators of up to kRows rows, the block stages the
-// activations a k-tile at a time in shared memory, and consecutive threads
-// read consecutive weight columns.
-//
-// The other four fold with fold_cols, which splits each output's products
+// Every kernel folds with fold_cols, which splits each output's products
 // from its adds.  A work item is a row group of up to kRows rows and a
 // narrow tile of CT columns (32 for the gate/up columns, 8 for q/k/v, wo
 // and wd), so a launch has hundreds of items and the grid fills every SM
@@ -55,6 +51,8 @@
 //                    launch, no barrier.
 //   the back half    three phases of (row group, tile) items (fold_cols)
 //                    between grid barriers.
+//   fused_wo_norm    the back half's phase A (wo_phase: granite-moe at 4
+//                    rows, 192 items), a grid barrier, the norm.
 //   fused_moe_ffn    phase 0, a block an expert, lists the expert's live
 //                    capacity rows; then (expert, group of 6 live rows,
 //                    tile) items for gate/up and, after a barrier, for
@@ -88,8 +86,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;    // rows of a work item (fold_tile: a thread's accumulators)
-constexpr int kKT = 128;    // fold_tile: contraction values staged per tile
+constexpr int kRows = 8;    // rows of a work item
 // fold_cols: weight floats a k-chunk stages (k steps x CT columns of one
 // matrix, or of two side by side), and the depth of the cp.async ring.
 constexpr int kChunk = 1024;
@@ -97,9 +94,8 @@ constexpr int kStages = 3;
 constexpr int kWideCols = 32;    // gate/up column tile: one 128-byte segment a weight row
 constexpr int kNarrowCols = 8;   // q/k/v, wo and wd column tile: one 32-byte sector
 
-// Shared memory after the LUT: the activation tile, the norm scales, and
-// (attention phase) a q row per warp.
-constexpr int kTileBytes = kRows * kKT * 4;
+// Shared memory after the LUT: the norm scales, and (attention phase) a q
+// row per warp.
 constexpr int kRinvBytes = kRows * 4;
 
 struct Chain {
@@ -139,61 +135,6 @@ __device__ void row_rinv(const float* src, int d, int r0, int nr, float eps, flo
     if (lane == 0) rinv[r] = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)), eps));
   }
   __syncthreads();
-}
-
-// For rows r0 .. r0 + nr (nr <= kRows) and the columns j = c0 ..
-// c0 + kThreads of the (kdim, n) weights w1 (and w2 when kDual):
-// acc[r] = sum_k amsim(A(r, k), w[k, j]), k in order from +0.0, then
-// epi(r, j, acc1[r], acc2[r]).  stage(r, k) gives A(r, k); the block
-// stages it a tile at a time.  Every thread of the block calls it.
-template <typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
-__device__ void fold_tile(int c0, int n, int kdim, int nr, const float* w1, const float* w2,
-                          Stage stage, Epi epi, const LutT* lut, int M, float* tile) {
-  const int j = c0 + threadIdx.x;
-  const bool active = j < n;
-  float acc1[kRows], acc2[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc1[r] = acc2[r] = 0.0f;
-  for (int k0 = 0; k0 < kdim; k0 += kKT) {
-    const int kt = min(kKT, kdim - k0);
-    for (int i = threadIdx.x; i < nr * kKT; i += amsim::kThreads) {
-      const int r = i / kKT;
-      const int kk = i % kKT;
-      tile[i] = kk < kt ? stage(r, k0 + kk) : 0.0f;
-    }
-    __syncthreads();
-    if (active) {
-      for (int kk = 0; kk < kt; ++kk) {
-        const size_t widx = static_cast<size_t>(k0 + kk) * n + j;
-        const uint32_t u1 = __float_as_uint(w1[widx]);
-        const uint32_t u2 = kDual ? __float_as_uint(w2[widx]) : 0u;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r < nr) {
-            const uint32_t hv = __float_as_uint(tile[r * kKT + kk]);
-            acc1[r] = acc1[r] + amsim::mul<LutT, kSmem>(hv, u1, lut, M);
-            if (kDual) acc2[r] = acc2[r] + amsim::mul<LutT, kSmem>(hv, u2, lut, M);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (active) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < nr) epi(r, j, acc1[r], acc2[r]);
-    }
-  }
-}
-
-// fold_tile over every column tile, blocks striding over the tiles.
-template <typename LutT, bool kSmem, bool kDual, typename Stage, typename Epi>
-__device__ void column_fold(int n, int kdim, int nr, const float* w1, const float* w2,
-                            Stage stage, Epi epi, const LutT* lut, int M, float* tile) {
-  for (int c0 = blockIdx.x * amsim::kThreads; c0 < n; c0 += gridDim.x * amsim::kThreads) {
-    fold_tile<LutT, kSmem, kDual>(c0, n, kdim, nr, w1, w2, stage, epi, lut, M, tile);
-  }
 }
 
 // 4 bytes from global to shared memory, asynchronously; zeros when !full.
@@ -370,36 +311,6 @@ __device__ void fold_cols(int rows, int n, int kdim, const float* w1, const floa
   }
 }
 
-// Where the LUT and the scratch of a block live in shared memory.
-template <typename LutT, bool kSmem>
-struct Smem {
-  const LutT* lut;
-  float* tile;
-  float* rinv;
-  float* qrows;
-};
-
-template <typename LutT, bool kSmem>
-__device__ Smem<LutT, kSmem> carve(unsigned char* smem, const LutT* lut_g, int lut_bytes) {
-  Smem<LutT, kSmem> s;
-  int off = 0;
-  s.lut = lut_g;
-  if constexpr (kSmem) {
-    amsim::stage_lut(smem, lut_g, lut_bytes);
-    s.lut = reinterpret_cast<const LutT*>(smem);
-    off = amsim::align16(lut_bytes);
-  }
-  s.tile = reinterpret_cast<float*>(smem + off);
-  s.rinv = reinterpret_cast<float*>(smem + off + kTileBytes);
-  s.qrows = reinterpret_cast<float*>(smem + off + kTileBytes + amsim::align16(kRinvBytes));
-  return s;
-}
-
-int smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats) {
-  return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + kTileBytes + amsim::align16(kRinvBytes) +
-         amsim::kWarps * qrow_floats * 4;
-}
-
 // The shared memory of the fold_cols kernels: the LUT, the norm scales, a
 // q row a warp (attention phase) and fold_item's buffers.
 template <typename LutT>
@@ -493,32 +404,12 @@ qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   }
 }
 
-// ----------------------------------------------------------- fused_wo_norm
-// Its first phase: x1 = x + (attn @ wo (+ bo)) for every row.
-template <typename LutT, bool kSmem>
-__device__ void wo_residual(const Chain& c, const Smem<LutT, kSmem>& sm, int M) {
-  for (int r0 = 0; r0 < c.rows; r0 += kRows) {
-    const int nr = min(kRows, c.rows - r0);
-    column_fold<LutT, kSmem, false>(
-        c.d, c.K, nr, c.wo, nullptr,
-        [&](int r, int k) { return c.attn[static_cast<size_t>(r0 + r) * c.K + k]; },
-        [&](int r, int j, float acc, float) {
-          const float y = c.bo ? __fadd_rn(acc, c.bo[j]) : acc;
-          const size_t i = static_cast<size_t>(r0 + r) * c.d + j;
-          c.x1[i] = __fadd_rn(c.x[i], y);
-        },
-        sm.lut, M, sm.tile);
-  }
-}
-
 // ------------------------------------------------- the back half's phases
+// Phase A of the back half and of fused_wo_norm: x1 = x + (attn @ wo (+ bo)).
 template <typename LutT, bool kSmem>
-__device__ void out_mlp_phases(const Chain& c, const FoldSmem<LutT>& sm, int M) {
-  cg::grid_group grid = cg::this_grid();
-  auto no_prep = [](int, int) {};
-  // Phase A: x1 = x + (attn @ wo (+ bo)).
+__device__ void wo_phase(const Chain& c, const FoldSmem<LutT>& sm, int M) {
   fold_cols<kNarrowCols, LutT, kSmem, false>(
-      c.rows, c.d, c.K, c.wo, nullptr, no_prep,
+      c.rows, c.d, c.K, c.wo, nullptr, [](int, int) {},
       [&](int r, int k) { return c.attn[static_cast<size_t>(r) * c.K + k]; },
       [&](int r, int j, float acc, float) {
         const float y = c.bo ? __fadd_rn(acc, c.bo[j]) : acc;
@@ -526,6 +417,13 @@ __device__ void out_mlp_phases(const Chain& c, const FoldSmem<LutT>& sm, int M) 
         c.x1[i] = __fadd_rn(c.x[i], y);
       },
       sm.lut, M, sm.fb);
+}
+
+template <typename LutT, bool kSmem>
+__device__ void out_mlp_phases(const Chain& c, const FoldSmem<LutT>& sm, int M) {
+  cg::grid_group grid = cg::this_grid();
+  auto no_prep = [](int, int) {};
+  wo_phase<LutT, kSmem>(c, sm, M);
   grid.sync();
   // Phase B: h = rmsnorm(x1; g); act = silu(h @ wg) * (h @ wu).  Each item
   // computes the norm scales of its row group.
@@ -577,8 +475,8 @@ template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 wo_norm_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<LutT, kSmem> sm = carve<LutT, kSmem>(smem_raw, lut_g, lut_bytes);
-  wo_residual<LutT, kSmem>(c, sm, M);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, c.rows);
+  wo_phase<LutT, kSmem>(c, sm, M);
   cg::this_grid().sync();
   // h = rmsnorm(x1; g): one block a row.
   for (int r = blockIdx.x; r < c.rows; r += gridDim.x) {
@@ -799,6 +697,24 @@ cudaError_t with_back_half(int heads, int dh, int rows, int packed, int smem_lut
   });
 }
 
+// The work of a fused_wo_norm launch: the wo items, and a block a row for
+// the norm.
+long long wo_norm_work(int rows, int d) {
+  return std::max(fold_items<kNarrowCols>(rows, d), static_cast<long long>(rows));
+}
+
+// f(kernel, shared memory bytes, a null LUT pointer of the kernel's type)
+// of fused_wo_norm for the LUT layout.
+template <typename F>
+cudaError_t with_wo_norm(int rows, int packed, int smem_lut, int lut_bytes, F&& f) {
+  return amsim::with_lut(packed, smem_lut, [&](auto kind) {
+    using LutT = typename decltype(kind)::T;
+    constexpr bool kSmem = decltype(kind)::smem;
+    return f(wo_norm_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows),
+             static_cast<const LutT*>(nullptr));
+  });
+}
+
 // f(kernel, shared memory bytes, a null LUT pointer of the kernel's type)
 // of fused_qkv_norm and of fused_moe_ffn for the LUT layout.
 template <typename F>
@@ -919,17 +835,28 @@ extern "C" int fused_wo_norm_f32(const float* x, const float* attn, const float*
                                  int smem_lut, int lut_bytes, void* stream) {
   Chain c{x, attn, g2, wo, nullptr, nullptr, nullptr, bo, nullptr, h, x1, nullptr, rows, d, K,
           0, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(amsim::with_lut(packed, smem_lut, [&](auto kind) {
-    using LutT = typename decltype(kind)::T;
-    constexpr bool kSmem = decltype(kind)::smem;
-    const LutT* lut_t = static_cast<const LutT*>(lut);
-    int m = M, lb = lut_bytes;
-    void* args[] = {&c, &lut_t, &m, &lb};
-    return launch_cooperative(wo_norm_kernel<LutT, kSmem>, smem_bytes(kSmem, lut_bytes, 0),
-                              std::max((d + amsim::kThreads - 1) / amsim::kThreads, rows), args,
-                              s);
-  }));
+  return static_cast<int>(
+      with_wo_norm(rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto null_lut) {
+        auto lut_t = static_cast<decltype(null_lut)>(lut);
+        int m = M, lb = lut_bytes;
+        void* args[] = {&c, &lut_t, &m, &lb};
+        return launch_cooperative(kernel, smem, wo_norm_work(rows, d), args,
+                                  static_cast<cudaStream_t>(stream));
+      }));
+}
+
+// The grid a fused_wo_norm launch of these shapes takes, without
+// launching: out = {blocks, wo work items}.
+extern "C" int wo_norm_grid(int rows, int d, int packed, int smem_lut, int lut_bytes,
+                            long long* out, void*) {
+  out[1] = fold_items<kNarrowCols>(rows, d);
+  return static_cast<int>(
+      with_wo_norm(rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem, auto) {
+        int blocks = 0;
+        const cudaError_t err = amsim::grid_size(kernel, smem, wo_norm_work(rows, d), &blocks);
+        out[0] = blocks;
+        return err;
+      }));
 }
 
 extern "C" int fused_moe_ffn_f32(const float* h, const float* wg, const float* wu,

@@ -19,10 +19,11 @@ device memory once per launch and each element meets ``rows`` LUT lookups:
 the weight stream bounds a decode step.  The expert banks meet the C rows
 of each expert's capacity buffer instead.
 
-Every kernel but ``fused_wo_norm`` folds with the card's ``fold_cols``:
-work items of a row group and a narrow column tile, so that every SM is
-busy, with the weights staged ahead by ``cp.async``.  ``fused_qkv_norm``
-walks q, k and v as one item space (``qkv_grid``).  ``fused_moe_ffn``
+Every kernel folds with the card's ``fold_cols``: work items of a row
+group and a narrow column tile, so that every SM is busy, with the
+weights staged ahead by ``cp.async``.  ``fused_qkv_norm`` walks q, k and
+v as one item space (``qkv_grid``); ``fused_wo_norm`` runs the back
+half's wo phase, then the norm (``wo_norm_grid``).  ``fused_moe_ffn``
 computes only the live capacity rows (``live_rows``), those with an
 element whose exponent field is not 0: AMSim returns a bare signed zero
 when an operand's exponent field is 0, whatever the other operand is, so
@@ -325,6 +326,17 @@ def qkv_grid(rows: int, nq: int, nk: int, nv: int, lut) -> dict:
     would read."""
     out = (ctypes.c_longlong * 2)()
     call_kernel("decode_chain", "qkv_grid", lut.device, rows, nq, nk, nv,
+                int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
+    return dict(zip(("blocks", "items"), out))
+
+
+def wo_norm_grid(rows: int, d: int, lut) -> dict:
+    """The grid that ``fused_wo_norm`` takes at these shapes on the current
+    card, without launching: its cooperative blocks and the work items of
+    its wo phase (row group, column tile of 8).  The contraction K does not
+    enter it.  ``lut`` is the CUDA table the launch would read."""
+    out = (ctypes.c_longlong * 2)()
+    call_kernel("decode_chain", "wo_norm_grid", lut.device, rows, d,
                 int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
     return dict(zip(("blocks", "items"), out))
 

@@ -1,6 +1,7 @@
 """Time the decode-chain and GEMM kernels on the card at the path's shapes.
 
     python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
+                                                 [--dw-sweep]
 
 Needs an NVIDIA GPU and nvcc.  ``--src`` imports ``repro_torch`` from
 another checkout's ``src`` (its kernels built there), so that two trees
@@ -12,7 +13,11 @@ GEMM kernel (``--match approx_gemm``) is timed at granite-3-2b's four
 prefill projection shapes (4 x 64 tokens) and its head at 4 rows,
 granite-moe-3b-a800m's router and head at 4 rows and its expert banks on
 the capacity-512 buffers of a 4 x 512 prefill, and at the vision models'
-fc GEMMs at batch 64 (forward, dx and dw).  Each time is the mean device
+fc GEMMs at batch 64 (forward, dx and dw).  The conv weight-gradient
+kernel (``--match approx_conv2d_dw``) is timed at the 8 distinct dw shapes
+of a resnet-mini training step (15 launches) and LeNet-5's 2, batch 64,
+with the sum over a resnet-mini step; ``--dw-sweep`` also times every tile
+its plan could take at each shape.  Each time is the mean device
 time of a launch from CUDA events around 5 calls queued behind a spin
 kernel, for afm16 packed (a shared-memory LUT) and afm10 packed (global
 memory); the GEMM also with afm16's packed table kept packed in shared
@@ -55,6 +60,68 @@ def queued_ms(fn, reps: int = 5) -> float:
 # ragged one: (m, k, n) of the forward product (chip_smoke.py's GEMM_SHAPES).
 VISION_GEMMS = [(64, 784, 120), (64, 120, 84), (64, 84, 10), (64, 784, 300),
                 (64, 300, 100), (64, 100, 10), (64, 64, 10), (67, 130, 33)]
+
+
+# The dw shapes of a resnet-mini and a LeNet-5 training step at batch 64:
+# (model, x shape, w shape, stride, launches a step), all SAME
+# (chip_smoke.py's CONV_SHAPES).
+DW_SHAPES = [
+    ("resnet-mini", (64, 32, 32, 3), (3, 3, 3, 16), 1, 1),
+    ("resnet-mini", (64, 32, 32, 16), (3, 3, 16, 16), 1, 4),
+    ("resnet-mini", (64, 32, 32, 16), (3, 3, 16, 32), 2, 1),
+    ("resnet-mini", (64, 32, 32, 16), (1, 1, 16, 32), 2, 1),
+    ("resnet-mini", (64, 16, 16, 32), (3, 3, 32, 32), 1, 3),
+    ("resnet-mini", (64, 16, 16, 32), (3, 3, 32, 64), 2, 1),
+    ("resnet-mini", (64, 16, 16, 32), (1, 1, 32, 64), 2, 1),
+    ("resnet-mini", (64, 8, 8, 64), (3, 3, 64, 64), 1, 3),
+    ("lenet-5", (64, 28, 28, 1), (5, 5, 1, 6), 1, 1),
+    ("lenet-5", (64, 14, 14, 6), (5, 5, 6, 16), 1, 1),
+]
+
+
+def time_dw(timed, randn, lut_name, lut, M, sweep):
+    """The conv weight-gradient kernel at the DW_SHAPES (module doc)."""
+    import dataclasses
+    from repro_torch.kernels import approx_conv as conv
+    steps = {}
+    for model, xs, ws, stride, per_step in DW_SHAPES:
+        kh, kw, _, o = ws
+        pads = conv.conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
+        oh, ow = conv.conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+        name = f"{lut_name} approx_conv2d_dw {model} {xs}x{ws}/s{stride}"
+        if not timed.wants(name):
+            continue
+        x, g = randn(*xs), randn(xs[0], oh, ow, o)
+        run = lambda: conv.approx_conv2d_dw(x, g, lut, M, kh=kh, kw=kw, stride=stride,  # noqa: E731
+                                            padding="SAME")
+        plan_of = getattr(conv, "dw_plan", None)
+        if plan_of is not None:
+            plan = plan_of(kh, kw, xs[3], o, lut, torch_sms(lut.device))
+            print(f"{timed.tag} {name}: plan {plan}")
+        ms = timed(name, run)
+        steps[model] = steps.get(model, 0.0) + per_step * ms
+        if sweep and plan_of is not None:
+            for outputs in (conv.DW_THREADS, *conv.DW_SPLIT_OUTPUTS):
+                for to in (8, 16, 32, 64):
+                    tc = outputs // to
+                    if tc < 1 or tc > max(1, xs[3]) * 2 or to > max(8, 2 * o):
+                        continue
+                    forced = dataclasses.replace(
+                        plan, tile=(tc, to), outputs=outputs, chunk=conv.dw_chunk(outputs),
+                        path="tiled" if outputs >= conv.DW_THREADS else "split")
+                    conv.dw_plan = lambda *a, f=forced: f
+                    try:
+                        timed(f"{lut_name} approx_conv2d_dw sweep {xs}x{ws}/s{stride} tile "
+                              f"{tc}x{to}", run)
+                    finally:
+                        conv.dw_plan = plan_of
+    for model, ms in steps.items():
+        print(f"{timed.tag} {lut_name} approx_conv2d_dw: {ms:.4f} ms a {model} step", flush=True)
+
+
+def torch_sms(device) -> int:
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def routed_buffer(cfg, router, x, policy):
@@ -137,6 +204,8 @@ def main() -> int:
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--tag", default="", help="a name for this tree in the output")
     ap.add_argument("--match", default="", help="time only the kernels whose line holds this")
+    ap.add_argument("--dw-sweep", action="store_true",
+                    help="also time every tile of the dw kernel at each dw shape")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -162,11 +231,13 @@ def main() -> int:
 
     def timed(name, fn):
         if args.match not in name:
-            return
+            return None
         ms[name] = queued_ms(fn)
         print(f"{args.tag} {name}: {ms[name]:.4f} ms a launch", flush=True)
+        return ms[name]
 
     timed.wants = lambda name: args.match in name
+    timed.tag = args.tag
 
     dense, moe_cfg = get_arch("granite-3-2b"), get_arch("granite-moe-3b-a800m")
     B = 4
@@ -175,6 +246,7 @@ def main() -> int:
         M = get_multiplier(lut_name).mantissa_bits
         time_gemms(timed, randn, lut_name, lut, M, dense, moe_cfg, B,
                    NumericsPolicy(mode="amsim", multiplier="afm16"))
+        time_dw(timed, randn, lut_name, lut, M, args.dw_sweep)
         for cfg in (dense, moe_cfg):
             d, nq, nkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
             qkv = (randn(B, d), 1 + 0.1 * randn(d), randn(d, nq, scale=d ** -0.5),

@@ -137,6 +137,148 @@ def test_dw_kernel_bitwise_vs_plain(cuda, name, packed, xs, ws, stride, padding,
     assert torch.equal(out, ref)
 
 
+def _dw_bits(x, g, lut, M, ws, stride, padding):
+    """The dw kernel against its plain version, bit for bit (+0.0 and -0.0
+    differ)."""
+    pads = approx_conv.conv_pads(x.shape[1], x.shape[2], ws[0], ws[1], stride, padding)
+    out = approx_conv.approx_conv2d_dw(x, g, lut, M, kh=ws[0], kw=ws[1], stride=stride,
+                                       padding=padding)
+    ref = approx_conv.approx_conv2d_dw_plain(x, g, lut, M, ws[0], ws[1], stride, pads)
+    torch.cuda.synchronize()
+    return out, _same_bits(out, ref)
+
+
+# The dw kernel's tiles (TC, TO), forced: the split path's 8, 16 and 32
+# outputs with TO = 8 and wider, the tiled path with TO = 32, 64 and 8; and
+# every table form (name, packed, where and how the kernel reads it).
+DW_FORCED = [(1, 8), (2, 8), (4, 8), (1, 16), (1, 32), (8, 32), (4, 64), (32, 8)]
+DW_TABLES = [("afm16", True, "smem packed"), ("afm16", True, "smem canonical"),
+             ("afm16", False, "smem canonical"), ("mitchell8", True, "smem packed"),
+             ("mitchell8", False, "global canonical"), ("afm10", True, "global packed"),
+             ("afm10", False, "global canonical")]
+
+
+def _force_dw(monkeypatch, tile, table):
+    import dataclasses
+    plan_of = approx_conv.dw_plan
+    outputs = tile[0] * tile[1]
+
+    def forced(*a):
+        return dataclasses.replace(
+            plan_of(*a), tile=tile, outputs=outputs, chunk=approx_conv.dw_chunk(outputs),
+            path="tiled" if outputs >= approx_conv.DW_THREADS else "split", table=table)
+
+    monkeypatch.setattr(approx_conv, "dw_plan", forced)
+    return forced
+
+
+@pytest.mark.parametrize("name,packed,table", DW_TABLES)
+@pytest.mark.parametrize("tile", DW_FORCED)
+def test_dw_kernel_bitwise_vs_plain_on_every_tile(cuda, monkeypatch, name, packed, table, tile,
+                                                  rng):
+    """Each tile at its edges (channels and columns one past a tile, fewer
+    positions than a chunk, several chunks and a partial one, stride 2 with
+    odd pads), then at more tiles than the card holds blocks."""
+    lut, M = _lut(name, packed, cuda)
+    forced = _force_dw(monkeypatch, tile, table)
+    tc, to = tile
+    cases = [((2, 9, 7, tc + 1), (3, 3, tc + 1, to + 1), 1, "SAME"),
+             ((1, 3, 2, tc), (3, 3, tc, max(1, to - 1)), 1, "SAME"),
+             ((3, 17, 13, 2 * tc), (3, 3, 2 * tc, to), 2, "SAME"),
+             ((2, 11, 9, 3), (2, 3, 3, 2 * to + 3), 2, "VALID")]
+    for xs, ws, stride, padding in cases:
+        x = _randn(rng, xs, cuda)
+        g, _ = _error_for(xs, ws, stride, padding, rng, cuda)
+        assert _dw_bits(x, g, lut, M, ws, stride, padding)[1], (xs, ws, stride, padding)
+    # more tiles than blocks: each block walks several
+    xs, ws = (2, 5, 4, 30 * tc), (3, 3, 30 * tc, 4 * to)
+    grid = approx_conv.dw_grid(forced(3, 3, ws[2], ws[3], lut, 0), 3, 3, ws[2], ws[3], lut)
+    assert grid["tiles"] == 9 * 30 * 4 and grid["blocks"] < grid["tiles"], grid
+    x = _randn(rng, xs, cuda)
+    g, _ = _error_for(xs, ws, 1, "SAME", rng, cuda)
+    assert _dw_bits(x, g, lut, M, ws, 1, "SAME")[1]
+
+
+def _special(rng, shape, device):
+    """Random normals with zeros, -0.0, subnormals, inf, -inf and NaN mixed
+    in."""
+    v = rng.standard_normal(shape).astype(np.float32)
+    pick = rng.integers(0, 12, size=shape)
+    v[pick == 0] = 0.0
+    v[pick == 1] = -0.0
+    v[pick == 2] = (rng.standard_normal(int((pick == 2).sum())) * 1e-39).astype(np.float32)
+    v[pick == 3] = np.inf
+    v[pick == 4] = -np.inf
+    v[pick == 5] = np.nan
+    return torch.from_numpy(v).to(device)
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
+def test_dw_kernel_bitwise_vs_plain_with_special_values(cuda, name, packed, xs, ws, stride,
+                                                        padding, rng):
+    lut, M = _lut(name, packed, cuda)
+    pads = approx_conv.conv_pads(xs[1], xs[2], ws[0], ws[1], stride, padding)
+    oh, ow = approx_conv.conv_out_shape(xs[1], xs[2], ws[0], ws[1], stride, pads)
+    for _ in range(3):
+        x, g = _special(rng, xs, cuda), _special(rng, (xs[0], oh, ow, ws[3]), cuda)
+        assert _dw_bits(x, g, lut, M, ws, stride, padding)[1]
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+def test_dw_kernel_where_every_product_is_a_padding_tap(cuda, name, packed, rng):
+    """A 5x5 kernel on a 2x2 image: the taps two off the centre see only
+    padding, so their outputs are +0.0 (even where g holds inf and NaN)."""
+    lut, M = _lut(name, packed, cuda)
+    x = _randn(rng, (3, 2, 2, 3), cuda)
+    g = _special(rng, (3, 2, 2, 6), cuda)
+    out, same = _dw_bits(x, g, lut, M, (5, 5, 3, 6), 1, "SAME")
+    assert same
+    bits = out.view(torch.int32)
+    assert int(bits[0].abs().sum()) == 0 and int(bits[:, 0].abs().sum()) == 0
+    assert int(bits[4].abs().sum()) == 0 and int(bits[:, 4].abs().sum()) == 0
+
+
+# Every dw shape of resnet-mini and LeNet-5 at batch 64 (chip_smoke.py's
+# CONV_SHAPES): (x shape, w shape, stride), all SAME.
+DW_PATH_SHAPES = [((64, 32, 32, 3), (3, 3, 3, 16), 1), ((64, 32, 32, 16), (3, 3, 16, 16), 1),
+                  ((64, 32, 32, 16), (3, 3, 16, 32), 2), ((64, 32, 32, 16), (1, 1, 16, 32), 2),
+                  ((64, 16, 16, 32), (3, 3, 32, 32), 1), ((64, 16, 16, 32), (3, 3, 32, 64), 2),
+                  ((64, 16, 16, 32), (1, 1, 32, 64), 2), ((64, 8, 8, 64), (3, 3, 64, 64), 1),
+                  ((64, 28, 28, 1), (5, 5, 1, 6), 1), ((64, 14, 14, 6), (5, 5, 6, 16), 1)]
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm16", False), ("afm10", True)])
+def test_dw_grid_covers_every_sm(cuda, name, packed):
+    """At every path shape the launched blocks reach min(tiles, SMs) and are
+    no more than the tiles; a shape whose plan has fewer tiles than SMs has
+    no tile of fewer outputs to take."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for xs, ws, stride in DW_PATH_SHAPES:
+        kh, kw, c, o = ws
+        pads = approx_conv.conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
+        oh, ow = approx_conv.conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+        plan = approx_conv.dw_plan(kh, kw, c, o, lut, sms)
+        grid = approx_conv.dw_grid(plan, kh, kw, c, o, lut)
+        assert grid["tiles"] == plan.tiles, (xs, ws, plan, grid)
+        assert min(plan.tiles, sms) <= grid["blocks"] <= plan.tiles, (xs, ws, plan, grid)
+        assert plan.tiles >= sms or plan.outputs == min(approx_conv.DW_SPLIT_OUTPUTS), (xs, ws,
+                                                                                       plan)
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
+@pytest.mark.parametrize("xs,ws,stride", DW_PATH_SHAPES)
+def test_dw_kernel_bitwise_vs_plain_at_path_shapes(cuda, name, packed, xs, ws, stride, rng):
+    """The plan each path shape takes (the batch does not enter it), at
+    batch 8."""
+    lut, M = _lut(name, packed, cuda)
+    xs = (8, *xs[1:])
+    x = _randn(rng, xs, cuda)
+    g, _ = _error_for(xs, ws, stride, "SAME", rng, cuda)
+    assert _dw_bits(x, g, lut, M, ws, stride, "SAME")[1]
+
+
 @pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
 @pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
 def test_conv_kernel_bitwise_vs_plain_at_dx_shapes(cuda, name, packed, xs, ws, stride, padding,
@@ -585,8 +727,10 @@ def test_gemm_grid_keeps_busy_every_sm_the_old_grid_did(cuda, name, packed):
 
 
 # (rows, d, K): two k-tiles and two column tiles at 160/300, two row groups
-# at 9 rows; then granite-moe-3b-a800m's wo at 4 rows.
-WO_NORM_CASES = [(1, 160, 300), (3, 300, 160), (9, 160, 300)]
+# at 9 rows; four row groups at 32 rows, with d and K multiples of neither 8
+# nor the wo phase's k-chunk (128 steps); then granite-moe-3b-a800m's wo at
+# 4 rows.
+WO_NORM_CASES = [(1, 160, 300), (3, 300, 160), (9, 160, 300), (32, 1539, 1027)]
 
 
 @pytest.mark.parametrize("name,packed", LUTS)
@@ -614,6 +758,21 @@ def test_wo_norm_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, rng):
         ref = decode_chain.fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=1e-5, **bias)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_wo_norm_grid_covers_every_sm(cuda, name, packed):
+    """granite-moe-3b-a800m's wo at a decode step's 4 rows: 192 items (d =
+    1536 in column tiles of 8) and a block on every SM; at 32 rows four row
+    groups of them; at 300 rows of d = 8 a block a row for the norm."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (4, 32):
+        g = decode_chain.wo_norm_grid(rows, 1536, lut)
+        assert g["items"] == 192 * (rows // 8 or 1)
+        assert sms <= g["blocks"] <= g["items"]
+    g = decode_chain.wo_norm_grid(300, 8, lut)
+    assert g["items"] == 38 and min(sms, 300) <= g["blocks"] <= 300
 
 
 # (E, C, d, F): ragged shapes with partial k-chunks and column tiles and
