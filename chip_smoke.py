@@ -20,9 +20,13 @@ caught:
     each shape's plan (printed with its grid: ``approx_conv.dw_plan``,
     ``dw_grid``) on batch 4 buffers mixing zeros, -0.0, subnormals, inf and
     NaN into x and g, held bit for bit (+0.0 and -0.0 differ);
- 3c. the conv forward kernel at every data-gradient shape of those convs
-    (dilated error, flipped IO-transposed weights, explicit pads), split
-    over the tables as in 3b;
+ 3c. the conv kernel at every data-gradient shape of those convs (the
+    error read undilated with ``input_dilation`` = the stride, flipped
+    IO-transposed weights, explicit pads) against its plain version on the
+    dilated error, split over the tables as in 3b; then the conv kernel,
+    forward and data gradient, on batch 4 buffers with zeros, -0.0,
+    subnormals, inf and NaN, bit for bit, and each shape's conv plan
+    (``approx_conv.conv_plan``) and grid (``conv_grid``);
  4. inference: resnet-mini at full width (batch 64, 32x32x3 images from
     the port's ``vision_dataset``, random weights from a seed) under
     ``amsim``/afm16 for a few batches; the launch counters must read 15
@@ -53,6 +57,10 @@ caught:
     native yardstick, not a library time); each dw shape with its plan,
     grid and chain floor (its positions x the clocks of a dependent float
     add at the max SM clock: no fold order that keeps the bits is shorter);
+    each conv shape with its plan and grid, and its lookups: those the
+    kernel makes on values of its input (at the data gradient only the
+    error's real values: equal to the lookups on real values) and those on
+    padding taps, which it stages as +0.0;
 LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
  3d. the attention kernel and the three decode-chain kernels against their
     plain versions at the serving path's full-width shapes, with afm16
@@ -273,6 +281,39 @@ def dw_plan_of(w_shape, lut):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = approx_conv.dw_plan(kh, kw, c, o, lut, sms)
     return plan, approx_conv.dw_grid(plan, kh, kw, c, o, lut)
+
+
+def conv_plan_of(shape, lut):
+    """The conv plan and its C grid for an ``approx_conv.ConvShape``."""
+    from repro_torch.kernels import approx_conv
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = approx_conv.conv_plan(shape, lut, sms)
+    return plan, approx_conv.conv_grid(plan, shape, lut)
+
+
+def conv_launch_shapes(xs, ws, stride, pads) -> dict:
+    """{"fwd": ..., "dx": ...}: the ``approx_conv.ConvShape`` of a conv of x
+    ``xs`` and w ``ws`` and of its data gradient (the error read undilated,
+    input_dilation = stride, as ``ops._conv_dx`` launches it)."""
+    from repro_torch.kernels import approx_conv, ops
+    fwd = approx_conv.conv_shape(xs, ws, stride, pads)
+    w_rt, dpads = ops.conv_dx_weights(torch.zeros(ws), (fwd.oh, fwd.ow), xs[1:3], stride, pads)
+    dx = approx_conv.conv_shape((xs[0], fwd.oh, fwd.ow, ws[3]), tuple(w_rt.shape), 1, dpads,
+                                stride)
+    return {"fwd": fwd, "dx": dx}
+
+
+def conv_dx_pair(g, w, xs, stride, pads, lut, M):
+    """The conv kernel at the data gradient of a conv of x ``xs`` (the error
+    g read undilated, input_dilation = stride) and its plain version on the
+    dilated error that ``ops.conv_dx_operands`` materialises: (kernel's,
+    plain's, pads)."""
+    from repro_torch.kernels import approx_conv, ops
+    w_rt, dpads = ops.conv_dx_weights(w, tuple(g.shape[1:3]), xs[1:3], stride, pads)
+    out = approx_conv.approx_conv2d_fused(g, w_rt, lut, M, stride=1, padding=dpads,
+                                          input_dilation=stride)
+    gd, w_rt, _ = ops.conv_dx_operands(g, w, xs[1:3], stride, pads)
+    return out, approx_conv.approx_conv2d_plain(gd, w_rt, lut, M, 1, dpads), dpads
 
 
 def taps(n_out: int, n_in: int, k: int, stride: int, pad: int, real_every: int = 1) -> int:
@@ -1187,7 +1228,7 @@ def main() -> int:
     from repro_torch.core.multipliers import get_multiplier
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.data.pipeline import vision_batches, vision_dataset
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, approx_conv, ops
     from repro_torch.kernels.approx_conv import (approx_conv2d_dw, approx_conv2d_dw_plain,
                                                  approx_conv2d_fused, approx_conv2d_plain,
                                                  conv_out_shape, conv_pads)
@@ -1279,34 +1320,47 @@ def main() -> int:
             require(torch.equal(out, ref), f"approx_conv2d_dw {lut_name} packed={packed} "
                     f"{xs}x{ws}/s{stride}: max|d|={err}")
             max_err["approx_conv2d_dw"] = max(max_err["approx_conv2d_dw"], err)
-            gd, w_rt, dpads = ops.conv_dx_operands(g, randn(*ws), xs[1:3], stride, pads)
-            out = approx_conv2d_fused(gd, w_rt, lut, M, stride=1, padding=dpads)
-            ref = approx_conv2d_plain(gd, w_rt, lut, M, 1, dpads)
+            out, ref, dpads = conv_dx_pair(g, randn(*ws), xs, stride, pads, lut, M)
             err = (out - ref).abs().max().item()
             require(out.shape == xs and torch.equal(out, ref),
                     f"approx_conv2d_fused at the dx shape of {xs}x{ws}/s{stride} ({lut_name} "
-                    f"packed={packed}, dilated {tuple(gd.shape)}, pads {dpads}): max|d|={err}")
+                    f"packed={packed}, error {tuple(g.shape)} dilated by {stride}, pads "
+                    f"{dpads}): max|d|={err}")
             max_err["approx_conv2d_fused"] = max(max_err["approx_conv2d_fused"], err)
         print(f"gradient kernels == plain (bitwise): {lut_name} "
               f"{'packed' if packed else 'canonical'}, batch {batch}: dw kernel and the conv "
-              f"kernel at the dx shape of {len(CONV_SHAPES)} convs")
-        # Each shape's plan (the batch does not enter it) on special values.
+              f"kernel at the dx shape of {len(CONV_SHAPES)} convs (the error undilated, "
+              f"input_dilation = stride)")
+        # Each shape's plans (the batch does not enter them) on special values.
         for xs, ws, stride in CONV_SHAPES:
             kh, kw, _, o = ws
             plan, grid = dw_plan_of(ws, lut)
-            if (lut_name, packed) in FULL_BATCH_LUTS:
-                print(f"  dw {xs}x{ws}/s{stride}: {plan}; grid {grid}")
-            xs = (SMALL_BATCH, *xs[1:])
             pads = conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
             oh, ow = conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+            if (lut_name, packed) in FULL_BATCH_LUTS:
+                print(f"  dw {xs}x{ws}/s{stride}: {plan}; grid {grid}")
+                for pass_, shape in conv_launch_shapes(xs, ws, stride, pads).items():
+                    cplan, cgrid = conv_plan_of(shape, lut)
+                    print(f"  conv {pass_} {xs}x{ws}/s{stride}: {cplan}; grid {cgrid}")
+            xs = (SMALL_BATCH, *xs[1:])
             x, g = special_values(xs, gen, dev), special_values((xs[0], oh, ow, o), gen, dev)
             out = approx_conv2d_dw(x, g, lut, M, kh=kh, kw=kw, stride=stride, padding="SAME")
             ref = approx_conv2d_dw_plain(x, g, lut, M, kh, kw, stride, pads)
             require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
                     f"approx_conv2d_dw {lut_name} packed={packed} {xs}x{ws}/s{stride} on special "
                     f"values, plan {plan}: the bits differ")
-        print(f"  dw kernel == plain (bit for bit) on x and g with zeros, -0.0, subnormals, inf "
-              f"and NaN, batch {SMALL_BATCH}")
+            w = special_values(ws, gen, dev)
+            out = approx_conv2d_fused(x, w, lut, M, stride=stride, padding="SAME")
+            ref = approx_conv2d_plain(x, w, lut, M, stride, pads)
+            require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                    f"approx_conv2d_fused {lut_name} packed={packed} {xs}x{ws}/s{stride} on "
+                    f"special values: the bits differ")
+            out, ref, _ = conv_dx_pair(g, w, xs, stride, pads, lut, M)
+            require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                    f"approx_conv2d_fused at the dx shape of {xs}x{ws}/s{stride} ({lut_name} "
+                    f"packed={packed}) on special values: the bits differ")
+        print(f"  dw and conv kernels (forward and dx) == plain (bit for bit) on x, w and g "
+              f"with zeros, -0.0, subnormals, inf and NaN, batch {SMALL_BATCH}")
     phase_done("3b/3c gradient kernels vs plain")
 
     # ------------------------------ 3d. serving kernels vs plain on the card
@@ -1516,21 +1570,33 @@ def main() -> int:
         m, k = a.shape
         n = b.shape[1]
         nbytes = 4 * (m * k + k * n + m * n) + lut_bytes(lut)
-        return nbytes, m * k * n, m * k * n, lambda: approx_gemm_plain(a, b, lut, M)
+        return nbytes, m * k * n, m * k * n, lambda: approx_gemm_plain(a, b, lut, M), 0
 
-    def conv_cost(x, w, lut, M, stride=1, padding="SAME", real_every=1):
-        """Bytes, lookups the kernel makes, lookups on real values only (the
-        dx conv's dilated error is zero off every ``real_every``-th row and
-        column), and the plain version."""
-        n, h, wid, c = x.shape
-        kh, kw, _, o = w.shape
-        pads = conv_pads(h, wid, kh, kw, stride, padding)
-        oh, ow = conv_out_shape(h, wid, kh, kw, stride, pads)
-        made = n * o * c * taps(oh, h, kh, stride, pads[0]) * taps(ow, wid, kw, stride, pads[2])
-        real = n * o * c * taps(oh, h, kh, stride, pads[0], real_every) \
-            * taps(ow, wid, kw, stride, pads[2], real_every)
-        nbytes = 4 * (x.numel() + w.numel() + n * oh * ow * o) + lut_bytes(lut)
-        return nbytes, made, real, lambda: approx_conv2d_plain(x, w, lut, M, stride, pads)
+    def conv_call_shape(x, w, lut=None, M=None, stride=1, padding="SAME", input_dilation=1):
+        """The ``approx_conv.ConvShape`` of a call of approx_conv2d_fused."""
+        d = input_dilation
+        hd, wd = ((s - 1) * d + 1 for s in x.shape[1:3])
+        pads = conv_pads(hd, wd, w.shape[0], w.shape[1], stride, padding)
+        return approx_conv.conv_shape(x.shape, w.shape, stride, pads, d), pads
+
+    def conv_cost(x, w, lut, M, stride=1, padding="SAME", input_dilation=1):
+        """Bytes, lookups the kernel makes on values of its input (with an
+        input dilation d, on the taps of the dilated input that it visits:
+        its real values only, none of the inserted zeros), lookups on real
+        values, the plain version, and the products the kernel makes on
+        padding taps, which it stages as +0.0."""
+        shape, pads = conv_call_shape(x, w, stride=stride, padding=padding,
+                                      input_dilation=input_dilation)
+        n, c, o, d = shape.n, shape.c, shape.o, shape.dilation
+        hd, wd = (shape.h - 1) * d + 1, (shape.w - 1) * d + 1
+        visited = sum(n * ay.q_n * ax.q_n * ay.t_n * ax.t_n * c * o
+                      for _, _, ay, ax in approx_conv.conv_classes(shape))
+        real = n * o * c * taps(shape.oh, hd, shape.kh, stride, pads[0], d) \
+            * taps(shape.ow, wd, shape.kw, stride, pads[2], d)
+        made = real    # a visited tap lands on a real value or in the padding
+        nbytes = 4 * (x.numel() + w.numel() + n * shape.oh * shape.ow * o) + lut_bytes(lut)
+        return (nbytes, made, real,
+                lambda: approx_conv2d_plain(x, w, lut, M, stride, pads, d), visited - made)
 
     def dw_cost(x, g, lut, M, kh, kw, stride=1, padding="SAME"):
         n, h, wid, c = x.shape
@@ -1539,7 +1605,7 @@ def main() -> int:
         lookups = n * c * o * taps(oh, h, kh, stride, pads[0]) * taps(ow, wid, kw, stride, pads[2])
         nbytes = 4 * (x.numel() + g.numel() + kh * kw * c * o) + lut_bytes(lut)
         return nbytes, lookups, lookups, lambda: approx_conv2d_dw_plain(x, g, lut, M, kh, kw,
-                                                                        stride, pads)
+                                                                        stride, pads), 0
 
     rows_out = []
     # (source, TPU kernel it replaces, wrapper, cost model)
@@ -1555,18 +1621,16 @@ def main() -> int:
           "time with the calls queued behind a spin kernel (a wrapper enqueues its one kernel "
           "and nothing else), and wrapper call time (host launch path included):")
     for kname, (src, replaces, fn, cost) in sources.items():
-        sums = {}   # pass -> [ms, call_ms, plain_ms, bound_ms, bound of real taps, n]
+        sums = {}   # pass -> [ms, call_ms, plain_ms, bound_ms, n, made, real, padding]
         floors = {}  # pass -> the dw chain floor, ms
         bytes_s = ops_s = 0.0
         for args, kw, stride in calls[kname]:
-            extra = {"real_every": stride} if stride else {}
-            nbytes, made, real, plain_fn = cost(*args, **kw, **extra)
+            nbytes, made, real, plain_fn, padding = cost(*args, **kw)
             t_call = cuda_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
             t = queued_ms(lambda: fn(*args, **kw), reps=5)
             require(t > 0, f"no device time measured for {kname} at {args[0].shape}")
             tp = cuda_ms(plain_fn, reps=1, warmup=0)
-            tb = max(nbytes / HBM_BYTES_PER_S, made / lookups_per_s) * 1e3
-            tb_real = max(nbytes / HBM_BYTES_PER_S, real / lookups_per_s) * 1e3
+            tb = max(nbytes / HBM_BYTES_PER_S, real / lookups_per_s) * 1e3
             shapes = " ".join(str(tuple(a.shape)) for a in args[:2])
             pass_ = "dx" if stride else {"approx_gemm": "fwd+dx+dw",
                                          "approx_conv2d_dw": "dw"}.get(kname, "fwd")
@@ -1579,22 +1643,26 @@ def main() -> int:
                 plan, grid = dw_plan_of((kw["kh"], kw["kw"], x.shape[3], g.shape[3]), args[2])
                 note = f"; chain floor {floor:.4f} ms; {plan}; grid {grid}"
                 floors[pass_] = floors.get(pass_, 0.0) + floor
+            if kname == "approx_conv2d_fused":
+                plan, grid = conv_plan_of(conv_call_shape(*args, **kw)[0], args[2])
+                note = (f"; {padding} more on padding taps staged as +0.0; "
+                        f"{'no' if made == real else made - real} inserted zeros multiplied; "
+                        f"{plan}; grid {grid}")
             print(f"  {kname} [{pass_}] {shapes} {kw}: {t:.4f} ms on device, {t_call:.4f} ms "
-                  f"per call (plain {tp:.2f} ms, bound {tb:.4f} ms, {made} lookups"
-                  + (f", {real} on real error values: bound {tb_real:.4f} ms" if stride else "")
-                  + f", {nbytes} B){note}")
-            s = sums.setdefault(pass_, [0.0] * 5 + [0])
-            for i, v in enumerate((t, t_call, tp, tb, tb_real, 1)):
+                  f"per call (plain {tp:.2f} ms, bound {tb:.4f} ms, {made} lookups made, "
+                  f"{real} on real values, {nbytes} B){note}")
+            s = sums.setdefault(pass_, [0.0] * 4 + [0] * 4)
+            for i, v in enumerate((t, t_call, tp, tb, 1, made, real, padding)):
                 s[i] += v
             bytes_s += nbytes / HBM_BYTES_PER_S
             ops_s += real / lookups_per_s
-        ms, call_ms, plain_ms, _, bound, n_calls = (sum(s[i] for s in sums.values())
-                                                   for i in range(6))
-        for pass_, (t, t_call, tp, tb, tb_real, n) in sums.items():
+        ms, call_ms, plain_ms, bound, n_calls = (sum(s[i] for s in sums.values())
+                                                 for i in range(5))
+        for pass_, (t, t_call, tp, tb, n, made, real, padding) in sums.items():
             print(f"kernel {kname} [{pass_}]: {t:.4f} ms on device per resnet-mini step over {n} "
-                  f"launches ({t_call:.4f} ms per-call time), bound {tb_real:.4f} ms"
-                  + (f" on real error values ({tb:.4f} ms counting the inserted zeros)"
-                     if pass_ == "dx" else "")
+                  f"launches ({t_call:.4f} ms per-call time), bound {tb:.4f} ms, {made} lookups "
+                  f"made, {real} on real values"
+                  + (f", {padding} on padding taps" if kname == "approx_conv2d_fused" else "")
                   + (f", chain floor {floors[pass_]:.4f} ms" if pass_ in floors else "")
                   + f", plain {tp:.2f} ms")
         rows_out.append({

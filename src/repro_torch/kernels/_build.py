@@ -33,7 +33,8 @@ LIBRARIES = {
         "approx_gemm_grid": [_I] * 9 + [_P, _P],
     }),
     "approx_conv": ("approx_conv.cu", {
-        "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
+        "approx_conv2d_f32": [_P, _P, _P, _P] + [_I] * 19 + [_P],
+        "approx_conv_grid": [_I] * 19 + [_P, _P],
     }),
     "approx_conv_dw": ("approx_conv_dw.cu", {
         "approx_conv2d_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],

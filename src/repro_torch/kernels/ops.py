@@ -34,7 +34,8 @@ from repro_torch.core.lutgen import get_lut, get_packed_lut
 from repro_torch.core.multipliers import Multiplier, get_multiplier
 from repro_torch.core.policy import PASSES, NumericsPolicy
 from .approx_attention import approx_attention, softmax_scores
-from .approx_conv import approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads
+from .approx_conv import (approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads,
+                          dilate)
 from .approx_gemm import approx_gemm, approx_gemm_batched
 from .common import attention_mask, lut_tensor
 from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_moe_ffn,
@@ -268,30 +269,35 @@ def _conv_dw(x, w_shape, g, stride: int, pads, leaf: NumericsPolicy):
     return _gemm2d(cols.T, g.reshape(-1, o), leaf).reshape(kh, kw, c, o)
 
 
-def conv_dx_operands(g, w, x_hw: tuple[int, int], stride: int, pads):
-    """The data gradient as a stride-1 conv (paper Fig. 8c): the error g
-    dilated by ``stride`` (zeros between its rows and columns), the weights
-    reversed in (ki, kj) with C and O swapped, and the explicit pads under
-    which that conv returns H x W.  Returns (gd, w_rt, pads)."""
-    n, oh, ow, o = g.shape
+def conv_dx_weights(w, g_hw: tuple[int, int], x_hw: tuple[int, int], stride: int, pads):
+    """The data gradient's weights and pads as a stride-1 conv (paper Fig.
+    8c) of the error g (spatial size ``g_hw``) dilated by ``stride``: the
+    weights reversed in (ki, kj) with C and O swapped, and the explicit pads
+    under which that conv returns ``x_hw``.  Returns (w_rt, pads)."""
     kh, kw = w.shape[:2]
     h, wid = x_hw
-    if stride > 1:
-        gd = g.new_zeros((n, (oh - 1) * stride + 1, (ow - 1) * stride + 1, o))
-        gd[:, ::stride, ::stride, :] = g
-    else:
-        gd = g
+    gh, gw = ((n - 1) * stride + 1 for n in g_hw)
     pt = kh - 1 - pads[0]
     pl = kw - 1 - pads[2]
-    pb = h - (gd.shape[1] + pt - kh + 1)
-    pr = wid - (gd.shape[2] + pl - kw + 1)
+    pb = h - (gh + pt - kh + 1)
+    pr = wid - (gw + pl - kw + 1)
     w_rt = w.flip(0, 1).permute(0, 1, 3, 2).contiguous()
-    return gd.contiguous(), w_rt, (pt, pb, pl, pr)
+    return w_rt, (pt, pb, pl, pr)
+
+
+def conv_dx_operands(g, w, x_hw: tuple[int, int], stride: int, pads):
+    """The data gradient as a stride-1 conv (paper Fig. 8c) with the
+    dilation materialised: the error g dilated by ``stride`` (zeros between
+    its rows and columns), and ``conv_dx_weights``.  Returns (gd, w_rt,
+    pads)."""
+    w_rt, dpads = conv_dx_weights(w, g.shape[1:3], x_hw, stride, pads)
+    return dilate(g, stride).contiguous(), w_rt, dpads
 
 
 def _conv_dx(x_shape, w, g, stride: int, pads, leaf: NumericsPolicy):
-    """Data gradient under ``leaf``: the native backward, or the forward
-    lowering on the operands of ``conv_dx_operands``."""
+    """Data gradient under ``leaf``: the native backward; under ``amsim``
+    the conv kernel on the undilated error, ``input_dilation=stride``; else
+    the forward lowering on the operands of ``conv_dx_operands``."""
     n, h, wid, c = x_shape
     if leaf.is_native:
         _exact_fp32()
@@ -300,6 +306,12 @@ def _conv_dx(x_shape, w, g, stride: int, pads, leaf: NumericsPolicy):
                                          w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2),
                                          stride=stride)
         return dxp[:, :, pt:pt + h, pl:pl + wid].permute(0, 2, 3, 1).contiguous()
+    if leaf.mode == "amsim":
+        w_rt, dpads = conv_dx_weights(w, g.shape[1:3], (h, wid), stride, pads)
+        mult = get_multiplier(leaf.multiplier)
+        return approx_conv2d_fused(g.contiguous(), w_rt, _amsim_lut(mult, g.device),
+                                   mult.mantissa_bits, stride=1, padding=dpads,
+                                   input_dilation=stride)
     gd, w_rt, dpads = conv_dx_operands(g, w, (h, wid), stride, pads)
     return _conv_nograd(gd, w_rt, 1, dpads, leaf)
 

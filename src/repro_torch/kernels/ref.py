@@ -66,14 +66,18 @@ def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
 
 
 def ref_kernel_product(ua: torch.Tensor, ub: torch.Tensor, lut: torch.Tensor, M: int, *,
-                       expand: bool = True) -> torch.Tensor:
+                       expand: bool = True, swizzle: bool = False) -> torch.Tensor:
     """amsim(a, b) as the CUDA GEMM kernel computes it, on int64 words
     holding uint32 values: each operand decoded once (``decode_a``,
-    ``decode_b`` in ``csrc/approx_gemm.cu``), then ``product``.  Used only
-    by the tests, which hold it bit for bit against ``core.amsim._amsim``.
-    ``expand`` reads a packed table as the kernel does once it has expanded
-    it to canonical words at staging, else as it unpacks a packed entry a
-    product."""
+    ``decode_b`` in ``csrc/amsim_decoded.cuh``), then ``product``.  Used
+    only by the tests, which hold it bit for bit against
+    ``core.amsim._amsim``.  ``expand`` reads a packed table as the kernel
+    does once it has expanded it to canonical words at staging, else as it
+    unpacks a packed entry a product.  ``swizzle`` reads the table as the
+    conv kernel stages it in shared memory (``csrc/approx_conv.cu``
+    ``stage_table``, ``decode_x``): the low bits of a's mantissa index XORed
+    into b's (canonical entries) or into the 32-bit word index (packed
+    entries), and the same term folded into the decoded a."""
     words, packed = lut_words(lut)
     mask = (1 << M) - 1
     sign = 0x8000_0000
@@ -82,8 +86,17 @@ def ref_kernel_product(ua: torch.Tensor, ub: torch.Tensor, lut: torch.Tensor, M:
         e = (u >> 23) & 0xFF
         return torch.where(e == 0, torch.full_like(e, -1024), e - bias)
 
-    ixa = (ua & sign) | (((ua >> (23 - M)) & mask) << M)
+    ma = (ua >> (23 - M)) & mask
+    ixa = (ua & sign) | (ma << M)
     ixb = (ub & sign) | ((ub >> (23 - M)) & mask)
+    if swizzle:
+        shift = 1 if packed and not expand else 0
+        smask = (1 << min(5, M - shift)) - 1
+        idx = torch.arange(words.numel(), dtype=words.dtype)
+        staged = torch.empty_like(words)
+        staged[idx ^ (((idx >> M) & smask) << shift)] = words
+        words = staged
+        ixa = ixa | ((ma & smask) << shift)
     w = ixa ^ ixb
     entry = words[w & 0xFF_FFFF]
     if not packed:

@@ -1,7 +1,7 @@
 """Time the decode-chain and GEMM kernels on the card at the path's shapes.
 
     python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
-                                                 [--dw-sweep]
+                                                 [--dw-sweep] [--conv-sweep]
 
 Needs an NVIDIA GPU and nvcc.  ``--src`` imports ``repro_torch`` from
 another checkout's ``src`` (its kernels built there), so that two trees
@@ -17,7 +17,14 @@ fc GEMMs at batch 64 (forward, dx and dw).  The conv weight-gradient
 kernel (``--match approx_conv2d_dw``) is timed at the 8 distinct dw shapes
 of a resnet-mini training step (15 launches) and LeNet-5's 2, batch 64,
 with the sum over a resnet-mini step; ``--dw-sweep`` also times every tile
-its plan could take at each shape.  Each time is the mean device
+its plan could take at each shape.  The conv kernel (``--match
+approx_conv2d_fused``) is timed at the same shapes: a resnet-mini step's
+15 forward and 14 data-gradient launches and LeNet-5's 2 and 1, with the
+sum over a step of each; the data gradient reads the undilated error with
+``input_dilation`` where the tree's ``approx_conv2d_fused`` takes it, else
+the dilated error that ``ops.conv_dx_operands`` materialises;
+``--conv-sweep`` also times every tile the kernel takes at each shape.
+Each time is the mean device
 time of a launch from CUDA events around 5 calls queued behind a spin
 kernel, for afm16 packed (a shared-memory LUT) and afm10 packed (global
 memory); the GEMM also with afm16's packed table kept packed in shared
@@ -119,6 +126,80 @@ def time_dw(timed, randn, lut_name, lut, M, sweep):
         print(f"{timed.tag} {lut_name} approx_conv2d_dw: {ms:.4f} ms a {model} step", flush=True)
 
 
+# Data-gradient launches a step of each DW_SHAPES conv: none where the
+# conv's input is the image (the stem, LeNet-5's conv 1).
+NO_DX = {((64, 32, 32, 3), (3, 3, 3, 16)), ((64, 28, 28, 1), (5, 5, 1, 6))}
+
+
+def time_conv(timed, randn, lut_name, lut, M, sweep):
+    """The conv kernel at the forward and data-gradient launches of the
+    DW_SHAPES convs (module doc)."""
+    import dataclasses
+    import inspect
+    import torch
+    from repro_torch.kernels import approx_conv as conv
+    from repro_torch.kernels import ops
+    undilated = "input_dilation" in inspect.signature(conv.approx_conv2d_fused).parameters
+    plan_of = getattr(conv, "conv_plan", None)
+    steps = {}
+    for model, xs, ws, stride, per_step in DW_SHAPES:
+        kh, kw, _, o = ws
+        pads = conv.conv_pads(xs[1], xs[2], kh, kw, stride, "SAME")
+        oh, ow = conv.conv_out_shape(xs[1], xs[2], kh, kw, stride, pads)
+        names = {p: f"{lut_name} approx_conv2d_fused {p} {model} {xs}x{ws}/s{stride}"
+                 for p in ("fwd", "dx")}
+        if not any(timed.wants(name) for name in names.values()):
+            continue
+        x, w, g = randn(*xs), randn(*ws), randn(xs[0], oh, ow, o)
+        launches = {"fwd": (x, w, dict(stride=stride, padding="SAME"), per_step)}
+        if (xs, ws) not in NO_DX:
+            if undilated:
+                w_rt, dpads = ops.conv_dx_weights(w, (oh, ow), xs[1:3], stride, pads)
+                launches["dx"] = (g, w_rt, dict(padding=dpads, input_dilation=stride), per_step)
+            else:
+                gd, w_rt, dpads = ops.conv_dx_operands(g, w, xs[1:3], stride, pads)
+                launches["dx"] = (gd, w_rt, dict(padding=dpads), per_step)
+        for pass_, (a, b, kwargs, n) in launches.items():
+            name = names[pass_]
+            if not timed.wants(name):
+                continue
+            run = lambda: conv.approx_conv2d_fused(a, b, lut, M, **kwargs)  # noqa: E731
+            plan = None
+            if plan_of is not None:   # the dx launch's pads are explicit
+                s = kwargs.get("stride", 1)
+                shape = conv.conv_shape(a.shape, b.shape, s,
+                                        conv.conv_pads(*a.shape[1:3], kh, kw, s, kwargs["padding"]),
+                                        kwargs.get("input_dilation", 1))
+                plan = plan_of(shape, lut, torch_sms(lut.device))
+                print(f"{timed.tag} {name}: plan {plan}; grid {conv.conv_grid(plan, shape, lut)}")
+            ms = timed(name, run)
+            key = (model, pass_)
+            steps[key] = steps.get(key, 0.0) + n * ms
+            if sweep and plan is not None:
+                # every tile, with the plan's table form and, for a packed
+                # table the plan expands to canonical words, kept packed
+                expanded = plan.table == "smem canonical" and lut.dtype == torch.int16
+                tables = [plan.table] + (["smem packed"] if expanded else [])
+                for table in tables:
+                    for tm, wn in conv.CONV_TILES:
+                        forced = dataclasses.replace(
+                            plan, tile=(tm, conv.CONV_TN), warps=(conv.CONV_WARPS // wn, wn),
+                            block=(conv.CONV_WARPS // wn * 32 * tm, wn * conv.CONV_TN),
+                            table=table)
+                        conv.conv_plan = lambda *a, f=forced: f
+                        try:
+                            timed(f"{lut_name} approx_conv2d_fused sweep {pass_} {xs}x{ws}"
+                                  f"/s{stride} tile {tm}x{conv.CONV_TN} warps "
+                                  f"{conv.CONV_WARPS // wn}x{wn} table {table}", run)
+                        finally:
+                            conv.conv_plan = plan_of
+        del x, w, g, launches
+    for model in dict.fromkeys(m for m, _ in steps):
+        parts = {p: ms for (m, p), ms in steps.items() if m == model}
+        print(f"{timed.tag} {lut_name} approx_conv2d_fused: {sum(parts.values()):.4f} ms a {model} "
+              f"step (" + ", ".join(f"{p} {ms:.4f}" for p, ms in parts.items()) + ")", flush=True)
+
+
 def torch_sms(device) -> int:
     import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -206,6 +287,8 @@ def main() -> int:
     ap.add_argument("--match", default="", help="time only the kernels whose line holds this")
     ap.add_argument("--dw-sweep", action="store_true",
                     help="also time every tile of the dw kernel at each dw shape")
+    ap.add_argument("--conv-sweep", action="store_true",
+                    help="also time every tile of the conv kernel at each conv shape")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -247,6 +330,7 @@ def main() -> int:
         time_gemms(timed, randn, lut_name, lut, M, dense, moe_cfg, B,
                    NumericsPolicy(mode="amsim", multiplier="afm16"))
         time_dw(timed, randn, lut_name, lut, M, args.dw_sweep)
+        time_conv(timed, randn, lut_name, lut, M, args.conv_sweep)
         for cfg in (dense, moe_cfg):
             d, nq, nkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
             qkv = (randn(B, d), 1 + 0.1 * randn(d), randn(d, nq, scale=d ** -0.5),

@@ -294,6 +294,144 @@ def test_conv_kernel_bitwise_vs_plain_at_dx_shapes(cuda, name, packed, xs, ws, s
     assert out.shape == xs and torch.equal(out, ref)
 
 
+def _conv_bits(x, w, lut, M, stride, padding, dilation=1):
+    """The conv kernel against its plain version, bit for bit (+0.0 and
+    -0.0 differ); the plain version materialises the dilation."""
+    hd, wd = ((s - 1) * dilation + 1 for s in x.shape[1:3])
+    pads = approx_conv.conv_pads(hd, wd, w.shape[0], w.shape[1], stride, padding)
+    out = approx_conv.approx_conv2d_fused(x, w, lut, M, stride=stride, padding=padding,
+                                          input_dilation=dilation)
+    ref = approx_conv.approx_conv2d_plain(approx_conv.dilate(x, dilation), w, lut, M, stride,
+                                          pads)
+    torch.cuda.synchronize()
+    return out, _same_bits(out, ref)
+
+
+def _dx_operands(xs, ws, stride, padding, rng, device, special=False):
+    """The undilated error, the reversed IO-transposed weights and the
+    explicit pads of the data gradient of a conv of x ``xs``."""
+    pads = approx_conv.conv_pads(xs[1], xs[2], ws[0], ws[1], stride, padding)
+    oh, ow = approx_conv.conv_out_shape(xs[1], xs[2], ws[0], ws[1], stride, pads)
+    make = _special if special else _randn
+    g, w = make(rng, (xs[0], oh, ow, ws[3]), device), make(rng, ws, device)
+    w_rt, dpads = ops.conv_dx_weights(w, (oh, ow), xs[1:3], stride, pads)
+    return g, w_rt, dpads
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
+def test_conv_kernel_with_input_dilation_bitwise_vs_plain(cuda, name, packed, xs, ws, stride,
+                                                         padding, rng):
+    """The data gradient as the amsim backward runs it: the error read
+    undilated, input_dilation = stride; random values, then values with
+    zeros, -0.0, subnormals, inf and NaN."""
+    lut, M = _lut(name, packed, cuda)
+    for special in (False, True, True):
+        g, w_rt, dpads = _dx_operands(xs, ws, stride, padding, rng, cuda, special)
+        out, same = _conv_bits(g, w_rt, lut, M, 1, dpads, stride)
+        assert out.shape == xs[:3] + (ws[2],) and same, (special, dpads)
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
+@pytest.mark.parametrize("xs,ws,stride", DW_PATH_SHAPES)
+def test_conv_kernel_bitwise_vs_plain_at_path_dx_shapes(cuda, name, packed, xs, ws, stride, rng):
+    """Every data gradient of resnet-mini and LeNet-5, from the undilated
+    error, at batch 8 (chip_smoke.py holds batch 64, whose plans may
+    differ)."""
+    lut, M = _lut(name, packed, cuda)
+    xs = (8, *xs[1:])
+    g, w_rt, dpads = _dx_operands(xs, ws, stride, "SAME", rng, cuda)
+    assert _conv_bits(g, w_rt, lut, M, 1, dpads, stride)[1]
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("xs,ws,stride,padding", CONV_CASES)
+def test_conv_kernel_bitwise_vs_plain_with_special_values(cuda, name, packed, xs, ws, stride,
+                                                         padding, rng):
+    lut, M = _lut(name, packed, cuda)
+    for _ in range(3):
+        x, w = _special(rng, xs, cuda), _special(rng, ws, cuda)
+        assert _conv_bits(x, w, lut, M, stride, padding)[1]
+
+
+# The conv kernel's tiles (TM, WN): every one it takes; and every table
+# form (name, packed, where and how the kernel reads it).
+CONV_FORCED = list(approx_conv.CONV_TILES)
+CONV_TABLES = [("afm16", True, "smem packed"), ("afm16", True, "smem canonical"),
+               ("afm16", False, "smem canonical"), ("mitchell8", True, "smem packed"),
+               ("mitchell8", False, "global canonical"), ("afm10", True, "global packed"),
+               ("afm10", False, "global canonical")]
+
+
+def _force_conv(monkeypatch, tm, wn, table):
+    import dataclasses
+    plan_of = approx_conv.conv_plan
+    block = (approx_conv.CONV_WARPS // wn * 32 * tm, wn * approx_conv.CONV_TN)
+
+    def forced(*a):
+        return dataclasses.replace(plan_of(*a), tile=(tm, approx_conv.CONV_TN),
+                                   warps=(approx_conv.CONV_WARPS // wn, wn), block=block,
+                                   table=table)
+
+    monkeypatch.setattr(approx_conv, "conv_plan", forced)
+    return forced
+
+
+@pytest.mark.parametrize("name,packed,table", CONV_TABLES)
+@pytest.mark.parametrize("tm,wn", CONV_FORCED)
+def test_conv_kernel_bitwise_vs_plain_on_every_tile(cuda, monkeypatch, name, packed, table, tm,
+                                                    wn, rng):
+    """Each tile at its edges (channels one past a slab and a tile, fewer
+    positions than a tile, several position and channel tiles, stride 2 and
+    3, a dilated input, more channels than a slab, whole taps in the
+    padding), forward and data gradient, then at more tiles than the card
+    holds blocks."""
+    lut, M = _lut(name, packed, cuda)
+    forced = _force_conv(monkeypatch, tm, wn, table)
+    bn = wn * approx_conv.CONV_TN
+    cases = [((2, 9, 7, 3), (3, 3, 3, bn + 1), 1, "SAME"),
+             ((1, 3, 2, 9), (3, 3, 9, max(1, bn - 1)), 1, "SAME"),
+             ((3, 17, 13, 17), (3, 3, 17, bn), 2, "SAME"),
+             ((2, 11, 9, 5), (2, 3, 5, 2 * bn + 3), 3, "VALID"),
+             ((3, 2, 2, 3), (5, 5, 3, 6), 1, "SAME")]
+    for xs, ws, stride, padding in cases:
+        x, w = _randn(rng, xs, cuda), _randn(rng, ws, cuda)
+        assert _conv_bits(x, w, lut, M, stride, padding)[1], (xs, ws, stride, padding)
+        g, w_rt, dpads = _dx_operands(xs, ws, stride, padding, rng, cuda)
+        assert _conv_bits(g, w_rt, lut, M, 1, dpads, stride)[1], ("dx", xs, ws, stride)
+    x, w = _randn(rng, (2, 5, 4, 3), cuda), _randn(rng, (3, 3, 3, 4), cuda)
+    assert _conv_bits(x, w, lut, M, 2, "SAME", 3)[1]         # dilation 3 with stride 2
+    # more tiles than the card holds blocks (8 of 256 threads an SM at most,
+    # 1088 tiles at the largest tile): each block walks several
+    xs, ws = (34, 32, 16, 1), (1, 1, 1, 32 * bn)
+    shape = approx_conv.conv_shape(xs, ws, 1, (0, 0, 0, 0))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    grid = approx_conv.conv_grid(forced(shape, lut, sms), shape, lut)
+    assert grid["blocks"] < grid["tiles"], grid
+    x, w = _randn(rng, xs, cuda), _randn(rng, ws, cuda)
+    assert _conv_bits(x, w, lut, M, 1, "SAME")[1]
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm16", False), ("afm10", True)])
+def test_conv_grid_covers_every_sm(cuda, name, packed):
+    """At every path shape, forward and data gradient, the launched blocks
+    reach min(tiles, SMs) and are no more than the tiles."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for xs, ws, stride in DW_PATH_SHAPES:
+        pads = approx_conv.conv_pads(xs[1], xs[2], ws[0], ws[1], stride, "SAME")
+        fwd = approx_conv.conv_shape(xs, ws, stride, pads)
+        w_rt, dpads = ops.conv_dx_weights(torch.zeros(ws), (fwd.oh, fwd.ow), xs[1:3], stride,
+                                          pads)
+        dx = approx_conv.conv_shape((xs[0], fwd.oh, fwd.ow, ws[3]), tuple(w_rt.shape), 1,
+                                    dpads, stride)
+        for shape in (fwd, dx):
+            plan = approx_conv.conv_plan(shape, lut, sms)
+            grid = approx_conv.conv_grid(plan, shape, lut)
+            assert grid["tiles"] == plan.tiles, (shape, plan, grid)
+            assert min(plan.tiles, sms) <= grid["blocks"] <= plan.tiles, (shape, plan, grid)
+
+
 def _narrow_resnet_step(policy, device, rng_seed=0):
     cfg = VisionConfig(name="resnet-narrow", kind="resnet", input_hw=8, input_ch=3,
                               n_classes=10, channels=(4, 8), blocks_per_stage=1)
