@@ -66,7 +66,14 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     plain versions at the serving path's full-width shapes, with afm16
     packed (shared memory) and afm10 packed (global memory): causal
     prefill, decode over a ring with unwritten slots, both decode forms;
-    every result bitwise equal; the back half's cooperative grid (blocks
+    every result bitwise equal; the attention kernel also at the card
+    tests' path shapes (granite-3-2b's prefill and a decode over a ring of
+    160, granite-moe's decode with G = 3, a prefill of 512 into a ring of
+    512), each with its plan and grid and the lookups its tiles make beside
+    those on valid keys (the causal diagonal's share), on zeros, -0.0 and
+    subnormals with inf and NaN in the unwritten slots, and under every
+    tile and table form of ``approx_attention.ATTN_TILES``, bit for bit
+    (+0.0 and -0.0 differ); the back half's cooperative grid (blocks
     on the card's SMs, work items of each phase); the GEMM kernel at the
     head (4 rows, the column path) and at every projection of a 4 x 64
     prefill (q, k/v, gate/up, down: each register tile those launch); and the kernels' expf/rsqrtf against torch.exp/torch.rsqrt
@@ -384,6 +391,7 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
              attn_mod.approx_attention_plain(*dargs, lut, M, causal=True, window=0),
              f"{tag} decode over a ring of {LONG_RING}, {written} written")
         qkv = (x, w["g1"], w["wq"], w["wk"], w["wv"])
+        attention_plan_checks(dev, gen, lut, M, tag)
         held("fused_qkv_norm", chain.fused_qkv_norm(*qkv, lut, M, eps=cfg.norm_eps),
              chain.fused_qkv_norm_plain(*qkv, lut, M, eps=cfg.norm_eps), tag)
         held("fused_out_mlp", chain.fused_out_mlp(x, attn, *back, lut, M, eps=cfg.norm_eps),
@@ -410,7 +418,7 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
         for kname, heads in (("fused_out_mlp", 0), ("fused_attn_out_mlp", H)):
             print(f"{tag}: {kname} grid at {B} rows (blocks on "
                   f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, work items "
-                  f"a phase): {chain.back_half_grid(B, d, F, lut, heads=heads, dh=dh)}")
+                  f"a phase): {chain.back_half_grid(B, d, F, lut, heads=heads, kv_heads=KV)}")
         print(f"serving kernels == plain (bitwise): {tag} LUT at {LM_ARCH} widths: attention "
               f"prefill {tuple(q.shape)} over a ring of {T_short} and decode over {LONG_RING}; "
               f"qkv, out-mlp and attention+out-mlp at {B} rows; GEMM at the head and every "
@@ -430,6 +438,92 @@ def serving_kernel_checks(dev, gen, lut_case) -> dict:
         require(int(differ.sum()) == 0, f"kernel {fname} differs from torch on "
                 f"{int(differ.sum())} values, e.g. {xs[differ][:4].tolist()}")
     return err
+
+
+# The attention kernel's path shapes (tests/test_torch_cuda.py
+# ATTN_PATH_CASES): (label, B, S, H, KV, ring slots, keys written), dh 64.
+ATTN_PATH_SHAPES = [("granite-3-2b prefill 4x64 ring 96", 4, 64, 32, 8, 96, 64),
+                    ("granite-3-2b decode ring 160", 4, 1, 32, 8, 160, 96),
+                    ("granite-moe decode ring 96 (G = 3)", 4, 1, 24, 8, 96, 80),
+                    ("prefill 1x512 ring 512", 1, 512, 32, 8, 512, 512)]
+
+
+def attention_lookups(plan, shape, q_pos, k_pos) -> tuple[int, int]:
+    """(lookups the kernel's tiles make, lookups on valid keys) of a causal
+    attention: a tile makes R x KB x dh for each K slab where a row of it
+    has a valid key and R x vkb x dh for each V slab (all the slabs of a
+    tile with a row that has no valid key: its p is not zero there)."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels.common import attention_mask
+    G = shape.H // shape.KV
+    mask = attention_mask(q_pos.cpu().repeat_interleave(G), k_pos.cpu(), causal=True, window=0)
+    made = 0
+    for _, _, _, r0, r1 in attn_mod.attention_tiles(plan, shape, 1):
+        m = mask[r0:r1]
+        for t0 in range(0, shape.T, plan.key_slab):
+            made += plan.rows * plan.key_slab * shape.dh * int(bool(
+                m[:, t0:t0 + plan.key_slab].any()))
+        every = not bool(m.any(dim=1).all())
+        for t0 in range(0, shape.T, plan.value_slab):
+            made += plan.rows * plan.value_slab * shape.dh * int(
+                every or bool(m[:, t0:t0 + plan.value_slab].any()))
+    return made, 2 * int(mask.sum()) * shape.dh * shape.B * shape.KV
+
+
+def attention_plan_checks(dev, gen, lut, M, tag):
+    """Phase 3d's attention checks at ATTN_PATH_SHAPES (see the module
+    doc): bit for bit as int32, +0.0 and -0.0 apart."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_of = attn_mod.attention_plan
+
+    def bits(args, what):
+        out = attn_mod.approx_attention(*args, lut, M)
+        ref = attn_mod.approx_attention_plain(*args, lut, M, causal=True, window=0)
+        same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        require(same, f"approx_attention {tag} {what}: not bitwise equal to its plain version "
+                f"(max|d| {(out - ref).abs().max().item()})")
+
+    packed = lut.dtype == torch.int16
+    nbytes = lut.numel() * lut.element_size()
+    tables = ["smem canonical", "smem packed"] if packed and 2 * nbytes <= 128 * 1024 else \
+        [plan_of(attn_mod.AttnShape(1, 1, 1, 1, 1, 64), lut, sms).table]
+    for label, B, S, H, KV, T, written in ATTN_PATH_SHAPES:
+        dh = 64
+        shape = attn_mod.AttnShape(B, S, H, KV, T, dh)
+        k_pos = _ring_positions(T, written, dev)
+        q_pos = torch.arange(written - S, written, dtype=torch.int32, device=dev)
+        q, k, v = (torch.randn(s, generator=gen).to(dev) for s in
+                   ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
+        plan = plan_of(shape, lut, sms)
+        made, live = attention_lookups(plan, shape, q_pos, k_pos)
+        print(f"{tag}: approx_attention {label}: plan {plan}; grid "
+              f"{attn_mod.attention_grid(plan, shape, lut)}; lookups made {made} beside {live} "
+              f"on valid keys ({made / live:.2f}x)")
+        bits((q, k, v, q_pos, k_pos), label)
+        # zeros, -0.0 and subnormals anywhere; inf and NaN in unwritten slots
+        sq, sk, sv = (special_values(t.shape, gen, dev) for t in (q, k, v))
+        sq = torch.where(torch.isfinite(sq), sq, q)
+        written_slots = (k_pos >= 0)[None, :, None, None]
+        sk = torch.where(written_slots & ~torch.isfinite(sk), k, sk)
+        sv = torch.where(written_slots & ~torch.isfinite(sv), v, sv)
+        bits((sq, sk, sv, q_pos, k_pos), f"{label} on special values")
+        if label.startswith("prefill 1x512"):
+            continue          # every plan at the three serving shapes
+        for tile in range(len(attn_mod.ATTN_TILES)):
+            for table in tables:
+                space = attn_mod.SMEM_BLOCK_MAX - attn_mod._table_bytes(table, packed, nbytes)
+                layout = attn_mod.attention_layout(tile, dh, T, space)
+                if layout is None:
+                    continue
+                forced = attn_mod._tile_plan(shape, tile, table, layout, plan.path)
+                attn_mod.attention_plan = lambda *a, f=forced: f
+                try:
+                    bits((q, k, v, q_pos, k_pos), f"{label} forced {forced}")
+                finally:
+                    attn_mod.attention_plan = plan_of
+        print(f"{tag}: approx_attention {label} == plain (bitwise): random values, special "
+              f"values, every tile x table form {tables}")
 
 
 def serving_counters():
@@ -692,7 +786,7 @@ def serving_full_depth(dev, lookups_per_s, smi_line, serve_launches, serve_err) 
         if kname in ("fused_out_mlp", "fused_attn_out_mlp"):
             heads = cfg.n_heads if kname == "fused_attn_out_mlp" else 0
             grid = chain.back_half_grid(B, cfg.d_model, cfg.d_ff, args[LUT_ARG[kname]],
-                                        heads=heads, dh=cfg.head_dim)
+                                        heads=heads, kv_heads=cfg.n_kv_heads)
             print(f"  {ctx}: {kname} grid at {B} rows (work items a phase): {grid}")
         if kname == "fused_qkv_norm":
             print(f"  {ctx}: {kname} grid at {B} rows: {qkv_grid_of(args)}")
@@ -1043,6 +1137,7 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
     from repro_torch.kernels.common import lut_bytes
     from repro_torch.models.transformer import init_lm, init_lm_caches
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.kernels import approx_attention as attn_mod
     cfg = get_arch(MOE_ARCH)
     L, B, P, N = cfg.n_layers, MOE_FULL["batch"], MOE_FULL["prompt"], MOE_FULL["new"]
     ring = P + N
@@ -1192,6 +1287,15 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
     for (ctx, kname), (n, ms, tp, tb, _, _) in sorted(per.items()):
         print(f"  {ctx}: {kname}: {ms:.4f} ms over {n} launches, bound {tb:.4f} ms"
               + (f", plain {tp:.2f} ms" if kname in MOE_SOURCES else ""))
+    long_ctx = f"prefill {MOE_LONG['batch']}x{MOE_LONG['prompt']}"
+    n, ms, _, tb, _, _ = per[(long_ctx, "approx_attention")]
+    a = next(a for (c, kn, _), (a, _, _) in calls.items()
+             if c == long_ctx and kn == "approx_attention")
+    plan = attn_mod.attention_plan(attn_mod.attention_shape(a[0].shape, a[1].shape),
+                                   a[LUT_ARG["approx_attention"]],
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"  attention of the {long_ctx}: {ms:.4f} ms over {n} launches ({ms / n:.4f} ms each), "
+          f"bound {tb:.4f} ms; plan {plan} ({smi_line})")
     expert_banks_at_long_capacity(model, cfg, amsim, calls, smi_line)
     rows = []
     # The row's work: the kernel's launches in one full-depth decode step

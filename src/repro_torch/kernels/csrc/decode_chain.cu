@@ -5,8 +5,9 @@
 //   fused_qkv_norm      h = rmsnorm(x; g1); q, k, v = h@wq, h@wk, h@wv
 //   fused_out_mlp       x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2);
 //                       out = x1 + (silu(h@wg) * (h@wu))@wd (+bd)
-//   fused_attn_out_mlp  the attention core of the step (attention.cuh),
-//                       then fused_out_mlp's phases
+//   fused_attn_out_mlp  the attention core of the step (attention.cuh
+//                       attend_tile, a block a group of heads), then
+//                       fused_out_mlp's phases
 //   fused_wo_norm       x1 = x + attn@wo (+bo); h = rmsnorm(x1; g2): the
 //                       MoE back half's prefix, x1 and h both written out
 //   fused_moe_ffn       for every expert e of the stacked banks:
@@ -94,8 +95,7 @@ constexpr int kStages = 3;
 constexpr int kWideCols = 32;    // gate/up column tile: one 128-byte segment a weight row
 constexpr int kNarrowCols = 8;   // q/k/v, wo and wd column tile: one 32-byte sector
 
-// Shared memory after the LUT: the norm scales, and (attention phase) a q
-// row per warp.
+// Shared memory after the LUT: the norm scales.
 constexpr int kRinvBytes = kRows * 4;
 
 struct Chain {
@@ -311,25 +311,23 @@ __device__ void fold_cols(int rows, int n, int kdim, const float* w1, const floa
   }
 }
 
-// The shared memory of the fold_cols kernels: the LUT, the norm scales, a
-// q row a warp (attention phase) and fold_item's buffers.
+// The shared memory of the fold_cols kernels: the LUT, the norm scales and
+// fold_item's buffers (which fused_attn_out_mlp's attention phase borrows).
 template <typename LutT>
 struct FoldSmem {
   const LutT* lut;
   float* rinv;
-  float* qrows;
   FoldBufs fb;
 };
 
-__host__ __device__ int fold_smem_bytes(bool lut_in_smem, int lut_bytes, int qrow_floats,
-                                        int rows) {
+__host__ __device__ int fold_smem_bytes(bool lut_in_smem, int lut_bytes, int rows) {
   return (lut_in_smem ? amsim::align16(lut_bytes) : 0) + amsim::align16(kRinvBytes) +
-         amsim::align16(amsim::kWarps * qrow_floats * 4) + fold_bytes(rows);
+         fold_bytes(rows);
 }
 
 template <typename LutT, bool kSmem>
 __device__ FoldSmem<LutT> carve_fold(unsigned char* smem, const LutT* lut_g, int lut_bytes,
-                                     int qrow_floats, int rows) {
+                                     int rows) {
   FoldSmem<LutT> s;
   int off = 0;
   s.lut = lut_g;
@@ -340,8 +338,6 @@ __device__ FoldSmem<LutT> carve_fold(unsigned char* smem, const LutT* lut_g, int
   }
   s.rinv = reinterpret_cast<float*>(smem + off);
   off += amsim::align16(kRinvBytes);
-  s.qrows = reinterpret_cast<float*>(smem + off);
-  off += amsim::align16(amsim::kWarps * qrow_floats * 4);
   s.fb.nrmax = fold_nrmax(rows);
   s.fb.w = reinterpret_cast<float*>(smem + off);
   s.fb.a = s.fb.w + kStages * kChunk;
@@ -374,7 +370,7 @@ template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 qkv_kernel(Qkv p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, p.rows);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, p.rows);
   const int tq = qkv_tiles(p.n[0]), tk = qkv_tiles(p.n[1]);
   const int tiles = tq + tk + qkv_tiles(p.n[2]);
   const long long items = qkv_items(p.rows, p.n);
@@ -455,17 +451,33 @@ template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 out_mlp_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, c.rows);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, c.rows);
   out_mlp_phases<LutT, kSmem>(c, sm, M);
 }
 
+// The attention phase's tile: the G <= 4 heads of a group (b, kv-head),
+// approx_attention.cu's decode tile.
+constexpr int kAttnRT = 4, kAttnTM = 1, kAttnTN = 2;
+using AttnPhaseTile = amsim::AttnTile<kAttnRT, kAttnTM, kAttnTN>;
+constexpr int kAttnRows = AttnPhaseTile::R;
+
+// The attention phase reads the table where the fold staged it (raw) and
+// lays its tile out in fold_item's buffers (`L`, planned on the host to fit
+// fold_bytes(rows)); the grid barrier separates it from the wo phase.
+// Its scores are in those buffers, or (L.scores_smem = 0) in `scratch`, R x
+// T floats for each of the first `scratch_blocks` blocks, which then take
+// all of the phase's tiles.
 template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
-attn_out_mlp_kernel(Chain c, amsim::Attn a, float* attn, float* scores, int scratch_warps,
-                    const LutT* __restrict__ lut_g, int M, int lut_bytes) {
+attn_out_mlp_kernel(Chain c, amsim::Attn a, amsim::AttnLayout L, float* attn, float* scratch,
+                    int scratch_blocks, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, a.dh, c.rows);
-  amsim::attention_rows<LutT, kSmem>(a, sm.lut, M, sm.qrows, scores, scratch_warps, attn);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, c.rows);
+  const int nblocks = L.scores_smem ? static_cast<int>(gridDim.x)
+                                    : min(static_cast<int>(gridDim.x), scratch_blocks);
+  amsim::attention_tiles<kAttnRT, kAttnTM, kAttnTN>(
+      a, L, amsim::raw_table<LutT, kSmem>(sm.lut), M, reinterpret_cast<unsigned char*>(sm.fb.w),
+      scratch, nblocks, attn);
   cg::this_grid().sync();
   out_mlp_phases<LutT, kSmem>(c, sm, M);
 }
@@ -475,7 +487,7 @@ template <typename LutT, bool kSmem>
 __global__ void __launch_bounds__(amsim::kThreads)
 wo_norm_kernel(Chain c, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, c.rows);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, c.rows);
   wo_phase<LutT, kSmem>(c, sm, M);
   cg::this_grid().sync();
   // h = rmsnorm(x1; g): one block a row.
@@ -558,7 +570,7 @@ __device__ void list_live_rows(const Moe& p, int e, int* flags) {
 __host__ __device__ int moe_group_rows(int C) { return C < kMoeRows ? C : kMoeRows; }
 
 __host__ __device__ int moe_smem_bytes(bool lut_in_smem, int lut_bytes, int E, int C) {
-  return fold_smem_bytes(lut_in_smem, lut_bytes, 0, moe_group_rows(C)) +
+  return fold_smem_bytes(lut_in_smem, lut_bytes, moe_group_rows(C)) +
          amsim::align16((E + 1) * 4);
 }
 
@@ -567,10 +579,9 @@ __global__ void __launch_bounds__(amsim::kThreads)
 moe_ffn_kernel(Moe p, const LutT* __restrict__ lut_g, int M, int lut_bytes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int group_rows = moe_group_rows(p.C);
-  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, 0, group_rows);
+  const FoldSmem<LutT> sm = carve_fold<LutT, kSmem>(smem_raw, lut_g, lut_bytes, group_rows);
   // first[e]: the live row groups of the experts before e.
-  int* first =
-      reinterpret_cast<int*>(smem_raw + fold_smem_bytes(kSmem, lut_bytes, 0, group_rows));
+  int* first = reinterpret_cast<int*>(smem_raw + fold_smem_bytes(kSmem, lut_bytes, group_rows));
   cg::grid_group grid = cg::this_grid();
   for (int e = blockIdx.x; e < p.E; e += gridDim.x) {
     list_live_rows(p, e, reinterpret_cast<int*>(sm.fb.a));
@@ -672,28 +683,33 @@ cudaError_t launch_cooperative(Kernel kernel, int smem, long long work_blocks, v
 }
 
 // The work of a back-half launch: items[0..2] are the work items of the
-// wo, gate/up and down phases, items[3] the attention phase's blocks (a
-// warp a query row); the grid is sized to the largest.
-long long back_half_work(int rows, int d, int F, int heads, long long items[4]) {
+// wo, gate/up and down phases, items[3] the attention phase's tiles (a
+// group of up to kAttnRows heads of a decode row); the grid is sized to
+// the largest.
+long long back_half_work(int rows, int d, int F, int heads, int kv_heads, long long items[4]) {
   items[0] = fold_items<kNarrowCols>(rows, d);
   items[1] = fold_items<kWideCols>(rows, F);
   items[2] = items[0];
-  items[3] = (static_cast<long long>(rows) * heads + amsim::kWarps - 1) / amsim::kWarps;
+  items[3] = 0;
+  if (heads > 0) {
+    const amsim::Attn a{nullptr, nullptr, nullptr, nullptr, nullptr, rows, 1, heads, kv_heads,
+                        0, 0, 1, 0};
+    items[3] = amsim::attn_tiles(a, kAttnRows);
+  }
   return std::max({items[0], items[1], items[2], items[3]});
 }
 
 // f(kernel, shared memory bytes) of fused_attn_out_mlp (heads > 0) or
 // fused_out_mlp for the LUT layout.
 template <typename F>
-cudaError_t with_back_half(int heads, int dh, int rows, int packed, int smem_lut, int lut_bytes,
-                           F&& f) {
+cudaError_t with_back_half(int heads, int rows, int packed, int smem_lut, int lut_bytes, F&& f) {
   return amsim::with_lut(packed, smem_lut, [&](auto kind) {
     using LutT = typename decltype(kind)::T;
     constexpr bool kSmem = decltype(kind)::smem;
     if (heads > 0) {
-      return f(attn_out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, dh, rows));
+      return f(attn_out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, rows));
     }
-    return f(out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows));
+    return f(out_mlp_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, rows));
   });
 }
 
@@ -710,7 +726,7 @@ cudaError_t with_wo_norm(int rows, int packed, int smem_lut, int lut_bytes, F&& 
   return amsim::with_lut(packed, smem_lut, [&](auto kind) {
     using LutT = typename decltype(kind)::T;
     constexpr bool kSmem = decltype(kind)::smem;
-    return f(wo_norm_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows),
+    return f(wo_norm_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, rows),
              static_cast<const LutT*>(nullptr));
   });
 }
@@ -722,7 +738,7 @@ cudaError_t with_qkv(int rows, int packed, int smem_lut, int lut_bytes, F&& f) {
   return amsim::with_lut(packed, smem_lut, [&](auto kind) {
     using LutT = typename decltype(kind)::T;
     constexpr bool kSmem = decltype(kind)::smem;
-    return f(qkv_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, 0, rows),
+    return f(qkv_kernel<LutT, kSmem>, fold_smem_bytes(kSmem, lut_bytes, rows),
              static_cast<const LutT*>(nullptr));
   });
 }
@@ -786,42 +802,51 @@ extern "C" int fused_out_mlp_f32(const float* x, const float* attn, const float*
   int m = M, lb = lut_bytes;
   void* args[] = {&c, &lut, &m, &lb};
   long long items[4];
-  const long long work = back_half_work(rows, d, F, 0, items);
+  const long long work = back_half_work(rows, d, F, 0, 0, items);
   return static_cast<int>(
-      with_back_half(0, 0, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+      with_back_half(0, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
         return launch_cooperative(kernel, smem, work, args, static_cast<cudaStream_t>(stream));
       }));
 }
 
+// The attention phase's layout (cw, vkb, scores_smem: approx_attention.py
+// attention_layout) must fit fold_bytes(rows); where the scores are in
+// global memory, scratch holds R x T floats for each of `scratch_blocks`
+// blocks.
 extern "C" int fused_attn_out_mlp_f32(
     const float* x, const float* q, const float* k, const float* v, const int* q_pos,
     const int* k_pos, const float* g2, const float* wo, const float* wg, const float* wu,
     const float* wd, const float* bo, const float* bd, const void* lut, float* out, float* x1,
-    float* act, float* attn, float* scores, int H, int KV, int T, int dh, int causal,
-    int window, int scratch_warps, int rows, int d, int K, int F, float eps, int M, int packed,
-    int smem_lut, int lut_bytes, void* stream) {
+    float* act, float* attn, float* scratch, int H, int KV, int T, int dh, int causal,
+    int window, int cw, int vkb, int scores_smem, int scratch_blocks, int rows, int d, int K,
+    int F, float eps, int M, int packed, int smem_lut, int lut_bytes, void* stream) {
   Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
   amsim::Attn a{q, k, v, q_pos, k_pos, rows, 1, H, KV, T, dh, causal, window};
-  int m = M, lb = lut_bytes, sw = scratch_warps;
-  void* args[] = {&c, &a, &attn, &scores, &sw, &lut, &m, &lb};
+  amsim::AttnLayout L{cw, vkb, scores_smem};
+  if (cw < 1 || cw > amsim::kDimChunk || vkb < 1 || vkb > AttnPhaseTile::KB ||
+      amsim::attn_smem_bytes(kAttnRows, AttnPhaseTile::KB, dh, T, L) > fold_bytes(rows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int m = M, lb = lut_bytes, sb = scratch_blocks;
+  void* args[] = {&c, &a, &L, &attn, &scratch, &sb, &lut, &m, &lb};
   long long items[4];
-  const long long work = back_half_work(rows, d, F, H, items);
+  const long long work = back_half_work(rows, d, F, H, KV, items);
   return static_cast<int>(
-      with_back_half(H, dh, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+      with_back_half(H, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
         return launch_cooperative(kernel, smem, work, args, static_cast<cudaStream_t>(stream));
       }));
 }
 
 // The grid a back-half launch of these shapes takes, without launching:
-// out = {blocks, wo items, gate/up items, down items, attention blocks}
+// out = {blocks, wo items, gate/up items, down items, attention tiles}
 // (heads = 0: fused_out_mlp, no attention phase).
-extern "C" int back_half_grid(int rows, int d, int F, int heads, int dh, int packed,
+extern "C" int back_half_grid(int rows, int d, int F, int heads, int kv_heads, int packed,
                               int smem_lut, int lut_bytes, long long* out, void*) {
   long long items[4];
-  const long long work = back_half_work(rows, d, F, heads, items);
+  const long long work = back_half_work(rows, d, F, heads, kv_heads, items);
   for (int i = 0; i < 4; ++i) out[i + 1] = items[i];
   return static_cast<int>(
-      with_back_half(heads, dh, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
+      with_back_half(heads, rows, packed, smem_lut, lut_bytes, [&](auto kernel, int smem) {
         int blocks = 0;
         const cudaError_t err = amsim::grid_size(kernel, smem, work, &blocks);
         out[0] = blocks;

@@ -52,8 +52,10 @@ import ctypes
 
 import torch
 
-from .approx_attention import (approx_attention_plain, check_attention_operands,
-                               scratch_warps)
+from .approx_attention import (DECODE_TILE, AttnPlan, AttnShape, _tile_plan,
+                               approx_attention_plain, attention_layout, attention_scratch,
+                               check_attention_operands)
+from .approx_gemm import TABLES, _sms
 from .common import (call_kernel, check_contiguous, check_float32, check_lut, device_float,
                      lane_sum, lut_bytes, lut_in_smem, operand_device)
 from .ref import ref_amsim_gemm
@@ -231,13 +233,15 @@ def fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int
     check_contiguous(*tensors, q_pos, k_pos, lut)
     T, KV = k.shape[1], k.shape[2]
     attn = torch.empty((B, H * dh), dtype=torch.float32, device=device)
-    warps = scratch_warps(device, B * H)
-    scores = torch.empty((warps, T), dtype=torch.float32, device=device)
+    sms = _sms(device.index)
+    plan = attention_phase_plan(B, H, KV, T, dh, lut)
+    scratch, scratch_blocks = attention_scratch(plan, T, sms, device)
     out = _launch_back_half(
         "fused_attn_out_mlp_f32", device, x,
         [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr()],
         g2, wo, wg, wu, wd, bo, bd, lut, M, eps,
-        [attn.data_ptr(), scores.data_ptr(), H, KV, T, dh, int(causal), int(window), warps])
+        [attn.data_ptr(), scratch.data_ptr(), H, KV, T, dh, int(causal), int(window),
+         plan.dim_chunk, plan.value_slab, int(plan.scores == "shared"), scratch_blocks])
     fused_attn_out_mlp.launches += 1
     return out
 
@@ -307,14 +311,41 @@ def fused_moe_ffn(h, wg, wu, wd, lut, M: int):
 fused_moe_ffn.launches = 0
 
 
-def back_half_grid(rows: int, d: int, F: int, lut, *, heads: int = 0, dh: int = 0) -> dict:
+# csrc/decode_chain.cu fold_bytes: the shared bytes of fold_item's buffers
+# (a ring of FOLD_STAGES weight chunks of FOLD_CHUNK floats, two activation
+# chunks of as many, two product buffers of FOLD_CHUNK + 64 floats a row of
+# a row group of up to FOLD_ROWS), which the attention phase of
+# fused_attn_out_mlp borrows.
+FOLD_STAGES, FOLD_CHUNK, FOLD_ROWS = 3, 1024, 8
+
+
+def fold_bytes(rows: int) -> int:
+    return 4 * (FOLD_STAGES * FOLD_CHUNK + 2 * FOLD_CHUNK
+                + 2 * min(rows, FOLD_ROWS) * (FOLD_CHUNK + 64))
+
+
+def attention_phase_plan(rows: int, H: int, KV: int, T: int, dh: int, lut) -> AttnPlan:
+    """The plan of ``fused_attn_out_mlp``'s attention phase at ``rows``
+    decode rows: the decode tile of ``approx_attention`` (the heads of a
+    group, 4 a tile), laid out (``attention_layout``) in the fold buffers of
+    ``rows`` rows, the table read where the fold staged it, as stored."""
+    table = TABLES[(0 if lut_in_smem(lut) else 2) + int(lut.dtype == torch.int16)]
+    layout = attention_layout(DECODE_TILE, dh, T, fold_bytes(rows))
+    return _tile_plan(AttnShape(rows, 1, H, KV, T, dh), DECODE_TILE, table, layout, "decode")
+
+
+def back_half_grid(rows: int, d: int, F: int, lut, *, heads: int = 0,
+                   kv_heads: int = 0) -> dict:
     """The grid that ``fused_out_mlp`` (``heads`` = 0) or
     ``fused_attn_out_mlp`` takes at these shapes on the current card,
     without launching: the cooperative blocks and each phase's work items
-    (``wo``, ``gate_up``, ``down``; ``attention``: blocks of a warp a query
-    row).  ``lut`` is the CUDA table the launch would read."""
+    (``wo``, ``gate_up``, ``down``; ``attention``: the tiles of its
+    attention phase, ``attention_phase_plan``).  ``lut`` is the CUDA table
+    the launch would read."""
+    if heads and not kv_heads:
+        raise ValueError("back_half_grid with an attention phase needs kv_heads")
     out = (ctypes.c_longlong * 5)()
-    call_kernel("decode_chain", "back_half_grid", lut.device, rows, d, F, heads, dh,
+    call_kernel("decode_chain", "back_half_grid", lut.device, rows, d, F, heads, kv_heads,
                 int(lut.dtype == torch.int16), int(lut_in_smem(lut)), lut_bytes(lut), out)
     return dict(zip(("blocks", "wo", "gate_up", "down", "attention"), out))
 

@@ -24,6 +24,8 @@ from repro_torch.core.amsim import _amsim, lut_words
 from repro_torch.core.float_bits import torch_bits, torch_float
 from repro_torch.core.multipliers import Multiplier
 
+from .common import NEG_INF, attention_mask, lane_sum
+
 _CHUNK_ELEMENTS = 1 << 22
 
 
@@ -108,6 +110,65 @@ def ref_kernel_product(ua: torch.Tensor, ub: torch.Tensor, lut: torch.Tensor, M:
     e0 = exponent(ua, 127) + exponent(ub, 0)
     v = torch.clamp(((e0 << 23) + entry) & 0xFFFF_FFFF, max=0x7F80_0000)
     return torch.where(e0 > 0, v, torch.zeros_like(v)) | (w & sign)
+
+
+def ref_attention_tiled(q, k, v, q_pos, k_pos, lut: torch.Tensor, M: int, *, causal: bool,
+                        window: int, rows: int, value_slab: int, key_slab: int = 64):
+    """The attention kernel's order in torch (``csrc/attention.cuh``
+    ``attend_tile``), used only by the tests: (out, skipped).
+
+    For each group (b, kv-head) and each tile of ``rows`` of its S x G query
+    rows (row s * G + g: position s, head kv-head * G + g), the scores fold
+    dh products ``ref_kernel_product`` in order from +0.0, K slab by K slab
+    of ``key_slab`` keys, skipping a slab where no row of the tile has a
+    valid key; the softmax is ``approx_attention.softmax_scores``'; the
+    outputs fold the keys in order from +0.0, V slab by V slab of
+    ``value_slab`` keys, skipping a slab where every probability of the
+    tile's rows is exactly +0.0.  ``skipped`` lists the skipped slabs as
+    ("scores" or "values", b, kv-head, first row, first key).  On the CPU
+    the result is bit for bit ``approx_attention_plain``'s."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, dh)
+    row_pos = q_pos.repeat_interleave(G)
+    scale = torch.tensor(float(dh), dtype=torch.float32).sqrt()
+    out = torch.zeros((B, KV, S * G, dh), dtype=torch.float32)
+    skipped = []
+
+    def fold(acc, a, b):   # acc + amsim(a, b), the kernel's decoded product
+        return acc + torch_float(ref_kernel_product(torch_bits(a), torch_bits(b), lut, M))
+
+    for b in range(B):
+        for h in range(KV):
+            qrows = qg[b, :, h].reshape(S * G, dh)
+            kk, vv = k[b, :, h], v[b, :, h]
+            for r0 in range(0, S * G, rows):
+                r1 = min(r0 + rows, S * G)
+                mask = attention_mask(row_pos[r0:r1], k_pos, causal=causal, window=window)
+                scores = torch.full((r1 - r0, T), NEG_INF, dtype=torch.float32)
+                for t0 in range(0, T, key_slab):
+                    t1 = min(t0 + key_slab, T)
+                    live = mask[:, t0:t1]
+                    if not live.any():
+                        skipped.append(("scores", b, h, r0, t0))
+                        continue
+                    acc = torch.zeros((r1 - r0, t1 - t0), dtype=torch.float32)
+                    for d in range(dh):
+                        acc = fold(acc, qrows[r0:r1, d, None], kk[None, t0:t1, d])
+                    scores[:, t0:t1] = torch.where(live, acc / scale, NEG_INF)
+                e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+                p = e / lane_sum(e)[:, None]
+                acc = torch.zeros((r1 - r0, dh), dtype=torch.float32)
+                for t0 in range(0, T, value_slab):
+                    t1 = min(t0 + value_slab, T)
+                    if not (p[:, t0:t1] != 0).any():
+                        skipped.append(("values", b, h, r0, t0))
+                        continue
+                    for t in range(t0, t1):
+                        acc = fold(acc, p[:, t, None], vv[None, t])
+                out[b, h, r0:r1] = acc
+    return out.reshape(B, KV, S, G, dh).permute(0, 2, 1, 3, 4).reshape(B, S, H, dh), skipped
 
 
 def ref_direct_gemm(a: torch.Tensor, b: torch.Tensor, multiplier: Multiplier):

@@ -1,7 +1,8 @@
-"""Time the decode-chain and GEMM kernels on the card at the path's shapes.
+"""Time the decode-chain, attention, GEMM and conv kernels on the card at the
+path's shapes.
 
     python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
-                                                 [--dw-sweep] [--conv-sweep]
+                                                 [--dw-sweep] [--conv-sweep] [--attn-sweep]
 
 Needs an NVIDIA GPU and nvcc.  ``--src`` imports ``repro_torch`` from
 another checkout's ``src`` (its kernels built there), so that two trees
@@ -24,7 +25,13 @@ sum over a step of each; the data gradient reads the undilated error with
 ``input_dilation`` where the tree's ``approx_conv2d_fused`` takes it, else
 the dilated error that ``ops.conv_dx_operands`` materialises;
 ``--conv-sweep`` also times every tile the kernel takes at each shape.
-Each time is the mean device
+The attention kernel (``--match approx_attention``) is timed at
+granite-3-2b's prefill (4 x 64 tokens into a ring of 96) and a decode step
+over a ring of 160 with 96 keys written, granite-moe-3b-a800m's decode
+step over a ring of 96 with 80 written (G = 3) and its prefill of 4 x 512
+tokens into a ring of 512, each with its plan and grid where the tree has
+``attention_plan``; ``--attn-sweep`` also times every tile and table form
+the kernel takes at each shape.  Each time is the mean device
 time of a launch from CUDA events around 5 calls queued behind a spin
 kernel, for afm16 packed (a shared-memory LUT) and afm10 packed (global
 memory); the GEMM also with afm16's packed table kept packed in shared
@@ -200,6 +207,63 @@ def time_conv(timed, randn, lut_name, lut, M, sweep):
               f"step (" + ", ".join(f"{p} {ms:.4f}" for p, ms in parts.items()) + ")", flush=True)
 
 
+# (label, arch, batch, query tokens, ring slots, keys written): the
+# attention kernel's launches on the serving paths.
+ATTN_CASES = [("granite-3-2b prefill 4x64 ring 96", "granite-3-2b", 4, 64, 96, 64),
+              ("granite-3-2b decode ring 160", "granite-3-2b", 4, 1, 160, 96),
+              ("granite-moe-3b-a800m decode ring 96", "granite-moe-3b-a800m", 4, 1, 96, 80),
+              ("granite-moe-3b-a800m prefill 4x512 ring 512", "granite-moe-3b-a800m", 4, 512,
+               512, 512)]
+
+
+def time_attention(timed, randn, lut_name, lut, M, sweep):
+    """The attention kernel at the ATTN_CASES (module doc)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import approx_attention as attn
+    from repro_torch.kernels.common import POS_PAD, lut_bytes
+    plan_of = getattr(attn, "attention_plan", None)
+    for label, arch, B, S, T, written in ATTN_CASES:
+        name = f"{lut_name} approx_attention {label}"
+        if not timed.wants(name):
+            continue
+        cfg = get_arch(arch)
+        H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = randn(B, S, H, dh), randn(B, T, KV, dh), randn(B, T, KV, dh)
+        k_pos = torch.full((T,), POS_PAD, dtype=torch.int32)
+        for p in range(max(0, written - T), written):
+            k_pos[p % T] = p
+        k_pos = k_pos.to(lut.device)
+        q_pos = torch.arange(written - S, written, dtype=torch.int32, device=lut.device)
+        run = lambda: attn.approx_attention(q, k, v, q_pos, k_pos, lut, M)  # noqa: E731
+        plan = None
+        if plan_of is not None:
+            shape = attn.attention_shape(q.shape, k.shape)
+            plan = plan_of(shape, lut, torch_sms(lut.device))
+            print(f"{timed.tag} {name}: plan {plan}; grid {attn.attention_grid(plan, shape, lut)}")
+        timed(name, run)
+        if sweep and plan is not None:
+            packed = lut.dtype == torch.int16
+            tables = [plan.table]
+            if packed and plan.table.startswith("smem"):
+                tables = ["smem canonical", "smem packed"]
+            for tile, (rt, tm, tn) in enumerate(attn.ATTN_TILES):
+                for table in tables:
+                    space = attn.SMEM_BLOCK_MAX - attn._table_bytes(table, packed, lut_bytes(lut))
+                    layout = attn.attention_layout(tile, dh, T, space)
+                    if layout is None:
+                        continue
+                    forced = attn._tile_plan(shape, tile, table, layout, plan.path)
+                    attn.attention_plan = lambda *a, f=forced: f
+                    try:
+                        timed(f"{lut_name} approx_attention sweep {label} tile {rt * tm} rows "
+                              f"table {table} scores {forced.scores}", run)
+                    finally:
+                        attn.attention_plan = plan_of
+        del q, k, v
+
+
 def torch_sms(device) -> int:
     import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -289,6 +353,8 @@ def main() -> int:
                     help="also time every tile of the dw kernel at each dw shape")
     ap.add_argument("--conv-sweep", action="store_true",
                     help="also time every tile of the conv kernel at each conv shape")
+    ap.add_argument("--attn-sweep", action="store_true",
+                    help="also time every tile of the attention kernel at each shape")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -331,6 +397,7 @@ def main() -> int:
                    NumericsPolicy(mode="amsim", multiplier="afm16"))
         time_dw(timed, randn, lut_name, lut, M, args.dw_sweep)
         time_conv(timed, randn, lut_name, lut, M, args.conv_sweep)
+        time_attention(timed, randn, lut_name, lut, M, args.attn_sweep)
         for cfg in (dense, moe_cfg):
             d, nq, nkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
             qkv = (randn(B, d), 1 + 0.1 * randn(d), randn(d, nq, scale=d ** -0.5),

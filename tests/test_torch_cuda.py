@@ -526,6 +526,156 @@ def test_attention_kernel_bitwise_vs_plain(cuda, name, packed, case, rng):
     assert torch.equal(out, ref)
 
 
+def _attention_bits(args, kw, lut, M):
+    """Whether the kernel gives the plain version's bits (int32 views, so
+    that NaN outputs and the sign of zeros compare too)."""
+    out = approx_attention.approx_attention(*args, lut, M, **kw)
+    ref = approx_attention.approx_attention_plain(*args, lut, M, **kw)
+    torch.cuda.synchronize()
+    return torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# The attention kernel's serving shapes: granite-3-2b's prefill of 4 x 64
+# into a ring of 96, its decode step over a ring of 160 (96 written),
+# granite-moe-3b-a800m's decode step over 96 (80 written, G = 3), and a
+# prefill of 512 into a ring of 512.
+ATTN_PATH_CASES = [
+    (4, 64, 32, 8, 64, 96, range(64), _ring(96, 64), True, 0),
+    (4, 1, 32, 8, 64, 160, [95], _ring(160, 96), True, 0),
+    (4, 1, 24, 8, 64, 96, [79], _ring(96, 80), True, 0),
+    (1, 512, 32, 8, 64, 512, range(512), _ring(512, 512), True, 0),
+]
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
+@pytest.mark.parametrize("case", range(len(ATTN_PATH_CASES)))
+def test_attention_kernel_bitwise_vs_plain_at_path_shapes(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    args, kw = _attention_inputs(ATTN_PATH_CASES[case], rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+def _special_attention_inputs(case, rng, device):
+    """Zeros, -0.0 and subnormals in q, k and v, and inf, -inf and NaN in
+    the K and V of every unwritten ring slot (k_pos < 0)."""
+    args, kw = _attention_inputs(case, rng, device)
+    unwritten = args[4] < 0
+    for a in args[:3]:
+        pick = torch.from_numpy(rng.integers(0, 8, a.shape)).to(device)
+        a[pick == 0] = 0.0
+        a[pick == 1] = -0.0
+        a[pick == 2] *= 1e-39
+    for a in args[1:3]:
+        pick = torch.from_numpy(rng.integers(0, 3, a.shape)).to(device)
+        for i, value in enumerate((float("inf"), -float("inf"), float("nan"))):
+            a[:, unwritten] = torch.where(pick[:, unwritten] == i, value, a[:, unwritten])
+    return args, kw
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("case", [*range(len(ATTN_CASES)), "moe_decode", "granite_prefill"])
+def test_attention_kernel_bitwise_vs_plain_with_special_values(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    shape = {"moe_decode": ATTN_PATH_CASES[2], "granite_prefill": ATTN_PATH_CASES[0]}
+    args, kw = _special_attention_inputs(shape.get(case) or ATTN_CASES[case], rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+def test_attention_kernel_gives_a_row_without_a_valid_key_the_mean_of_v(cuda, name, packed, rng):
+    """A prefill of 12 tokens into a ring of 8: positions 0-3 lost their
+    keys, so their rows average V (uniform p, which is not zero on masked
+    keys); with G = 2 and 4 their tiles also hold rows with valid keys."""
+    lut, M = _lut(name, packed, cuda)
+    for G in (2, 4):
+        args, kw = _attention_inputs((2, 12, 2 * G, 2, 32, 8, range(12), _ring(8, 12), True, 0),
+                                     rng, cuda)
+        assert _attention_bits(args, kw, lut, M)
+        out = approx_attention.approx_attention(*args, lut, M, **kw)
+        assert bool(torch.isfinite(out).all()) and float(out[:, :4].abs().amax()) > 0
+
+
+# Every tile of the attention kernel with every table form (name, packed,
+# where and how the kernel reads it), and the layouts it takes: K chunks
+# and V slabs of the full width and of a quarter, scores in shared and in
+# global memory.
+ATTN_FORCED = range(len(approx_attention.ATTN_TILES))
+ATTN_TABLES = [("afm16", True, "smem packed"), ("afm16", True, "smem canonical"),
+               ("afm16", False, "smem canonical"), ("mitchell8", False, "smem canonical"),
+               ("afm10", True, "global packed"), ("afm10", False, "global canonical")]
+
+
+def _force_attention(monkeypatch, tile, table, quarter, scores_smem):
+    """Force the tile, the table form and the layout where they fit a
+    block; else the tile and table in the layout the planner would give
+    them (``attention_layout``); else the shape's own plan."""
+    plan_of = approx_attention.attention_plan
+
+    def forced(shape, lut, sms):
+        rows, key_slab = approx_attention.tile_rows_keys(tile)
+        space = approx_attention.SMEM_BLOCK_MAX - approx_attention._table_bytes(
+            table, lut.dtype == torch.int16, lut.numel() * lut.element_size())
+        cw = max(1, min(shape.dh, 64) // (4 if quarter else 1))
+        layout = (cw, 16 if quarter else key_slab, scores_smem)
+        if approx_attention.attention_smem_bytes(rows, key_slab, shape.dh, shape.T,
+                                                 *layout) > space:
+            layout = approx_attention.attention_layout(tile, shape.dh, shape.T, space)
+        if layout is None:
+            return plan_of(shape, lut, sms)
+        return approx_attention._tile_plan(shape, tile, table, layout,
+                                           "decode" if shape.S == 1 else "prefill")
+
+    monkeypatch.setattr(approx_attention, "attention_plan", forced)
+    return forced
+
+
+@pytest.mark.parametrize("name,packed,table", ATTN_TABLES)
+@pytest.mark.parametrize("tile", ATTN_FORCED)
+@pytest.mark.parametrize("quarter,scores_smem", [(False, True), (True, False)])
+def test_attention_kernel_bitwise_vs_plain_under_every_plan(cuda, monkeypatch, name, packed,
+                                                            table, tile, quarter, scores_smem,
+                                                            rng):
+    """Each tile at its edges: G = 1, 3 and 8 (more heads than a decode
+    tile), more rows than a tile, T not a multiple of a slab, a window, an
+    odd head dim and one of 256 (four value chunks), decode, rows without a
+    valid key and special values in unwritten slots; then more tiles than
+    the card holds blocks."""
+    lut, M = _lut(name, packed, cuda)
+    forced = _force_attention(monkeypatch, tile, table, quarter, scores_smem)
+    cases = [(2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
+             (3, 5, 6, 2, 48, 70, range(60, 65), _ring(70, 65), True, 0),
+             (1, 9, 16, 2, 37, 70, range(40, 49), _ring(70, 49), True, 5),
+             (2, 1, 8, 8, 64, 131, [129], _ring(131, 130), True, 0),
+             (1, 3, 4, 1, 256, 67, range(60, 63), _ring(67, 63), True, 0),
+             (2, 12, 4, 2, 32, 8, range(12), _ring(8, 12), True, 0)]
+    for case in cases:
+        args, kw = _attention_inputs(case, rng, cuda)
+        assert _attention_bits(args, kw, lut, M), case
+    args, kw = _special_attention_inputs(cases[1], rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+    # more tiles than the card holds blocks: each block walks several
+    case = (8, 64, 16, 8, 16, 64, range(64), range(64), True, 0)
+    shape = approx_attention.AttnShape(8, 64, 16, 8, 64, 16)
+    grid = approx_attention.attention_grid(forced(shape, lut, 132), shape, lut)
+    assert grid["tiles"] == forced(shape, lut, 132).tiles
+    args, kw = _attention_inputs(case, rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm16", False), ("afm10", True)])
+def test_attention_grid_covers_the_card(cuda, name, packed):
+    """At every path shape the launched blocks reach min(tiles, SMs) and
+    are no more than the tiles; the plan fits a block."""
+    lut, _ = _lut(name, packed, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, S, H, KV, dh, T, *_ in ATTN_PATH_CASES:
+        shape = approx_attention.AttnShape(B, S, H, KV, T, dh)
+        plan = approx_attention.attention_plan(shape, lut, sms)
+        grid = approx_attention.attention_grid(plan, shape, lut)
+        assert grid["tiles"] == plan.tiles, (shape, plan, grid)
+        assert min(plan.tiles, sms) <= grid["blocks"] <= plan.tiles, (shape, plan, grid)
+
+
 # (rows, d, H, KV, dh, F): two k-tiles and two column tiles of the chain
 # kernels at 160/300, two row groups at 9 rows; rows 4 and 8 at a d and F
 # that are multiples of neither the back half's column tiles (8, 32) nor
@@ -605,17 +755,31 @@ def test_attn_out_mlp_kernel_bitwise_vs_plain_at_full_width(cuda, name, packed, 
 def test_back_half_grid_covers_every_sm(cuda, name, packed):
     """granite-3-2b at 4 rows: 256 work items in each fold phase, and the
     cooperative grid has a block on every SM, no more blocks than items; at
-    32 rows four row groups of them, in the same shared memory a block."""
+    32 rows four row groups of them, in the same shared memory a block.
+    The attention phase has a tile for each (row, kv-head): its 4 heads."""
     lut, _ = _lut(name, packed, cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for rows in (4, 32):
         groups = (rows + 7) // 8
-        for heads, dh in ((0, 0), (32, 64)):
-            g = decode_chain.back_half_grid(rows, 2048, 8192, lut, heads=heads, dh=dh)
+        for heads, kv_heads in ((0, 0), (32, 8)):
+            g = decode_chain.back_half_grid(rows, 2048, 8192, lut, heads=heads,
+                                            kv_heads=kv_heads)
             items = 256 * groups
             assert (g["wo"], g["gate_up"], g["down"], g["attention"]) == (
-                items, items, items, rows * heads // 8)
+                items, items, items, rows * kv_heads)
             assert sms <= g["blocks"] <= items
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+def test_attn_out_mlp_kernel_bitwise_vs_plain_with_scores_in_global_memory(cuda, name, packed,
+                                                                           rng):
+    """A ring of 3000 slots: the phase's scores outgrow the fold buffers
+    and go to a global scratch (at one row also with halved K chunks and V
+    slabs); G = 3."""
+    lut, M = _lut(name, packed, cuda)
+    for rows in (1, 4):
+        assert decode_chain.attention_phase_plan(rows, 6, 2, 3000, 64, lut).scores == "global"
+        _attn_out_mlp_bitwise((rows, 160, 6, 2, 64, 300), 3000, 2500, 0, lut, M, rng, cuda)
 
 
 def test_kernel_exp_and_rsqrt_match_torch(cuda):
