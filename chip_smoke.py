@@ -124,12 +124,28 @@ MoE serving (granite-moe-3b-a800m at full width,
     time; and layer 0's expert FFN on the 4 x 512 prefill's capacity-512
     buffer by both routes (the expert-bank kernel and three batched
     GEMMs): same bits, the device time of each.
+LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
+``cosine_schedule(3e-4, 10, 3)``, remat; after the serving phases):
+ 5e. depth 2 at full width, batch 2 x 16, 2 steps under ``amsim`` and
+    ``amsim_torch`` with deterministic algorithms: losses, parameters after
+    step 2 and the gradient at the next batch bitwise equal (int32 views),
+    the launches of every step as ``train_want`` counts them; a resume
+    through the trainer (2 steps, a checkpoint under
+    ``build/chip_smoke_ckpt/``, a restore into a model drawn from another
+    seed, 1 step) bitwise equal to 3 steps straight; then 3 steps of each
+    model at full width and full depth (cut, with the reason printed, only
+    if a step would not fit the card's free memory), batch 4 x 64: each
+    step's wall ms, CUDA-event ms and loss (step 2 also its device busy
+    time from torch.profiler), the peak memory, the launches of each step,
+    and every kernel shape of step 3 timed, with its bound and plan, and
+    held bitwise against its plain version.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1322,6 +1338,295 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
     return rows
 
 
+# ------------------------------------------------------------ LM training
+TRAIN_LR = 3e-4
+TRAIN_FULL = dict(batch=4, seq=64, steps=3)          # the schedule spans these 3 steps
+TRAIN_DEPTH2 = dict(n_layers=2, batch=2, seq=16, steps=2)
+TRAIN_ARCHS = (LM_ARCH, MOE_ARCH)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"        # .gitignore lists build/
+
+
+def train_counters():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    return {"approx_gemm": gemm_mod.approx_gemm,
+            "approx_gemm_batched": gemm_mod.approx_gemm_batched,
+            "approx_attention": attn_mod.approx_attention, "fused_moe_ffn": chain.fused_moe_ffn}
+
+
+def train_want(cfg) -> dict:
+    """Launches of one LM training step under amsim with remat
+    (tests/test_torch_cuda.py ``lm_train_launches``): a dense layer's 7
+    GEMMs forward, 7 recomputed and 14 backward, attention forward and
+    recomputed, 6 batched GEMMs for its backward; an MoE layer's 5 GEMMs
+    likewise, the expert banks twice and 9 batched GEMMs for their
+    backward; the tied head's 3 GEMMs."""
+    L = cfg.n_layers
+    if cfg.moe is None:
+        return {"approx_gemm": 28 * L + 3, "approx_gemm_batched": 6 * L,
+                "approx_attention": 2 * L, "fused_moe_ffn": 0}
+    return {"approx_gemm": 20 * L + 3, "approx_gemm_batched": 15 * L,
+            "approx_attention": 2 * L, "fused_moe_ffn": 2 * L}
+
+
+def train_setup(cfg, policy, dev, seed=SEED):
+    """(model, optimizer state, step) of ``launch.train``'s step builder."""
+    from repro_torch.launch.train import make_lm_train_step
+    from repro_torch.models.transformer import init_lm
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    opt, step = make_lm_train_step(cfg, policy, lr=TRAIN_LR, steps=TRAIN_FULL["steps"])
+    return model, opt.init(dict(model.named_parameters())), step
+
+
+def train_fits(cfg) -> tuple[bool, str]:
+    """Whether a full-width adamw step of ``cfg`` fits the card's free
+    memory: parameters, gradients, two moments and the updates (a step's
+    peak holds five copies; the clip briefly holds two of the gradients),
+    plus 4 GB for activations, the logits and the allocator."""
+    from repro_torch.models.transformer import lm_param_shapes
+    param_bytes = 4 * sum(math.prod(s) for s in lm_param_shapes(cfg).values())
+    need = 5 * param_bytes + 4e9
+    free = torch.cuda.mem_get_info()[0]
+    return need <= free, (f"{param_bytes / 1e9:.2f} GB of parameters: ~{need / 1e9:.1f} GB "
+                          f"needed, {free / 1e9:.1f} GB free")
+
+
+def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
+    """Phase 5e, one model: 3 ``amsim``/afm16 adamw steps at full width (and
+    full depth where it fits), each step timed (host wall clock to the loss
+    read back; CUDA events over the step; torch.profiler's device busy time
+    of step 2), the launches of each step, the peak memory, and each
+    kernel's device time at the shapes of step 3 (calls captured), every
+    GEMM shape held bitwise against its plain version.  Returns the
+    launches of one step."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.approx_attention import approx_attention_plain
+    from repro_torch.kernels.approx_gemm import approx_gemm_batched_plain, approx_gemm_plain
+    from repro_torch.kernels.common import lut_bytes
+    from repro_torch.kernels.decode_chain import fused_moe_ffn_plain
+    cfg = get_arch(arch)
+    fits, why = train_fits(cfg)
+    while not fits and cfg.n_layers > 1:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
+        fits, _ = train_fits(cfg)
+    depth_note = (f"full depth ({cfg.n_layers} layers)" if cfg.n_layers == get_arch(arch).n_layers
+                  else f"depth {cfg.n_layers} of {get_arch(arch).n_layers}: at full depth {why}")
+    B, S, steps = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    policy = NumericsPolicy(mode="amsim", multiplier="afm16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, step = train_setup(cfg, policy, dev)
+    counters = train_counters()
+    want = train_want(cfg)
+    print(f"{arch} training at full width, {depth_note}: batch {B}, seq {S}, adamw, "
+          f"cosine_schedule({TRAIN_LR}, 10, {steps}), remat {cfg.remat}, amsim/afm16 "
+          f"({smi_line}):")
+    calls = {}                                 # (kernel, shapes) -> [count, args, kw]
+    originals = {k: getattr(ops, k) for k in counters}
+
+    def capture(kname):
+        def wrapped(*a, **kw):
+            key = (kname, tuple(tuple(t.shape) for t in a if isinstance(t, torch.Tensor)))
+            calls.setdefault(key, [0, a, kw])[0] += 1
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    for i in range(steps):
+        batch = lm_batch(cfg, (B, S), i, dev)
+        zero_launches(counters)
+        if i == 2:
+            for k in counters:
+                setattr(ops, k, capture(k))
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            if i == 1:
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    state, metrics = step(model, state, batch)
+                    loss = float(metrics["loss"])
+                us = sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+                busy = f"device busy {us / 1e3:.2f} ms (torch.profiler)" if us else \
+                    "device busy not measured: torch.profiler recorded no device activity"
+            else:
+                state, metrics = step(model, state, batch)
+                loss = float(metrics["loss"])
+                busy = "calls captured" if i == 2 else ""
+            end.record()
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        finally:
+            for k, fn in originals.items():
+                setattr(ops, k, fn)
+        got = launches_of(counters)
+        require(got == want, f"{arch} training step {i + 1}: launches {got}, want {want}")
+        require(all(map(math.isfinite, (loss, float(metrics["grad_norm"])))),
+                f"{arch} training step {i + 1}: loss {loss}, grad norm {metrics['grad_norm']}")
+        print(f"  step {i + 1}: {wall:.1f} ms wall, {start.elapsed_time(end):.1f} ms on device "
+              f"(CUDA events over the step){'; ' + busy if busy else ''}; loss {loss:.6f}, xent "
+              f"{float(metrics['xent']):.6f}, aux {float(metrics['aux']):.6f}, grad norm "
+              f"{float(metrics['grad_norm']):.6f}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches a step "
+          f"{want}")
+    plain_of = {"approx_gemm": approx_gemm_plain, "approx_gemm_batched": approx_gemm_batched_plain,
+                "approx_attention": approx_attention_plain, "fused_moe_ffn": fused_moe_ffn_plain}
+    sums = {}
+    for (kname, shapes), (n, args, kw) in sorted(calls.items(), key=lambda c: c[0]):
+        fn = originals[kname]
+        t = queued_ms(lambda: fn(*args, **kw), reps=3)
+        require(t > 0, f"no device time measured for {kname} at {shapes}")
+        if kname == "approx_attention":
+            nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(args[5]))
+        elif kname == "approx_gemm":
+            nbytes, lookups = gemm_costs(*args[:3])
+        else:
+            nbytes, lookups = moe_costs(kname, args, kw)
+        bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        ref = plain_of[kname](*args, **kw)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t_plain) * 1e3
+        require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                f"{arch} training: {kname} at {shapes} differs from its plain version by "
+                f"{(out - ref).abs().max().item()}")
+        pass_ = ""
+        if kname == "approx_gemm":
+            pass_ = " dw" if args[0].shape[1] == B * S else " fwd/dx"
+        note = f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm") else ""
+        print(f"  {kname}{pass_} {shapes} x {n}: {t:.4f} ms on device each (bound {bound:.4f} "
+              f"ms, {bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups), bitwise "
+              f"its plain version ({t_plain:.1f} ms with the check){note}")
+        s = sums.setdefault(f"{kname}{pass_}", [0, 0.0, 0.0])
+        s[0] += n
+        s[1] += n * t
+        s[2] += n * bound
+    for name, (n, t, bound) in sums.items():
+        print(f"  kernel {name}: {t:.2f} ms on device a training step over {n} launches, bound "
+              f"{bound:.2f} ms")
+    del model, state, step, calls
+    torch.cuda.empty_cache()
+    return want
+
+
+def train_depth2(dev, arch):
+    """Phase 5e, one model: depth 2 at full width, 2 steps under ``amsim``
+    and ``amsim_torch`` with deterministic algorithms (the embedding's and
+    the MoE gather's backward are atomic scatters without them): losses,
+    parameters after step 2 and the gradient at the next batch bitwise
+    equal (int32 views); the amsim launches of each step."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.transformer import lm_loss
+    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_DEPTH2["n_layers"])
+    B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
+    counters = train_counters()
+    want = train_want(cfg)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            policy = NumericsPolicy(mode=mode, multiplier="afm16")
+            model, state, step = train_setup(cfg, policy, dev)
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(steps):
+                zero_launches(counters)
+                state, metrics = step(model, state, lm_batch(cfg, (B, S), i, dev))
+                losses.append(metrics["loss"])
+                got = launches_of(counters)
+                require(got == (want if mode == "amsim" else dict.fromkeys(want, 0)),
+                        f"{arch} depth-2 {mode} step {i + 1}: launches {got}, want {want}")
+            loss, _ = lm_loss(model, lm_batch(cfg, (B, S), steps, dev), policy)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+            runs[mode] = (losses, [p.detach() for p in model.parameters()], grads,
+                          time.perf_counter() - t0)
+            del model, state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_a, p_a, g_a, t_a), (l_p, p_p, g_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"{arch} depth-2 losses {l_a}")
+    same = lambda xs, ys: all(torch.equal(x.view(torch.int32), y.view(torch.int32))  # noqa: E731
+                              for x, y in zip(xs, ys))
+    require(same(l_a, l_p), f"{arch} depth-2 training losses: amsim {l_a}, amsim_torch {l_p}")
+    require(same(p_a, p_p), f"{arch} depth-2 training: parameters after step {steps} differ")
+    require(same(g_a, g_p), f"{arch} depth-2 training: gradients after step {steps} differ")
+    print(f"{arch} depth {cfg.n_layers}, batch {B}, seq {S}, {steps} adamw steps: losses "
+          f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
+          f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a step "
+          f"{want}; {t_a:.1f} s amsim, {t_p:.1f} s amsim_torch")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def train_resume(dev):
+    """Phase 5e: 3 ``amsim`` steps straight against 2 steps through the
+    trainer with a checkpoint, a restore into a model drawn from another
+    seed and 1 more step: parameters bitwise equal."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.train.trainer import Trainer, TrainerConfig, TrainerState
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_DEPTH2["n_layers"])
+    policy = NumericsPolicy(mode="amsim", multiplier="afm16")
+    shape = (TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"])
+    batch_fn = lambda s: lm_batch(cfg, shape, s, dev)  # noqa: E731
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, state, step = train_setup(cfg, policy, dev)
+        for i in range(3):
+            state, _ = step(straight, state, batch_fn(i))
+        logs = []
+        tcfg = TrainerConfig(total_steps=2, ckpt_dir=str(CKPT_DIR), ckpt_every=2, keep=1,
+                             log_every=1, log_fn=logs.append)
+        first, state, step = train_setup(cfg, policy, dev)
+        Trainer(step, batch_fn, tcfg).run(TrainerState(first, state))
+        del first, state
+        t0 = time.perf_counter()
+        fresh, state, step = train_setup(cfg, policy, dev, seed=SEED + 1)
+        end = Trainer(step, batch_fn, dataclasses.replace(tcfg, total_steps=3)).run(
+            TrainerState(fresh, state))
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    require(end.step == 3, f"resume ended at step {end.step}")
+    require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(fresh.parameters(), straight.parameters())),
+            "resume: parameters after 2 steps + checkpoint + restore + 1 step differ from 3 steps")
+    print(f"{LM_ARCH} depth {cfg.n_layers} resume: 3 amsim steps straight == 2 steps, a "
+          f"checkpoint, a restore into a model drawn from seed {SEED + 1} and 1 step (bitwise, "
+          f"{sum(1 for _ in fresh.parameters())} tensors); restore + step + save {ckpt_s:.1f} s; "
+          f"trainer log: {' | '.join(logs)}")
+    del straight, fresh, end
+    torch.cuda.empty_cache()
+
+
+def lm_training(dev, lookups_per_s, smi_line) -> dict:
+    """Phase 5e: LM training on the card; returns {arch: launches a step}."""
+    for arch in TRAIN_ARCHS:
+        train_depth2(dev, arch)
+    train_resume(dev)
+    return {arch: train_full(dev, arch, lookups_per_s, smi_line) for arch in TRAIN_ARCHS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1786,6 +2091,13 @@ def main() -> int:
     phase_done("5c serving, full depth")
     rows_out += moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err)
     phase_done("5d MoE serving, full depth")
+
+    # ------------------------------------------------- 5e. LM training
+    train_launches = lm_training(dev, lookups_per_s, smi_line)
+    for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_moe_ffn"):
+        require(any(want[kname] for want in train_launches.values()),
+                f"{kname} never launched on the LM training path")
+    phase_done("5e LM training")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

@@ -1,4 +1,4 @@
-"""Language-model architecture configs: the fields the serving path reads.
+"""Language-model architecture configs: the fields serving and training read.
 
 The port's twin of ``repro.configs.base``: a frozen ``ArchConfig`` per
 architecture, registered by name (``get_arch``), and ``reduced`` for the
@@ -47,6 +47,10 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "swiglu"          # swiglu | gelu
+    # Training (the JAX package's defaults):
+    remat: bool = True           # recompute each block's activations in the backward
+    optimizer: str = "adamw"     # adamw | adafactor | sgdm
+    q_chunk: int = 1024          # attention query-chunk length of the einsum lowering
 
     def __post_init__(self):
         if self.family not in ("dense", "moe"):

@@ -1,8 +1,13 @@
-"""Carry parameters of the JAX package's models across to the port, and back.
+"""Carry parameters and optimizer states of the JAX package's models across
+to the port, and back.
 
 The port keeps the JAX layouts (NHWC, HWIO, (d_in, d_out)) and pytree
 names, so carrying weights across is a copy: no transpose, no reorder.
-An LM's layer-stacked leaves are unstacked into one module per layer.
+An LM's layer-stacked leaves are unstacked into one module per layer, and
+stacked again on the way back.  Optimizer states follow their parameters:
+sgdm's ``mu`` and adamw's ``m``/``v`` are trees of the parameters' shape;
+adafactor's factors are keyed by JAX leaf name in the port
+(``optim.adafactor``), so they carry across by name.
 """
 from __future__ import annotations
 
@@ -58,12 +63,6 @@ def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> Vision
     return VisionModel(cfg, tensors).to(device)
 
 
-def _unstack(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     """The port's LM holding the parameters of a JAX ``init_lm`` pytree of
     the dense or MoE family (numpy or JAX array leaves, layers stacked on a
@@ -72,29 +71,109 @@ def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     ``emb.T`` is made contiguous here, once.  Raises if the tree's names or
     shapes are not those ``cfg`` gives."""
     device = resolve_device(device)
-    layers = tree["layers"]
-    n_layers = len(next(iter(layers["n1"].values())))
-    port = {k: v for k, v in tree.items() if k != "layers"}
-    port["layers"] = [_unstack(layers, i) for i in range(n_layers)]
-    tensors = _to_tensors(port)
-    _check_shapes(_shapes(tensors), lm_param_shapes(cfg), cfg.name)
-    return LM(cfg, tensors).to(device)
+    flat = _lm_tree_to_flat(tree)
+    _check_shapes({k: v.shape for k, v in flat.items()}, lm_param_shapes(cfg), cfg.name)
+    return LM(cfg, _nest({k: torch.from_numpy(v) for k, v in flat.items()})).to(device)
 
 
-def vision_params_to_numpy(model: VisionModel) -> dict:
-    """The JAX-layout pytree (nested dicts and lists of numpy float32
-    arrays) of a port model: the inverse of ``vision_params_from_jax``."""
+def _nest(flat: dict) -> dict:
+    """A nested dict/list tree of a {dotted name: leaf} dict (a digit key
+    is a list index; list items come in order)."""
     tree: dict = {}
-    for name, p in model.named_parameters():
+    for name, leaf in flat.items():
         keys = [int(k) if k.isdigit() else k for k in name.split(".")]
         node = tree
         for key, nxt in zip(keys[:-1], keys[1:]):
             empty = [] if isinstance(nxt, int) else {}
             if isinstance(key, int):
-                if key == len(node):  # list items come in order
+                if key == len(node):
                     node.append(empty)
             else:
                 node.setdefault(key, empty)
             node = node[key]
-        node[keys[-1]] = p.detach().cpu().numpy().copy()
+        node[keys[-1]] = leaf
     return tree
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def vision_params_to_numpy(model: VisionModel) -> dict:
+    """The JAX-layout pytree (nested dicts and lists of numpy float32
+    arrays) of a port model: the inverse of ``vision_params_from_jax``."""
+    return _nest({name: _numpy(p) for name, p in model.named_parameters()})
+
+
+def _stack(layers: list):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def _dotted(tree, prefix="", stop=lambda node: False) -> dict:
+    """{dotted name: leaf} of a nested dict tree; a node for which ``stop``
+    holds counts as a leaf."""
+    if isinstance(tree, dict) and not stop(tree):
+        out = {}
+        for k, v in tree.items():
+            out.update(_dotted(v, f"{prefix}{k}.", stop))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _lm_tree_to_flat(tree: dict) -> dict:
+    """{port parameter name: numpy float32 copy} of a JAX layer-stacked LM
+    tree, layers in order."""
+    layers = _dotted(tree["layers"])
+    flat = _dotted({k: v for k, v in tree.items() if k != "layers"})
+    for i in range(len(next(iter(layers.values())))):
+        flat.update({f"layers.{i}.{k}": v[i] for k, v in layers.items()})
+    return {k: np.array(v, dtype=np.float32) for k, v in flat.items()}
+
+
+def lm_tree_to_numpy(flat: dict) -> dict:
+    """The JAX layer-stacked tree (numpy leaves) of a {port parameter name:
+    tensor} dict: an LM's parameters, their gradients or a moment."""
+    tree = _nest({name: _numpy(t) for name, t in flat.items()})
+    tree["layers"] = _stack(tree["layers"])
+    return tree
+
+
+def lm_params_to_numpy(model: LM) -> dict:
+    """The JAX ``init_lm`` pytree (numpy float32 leaves, layers stacked) of
+    a port LM: the inverse of ``lm_params_from_jax``."""
+    return lm_tree_to_numpy(dict(model.named_parameters()))
+
+
+def _is_factors(node) -> bool:
+    return isinstance(node, dict) and set(node) in ({"r", "c"}, {"v"})
+
+
+def lm_opt_state_from_jax(state: dict, device=None) -> dict:
+    """The port's optimizer state (``optim.optimizers``: sgdm, adamw or
+    adafactor) of a JAX one over an LM's layer-stacked parameters, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
+    to_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)  # noqa: E731
+    out = {"step": int(np.asarray(state["step"]))}
+    for key in ("mu", "m", "v"):
+        if key in state:
+            out[key] = {k: to_t(v) for k, v in _lm_tree_to_flat(state[key]).items()}
+    if "f" in state:
+        out["f"] = {k: {n: to_t(a) for n, a in f.items()}
+                    for k, f in _dotted(state["f"], stop=_is_factors).items()}
+    return out
+
+
+def lm_opt_state_to_numpy(state: dict) -> dict:
+    """The JAX optimizer state (numpy leaves, layers stacked) of a port
+    one: the inverse of ``lm_opt_state_from_jax``."""
+    out = {"step": np.asarray(state["step"], dtype=np.int32)}
+    for key in ("mu", "m", "v"):
+        if key in state:
+            out[key] = lm_tree_to_numpy(state[key])
+    if "f" in state:
+        out["f"] = _nest({k: {n: _numpy(t) for n, t in f.items()}
+                          for k, f in state["f"].items()})
+    return out

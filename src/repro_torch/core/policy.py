@@ -127,6 +127,20 @@ class PolicyTable:
 NATIVE = NumericsPolicy()
 
 
+def demote_numerics(numerics: NumericsPolicy) -> NumericsPolicy | None:
+    """One rung down the degradation ladder: an approximate multiplier
+    becomes ``exact7`` in the same mode (still the LUT datapath, with an
+    exact mantissa product), ``exact7`` becomes ``native``; a native
+    policy gives None, the ladder's "no safer rung" (JAX
+    ``demote_numerics`` for the flat policy; a train step built on the
+    result is a ``TrainerConfig.degrade_fn`` rung)."""
+    if numerics.is_native:
+        return None
+    if numerics.multiplier != "exact7":
+        return dataclasses.replace(numerics, multiplier="exact7")
+    return dataclasses.replace(numerics, mode="native", multiplier="fp32")
+
+
 def load_numerics(numerics: str, multiplier: str = "fp32", **kw) -> NumericsPolicy:
     """CLI helper: a flat policy of mode ``numerics`` with ``multiplier``
     (``native`` ignores it).  A policy-table JSON path raises: tables are

@@ -1,17 +1,45 @@
-"""Deterministic synthetic vision data (the vision half of the JAX
-package's ``data/pipeline.py``).
+"""Deterministic synthetic data: the port of the JAX package's
+``data/pipeline.py``.
 
-Class prototypes plus gaussian noise, so the paper's models see
-learnable images without a dataset download.  Seeds come from a CRC32 of
-the dataset key, so the data is the same in every process (Python's
-``hash()`` of a tuple is salted per process).  Arrays are numpy, NHWC in
-[0, 1]; callers move batches to their device.
+LM batches are step-indexed: ``lm_batch(cfg, shape, step)`` is a pure
+function of the step, so a run resumed from a checkpoint at step N sees
+the batches N, N+1, ... of the run it continues.  Vision data is class
+prototypes plus gaussian noise, so the paper's models see learnable
+images without a dataset download.  Vision seeds come from a CRC32 of the
+dataset key, so the data is the same in every process (Python's
+``hash()`` of a tuple is salted per process).  Vision arrays are numpy,
+NHWC in [0, 1]; callers move batches to their device.
 """
 from __future__ import annotations
 
 import zlib
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+
+# ---------------------------------------------------------------- LM side
+def lm_batch(cfg: ArchConfig, shape: tuple[int, int], step: int, device="cpu") -> dict:
+    """The synthetic next-token batch of global step ``step``: shape (B, S)
+    -> {"tokens", "labels"} int64 (B, S) on ``device``, the labels the
+    tokens shifted left with -1 (no loss) last.  Tokens mix the JAX
+    package's way: uniform ids, each replaced with probability 1/2 by its
+    left neighbour (the row rolled by one), so the loss is learnable.  The
+    draw comes from a ``torch.Generator`` seeded from (1234, step) (JAX's
+    threefry stream cannot be matched).  The port's configs have no
+    frontend tokens, so every position is text."""
+    B, S = shape
+    gen = torch.Generator().manual_seed(1234 * 2 ** 32 + int(step))
+    base = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    mix = torch.rand((B, S), generator=gen) < 0.5
+    tokens = torch.where(mix, torch.roll(base, 1, dims=1) % cfg.vocab, base)
+    labels = torch.cat([tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype)], dim=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+# ------------------------------------------------------------ vision side
 
 
 def _key_seed(name, hw, ch, n_classes, seed) -> int:

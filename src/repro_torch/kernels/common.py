@@ -74,6 +74,26 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
     return lanes[..., 0]
 
 
+def best_chunk(chunk: int, total: int) -> int:
+    """The divisor of ``total`` closest to ``chunk`` in log-space, at most
+    ``2 * chunk``; ties prefer the larger divisor (a prime ``total`` gives
+    1).  The JAX package's ``best_chunk``: here it snaps the attention
+    backward's query chunk to a divisor of the sequence."""
+    total = max(1, int(total))
+    chunk = max(1, int(chunk))
+    best, best_cost = 1, float("inf")
+    for d in range(1, int(total ** 0.5) + 1):
+        if total % d:
+            continue
+        for cand in (d, total // d):
+            if cand > 2 * chunk:
+                continue
+            cost = max(cand, chunk) / min(cand, chunk)
+            if cost < best_cost or (cost == best_cost and cand > best):
+                best, best_cost = cand, cost
+    return best
+
+
 def lut_tensor(lut: np.ndarray, device) -> torch.Tensor:
     """A numpy LUT in kernel storage on ``device``: int16 bits of a packed
     uint16 table, int32 bits of a canonical uint32 one."""

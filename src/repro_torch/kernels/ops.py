@@ -14,14 +14,18 @@ lowering:
   amsim_torch  their plain PyTorch versions (im2col for the conv)
   direct       im2col + the sequential-k GEMM over ``Multiplier.torch_mul``
 
-Both ops are ``torch.autograd.Function``s whose backward runs the two
-gradient products under the leaves ``policy.resolve(site, pass_="dx")``
-and ``pass_="dw"`` (paper: approximate multipliers in the forward pass
-and in backpropagation), the twins of the JAX package's ``custom_vjp``s
-(``repro/kernels/ops.py`` ``_mm_fwd``/``_mm_bwd``, ``_conv_fwd``/
-``_conv_bwd``).  A gradient whose input needs none is not computed, as
-JAX's ``jit`` drops it as dead code.  Batched products, attention and the
-decode chain run forward only: their gradients come with LM training.
+The matmul and the conv are ``torch.autograd.Function``s whose backward
+runs the two gradient products under the leaves ``policy.resolve(site,
+pass_="dx")`` and ``pass_="dw"`` (paper: approximate multipliers in the
+forward pass and in backpropagation), the twins of the JAX package's
+``custom_vjp``s (``repro/kernels/ops.py`` ``_mm_fwd``/``_mm_bwd``,
+``_conv_fwd``/``_conv_bwd``).  A gradient whose input needs none is not
+computed, as JAX's ``jit`` drops it as dead code.  The fused attention and
+the five decode-chain entries run their kernel forward and take their
+gradient from a recompute of the per-op lowering (``attend_einsum``, the
+``decode_*_oracle``s) with grad enabled, as JAX's ``_pattn_bwd`` and
+``_decode_*_bwd`` do: no backward kernel, the forward kernels on other
+operands.
 """
 from __future__ import annotations
 
@@ -37,11 +41,11 @@ from .approx_attention import approx_attention, softmax_scores
 from .approx_conv import (approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads,
                           dilate)
 from .approx_gemm import approx_gemm, approx_gemm_batched
-from .common import attention_mask, lut_tensor
+from .common import attention_mask, best_chunk, lut_tensor
 from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_moe_ffn,
                            fused_moe_ffn_plain, fused_out_mlp, fused_out_mlp_plain,
                            fused_qkv_norm, fused_qkv_norm_plain, fused_wo_norm,
-                           fused_wo_norm_plain)
+                           fused_wo_norm_plain, silu)
 from .ref import ref_amsim_gemm, ref_direct_gemm, ref_im2col
 
 _LUTS: dict[tuple, torch.Tensor] = {}
@@ -128,8 +132,26 @@ def _matmul_nograd(a, b, leaf: NumericsPolicy):
     return _GEMM_MODES[leaf.mode](a, b, get_multiplier(leaf.multiplier))
 
 
+# Sites whose second operand is a parameter even when it is a stacked 3-D
+# bank: the MoE expert FFN runs (E, C, d) @ (E, d, F), the equal-batch
+# layout of the attention einsums, but its db is a weight gradient and
+# resolves under the dw pass (the JAX package's ``_STACKED_WEIGHT_SITES``).
+_STACKED_WEIGHT_SITES = frozenset({"wg", "wu", "wd"})
+
+
+def _sum_to(x, shape):
+    """x summed over the leading dims it has beyond ``shape`` and over the
+    dims where ``shape`` broadcasts a 1 (the JAX ``_mm_bwd`` sums)."""
+    extra = x.ndim - len(shape)
+    if extra > 0:
+        x = x.sum(dim=tuple(range(extra)))
+    dims = tuple(i for i, (xs, s) in enumerate(zip(x.shape, shape)) if s == 1 and xs != 1)
+    return x.sum(dim=dims, keepdim=True) if dims else x
+
+
 class _PolicyMatmul(torch.autograd.Function):
-    """(..., m, k) @ (k, n) with the fwd, dx and dw leaves of one site."""
+    """(..., m, k) @ (k, n) or (..., m, k) @ (..., k, n) with the fwd, dx
+    and dw leaves of one site."""
 
     @staticmethod
     def forward(ctx, a, b, policy: NumericsPolicy, site):
@@ -140,26 +162,32 @@ class _PolicyMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        if b.ndim != 2:
-            raise NotImplementedError(
-                "the gradient of a batched product comes with LM training (slice 5)")
+        leaf_dx = ctx.policy.resolve(ctx.site, pass_="dx")
+        leaf_dw = ctx.policy.resolve(ctx.site, pass_="dw")
         da = db = None
         if ctx.needs_input_grad[0]:
-            # dA = g @ B^T under the dx leaf.
-            da = _matmul_nograd(g, b.T, ctx.policy.resolve(ctx.site, pass_="dx"))
+            # dA = g @ B^T under the dx leaf, in the forward's batch layout.
+            da = _sum_to(_matmul_nograd(g, b.transpose(-1, -2), leaf_dx), a.shape)
         if ctx.needs_input_grad[1]:
-            # dB = A_flat^T @ g_flat: every batch row folds into one GEMM
-            # (paper Fig. 8b), under the dw leaf.
-            db = _gemm2d(a.reshape(-1, a.shape[-1]).T, g.reshape(-1, g.shape[-1]),
-                         ctx.policy.resolve(ctx.site, pass_="dw"))
+            if b.ndim == 2:
+                # dB = A_flat^T @ g_flat: every batch row folds into one
+                # GEMM (paper Fig. 8b), under the dw leaf.
+                db = _gemm2d(a.reshape(-1, a.shape[-1]).T, g.reshape(-1, g.shape[-1]), leaf_dw)
+            else:
+                # A batched b is an activation (dx) unless the site stacks
+                # its weights 3-D (the MoE banks: dw).
+                leaf = leaf_dw if ctx.site in _STACKED_WEIGHT_SITES else leaf_dx
+                db = _sum_to(_matmul_nograd(a.transpose(-1, -2), g, leaf), b.shape)
         return da, db, None, None
 
 
 def policy_matmul(a, b, policy: NumericsPolicy, site: str | None = None):
-    """Differentiable matmul (..., m, k) @ (k, n) under the numerics
-    ``policy`` resolves at ``site``: forward under the ``fwd`` leaf, the
-    backward GEMMs under the ``dx``/``dw`` leaves.  (..., m, k) @
-    (..., k, n) runs forward only (its gradient comes with LM training).
+    """Differentiable matmul (..., m, k) @ (k, n) or (..., m, k) @ (..., k,
+    n) under the numerics ``policy`` resolves at ``site``: forward under
+    the ``fwd`` leaf, the backward products under the ``dx``/``dw`` leaves
+    (a batched b's gradient under dw only at the expert-bank sites).
+    Under ``amsim`` each product is one launch of the GEMM kernel, 2-D or
+    batched.
     """
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"policy_matmul takes (..., m, k) @ (..., k, n), got "
@@ -395,23 +423,88 @@ def fused_attention_enabled(policy: NumericsPolicy) -> bool:
     return leaf is not None and leaf.mode == "amsim" and not leaf.is_native
 
 
-def _forward_only(what: str, *tensors):
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} is forward only here: its backward (by recompute through the per-op "
-            f"path) comes with LM training (slice 5)")
+class _Recompute(torch.autograd.Function):
+    """A kernel's forward, ``fwd(*tensors)``, whose gradient ``bwd(tensors,
+    needs, grads)`` computes by recomputing the per-op lowering: the shape
+    of the JAX package's fused ``custom_vjp``s.  ``needs`` marks the tensors
+    that want a gradient; ``bwd`` returns one gradient or None per tensor."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *tensors):
+        ctx.bwd = bwd
+        ctx.save_for_backward(*tensors)
+        return fwd(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.bwd(ctx.saved_tensors, ctx.needs_input_grad[2:], grads))
+
+
+def _vjp(fn, tensors, needs, grads):
+    """The gradients of ``fn(*tensors)`` against ``grads`` for the tensors
+    ``needs`` marks (None for the others), from a recompute of ``fn`` with
+    grad enabled."""
+    with torch.enable_grad():
+        leaves = [t if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(tensors, needs)]
+        out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrt = [t for t, n in zip(leaves, needs) if n]
+    got = iter(torch.autograd.grad(outs, wrt, [g.to(torch.float32) for g in grads],
+                                   allow_unused=True))
+    return [next(got) if n else None for n in needs]
+
+
+# The query chunk of the attention backward's recompute (the JAX package's
+# ``_BWD_Q_CHUNK``, = ``ArchConfig.q_chunk``'s default): the recompute
+# holds (B, KV, G, chunk, T) scores, not all S query rows at once.
+_BWD_Q_CHUNK = 1024
+
+
+def _attention_bwd(policy: NumericsPolicy, causal: bool, window: int):
+    """The fused attention's backward (JAX ``_pattn_bwd``): the gradient of
+    ``attend_einsum`` recomputed a query chunk at a time when the sequence
+    splits into chunks of more than ``_BWD_Q_CHUNK // 16`` rows, so dq
+    splits by chunk and dk, dv sum over chunks in order; else in one."""
+    def bwd(tensors, needs, grads):
+        q, k, v, q_pos, k_pos = tensors
+        (g,) = grads
+        S = q.shape[1]
+
+        def grads_of(q_c, qp_c, g_c):
+            fn = lambda q_, k_, v_: attend_einsum(q_, k_, v_, qp_c, k_pos, policy,  # noqa: E731
+                                                 causal=causal, window=window)
+            return _vjp(fn, (q_c, k, v), needs[:3], (g_c,))
+
+        bqc = best_chunk(_BWD_Q_CHUNK, S)
+        if not S > bqc > _BWD_Q_CHUNK // 16:
+            return (*grads_of(q, q_pos, g), None, None)
+        dq, dk, dv = [], None, None
+        for i in range(0, S, bqc):
+            dq_c, dk_c, dv_c = grads_of(q[:, i:i + bqc], q_pos[i:i + bqc], g[:, i:i + bqc])
+            dq.append(dq_c)
+            dk = dk_c if dk is None or dk_c is None else dk + dk_c
+            dv = dv_c if dv is None or dv_c is None else dv + dv_c
+        return (torch.cat(dq, dim=1) if needs[0] else None), dk, dv, None, None
+    return bwd
 
 
 def policy_attention(q, k, v, q_pos, k_pos, policy: NumericsPolicy, causal: bool,
                      window: int):
-    """One-launch fused attention under the policy's ``amsim`` leaf
-    (forward only).  Callers check :func:`fused_attention_enabled`."""
-    _forward_only("policy_attention", q, k, v)
+    """Differentiable one-launch fused attention under the policy's
+    ``amsim`` leaf: the kernel forward, the gradient from a recompute of
+    ``attend_einsum`` (each backward product under its site's dx leaf).
+    Callers check :func:`fused_attention_enabled`."""
     mult = get_multiplier(attention_fused_leaf(policy).multiplier)
-    return approx_attention(q.to(torch.float32).contiguous(), k.to(torch.float32).contiguous(),
-                            v.to(torch.float32).contiguous(), q_pos, k_pos,
-                            _amsim_lut(mult, q.device), mult.mantissa_bits,
-                            causal=causal, window=int(window))
+
+    def fwd(q, k, v, q_pos, k_pos):
+        return approx_attention(q.contiguous(), k.contiguous(), v.contiguous(), q_pos, k_pos,
+                                _amsim_lut(mult, q.device), mult.mantissa_bits,
+                                causal=causal, window=int(window))
+
+    return _Recompute.apply(fwd, _attention_bwd(policy, causal, int(window)),
+                            q.to(torch.float32), k.to(torch.float32), v.to(torch.float32),
+                            q_pos, k_pos)
 
 
 # =====================================================================
@@ -497,56 +590,125 @@ def _chain_call(policy: NumericsPolicy, device, leaf: NumericsPolicy | None = No
     return True, _oracle_lut(mult, device), mult.mantissa_bits
 
 
+def rmsnorm_expr(x, g, eps: float):
+    """rmsnorm(x; g) over the last dim: ``models.layers.rmsnorm``'s
+    expression, which the decode oracles recompute."""
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)) * g
+
+
+def _bias(y, b):
+    return y if b is None else y + b
+
+
+def decode_qkv_oracle(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
+    """The chain's front half per op: rmsnorm, then three ``policy_matmul``
+    projections under site "qkv" (JAX ``decode_qkv_oracle``)."""
+    h = rmsnorm_expr(x.to(torch.float32), g1, eps)
+    return tuple(policy_matmul(h, w, policy, "qkv") for w in (wq, wk, wv))
+
+
+def decode_out_mlp_oracle(x, attn, g2, wo, wg, wu, wd, policy: NumericsPolicy, eps: float,
+                          bo=None, bd=None):
+    """The chain's back half per op: wo (+bo), +residual, rmsnorm, the
+    swiglu FFN (+bd), +residual (JAX ``decode_out_mlp_oracle``)."""
+    x1, h = decode_wo_norm_oracle(x, attn, g2, wo, bo, policy, eps)
+    return x1 + _bias(decode_moe_ffn_oracle(h, wg, wu, wd, policy), bd)
+
+
+def decode_wo_norm_oracle(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
+    """The MoE back half's prefix per op: x1 = x + attn @ wo (+bo) and h =
+    rmsnorm(x1; g2); returns (x1, h) (JAX ``decode_wo_norm_oracle``)."""
+    x1 = x.to(torch.float32) + _bias(policy_matmul(attn, wo, policy, "wo"), bo)
+    return x1, rmsnorm_expr(x1, g2, eps)
+
+
+def decode_moe_ffn_oracle(buf, wg, wu, wd, policy: NumericsPolicy):
+    """The swiglu FFN per op, three ``policy_matmul``s under the wg/wu/wd
+    sites: of a row block with 2-D weights, or of every expert's capacity
+    buffer with the stacked banks (JAX ``decode_moe_ffn_oracle``)."""
+    return policy_matmul(silu(policy_matmul(buf, wg, policy, "wg"))
+                         * policy_matmul(buf, wu, policy, "wu"), wd, policy, "wd")
+
+
+def _chain_fn(policy: NumericsPolicy, device, kernel, plain, leaf=None):
+    """The chain launch of the leaf (``decode_chain_leaf`` or ``leaf``):
+    ``kernel`` under ``amsim``, ``plain`` under ``amsim_torch``, with its
+    LUT and M bound."""
+    is_plain, lut, M = _chain_call(policy, device, leaf)
+    fn = plain if is_plain else kernel
+    return lambda *args, **kw: fn(*args, lut, M, **kw)
+
+
+def _oracle_bwd(oracle):
+    """The backward of a chain entry: the gradient of ``oracle`` over the
+    entry's tensors, recomputed."""
+    return lambda tensors, needs, grads: _vjp(oracle, tensors, needs, grads)
+
+
 def decode_qkv(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
     """rmsnorm(x; g1) and the q/k/v projections of a decode step, x
-    (rows, d) -> (q, k, v); forward only.  Callers check
+    (rows, d) -> (q, k, v), in one launch; the gradient recomputes
+    :func:`decode_qkv_oracle`.  Callers check
     :func:`decode_chain_enabled`."""
-    _forward_only("decode_qkv", x, g1, wq, wk, wv)
-    plain, lut, M = _chain_call(policy, x.device)
-    fn = fused_qkv_norm_plain if plain else fused_qkv_norm
-    return fn(x, g1, wq, wk, wv, lut, M, eps=eps)
+    fn = _chain_fn(policy, x.device, fused_qkv_norm, fused_qkv_norm_plain)
+    return _Recompute.apply(
+        lambda *t: fn(*t, eps=eps),
+        _oracle_bwd(lambda *t: decode_qkv_oracle(*t, policy, eps)), x, g1, wq, wk, wv)
 
 
 def decode_out_mlp_b(x, attn, g2, wo, wg, wu, wd, bo, bd, policy: NumericsPolicy,
                      eps: float):
     """The back half of a decode step with optional wo/wd biases (None
     when absent): x (rows, d) residual stream, attn (rows, H*dh) ->
-    (rows, d); forward only."""
-    _forward_only("decode_out_mlp_b", x, attn, g2, wo, wg, wu, wd, bo, bd)
-    plain, lut, M = _chain_call(policy, x.device)
-    fn = fused_out_mlp_plain if plain else fused_out_mlp
-    return fn(x, attn, g2, wo, wg, wu, wd, lut, M, eps=eps, bo=bo, bd=bd)
+    (rows, d), in one launch; the gradient recomputes
+    :func:`decode_out_mlp_oracle`."""
+    fn = _chain_fn(policy, x.device, fused_out_mlp, fused_out_mlp_plain)
+    return _Recompute.apply(
+        lambda *t: fn(*t[:7], eps=eps, bo=t[7], bd=t[8]),
+        _oracle_bwd(lambda *t: decode_out_mlp_oracle(*t[:7], policy, eps, bo=t[7], bd=t[8])),
+        x, attn, g2, wo, wg, wu, wd, bo, bd)
 
 
 def decode_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd,
                         policy: NumericsPolicy, eps: float, causal: bool, window: int):
     """The attention core and the back half of a decode step in one launch:
     x (B, d), q (B, 1, H, dh) roped, k/v (B, T, KV, dh) the cache after
-    this step's write -> (B, d); forward only.  Callers check
+    this step's write -> (B, d); the gradient recomputes ``attend_einsum``
+    and :func:`decode_out_mlp_oracle`.  Callers check
     :func:`decode_fuse_attn_enabled`."""
-    _forward_only("decode_attn_out_mlp", x, q, k, v, g2, wo, wg, wu, wd, bo, bd)
-    plain, lut, M = _chain_call(policy, x.device)
-    fn = fused_attn_out_mlp_plain if plain else fused_attn_out_mlp
-    return fn(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M, eps=eps, causal=causal,
-              window=int(window), bo=bo, bd=bd)
+    fn = _chain_fn(policy, x.device, fused_attn_out_mlp, fused_attn_out_mlp_plain)
+    window = int(window)
+
+    def oracle(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd):
+        B, S, H, dh = q.shape
+        a = attend_einsum(q, k, v, q_pos, k_pos, policy, causal=causal, window=window)
+        return decode_out_mlp_oracle(x, a.reshape(B * S, H * dh), g2, wo, wg, wu, wd, policy,
+                                     eps, bo=bo, bd=bd)
+
+    return _Recompute.apply(
+        lambda *t: fn(*t[:11], eps=eps, causal=causal, window=window, bo=t[11], bd=t[12]),
+        _oracle_bwd(oracle), x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd)
 
 
 def decode_wo_norm(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
     """The MoE back half's prefix of a decode step: x (rows, d) residual
     stream, attn (rows, H*dh) -> (x1, h), x1 = x + attn@wo (+bo) and h =
-    rmsnorm(x1; g2); forward only.  Callers check
+    rmsnorm(x1; g2), in one launch; the gradient recomputes
+    :func:`decode_wo_norm_oracle`.  Callers check
     :func:`decode_chain_enabled`."""
-    _forward_only("decode_wo_norm", x, attn, g2, wo, bo)
-    plain, lut, M = _chain_call(policy, x.device)
-    fn = fused_wo_norm_plain if plain else fused_wo_norm
-    return fn(x, attn, g2, wo, lut, M, eps=eps, bo=bo)
+    fn = _chain_fn(policy, x.device, fused_wo_norm, fused_wo_norm_plain)
+    return _Recompute.apply(
+        lambda *t: fn(*t[:4], eps=eps, bo=t[4]),
+        _oracle_bwd(lambda *t: decode_wo_norm_oracle(*t, policy, eps)), x, attn, g2, wo, bo)
 
 
 def decode_moe_ffn(buf, wg, wu, wd, policy: NumericsPolicy):
     """The swiglu FFN of every expert over its capacity buffer: buf (E, C,
-    d), wg/wu (E, d, F), wd (E, F, d) -> (E, C, d); forward only.  Callers
-    check :func:`decode_moe_ffn_enabled`."""
-    _forward_only("decode_moe_ffn", buf, wg, wu, wd)
-    plain, lut, M = _chain_call(policy, buf.device, moe_ffn_leaf(policy))
-    fn = fused_moe_ffn_plain if plain else fused_moe_ffn
-    return fn(buf.contiguous(), wg, wu, wd, lut, M)
+    d), wg/wu (E, d, F), wd (E, F, d) -> (E, C, d), in one launch; the
+    gradient recomputes :func:`decode_moe_ffn_oracle` (the banks' db under
+    the dw leaf).  Callers check :func:`decode_moe_ffn_enabled`."""
+    fn = _chain_fn(policy, buf.device, fused_moe_ffn, fused_moe_ffn_plain, moe_ffn_leaf(policy))
+    return _Recompute.apply(
+        lambda buf, wg, wu, wd: fn(buf.contiguous(), wg, wu, wd),
+        _oracle_bwd(lambda *t: decode_moe_ffn_oracle(*t, policy)), buf, wg, wu, wd)

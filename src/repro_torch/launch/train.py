@@ -1,0 +1,94 @@
+"""LM training on one device: the port of ``repro.launch.train``.
+
+    python -m repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 4 \
+        --seq 64 --numerics amsim --multiplier afm16            # on the card
+    python -m repro_torch.launch.train --reduced --device cpu --steps 2
+
+Full width by default (``--reduced``: the smoke-test widths of
+``configs.base.reduced``); weights drawn from ``--seed``, batches from
+``data.pipeline.lm_batch``.  The optimizer is the config's
+(``cfg.optimizer``: adamw for the granite configs) over
+``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
+(checkpoints under ``--ckpt-dir`` every steps/5).  Prints one numerics
+line and the metrics every steps/10.  ``--numerics`` takes a mode name:
+per-site policy tables are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, get_arch, reduced
+from repro_torch.core.policy import MODES, NumericsPolicy, load_numerics
+from repro_torch.data.pipeline import lm_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_lm, lm_loss, lm_stacks
+from repro_torch.optim.optimizers import Optimizer, cosine_schedule, make_optimizer
+from repro_torch.train.step import make_train_step
+from repro_torch.train.trainer import Trainer, TrainerConfig, TrainerState
+
+
+def make_lm_train_step(cfg: ArchConfig, policy: NumericsPolicy, *, lr: float, steps: int,
+                       microbatches: int = 1) -> tuple[Optimizer, callable]:
+    """(optimizer, ``train_step(model, opt_state, batch)``) of an LM run of
+    ``steps`` steps: ``cfg.optimizer`` over ``cosine_schedule(lr, 10,
+    steps)`` on ``lm_loss`` under ``policy``, global-norm clip 1.0."""
+    opt = make_optimizer(cfg.optimizer, cosine_schedule(lr, 10, steps), stacks=lm_stacks(cfg))
+    step = make_train_step(lambda model, batch: lm_loss(model, batch, policy), opt,
+                           microbatches=microbatches)
+    return opt, step
+
+
+def describe_numerics(policy: NumericsPolicy, device: torch.device) -> str:
+    """Which path this run's products take."""
+    if policy.is_native:
+        return f"numerics=native: exact float32 (TF32 off) on {device}"
+    if policy.mode == "amsim":
+        where = ("the CUDA LUT kernels" if device.type == "cuda"
+                 else "the kernels' plain versions on the CPU")
+        return f"numerics=amsim/{policy.multiplier}: {where}"
+    return f"numerics={policy.mode}/{policy.multiplier} on {device}"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="LM training on one device")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    help="granite-3-2b (dense) or granite-moe-3b-a800m (MoE)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-test widths of configs.base.reduced")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--numerics", default="native", choices=MODES)
+    ap.add_argument("--multiplier", default="fp32",
+                    help="the multiplier of a non-native mode (afm16, bf16, mitchell8, ...)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: the CUDA card")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    policy = load_numerics(args.numerics, args.multiplier)
+    print(describe_numerics(policy, device))
+
+    model = init_lm(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
+                    device=device)
+    opt, step = make_lm_train_step(cfg, policy, lr=args.lr, steps=args.steps,
+                                   microbatches=args.microbatches)
+    trainer = Trainer(step, lambda s: lm_batch(cfg, (args.batch, args.seq), s, device),
+                      TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                                    ckpt_every=max(args.steps // 5, 1),
+                                    log_every=max(args.steps // 10, 1)))
+    state = trainer.run(TrainerState(model, opt.init(dict(model.named_parameters()))))
+    print(f"done at step {state.step}; stragglers flagged: {len(state.stragglers)}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

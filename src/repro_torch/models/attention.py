@@ -9,9 +9,11 @@ kernel under an ``amsim`` leaf and the grouped-query einsum lowering
 projections (``qkv=``), takes the pre-``wo`` context (``project_out=False``)
 or stops after rope and the cache write (``capture_attend=True``).
 
-Not ported (no serving path of this slice needs them): the paged cache,
-cross-attention, full-head / sharded attention and the q-chunk scan (the
-kernel takes every shape, so nothing needs chunking).
+The einsum lowering runs a query chunk (``cfg.q_chunk``) at a time when
+the sequence splits into such chunks; the kernel takes every shape, and
+its backward chunks its own recompute (``ops.policy_attention``).  Not
+ported (no path of the port needs them yet): the paged cache,
+cross-attention and full-head / sharded attention.
 """
 from __future__ import annotations
 
@@ -120,6 +122,13 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, ca
         return (q, k, v, q_pos, k_pos), cache
     if fused_attention_enabled(policy):
         out = policy_attention(q, k, v, q_pos, k_pos, policy, True, window)
+    elif S > cfg.q_chunk and S % cfg.q_chunk == 0:
+        # The einsum lowering a query chunk at a time, as the JAX package's
+        # q-chunk scan: it holds (B, KV, G, q_chunk, T) scores, not S rows'.
+        c = cfg.q_chunk
+        out = torch.cat([attend_einsum(q[:, i:i + c], k, v, q_pos[i:i + c], k_pos, policy,
+                                       causal=True, window=window) for i in range(0, S, c)],
+                        dim=1)
     else:
         out = attend_einsum(q, k, v, q_pos, k_pos, policy, causal=True, window=window)
     out = out.reshape(B, S, H * dh)

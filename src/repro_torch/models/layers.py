@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.policy import NumericsPolicy
-from repro_torch.kernels.ops import policy_matmul
+from repro_torch.kernels.ops import policy_matmul, rmsnorm_expr
 
 
 class Linear(nn.Module):
@@ -53,21 +53,30 @@ class Norm(nn.Module):
 
 
 def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps)) * p.g
+    return rmsnorm_expr(x, p.g, eps)
 
 
 class Embedding(nn.Module):
     """A token embedding ``emb`` (vocab, d) and, for the tied LM head, its
-    transpose ``emb_t`` (d, vocab), made contiguous once here: the head's
-    GEMM takes contiguous operands, and transposing per decode step would
-    copy the whole table (400 MB at granite-3-2b) every step.  ``emb_t`` is
-    a buffer derived from ``emb``; nothing updates it if ``emb`` changes."""
+    transpose ``emb_t`` (d, vocab), made contiguous: the head's GEMM takes
+    contiguous operands, and transposing per decode step would copy the
+    whole table (400 MB at granite-3-2b) every step.  ``emb_t`` is a buffer
+    made again from ``emb`` when ``emb`` has changed in place since it was
+    made (an optimizer step, a checkpoint restore), as its version counter
+    tells."""
 
     def __init__(self, emb: torch.Tensor):
         super().__init__()
         self.emb = nn.Parameter(emb)
         self.register_buffer("emb_t", emb.detach().T.contiguous(), persistent=False)
+        self._emb_t_of = self.emb._version
+
+    def transposed(self) -> torch.Tensor:
+        if self._emb_t_of != self.emb._version:
+            with torch.no_grad():
+                self.emb_t = self.emb.detach().T.contiguous()
+            self._emb_t_of = self.emb._version
+        return self.emb_t
 
 
 def embed(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
@@ -75,5 +84,7 @@ def embed(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: Embedding, x: torch.Tensor, policy: NumericsPolicy) -> torch.Tensor:
-    """Tied LM head: x @ emb^T under numerics site "unembed"."""
-    return policy_matmul(x, p.emb_t, policy, "unembed")
+    """Tied LM head: x @ emb^T under numerics site "unembed".  Under grad
+    the product takes ``emb.T`` itself, so that its dw reaches ``emb``."""
+    w = p.emb.T if torch.is_grad_enabled() and p.emb.requires_grad else p.transposed()
+    return policy_matmul(x, w, policy, "unembed")

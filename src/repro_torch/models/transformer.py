@@ -7,13 +7,16 @@ layers (the JAX package scans over stacked layer parameters).  A
 single-token decode step of a block under one ``amsim`` or ``amsim_torch``
 leaf runs as the decode chain (``_dense_block_fused_decode``): the CUDA
 chain kernels, or their plain versions, in the same structure, so the two
-modes decode bit for bit alike.  Forward only: LM training comes with a
-later slice, and with it the MoE aux loss, which ``lm_forward`` drops.
+modes decode bit for bit alike.  ``lm_forward(..., train=True)`` runs with
+grad enabled (each block under ``torch.utils.checkpoint`` when
+``cfg.remat``) and ``lm_loss`` is the training loss: token cross-entropy
+plus the MoE load-balance loss, which every block hands up the stack.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
@@ -90,6 +93,18 @@ def lm_param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+def lm_stacks(cfg: ArchConfig) -> dict:
+    """{JAX leaf name: [port names, layer by layer]}: the per-layer tensors
+    of ``lm_param_shapes`` that the JAX package stacks into one leaf
+    (``layers.<i>.attn.wq.w`` for every i is its ``layers.attn.wq.w``)."""
+    stacks: dict = {}
+    for name in lm_param_shapes(cfg):
+        if name.startswith("layers."):
+            _, _, rest = name.split(".", 2)
+            stacks.setdefault(f"layers.{rest}", []).append(name)
+    return stacks
+
+
 def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """JAX-layout parameters on the generator's device, with the JAX
     package's scales: N(0, 1/d_in) weights, N(0, 0.02^2) embeddings, unit
@@ -153,22 +168,24 @@ def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: Numeric
         y = ops.decode_attn_out_mlp(x2, qr, kr, vr, qp, kp, p.n2.g, at["wo"].w, mlp["wg"].w,
                                     mlp["wu"].w, mlp["wd"].w, at["wo"].b, mlp["wd"].b, policy,
                                     cfg.norm_eps, True, window)
-        return y.reshape(B, S, d), cache
+        return y.reshape(B, S, d), cache, 0.0
     a2, cache = attention(at, x, cfg, policy, cache=cache, window=window, qkv=qkv,
                           project_out=False)
     a2 = a2.reshape(B * S, H * dh)
     if p.moe is not None:
         x1, h = ops.decode_wo_norm(x2, a2, p.n2.g, at["wo"].w, at["wo"].b, policy, cfg.norm_eps)
-        y, _ = moe_ffn(p.moe, h.reshape(B, S, d), cfg, policy)
-        return x1.reshape(B, S, d) + y, cache
+        y, aux = moe_ffn(p.moe, h.reshape(B, S, d), cfg, policy)
+        return x1.reshape(B, S, d) + y, cache, aux
     mlp = p.ffn
     y = ops.decode_out_mlp_b(x2, a2, p.n2.g, at["wo"].w, mlp["wg"].w, mlp["wu"].w, mlp["wd"].w,
                              at["wo"].b, mlp["wd"].b, policy, cfg.norm_eps)
-    return y.reshape(B, S, d), cache
+    return y.reshape(B, S, d), cache, 0.0
 
 
 def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
                  window: int):
+    """One block: (x, cache, aux), aux the MoE load-balance loss (0 in a
+    dense block)."""
     if _use_fused_decode_chain(x, cfg, policy, cache):
         return _dense_block_fused_decode(p, x, cfg, policy, cache, window)
     a, cache = attention(p.attn, rmsnorm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
@@ -176,34 +193,63 @@ def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cach
     x = x + a
     h = rmsnorm(p.n2, x, cfg.norm_eps)
     if p.moe is not None:
-        y, _ = moe_ffn(p.moe, h, cfg, policy)
+        y, aux = moe_ffn(p.moe, h, cfg, policy)
     else:
-        y = ffn(p.ffn, h, policy, cfg.act)
-    return x + y, cache
+        y, aux = ffn(p.ffn, h, policy, cfg.act), 0.0
+    return x + y, cache, aux
 
 
 # ---------------------------------------------------------------- forward
-@torch.no_grad()
 def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, caches=None,
-               window: int | None = None):
-    """tokens (B, S) -> (logits (B, S, vocab), new caches or None).
+               window: int | None = None, train: bool = False):
+    """tokens (B, S) -> (logits (B, S, vocab), new caches or None, aux loss).
 
-    ``caches`` (``init_lm_caches``) are updated in place.  ``window`` None
-    means the architecture's own sliding window (0 = off)."""
+    Serving (``train=False``) runs without grad; ``caches``
+    (``init_lm_caches``) are updated in place.  ``train=True`` runs with
+    grad, each block under ``torch.utils.checkpoint`` when ``cfg.remat``
+    (its activations recomputed in the backward: the same bits, fewer
+    held).  ``window`` None means the architecture's own sliding window
+    (0 = off).  aux sums the blocks' MoE load-balance losses."""
     cfg = model.cfg
     window = cfg.sliding_window if window is None else window
-    x = embed(model.embed, tokens)
-    new_caches = []
-    for i, layer in enumerate(model.layers):
-        x, cache = _dense_block(layer, x, cfg, policy, None if caches is None else caches[i],
-                                window)
-        new_caches.append(cache)
-    x = rmsnorm(model.final_norm, x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = unembed(model.embed, x, policy)
-    else:
-        logits = linear(model.head, x, policy, site="head")
-    return logits, (new_caches if caches is not None else None)
+    with torch.set_grad_enabled(train):
+        x = embed(model.embed, tokens)
+        aux = 0.0
+        new_caches = []
+        for i, layer in enumerate(model.layers):
+            cache = None if caches is None else caches[i]
+            if train and cfg.remat and cache is None:
+                x, cache, a = checkpoint(_dense_block, layer, x, cfg, policy, None, window,
+                                         use_reentrant=False)
+            else:
+                x, cache, a = _dense_block(layer, x, cfg, policy, cache, window)
+            aux = aux + a
+            new_caches.append(cache)
+        x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = unembed(model.embed, x, policy)
+        else:
+            logits = linear(model.head, x, policy, site="head")
+    if not isinstance(aux, torch.Tensor):   # a dense stack: no block had an aux loss
+        aux = logits.new_zeros((), dtype=torch.float32)
+    return logits, (new_caches if caches is not None else None), aux
+
+
+def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 0.01):
+    """batch {"tokens": (B, S), "labels": (B, S) (-1 = no loss)} ->
+    (mean token cross-entropy + aux_weight x the MoE aux loss, {"xent",
+    "aux"}), as JAX ``lm_loss``: the label's logit taken by mask and sum,
+    not a gather."""
+    logits, _, aux = lm_forward(model, batch["tokens"], policy, train=True)
+    labels = batch["labels"]
+    valid = labels >= 0
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.sum(torch.where(iota == labels.clamp(min=0)[..., None], logits, 0.0), dim=-1)
+    xent = torch.where(valid, lse - ll, 0.0)
+    loss = torch.sum(xent) / torch.clamp(torch.sum(valid), min=1)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> list:

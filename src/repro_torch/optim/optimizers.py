@@ -8,8 +8,14 @@ and state trees are nested dicts and lists of tensors (a model's
 to the parameters in place, under ``torch.no_grad()``: a model's
 ``nn.Parameter``s stay the same objects, where JAX returns a new tree.
 
-SGD-momentum is the paper's optimizer.  AdamW and Adafactor come with the
-LM slice.
+SGD-momentum is the paper's optimizer; AdamW and Adafactor train the LMs
+(the granite configs take AdamW).  AdamW updates its moments in place,
+so a full-width step holds the parameters, gradients, two moments and the
+updates (five copies of the model), not seven.  The JAX package keeps an
+LM's layers stacked on a leading axis, and Adafactor couples the elements
+of a leaf (its factors, its update clip); ``stacks`` names the port's
+per-layer tensors that form one JAX leaf, so that Adafactor computes on
+the same stacked tensors as there.
 """
 from __future__ import annotations
 
@@ -45,9 +51,9 @@ def tree_leaves(tree) -> list:
 
 @torch.no_grad()
 def apply_updates(params, updates):
-    """``params += updates`` leaf by leaf, in place; returns ``params``."""
-    for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-        p.add_(u.to(p.dtype))
+    """``params += updates`` leaf by leaf (dict leaves paired by key), in
+    place; returns ``params``."""
+    tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
     return params
 
 
@@ -97,11 +103,126 @@ def sgdm(lr, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
     return Optimizer(init, update)
 
 
-def make_optimizer(name: str, lr=1e-3, **kw) -> Optimizer:
+# ---------------------------------------------------------------- adamw
+def _power(base: float, step: int) -> torch.Tensor:
+    """base ** step in float32, as JAX's ``base ** step.astype(float32)``."""
+    return torch.pow(torch.tensor(base, dtype=torch.float32),
+                     torch.tensor(step, dtype=torch.float32))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root: the float64 root rounded
+    to float32, which for a square root is the float32 root (53 >= 2 x 24
+    + 2 bits).  XLA's and CUDA's float32 sqrt round correctly; torch's
+    vectorised CPU sqrt is off by an ulp on ~0.6% of inputs."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW as the JAX package writes it: ``m = b1 m + (1 - b1) g``, ``v =
+    b2 v + (1 - b2) g^2``, ``p += -lr ((m / c1) / (sqrt(v / c2) + eps) +
+    weight_decay p)`` with ``c = 1 - b ** step``.  The moments are updated
+    in place: the state passed in is the state returned."""
+    def init(params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params), "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = lr(step) if callable(lr) else lr
+        c1, c2 = 1 - _power(b1, step), 1 - _power(b2, step)
+
+        def leaf(g, m, v, p):
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            return -lr_t * ((m / c1) / (_sqrt(v / c2) + eps) + weight_decay * p)
+
+        upd = tree_map(leaf, grads, state["m"], state["v"], params)
+        return upd, {"m": state["m"], "v": state["v"], "step": step}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------- adafactor
+def _stacked(tree: dict, stacks: dict) -> dict:
+    """{JAX leaf name: tensor} of a flat {name: tensor} tree: each stack's
+    members stacked on a new leading axis in order, every other tensor
+    alone under its own name."""
+    members = {n for names in stacks.values() for n in names}
+    out = {name: torch.stack([tree[n] for n in names]) for name, names in stacks.items()}
+    out.update({n: t for n, t in tree.items() if n not in members})
+    return out
+
+
+def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0, decay: float = 0.8,
+              weight_decay: float = 0.0, stacks: dict | None = None) -> Optimizer:
+    """Factored second moment without momentum (Shazeer & Stern 2018), as
+    the JAX package writes it: a leaf of 2 or more dims keeps row and
+    column factors over its last two dims, a vector its full second
+    moment; the update is clipped by its RMS over the whole leaf.
+
+    Parameters, gradients and updates are flat {name: tensor} dicts.
+    ``stacks`` ({JAX leaf name: [member names in layer order]}, from
+    ``models.transformer.lm_stacks``) makes each stack one leaf, as the JAX
+    package's layer-stacked tree: a per-layer gain (d,) is then an (L, d)
+    matrix, factored, and the clip RMS is taken over every layer.  The
+    state ``f`` is keyed by JAX leaf name."""
+    stacks = stacks or {}
+
+    def init(params):
+        def leaf(p):
+            if p.ndim >= 2:
+                return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                                         device=p.device)}
+            return {"v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+        return {"f": {n: leaf(p) for n, p in _stacked(params, stacks).items()}, "step": 0}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = lr(step) if callable(lr) else lr
+        beta = 1.0 - _power(float(step), -decay)
+
+        def leaf(g, f, p):
+            g = g.to(torch.float32)
+            g2 = torch.square(g) + eps
+            if g.ndim >= 2:
+                r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
+                c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                rc = torch.mean(r, dim=-1, keepdim=True)
+                vhat = (r[..., None] / torch.clamp(rc[..., None], min=eps)) * c[..., None, :]
+                u = g * torch.rsqrt(torch.clamp(vhat, min=eps))
+                nf = {"r": r, "c": c}
+            else:
+                v = beta * f["v"] + (1 - beta) * g2
+                u = g * torch.rsqrt(torch.clamp(v, min=eps))
+                nf = {"v": v}
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            return -lr_t * (u + weight_decay * p), nf
+
+        g_s, p_s = _stacked(grads, stacks), _stacked(params, stacks)
+        out = {n: leaf(g_s[n], state["f"][n], p_s[n]) for n in g_s}
+        upd = {}
+        for n, (u, _) in out.items():
+            upd.update(zip(stacks[n], u.unbind(0)) if n in stacks else [(n, u)])
+        return {n: upd[n] for n in grads}, {"f": {n: nf for n, (_, nf) in out.items()},
+                                            "step": step}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr=1e-3, *, stacks: dict | None = None, **kw) -> Optimizer:
+    """The optimizer ``name`` at learning rate (or schedule) ``lr``.
+    ``stacks`` (see :func:`adafactor`) matters to adafactor only: sgdm and
+    adamw couple no elements of a leaf."""
     if name == "sgdm":
         return sgdm(lr, **kw)
-    if name in ("adamw", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: it comes with the slice that ports "
-            f"attention and the LM zoo; the port has 'sgdm'")
+    if name == "adamw":
+        return adamw(lr, **kw)
+    if name == "adafactor":
+        return adafactor(lr, stacks=stacks, **kw)
     raise ValueError(f"unknown optimizer {name!r}")

@@ -25,7 +25,7 @@ def make_prefill(model: LM, policy: NumericsPolicy, max_len: int):
     def prefill(tokens, caches):
         """tokens (B, S_prompt) -> (logits (B, S, vocab), next token (B, 1),
         caches).  The prefill runs at the architecture's own window."""
-        logits, caches = lm_forward(model, tokens, policy, caches=caches)
+        logits, caches, _ = lm_forward(model, tokens, policy, caches=caches)
         return logits, _last_argmax(logits), caches
     return prefill
 
@@ -34,7 +34,7 @@ def make_serve_step(model: LM, policy: NumericsPolicy, window: int | None = None
     def serve_step(tokens, caches):
         """One decode step: tokens (B, 1) -> (logits (B, 1, vocab), next
         token (B, 1), caches)."""
-        logits, caches = lm_forward(model, tokens, policy, caches=caches, window=window)
+        logits, caches, _ = lm_forward(model, tokens, policy, caches=caches, window=window)
         return logits, _last_argmax(logits), caches
     return serve_step
 

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import lutgen as jlutgen  # noqa: E402
@@ -195,10 +196,61 @@ def test_policy_einsum_matches_jax(spec, sa, sb):
     np.testing.assert_allclose(native.numpy(), np.einsum(spec, a, b), rtol=1e-5, atol=1e-5)
 
 
-def test_policy_attention_is_forward_only():
-    arrays, kw = _inputs("decode_ring_unwritten")
+def _attention_grads(fn, q, k, v, g):
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    return torch.autograd.grad(fn(q, k, v), (q, k, v), g)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_policy_attention_gradient_is_the_einsum_lowerings(case):
+    """The fused attention's backward recomputes ``attend_einsum``: under
+    ``amsim`` (the kernels' plain versions here) dq, dk and dv are bitwise
+    the gradients of the einsum lowering under ``amsim_torch``, and within
+    rtol 1e-4, atol 1e-5 of JAX's ``attend_einsum`` VJP under
+    ``amsim_jnp`` (its softmax sums and exps differ by ulps)."""
+    arrays, kw = _inputs(case)
     q, k, v, qp, kp = _torch(arrays)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ops.policy_attention(q, k, v, qp, kp, NumericsPolicy(mode="amsim", multiplier=MULT),
-                             True, 0)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    amsim = NumericsPolicy(mode="amsim", multiplier=MULT)
+    got = _attention_grads(lambda q, k, v: ops.policy_attention(
+        q, k, v, qp, kp, amsim, kw["causal"], kw["window"]), q, k, v, g)
+    want = _attention_grads(lambda q, k, v: ops.attend_einsum(
+        q, k, v, qp, kp, NumericsPolicy(mode="amsim_torch", multiplier=MULT), **kw), q, k, v, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    j = [jnp.asarray(a) for a in arrays]
+
+    @jax.jit
+    def jax_grads(q_, k_, v_, g_):
+        return jax.vjp(lambda *t: jops.attend_einsum(
+            *t, j[3], j[4], JaxPolicy(mode="amsim_jnp", multiplier=MULT), **kw), q_, k_, v_)[1](g_)
+
+    for a, b in zip(got, jax_grads(*j[:3], jnp.asarray(g.numpy()))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
+def test_attention_backward_chunked_matches_unchunked(monkeypatch):
+    """A 64-query prefill with the backward's query chunk forced to 32: dq
+    splits by chunk, bitwise the unchunked recompute's; dk and dv sum two
+    chunks' folds, within rtol 1e-5, atol 1e-6 of the one fold."""
+    rng = np.random.default_rng(3)
+    B, S, H, KV, dh = 2, 64, 4, 2, 16
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in
+                  ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh), (B, S, H, dh)))
+    pos = torch.arange(S, dtype=torch.int32)
+    amsim = NumericsPolicy(mode="amsim", multiplier=MULT)
+    calls = []
+    recompute = ops.attend_einsum
+    monkeypatch.setattr(ops, "attend_einsum", lambda q, *a, **kw: calls.append(q.shape[1])
+                        or recompute(q, *a, **kw))
+    out = {}
+    for chunk in (1024, 32):
+        monkeypatch.setattr(ops, "_BWD_Q_CHUNK", chunk)
+        calls.clear()
+        out[chunk] = _attention_grads(lambda q, k, v: ops.policy_attention(
+            q, k, v, pos, pos, amsim, True, 0), q, k, v, g)
+        assert calls == ([S] if chunk == 1024 else [32, 32])
+    (dq, dk, dv), (cq, ck, cv) = out[1024], out[32]
+    assert torch.equal(dq.view(torch.int32), cq.view(torch.int32))
+    np.testing.assert_allclose(ck.numpy(), dk.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(cv.numpy(), dv.numpy(), rtol=1e-5, atol=1e-6)

@@ -7,6 +7,8 @@ keeps ``tests/conftest.py`` from importing JAX):
 
     REPRO_NO_JAX_CACHE=1 python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,10 +21,12 @@ from repro_torch.core.multipliers import get_multiplier  # noqa: E402
 from repro_torch.core.policy import NumericsPolicy  # noqa: E402
 from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
                                  decode_chain, ops, time_chain)
+from repro_torch.data.pipeline import lm_batch  # noqa: E402
 from repro_torch.kernels.common import POS_PAD, lut_in_smem, lut_tensor  # noqa: E402
+from repro_torch.launch.train import make_lm_train_step  # noqa: E402
 from repro_torch.models import moe, vision  # noqa: E402
 from repro_torch.models.layers import Linear  # noqa: E402
-from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.models.transformer import init_lm, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.optim.optimizers import sgdm  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
@@ -845,6 +849,70 @@ def test_amsim_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
         out, _ = _serve(model, "amsim", max_len, prompts)
         torch.cuda.synchronize()
         assert out.shape == (2, 4)
+
+
+# --------------------------------------------------------------- LM training
+def lm_train_launches(cfg) -> dict:
+    """Kernel launches of one LM training step under ``amsim`` with remat:
+    a dense layer's 7 GEMMs forward, again in the recompute, and 14 in
+    the backward (dx and dw), its attention forward and recompute, and 6
+    batched GEMMs for the attention backward (the einsums' recompute and
+    both operands' gradients); an MoE layer's 5 GEMMs (wq/wk/wv/wo/router)
+    likewise, its expert banks forward and recompute, and 9 batched GEMMs
+    for the banks' backward (3 recomputed, 6 gradients); the tied head's
+    3 GEMMs."""
+    L = cfg.n_layers
+    if cfg.moe is None:
+        return {"approx_gemm": 28 * L + 3, "approx_gemm_batched": 6 * L,
+                "approx_attention": 2 * L}
+    return {"approx_gemm": 20 * L + 3, "approx_gemm_batched": 15 * L,
+            "approx_attention": 2 * L, "fused_moe_ffn": 2 * L}
+
+
+def _lm_train(cfg, policy, device, steps=2):
+    """``steps`` steps from seed-0 weights; then the gradient of the loss
+    at the next batch.  Returns (losses, launches per step, model, grads)."""
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    opt, step = make_lm_train_step(cfg, policy, lr=3e-4, steps=3)
+    state = opt.init(dict(model.named_parameters()))
+    counters = {"approx_gemm": approx_gemm.approx_gemm,
+                "approx_gemm_batched": approx_gemm.approx_gemm_batched,
+                "approx_attention": approx_attention.approx_attention,
+                "fused_moe_ffn": decode_chain.fused_moe_ffn}
+    losses, launches = [], []
+    for i in range(steps):
+        for fn in counters.values():
+            fn.launches = 0
+        state, metrics = step(model, state, lm_batch(cfg, (2, 16), i, device))
+        losses.append(metrics["loss"])
+        launches.append({k: fn.launches for k, fn in counters.items() if fn.launches})
+    loss, _ = lm_loss(model, lm_batch(cfg, (2, 16), steps, device), policy)
+    return losses, launches, model, torch.autograd.grad(loss, list(model.parameters()))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "granite-moe-3b-a800m"])
+def test_lm_train_steps_run_through_the_kernels_bitwise(cuda, arch):
+    """Two adamw steps of the reduced LM at depth 2 under ``amsim``: the
+    launches of ``lm_train_launches`` each step, and losses, parameters and
+    the next gradient bitwise equal to ``amsim_torch`` (deterministic
+    algorithms: the embedding's and the MoE gather's backward scatters
+    would add in no fixed order without them)."""
+    cfg = dataclasses.replace(reduced(get_arch(arch)), n_layers=2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {mode: _lm_train(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), cuda)
+                for mode in ("amsim", "amsim_torch")}
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (losses, launches, model, grads), (r_losses, r_launches, ref, r_grads) = (
+        runs["amsim"], runs["amsim_torch"])
+    assert launches == [lm_train_launches(cfg)] * 2 and r_launches == [{}, {}]
+    assert all(bool(torch.isfinite(v)) for v in losses)
+    for a, b in zip(losses, r_losses):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip([*model.parameters(), *grads], [*ref.parameters(), *r_grads]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # --------------------------------------------------------------- MoE serving

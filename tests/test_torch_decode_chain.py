@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import lutgen as jlutgen  # noqa: E402
@@ -213,9 +214,78 @@ def test_rmsnorm_lanes_matches_jax_rmsnorm():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-def test_chain_is_forward_only():
-    o = _operands()
-    x, g1, wq, wk, wv = _t(*(o[n] for n in ("x", "g1", "wq", "wk", "wv")))
-    wq.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ops.decode_qkv(x, g1, wq, wk, wv, NumericsPolicy(mode="amsim", multiplier=MULT), EPS)
+def _biases(t):
+    """(bo, bd) of an out-mlp entry's operands: the last two when given."""
+    return (t[7], t[8]) if len(t) == 9 else (None, None)
+
+
+def _attn_out_mlp_oracle(attend, oracle, pol, x, q, k, v, qp, kp, *tail):
+    B, S, H, dh = q.shape
+    a = attend(q, k, v, qp, kp, pol, causal=True, window=0).reshape(B * S, H * dh)
+    return oracle(x, a, *tail[:5], pol, EPS, bo=tail[5], bd=tail[6])
+
+
+BACK = ("x", "attn", "g2", "wo", "wg", "wu", "wd")
+# entry: (operand names, the port's entry, the port's oracle, JAX's oracle)
+CHAIN_GRADS = {
+    "qkv": (("x", "g1", "wq", "wk", "wv"),
+            lambda pol, *t: ops.decode_qkv(*t, pol, EPS),
+            lambda pol, *t: ops.decode_qkv_oracle(*t, pol, EPS),
+            lambda *t: jops.decode_qkv_oracle(*t, JAX_AMSIM, EPS)),
+    "out_mlp": (BACK,
+                lambda pol, *t: ops.decode_out_mlp_b(*t[:7], *_biases(t), pol, EPS),
+                lambda pol, *t: ops.decode_out_mlp_oracle(*t[:7], pol, EPS),
+                lambda *t: (jops.decode_out_mlp_oracle(*t[:7], JAX_AMSIM, EPS),)),
+    "out_mlp_biased": (BACK + ("bo", "bd"),
+                       lambda pol, *t: ops.decode_out_mlp_b(*t[:7], *_biases(t), pol, EPS),
+                       lambda pol, *t: ops.decode_out_mlp_oracle(*t[:7], pol, EPS,
+                                                                 bo=t[7], bd=t[8]),
+                       lambda *t: (jops.decode_out_mlp_oracle(*t[:7], JAX_AMSIM, EPS,
+                                                              bo=t[7], bd=t[8]),)),
+    "attn_out_mlp": (("x", "q", "k", "v", "q_pos", "k_pos", "g2", "wo", "wg", "wu", "wd", "bo",
+                      "bd"),
+                     lambda pol, *t: ops.decode_attn_out_mlp(*t, pol, EPS, True, 0),
+                     lambda pol, *t: _attn_out_mlp_oracle(ops.attend_einsum,
+                                                          ops.decode_out_mlp_oracle, pol, *t),
+                     lambda *t: (_attn_out_mlp_oracle(jops.attend_einsum,
+                                                      jops.decode_out_mlp_oracle, JAX_AMSIM,
+                                                      *t),)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(CHAIN_GRADS))
+def test_chain_gradients_are_their_oracles(entry):
+    """Each chain entry's backward recomputes its per-op oracle: under
+    ``amsim`` (the plain versions here) every gradient is bitwise the
+    oracle's autograd gradient under ``amsim_torch``, and within rtol 1e-4,
+    atol 1e-5 of JAX's oracle VJP under ``amsim_jnp``."""
+    names, port, oracle, jax_oracle = CHAIN_GRADS[entry]
+    o = _operands(seed=7)
+    o.update(zip(("q", "k", "v", "q_pos", "k_pos"), _decode_attention()))
+    arrays = [o[n] for n in names]
+    floats = [i for i, a in enumerate(arrays) if a.dtype == np.float32]
+
+    def grads(fn, policy):
+        ts = [t.requires_grad_(i in floats) for i, t in enumerate(_t(*arrays))]
+        out = fn(policy, *ts)
+        outs = out if isinstance(out, tuple) else (out,)
+        rng = np.random.default_rng(8)
+        cot = [torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32)) for y in outs]
+        return torch.autograd.grad(outs, [ts[i] for i in floats], cot), cot
+
+    got, cot = grads(port, NumericsPolicy(mode="amsim", multiplier=MULT))
+    want, _ = grads(oracle, NumericsPolicy(mode="amsim_torch", multiplier=MULT))
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def jax_fn(*diff):
+        full = _j(*arrays)
+        for i, t in zip(floats, diff):
+            full[i] = t
+        return jax_oracle(*full)
+
+    ref = jax.jit(lambda t, c: jax.vjp(jax_fn, *t)[1](tuple(c)))(
+        [jnp.asarray(arrays[i]) for i in floats], [jnp.asarray(c.numpy()) for c in cot])
+    assert len(ref) == len(got) == len(floats)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)

@@ -271,12 +271,49 @@ def test_moe_ffn_guard():
                                            approx_attention=False)) is not None
 
 
-def test_moe_chain_is_forward_only():
-    o = _chain_operands(4)
-    h, wg, wu, wd = _t(*(o[n] for n in ("h", "wg", "wu", "wd")))
-    wg.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ops.decode_moe_ffn(h, wg, wu, wd, AMSIM_TORCH)
+# entry: (operand names, the port's entry, the port's oracle, JAX's oracle)
+MOE_CHAIN_GRADS = {
+    "wo_norm": (("x", "attn", "g2", "wo"),
+                lambda pol, *t: ops.decode_wo_norm(*t, None, pol, EPS),
+                lambda pol, *t: ops.decode_wo_norm_oracle(*t, None, pol, EPS),
+                lambda *t: jops.decode_wo_norm_oracle(*t, None, JAX_AMSIM, EPS)),
+    "wo_norm_biased": (("x", "attn", "g2", "wo", "bo"),
+                       lambda pol, *t: ops.decode_wo_norm(*t, pol, EPS),
+                       lambda pol, *t: ops.decode_wo_norm_oracle(*t, pol, EPS),
+                       lambda *t: jops.decode_wo_norm_oracle(*t, JAX_AMSIM, EPS)),
+    "moe_ffn": (("h", "wg", "wu", "wd"),
+                lambda pol, *t: ops.decode_moe_ffn(*t, pol),
+                lambda pol, *t: ops.decode_moe_ffn_oracle(*t, pol),
+                lambda *t: (jops.decode_moe_ffn_oracle(*t, JAX_AMSIM),)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(MOE_CHAIN_GRADS))
+def test_moe_chain_gradients_are_their_oracles(entry):
+    """``decode_wo_norm`` and ``decode_moe_ffn`` recompute their oracles in
+    the backward: under ``amsim`` (the plain versions here) every gradient
+    is bitwise the oracle's under ``amsim_torch`` (the banks' db a batched
+    product under the dw leaf), and within rtol 1e-4, atol 1e-5 of JAX's
+    oracle VJP under ``amsim_jnp``."""
+    names, port, oracle, jax_oracle = MOE_CHAIN_GRADS[entry]
+    arrays = [_chain_operands(3)[n] for n in names]
+
+    def grads(fn, policy):
+        ts = [t.requires_grad_(True) for t in _t(*arrays)]
+        out = fn(policy, *ts)
+        outs = out if isinstance(out, tuple) else (out,)
+        rng = np.random.default_rng(4)
+        cot = [torch.from_numpy(rng.standard_normal(y.shape).astype(np.float32)) for y in outs]
+        return torch.autograd.grad(outs, ts, cot), cot
+
+    got, cot = grads(port, NumericsPolicy(mode="amsim", multiplier=MULT))
+    want, _ = grads(oracle, AMSIM_TORCH)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref = jax.jit(lambda t, c: jax.vjp(jax_oracle, *t)[1](tuple(c)))(
+        _j(*arrays), [jnp.asarray(c.numpy()) for c in cot])
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
 # ------------------------------------------------------------------ moe_ffn
@@ -422,7 +459,7 @@ def test_moe_serving_matches_jax(carried, name):
     out, kept = engine.generate(torch.from_numpy(prompts), N_NEW, return_logits=True)
     np.testing.assert_array_equal(out.numpy(), toks)
     np.testing.assert_allclose(kept.numpy(), logits, **TOL)
-    full, _ = lm_forward(model, torch.from_numpy(prompts), policy)
+    full, _, _ = lm_forward(model, torch.from_numpy(prompts), policy)
     np.testing.assert_allclose(full.numpy(), prefill, **TOL)
 
 

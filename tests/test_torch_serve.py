@@ -93,7 +93,7 @@ def test_serving_matches_jax(carried, name, max_len):
     out, kept = engine.generate(torch.from_numpy(prompts), N_NEW, return_logits=True)
     np.testing.assert_array_equal(out.numpy(), toks)
     np.testing.assert_allclose(kept.numpy(), logits, rtol=1e-5, atol=1e-5)
-    full, _ = lm_forward(model, torch.from_numpy(prompts), policy)
+    full, _, _ = lm_forward(model, torch.from_numpy(prompts), policy)
     np.testing.assert_allclose(full.numpy(), prefill, rtol=1e-5, atol=1e-5)
 
 
@@ -120,7 +120,7 @@ def test_generate_matches_full_prefill_argmax(name):
     out = ServingEngine(model, policy, max_len=16).generate(prompts, max_new_tokens=4)
     assert out.shape == (2, 4)
     full = torch.cat([prompts, out[:, :-1].to(prompts.dtype)], dim=1)
-    logits, _ = lm_forward(model, full, policy)
+    logits, _, _ = lm_forward(model, full, policy)
     pred = logits[:, prompts.shape[1] - 1:].argmax(-1)
     assert torch.equal(out.to(pred.dtype), pred)
 
@@ -149,7 +149,7 @@ def test_engine_threads_window_into_decode_steps():
     model_w = init_lm(cfgw, generator=torch.Generator().manual_seed(3), device="cpu")
     out = ServingEngine(model_w, pol, max_len=16).generate(prompts, max_new_tokens=T)
     full = torch.cat([prompts, out[:, :-1].to(prompts.dtype)], dim=1)
-    logits, _ = lm_forward(model_w, full, pol)
+    logits, _, _ = lm_forward(model_w, full, pol)
     assert torch.equal(out.to(torch.int64), logits[:, prompts.shape[1] - 1:].argmax(-1))
     outw = ServingEngine(model, pol, max_len=16, window=W).generate(prompts, max_new_tokens=T)
     out0 = ServingEngine(model, pol, max_len=16).generate(prompts, max_new_tokens=T)

@@ -307,8 +307,17 @@ def test_schedules_and_clipping_match_jax(rng):
     np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
     for k in tree:
         np.testing.assert_allclose(clipped[k].numpy(), np.asarray(jclipped[k]), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="LM zoo"):
-        optimizers.make_optimizer("adamw", 1e-3)
+    # make_optimizer("adamw") is the JAX adamw: one step on the same tree,
+    # parameters bitwise equal (tests/test_torch_lm_train.py holds three
+    # steps on an LM, and adafactor).
+    params = optimizers.tree_map(lambda a: _t(a.copy()), tree)
+    opt = optimizers.make_optimizer("adamw", optimizers.cosine_schedule(0.1, 10, 100))
+    jopt = joptim.make_optimizer("adamw", joptim.cosine_schedule(0.1, 10, 100))
+    upd, state = opt.update(optimizers.tree_map(_t, tree), opt.init(params), params)
+    optimizers.apply_updates(params, upd)
+    jupd, _ = jopt.update(tree, jopt.init(tree), tree)
+    for k, p in joptim.apply_updates(tree, jupd).items():
+        np.testing.assert_array_equal(np_bits(params[k].numpy()), np_bits(np.asarray(p)))
 
 
 def test_microbatches_match_one_batch(rng):
