@@ -12,11 +12,14 @@ caught:
  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
  3. hold each kernel against its plain PyTorch version on the card, at
     every shape the three paper models give it at batch 64, for packed and
-    canonical LUTs of afm16 and mitchell8 and an M=10 table (read from
-    global memory); every result must be bitwise equal;
+    canonical LUTs of afm16 and mitchell8, an M=10 table (read from global
+    memory), the asymmetric cross-format tables fp16xbf16 and bf16xfp16
+    (M=10, global; operand A keeps 10 bits, B 7, and the mirror) and afm16
+    faulted by ``bitflip:rate=1e-3,seed=0``; every result must be bitwise
+    equal;
  3b. the conv weight-gradient kernel the same way, at every conv of
     resnet-mini and LeNet-5: batch 64 for afm16 packed (shared memory) and
-    afm10 packed (global memory), batch 4 for the other four tables; then
+    afm10 packed (global memory), batch 4 for the other tables; then
     each shape's plan (printed with its grid: ``approx_conv.dw_plan``,
     ``dw_grid``) on batch 4 buffers mixing zeros, -0.0, subnormals, inf and
     NaN into x and g, held bit for bit (+0.0 and -0.0 differ);
@@ -64,7 +67,8 @@ caught:
 LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
  3d. the attention kernel and the three decode-chain kernels against their
     plain versions at the serving path's full-width shapes, with afm16
-    packed (shared memory) and afm10 packed (global memory): causal
+    packed (shared memory), afm10 packed (global memory), fp16xbf16 and
+    the faulted afm16: causal
     prefill, decode over a ring with unwritten slots, both decode forms;
     every result bitwise equal; the attention kernel also at the card
     tests' path shapes (granite-3-2b's prefill and a decode over a ring of
@@ -101,8 +105,8 @@ MoE serving (granite-moe-3b-a800m at full width,
     on the buffer ``moe_ffn`` scatters for a decode step of 4 tokens, and
     on one with dead rows (zero, -0.0 and subnormal rows between live ones,
     an all-dead expert whose banks hold inf and NaN), against their plain
-    versions with afm16 packed (shared memory) and afm10 packed (global
-    memory); every result bit for bit equal (+0.0 and -0.0 differ);
+    versions with the tables of 3d; every result bit for bit equal (+0.0
+    and -0.0 differ);
  4d. depth 2, batch 2, prompt 16, 8 new tokens, ring 64: prefill logits,
     every decode step's logits and the tokens under ``amsim`` bitwise equal
     to ``amsim_torch``; then a prefill of 4 x 512 tokens (capacity 512: the
@@ -139,6 +143,41 @@ LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
     time from torch.profiler), the peak memory, the launches of each step,
     and every kernel shape of step 3 timed, with its bound and plan, and
     held bitwise against its plain version.
+The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
+``core/faults.py``, ``launch/sweep.py``, ``launch/faultsweep.py``; after
+5e):
+ 6a. granite-3-2b depth 2 at full width, batch 2 x 16, 2 adamw steps with
+    deterministic algorithms: a uniform ``PolicyTable`` of amsim/afm16
+    bitwise the flat policy (losses, parameters after step 2, the gradient
+    at the next batch; the same launches); the mixed table
+    ``qkv=mitchell8,attn_score=bf16,dw=native,default=afm16`` bitwise
+    between ``amsim`` and ``amsim_torch``, with the launches the table
+    dictates (``table_train_want``: no dw GEMM where dw runs native, the
+    attention as two batched GEMMs where its two sites differ);
+ 6b. ``python -m repro_torch.launch.sweep``'s ``main`` on granite-3-2b at
+    full width and depth, batch 4 x 64, 3 adamw steps a point: the fp32
+    baseline, the mixed table and ``default=fp16xbf16``; each point's
+    losses against the baseline, ms a step (wall; step 2's device busy
+    time from torch.profiler), peak memory, launches by kernel each step
+    (as ``table_train_want`` counts them), the train steps built (one) and
+    the tables uploaded; then every kernel shape of the fp16xbf16 point's
+    step 3 held bitwise against its plain version and timed under
+    fp16xbf16 and under afm16 on the same operands;
+ 6c. granite-3-2b depth 2 serving (batch 2, prompt 16, 8 new tokens, ring
+    64) under ``unembed=native,default=fp16xbf16`` (the fused decode
+    chain engages: its sites share a leaf) and ``wd=bf16,default=afm16``
+    (it does not: the per-op path): logits and greedy tokens bitwise
+    between ``amsim`` and ``amsim_torch``, the launches as the table
+    dictates;
+ 6d. ``python -m repro_torch.launch.faultsweep``'s ``main`` on resnet-mini
+    at full width (batch 64, 40 sgdm steps a point, ``amsim``) with
+    deterministic algorithms: bitflip at rates 0, 1e-4 and 1e-3 and
+    stuck1 at 1e-3; the launches of each step, the tables uploaded (none
+    for the clean point, one for each faulted table), test accuracy
+    against the rate; a zero-rate spec bitwise the clean point; each
+    faulted point again for one step under ``amsim`` and ``amsim_torch``,
+    bitwise alike (loss, test accuracy); then a training step's time
+    with the clean and with the faulted table, in turns.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -166,8 +205,11 @@ TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 LOOKUPS_PER_SM_PER_CLOCK = 32      # shared-memory gathers: one per bank
 FADD_CLOCKS = 4                    # latency of a dependent float add (the dw chain floor)
+# "name|spec": the table of ``name`` faulted by a spec of core/faults.py.
+FAULTED_AFM16 = "afm16|bitflip:rate=1e-3,seed=0"
 LUT_CASES = [("afm16", True), ("afm16", False), ("mitchell8", True),
-             ("mitchell8", False), ("afm10", True), ("afm10", False)]
+             ("mitchell8", False), ("afm10", True), ("afm10", False), ("fp16xbf16", True),
+             ("bf16xfp16", True), (FAULTED_AFM16, True)]
 # The gradient kernels are checked at batch 64 with one shared-memory and
 # one global-memory table, and at batch 4 with the others.
 FULL_BATCH_LUTS = [("afm16", True), ("afm10", True)]
@@ -193,7 +235,7 @@ CONV_SHAPES = [
 TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-100": (0, 0, 8)}
 # LM serving: the arch, the tables of phase 3d, and the runs of 4c and 5c.
 LM_ARCH = "granite-3-2b"
-SERVE_LUTS = [("afm16", True), ("afm10", True)]
+SERVE_LUTS = [("afm16", True), ("afm10", True), ("fp16xbf16", True), (FAULTED_AFM16, True)]
 DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, rings=(64, 160))
 FULL = dict(batch=4, prompt=64, new=32)
 LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
@@ -1519,6 +1561,32 @@ def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
     return want
 
 
+def depth2_run(cfg, policy, dev, counters):
+    """2 adamw steps (``TRAIN_DEPTH2``) of ``cfg`` under ``policy``: (losses,
+    parameters after them, the gradient at the next batch, launches of each
+    step, seconds)."""
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.transformer import lm_loss
+    B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
+    model, state, step = train_setup(cfg, policy, dev)
+    t0 = time.perf_counter()
+    losses, launches = [], []
+    for i in range(steps):
+        zero_launches(counters)
+        state, metrics = step(model, state, lm_batch(cfg, (B, S), i, dev))
+        losses.append(metrics["loss"])
+        launches.append(launches_of(counters))
+    loss, _ = lm_loss(model, lm_batch(cfg, (B, S), steps, dev), policy)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    return (losses, [p.detach() for p in model.parameters()], grads, launches,
+            time.perf_counter() - t0)
+
+
+def _same(xs, ys) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(xs, ys))
+
+
 def train_depth2(dev, arch):
     """Phase 5e, one model: depth 2 at full width, 2 steps under ``amsim``
     and ``amsim_torch`` with deterministic algorithms (the embedding's and
@@ -1528,8 +1596,6 @@ def train_depth2(dev, arch):
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policy import NumericsPolicy
-    from repro_torch.data.pipeline import lm_batch
-    from repro_torch.models.transformer import lm_loss
     cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_DEPTH2["n_layers"])
     B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
     counters = train_counters()
@@ -1538,32 +1604,18 @@ def train_depth2(dev, arch):
     torch.use_deterministic_algorithms(True)
     try:
         for mode in ("amsim", "amsim_torch"):
-            policy = NumericsPolicy(mode=mode, multiplier="afm16")
-            model, state, step = train_setup(cfg, policy, dev)
-            t0 = time.perf_counter()
-            losses = []
-            for i in range(steps):
-                zero_launches(counters)
-                state, metrics = step(model, state, lm_batch(cfg, (B, S), i, dev))
-                losses.append(metrics["loss"])
-                got = launches_of(counters)
-                require(got == (want if mode == "amsim" else dict.fromkeys(want, 0)),
-                        f"{arch} depth-2 {mode} step {i + 1}: launches {got}, want {want}")
-            loss, _ = lm_loss(model, lm_batch(cfg, (B, S), steps, dev), policy)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-            torch.cuda.synchronize()
-            runs[mode] = (losses, [p.detach() for p in model.parameters()], grads,
-                          time.perf_counter() - t0)
-            del model, state
+            runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev,
+                                    counters)
+            torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
-    (l_a, p_a, g_a, t_a), (l_p, p_p, g_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
+            f"{arch} depth-2 launches: amsim {n_a}, amsim_torch {n_p}, want {want} a step")
     require(all(bool(torch.isfinite(v)) for v in l_a), f"{arch} depth-2 losses {l_a}")
-    same = lambda xs, ys: all(torch.equal(x.view(torch.int32), y.view(torch.int32))  # noqa: E731
-                              for x, y in zip(xs, ys))
-    require(same(l_a, l_p), f"{arch} depth-2 training losses: amsim {l_a}, amsim_torch {l_p}")
-    require(same(p_a, p_p), f"{arch} depth-2 training: parameters after step {steps} differ")
-    require(same(g_a, g_p), f"{arch} depth-2 training: gradients after step {steps} differ")
+    require(_same(l_a, l_p), f"{arch} depth-2 training losses: amsim {l_a}, amsim_torch {l_p}")
+    require(_same(p_a, p_p), f"{arch} depth-2 training: parameters after step {steps} differ")
+    require(_same(g_a, g_p), f"{arch} depth-2 training: gradients after step {steps} differ")
     print(f"{arch} depth {cfg.n_layers}, batch {B}, seq {S}, {steps} adamw steps: losses "
           f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
           f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a step "
@@ -1627,12 +1679,416 @@ def lm_training(dev, lookups_per_s, smi_line) -> dict:
     return {arch: train_full(dev, arch, lookups_per_s, smi_line) for arch in TRAIN_ARCHS}
 
 
+# ------------------------------------------------- the numerics surface
+MIXED_TABLE = "qkv=mitchell8,attn_score=bf16,dw=native,default=afm16"
+SWEEP_POINTS = (MIXED_TABLE, "default=fp16xbf16")
+SERVE_TABLES = {"unembed=native,default=fp16xbf16": True, "wd=bf16,default=afm16": False}
+# The campaign under amsim (the accuracy curve), and its faulted points again
+# for BITWISE_STEPS under amsim and amsim_torch.
+FAULT_RUN = dict(arch="resnet-mini", steps=40, batch=64, rates="0,1e-4,1e-3", stuck1="1e-3")
+BITWISE_STEPS = 1
+# Where a kernel wrapper takes its table (the argument after it is M).
+LUT_SLOT = {"approx_gemm": 2, "approx_gemm_batched": 2, "approx_attention": 5}
+
+
+def table_train_want(cfg, policy) -> dict:
+    """Launches of one training step of a dense LM under ``policy`` (a flat
+    policy or a table): each projection's forward (twice under remat), dx
+    and dw where that leaf is ``amsim``; the fused attention kernel where
+    both attention sites share an ``amsim`` leaf (its backward recomputes
+    the einsum lowering: 2 batched GEMMs forward, 4 backward), else the
+    einsum lowering in the forward (twice under remat) and 4 batched GEMMs
+    backward, each under its site's leaf; the tied head's 3 GEMMs."""
+    from repro_torch.kernels import ops
+
+    def on(site, pass_):
+        leaf = policy.resolve(site, pass_=pass_)
+        return int(leaf.mode == "amsim" and not leaf.is_native)
+
+    L, fwd = cfg.n_layers, 1 + int(cfg.remat)
+    gemm = L * sum(n * (fwd * on(s, "fwd") + on(s, "dx") + on(s, "dw"))
+                   for s, n in (("qkv", 3), ("wo", 1), ("wg", 1), ("wu", 1), ("wd", 1)))
+    head = "unembed" if cfg.tie_embeddings else "head"
+    gemm += on(head, "fwd") + on(head, "dx") + on(head, "dw")
+    fused = ops.fused_attention_enabled(policy)
+    einsum_fwd = 1 if fused else fwd
+    batched = L * sum(einsum_fwd * on(s, "fwd") + 2 * on(s, "dx")
+                      for s in ("attn_score", "attn_value"))
+    return {"approx_gemm": gemm, "approx_gemm_batched": batched,
+            "approx_attention": fwd * L if fused else 0, "fused_moe_ffn": 0}
+
+
+def table_depth2(dev):
+    """Phase 6a: granite-3-2b depth 2, 2 adamw steps under deterministic
+    algorithms: a uniform table bitwise the flat policy; the mixed table
+    bitwise between amsim and amsim_torch; launches as the table dictates."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import (NumericsPolicy, PolicyRule, PolicyTable,
+                                         table_from_assignments)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_DEPTH2["n_layers"])
+    B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
+    counters = train_counters()
+    require(table_train_want(cfg, NumericsPolicy(mode="amsim", multiplier="afm16"))
+            == train_want(cfg), "table_train_want of the flat policy differs from train_want")
+    policies = {"flat": NumericsPolicy(mode="amsim", multiplier="afm16"),
+                "uniform": PolicyTable((PolicyRule("amsim", "afm16"),)),
+                "mixed amsim": table_from_assignments(MIXED_TABLE),
+                "mixed amsim_torch": table_from_assignments(MIXED_TABLE,
+                                                            default_mode="amsim_torch")}
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, policy in policies.items():
+            runs[name] = depth2_run(cfg, policy, dev, counters)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in (("flat", "uniform"), ("mixed amsim", "mixed amsim_torch")):
+        (l_a, p_a, g_a, _, _), (l_b, p_b, g_b, _, _) = runs[a], runs[b]
+        require(all(bool(torch.isfinite(v)) for v in l_a), f"6a {a}: losses {l_a}")
+        require(_same(l_a, l_b) and _same(p_a, p_b) and _same(g_a, g_b),
+                f"6a: {a} and {b} differ (losses {[float(v) for v in l_a]} and "
+                f"{[float(v) for v in l_b]})")
+    want_mixed = table_train_want(cfg, policies["mixed amsim"])
+    for name, want in (("flat", train_want(cfg)), ("uniform", train_want(cfg)),
+                       ("mixed amsim", want_mixed),
+                       ("mixed amsim_torch", dict.fromkeys(want_mixed, 0))):
+        require(runs[name][3] == [want] * steps,
+                f"6a {name}: launches {runs[name][3]}, want {want} a step")
+    print(f"{LM_ARCH} depth {cfg.n_layers}, batch {B}, seq {S}, {steps} adamw steps: the uniform "
+          f"table amsim/afm16 bitwise the flat policy (losses "
+          f"{[round(float(v), 6) for v in runs['flat'][0]]}, parameters, the next gradient; "
+          f"launches {train_want(cfg)} a step); the mixed table {MIXED_TABLE!r} bitwise between "
+          f"amsim and amsim_torch (losses {[round(float(v), 6) for v in runs['mixed amsim'][0]]}; "
+          f"amsim launches {want_mixed} a step); seconds "
+          + ", ".join(f"{k} {v[4]:.1f}" for k, v in runs.items()))
+    del runs
+    torch.cuda.empty_cache()
+
+
+def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
+    """Phase 6b: ``launch.sweep.main`` on granite-3-2b at full width and
+    depth; each step's launches, step 2's busy time, and step 3's kernel
+    calls of the fp16xbf16 point held bitwise against their plain versions
+    and timed under fp16xbf16 and afm16.  Returns the launches of the
+    phase by kernel."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.lutgen import get_packed_lut
+    from repro_torch.core.policy import NumericsPolicy, table_from_assignments
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.approx_attention import approx_attention_plain
+    from repro_torch.kernels.approx_gemm import approx_gemm_batched_plain, approx_gemm_plain
+    from repro_torch.kernels.common import lut_bytes, lut_tensor
+    from repro_torch.launch import sweep
+    cfg = get_arch(LM_ARCH)
+    B, S, steps = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    counters = train_counters()
+    originals = {k: getattr(ops, k) for k in counters}
+    records = []                    # one a step built: launches a step, busy, step-3 calls
+
+    def wrapper(step):
+        # Only the last point's calls are timed: drop an earlier point's, whose
+        # captured weights would hold its model's storage alive.
+        for rec in records:
+            rec["calls"].clear()
+        rec = {"launches": [], "busy": None, "calls": {}}
+        records.append(rec)
+
+        def capture(kname):
+            def wrapped(*a, **kw):
+                key = (kname, tuple(tuple(t.shape) for t in a if isinstance(t, torch.Tensor)))
+                rec["calls"].setdefault(key, [0, a, kw])[0] += 1
+                return originals[kname](*a, **kw)
+            return wrapped
+
+        def timed_step(model, state, batch):
+            i = len(rec["launches"])
+            zero_launches(counters)
+            try:
+                if i == 1:
+                    acts = [torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]
+                    with torch.profiler.profile(activities=acts) as prof:
+                        out = step(model, state, batch)
+                        torch.cuda.synchronize()
+                    us = sum(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+                    rec["busy"] = us / 1e3 if us else None
+                else:
+                    if i == 2:
+                        for k in counters:
+                            setattr(ops, k, capture(k))
+                    out = step(model, state, batch)
+                    torch.cuda.synchronize()
+            finally:
+                for k, fn in originals.items():
+                    setattr(ops, k, fn)
+            rec["launches"].append(launches_of(counters))
+            return out
+        return timed_step
+
+    torch.cuda.empty_cache()
+    argv = ["--arch", LM_ARCH, "--steps", str(steps), "--batch", str(B), "--seq", str(S),
+            "--out", str(ROOT / "build" / "chip_smoke_sweep.json")]
+    for spec in SWEEP_POINTS:
+        argv += ["--point", spec]
+    print(f"{LM_ARCH} sweep at full width and depth (python -m repro_torch.launch.sweep "
+          f"{' '.join(argv)}; {smi_line}):")
+    uploads = dict(ops.lut_uploads)
+    report = sweep.main(argv, step_wrapper=wrapper)
+    require(len(records) == 1 + len(SWEEP_POINTS), f"6b: {len(records)} train steps built for "
+            f"{1 + len(SWEEP_POINTS)} points")
+    require(all(n == 1 for n in ops.lut_uploads.values()),
+            f"6b: a table was uploaded more than once: {ops.lut_uploads}")
+    entries = [("fp32 baseline", NumericsPolicy(), report["baseline"])] + [
+        (spec, table_from_assignments(spec), pt) for spec, pt in zip(SWEEP_POINTS,
+                                                                      report["points"])]
+    phase_launches = {}
+    for (label, policy, entry), rec in zip(entries, records):
+        want = table_train_want(cfg, policy)
+        require(rec["launches"] == [want] * steps,
+                f"6b {label}: launches {rec['launches']}, want {want} a step")
+        require(all(map(math.isfinite, entry["losses"])), f"6b {label}: losses {entry['losses']}")
+        for k, n in want.items():
+            phase_launches[k] = phase_launches.get(k, 0) + n * steps
+        busy = ("not measured: torch.profiler recorded no device activity" if rec["busy"] is None
+                else f"{rec['busy']:.1f} ms")
+        delta = entry.get("final_vs_baseline")
+        print(f"  {label}: losses {[round(v, 6) for v in entry['losses']]}"
+              + (f" (final vs baseline {delta:+.6f})" if delta is not None else "")
+              + f"; ms a step (wall, to the loss read back) "
+              f"{[round(v, 1) for v in entry['step_ms']]}, step 2 device busy {busy}; peak "
+              f"{entry['peak_bytes'] / 1e9:.2f} GB; launches a step {want}; "
+              f"{entry['traces']} step built, {entry['uploads']} tables uploaded")
+    new = {k: n for k, n in ops.lut_uploads.items() if k not in uploads}
+    print(f"  tables first uploaded in this phase: "
+          f"{[(k[0], 'packed' if k[2] else 'canonical') for k in new]}")
+    # The fp16xbf16 point's step-3 kernel calls: bitwise their plain
+    # versions, and timed under fp16xbf16 and under afm16 on the same operands.
+    afm16 = lut_tensor(get_packed_lut("afm16"), dev)
+    x16 = lut_tensor(get_packed_lut("fp16xbf16"), dev)
+    plain_of = {"approx_gemm": approx_gemm_plain, "approx_gemm_batched": approx_gemm_batched_plain,
+                "approx_attention": approx_attention_plain}
+    sums = {}
+    for (kname, shapes), (n, args, kw) in sorted(records[-1]["calls"].items(),
+                                                  key=lambda c: c[0]):
+        fn, slot = originals[kname], LUT_SLOT[kname]
+        lut, M = args[slot], args[slot + 1]
+        require(M == 10 and torch.equal(lut, x16),
+                f"6b: {kname} at {shapes} did not get the fp16xbf16 table")
+        out, ref = fn(*args, **kw), plain_of[kname](*args, **kw)
+        require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                f"6b fp16xbf16: {kname} at {shapes} differs from its plain version by "
+                f"{(out - ref).abs().max().item()}")
+        swapped = (*args[:slot], afm16, 7, *args[slot + 2:])
+        t_x = queued_ms(lambda: fn(*args, **kw), reps=3)
+        t_a = queued_ms(lambda: fn(*swapped, **kw), reps=3)
+        if kname == "approx_attention":
+            nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(lut))
+        elif kname == "approx_gemm":
+            nbytes, lookups = gemm_costs(*args[:3])
+        else:
+            nbytes, lookups = moe_costs(kname, args, kw)
+        bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        note = f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm") else ""
+        print(f"  fp16xbf16 {kname} {shapes} x {n}: {t_x:.4f} ms on device each, afm16 {t_a:.4f} "
+              f"(x{t_x / t_a:.2f}), bound {bound:.4f} ms; bitwise its plain version{note}")
+        s = sums.setdefault(kname, [0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((n, n * t_x, n * t_a, n * bound)):
+            s[i] += v
+    for kname, (n, t_x, t_a, bound) in sums.items():
+        print(f"  kernel {kname} a training step ({n} launches): fp16xbf16 {t_x:.2f} ms, afm16 "
+              f"{t_a:.2f} ms on the same operands (x{t_x / t_a:.2f}), bound {bound:.2f} ms")
+    del records, entries
+    torch.cuda.empty_cache()
+    return phase_launches
+
+
+def table_serving(dev) -> dict:
+    """Phase 6c: granite-3-2b depth-2 serving under two tables, amsim
+    bitwise amsim_torch, the chain engaged as the table dictates.  Returns
+    the amsim launches by kernel."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import table_from_assignments
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=DEPTH2["n_layers"])
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = torch.randint(0, cfg.vocab, (DEPTH2["batch"], DEPTH2["prompt"]),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    counters = serving_counters()
+    L, steps, ring = cfg.n_layers, DEPTH2["new"] - 1, 64
+    total = {}
+    for spec, chain in SERVE_TABLES.items():
+        tables = {mode: table_from_assignments(spec, default_mode=mode)
+                  for mode in ("amsim", "amsim_torch")}
+        require(ops.decode_chain_enabled(tables["amsim"]) is chain,
+                f"6c {spec}: decode_chain_enabled is not {chain}")
+        head = int(not tables["amsim"].resolve("unembed").is_native)
+        # (attention, qkv, out-mlp, attention+out-mlp, GEMM): prefill + steps
+        want = (dict(zip(counters, (L, L * steps, 0, L * steps, 7 * L + head * (1 + steps))))
+                if chain else dict(zip(counters, (L * (1 + steps), 0, 0, 0,
+                                                  (7 * L + head) * (1 + steps)))))
+        results = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for mode, table in tables.items():
+                zero_launches(counters)
+                toks, logits = ServingEngine(model, table, max_len=ring).generate(
+                    prompts, DEPTH2["new"], return_logits=True)
+                torch.cuda.synchronize()
+                results[mode] = (toks, logits, launches_of(counters))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (t_a, l_a, n_a), (t_p, l_p, n_p) = results["amsim"], results["amsim_torch"]
+        require(n_a == want and not any(n_p.values()),
+                f"6c {spec}: launches {n_a} (amsim_torch {n_p}), want {want}")
+        require(bool(torch.isfinite(l_a).all()) and torch.equal(l_a, l_p) and torch.equal(t_a, t_p),
+                f"6c {spec}: amsim differs from amsim_torch (logits max|d| "
+                f"{(l_a - l_p).abs().max().item()})")
+        for k, n in n_a.items():
+            total[k] = total.get(k, 0) + n
+        print(f"{LM_ARCH} depth {L} serving under {spec!r} ({'fused chain' if chain else 'per-op'}"
+              f", ring {ring}): logits and tokens bitwise between amsim and amsim_torch; amsim "
+              f"launches {n_a}; tokens {t_a[0].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def fault_campaign(dev, smi_line) -> dict:
+    """Phase 6d: ``launch.faultsweep.main`` on resnet-mini under amsim with
+    deterministic algorithms, launches and uploads counted; a zero-rate
+    spec bitwise the clean point; each faulted point bitwise between amsim
+    and amsim_torch over ``BITWISE_STEPS``; then a step's time with the
+    clean and the faulted table.  Returns the campaign's launches by
+    kernel."""
+    from repro_torch.configs.paper_models import VISION_REGISTRY
+    from repro_torch.core import faults
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.core.multipliers import get_multiplier
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.approx_conv import approx_conv2d_dw, approx_conv2d_fused
+    from repro_torch.kernels.approx_gemm import approx_gemm
+    from repro_torch.launch import faultsweep
+    counters = {"approx_conv2d_fused": approx_conv2d_fused, "approx_conv2d_dw": approx_conv2d_dw,
+                "approx_gemm": approx_gemm}
+    # The clean tables on the card before the campaign: its clean points upload none.
+    ops._amsim_lut(get_multiplier("afm16"), dev)
+    ops._oracle_lut(get_multiplier("afm16"), dev)
+    per_step = dict(zip(counters, TRAIN_LAUNCHES[FAULT_RUN["arch"]]))
+    step_launches = []
+
+    def wrapper(step):
+        def counted(*a):
+            zero_launches(counters)
+            out = step(*a)
+            step_launches.append(launches_of(counters))
+            return out
+        return counted
+
+    common = ["--arch", FAULT_RUN["arch"], "--steps", str(FAULT_RUN["steps"]), "--batch",
+              str(FAULT_RUN["batch"]), "--mode", "amsim", "--multiplier", "afm16", "--lr", "0.05"]
+    points = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for kind, rates in (("bitflip", FAULT_RUN["rates"]), ("stuck1", FAULT_RUN["stuck1"])):
+            del step_launches[:]
+            rep = faultsweep.main(common + ["--model", kind, "--rates", rates],
+                                  step_wrapper=wrapper)
+            require(step_launches == [per_step] * (FAULT_RUN["steps"] * len(rep["points"])),
+                    f"6d {kind}: launches a step {step_launches}, want {per_step}")
+            points += [dict(p, model=kind) for p in rep["points"]]
+        problem = faultsweep.vision_problem(VISION_REGISTRY[FAULT_RUN["arch"]],
+                                            batch=FAULT_RUN["batch"], lr=0.05, seed=0, device=dev)
+        amsim, plain = (NumericsPolicy(mode=m, multiplier="afm16") for m in ("amsim",
+                                                                             "amsim_torch"))
+        zero = faultsweep.run_fault_point(problem, amsim, faults.FaultSpec(kind="bitflip",
+                                                                           rate=0.0),
+                                          steps=FAULT_RUN["steps"])
+        pairs = [(p, [faultsweep.run_fault_point(problem, pol, faults.FaultSpec(**p["spec"]),
+                                                 steps=BITWISE_STEPS) for pol in (amsim, plain)])
+                 for p in points if p["spec"] is not None]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    clean = points[0]
+    require(clean["spec"] is None and zero["losses"] == clean["losses"]
+            and zero["test_acc"] == clean["test_acc"] and zero["uploads"] == 0,
+            f"6d: the zero-rate spec (losses {zero['losses'][-3:]}, {zero['uploads']} uploads) "
+            f"differs from the clean point (losses {clean['losses'][-3:]})")
+    for pt in points:
+        want = 0 if pt["spec"] is None else 1
+        require(pt["uploads"] == want and pt["traces"] == 1,
+                f"6d {pt['model']} {pt['label']}: {pt['uploads']} tables uploaded (want {want}), "
+                f"{pt['traces']} steps built")
+        print(f"  resnet-mini {FAULT_RUN['steps']} sgdm steps, {pt['model']} {pt['label']}: test "
+              f"accuracy {pt['test_acc']:.4f}, final loss {pt['final_loss']:.6f}, "
+              f"{pt['uploads']} tables uploaded, median step "
+              f"{sorted(pt['step_ms'])[len(pt['step_ms']) // 2]:.2f} ms")
+    for pt, (a, p) in pairs:
+        require(a["losses"] == p["losses"] and a["test_acc"] == p["test_acc"]
+                and p["uploads"] == 1,
+                f"6d {pt['model']} {pt['label']}, {BITWISE_STEPS} steps: amsim (losses "
+                f"{a['losses']}, acc {a['test_acc']}) differs from amsim_torch (losses "
+                f"{p['losses']}, acc {p['test_acc']}, {p['uploads']} uploads)")
+        print(f"  {pt['model']} {pt['label']}, {BITWISE_STEPS} steps: amsim bitwise amsim_torch "
+              f"(losses {[round(v, 6) for v in a['losses']]}, test accuracy {a['test_acc']:.4f}; "
+              f"amsim_torch {sorted(p['step_ms'])[0]:.0f} ms a step, its faulted canonical table "
+              f"uploaded once)")
+    print("  test accuracy against the rate: " + ", ".join(
+        f"{pt['model']} {pt['rate']:g}: {pt['test_acc']:.4f}" for pt in points))
+    # A training step's time with the clean table and with the faulted one, in turns.
+    from repro_torch.models.vision import init_vision, vision_loss
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_train_step
+    cfg = VISION_REGISTRY[FAULT_RUN["arch"]]
+    model = init_vision(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    opt = make_optimizer("sgdm", 0.05)
+    step = make_train_step(lambda m, b: vision_loss(m, b, NumericsPolicy("amsim", "afm16")), opt)
+    box = [opt.init(dict(model.named_parameters()))]
+    batch = problem["batch_fn"](0)
+
+    def one():
+        box[0], _ = step(model, box[0], batch)
+
+    times = []
+    for spec in (None, FAULTED_AFM16.split("|")[1], FAULTED_AFM16.split("|")[1], None):
+        with faults.inject(spec):
+            times.append(cuda_ms(one, reps=10, warmup=2))
+    print(f"  resnet-mini amsim training step, batch {FAULT_RUN['batch']} ({smi_line}): clean "
+          f"{times[0]:.4f} / {times[3]:.4f} ms, faulted ({FAULTED_AFM16.split('|')[1]}) "
+          f"{times[1]:.4f} / {times[2]:.4f} ms (CUDA events, 10 steps each, in turns)")
+    return {k: n * FAULT_RUN["steps"] * len(points) for k, n in per_step.items()}
+
+
+def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
+    """Phase 6: the numerics surface on the card; every kernel of its path
+    (6b-6d) must have launched there."""
+    table_depth2(dev)
+    phase_done("6a tables, depth 2")
+    launches = {}
+    for name, run in (("6b sweep, full width", lambda: numerics_sweep(dev, lookups_per_s,
+                                                                      smi_line)),
+                      ("6c serving under tables", lambda: table_serving(dev)),
+                      ("6d fault campaign", lambda: fault_campaign(dev, smi_line))):
+        for k, n in run().items():
+            launches[k] = launches.get(k, 0) + n
+        phase_done(name)
+    for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
+                  "fused_attn_out_mlp", "approx_conv2d_fused", "approx_conv2d_dw"):
+        require(launches.get(kname, 0) > 0, f"{kname} never launched on the numerics path")
+    print(f"launches on the numerics path (6b-6d, amsim): {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_models import VISION_REGISTRY
+    from repro_torch.core import faults
     from repro_torch.core.lutgen import get_lut, get_packed_lut
     from repro_torch.core.multipliers import get_multiplier
     from repro_torch.core.policy import NumericsPolicy
@@ -1663,8 +2119,13 @@ def main() -> int:
         return torch.randn(shape, generator=gen).to(dev)
 
     def lut_case(lut_name, packed):
-        M = get_multiplier(lut_name).mantissa_bits
-        return lut_tensor(get_packed_lut(lut_name) if packed else get_lut(lut_name), dev), M
+        name, _, spec = lut_name.partition("|")
+        M = get_multiplier(name).mantissa_bits
+        table = get_packed_lut(name) if packed else get_lut(name)
+        if spec:
+            table = faults.apply_faults(table, M, faults.parse_spec(spec), packed=packed,
+                                        mult=get_multiplier(name).name)
+        return lut_tensor(table, dev), M
 
     # ---------------------------------------------------------- 1. card
     name = torch.cuda.get_device_name(0)
@@ -2098,6 +2559,9 @@ def main() -> int:
         require(any(want[kname] for want in train_launches.values()),
                 f"{kname} never launched on the LM training path")
     phase_done("5e LM training")
+
+    # ------------------------------------------- 6. the numerics surface
+    numerics_surface(dev, lookups_per_s, smi_line, phase_done)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

@@ -110,3 +110,23 @@ def torch_float(u: torch.Tensor) -> torch.Tensor:
     u = u & _WORD
     signed = torch.where(u >= 2**31, u - 2**32, u)
     return signed.to(torch.int32).view(torch.float32)
+
+
+def torch_truncate_mantissa(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Keep the top ``m`` mantissa bits of float32 ``x`` (no rounding);
+    bitwise ``np_truncate_mantissa``."""
+    if m >= MNT_BITS:
+        return x.to(torch.float32)
+    return torch_float(torch_bits(x) & ((_WORD << (MNT_BITS - m)) & _WORD))
+
+
+def torch_round_mantissa(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Round-to-nearest-even the mantissa of float32 ``x`` to ``m`` bits;
+    bitwise ``np_round_mantissa`` (a carry past bit 31 is dropped, as the
+    numpy twin's cast back to uint32 drops it)."""
+    if m >= MNT_BITS:
+        return x.to(torch.float32)
+    u = torch_bits(x)
+    shift = MNT_BITS - m
+    u = u + (1 << (shift - 1)) - 1 + ((u >> shift) & 1)
+    return torch_float((u >> shift) << shift)

@@ -7,10 +7,15 @@ carry bit of each:
     mntmult_lut[k * 2^M + j] = (carry << 23) | mantissa_field(C)
 
 (uint32 entries, 2^(2M) of them).  ``pack_lut`` compresses a table to
-uint16 entries ``(carry << M) | top-M mantissa``.  Tables are cached per
-process only: one with M <= 8 generates in milliseconds.
+uint16 entries ``(carry << M) | top-M mantissa``.  A generated multiplier
+(``fpstages``) is emitted by its staged integer pipeline instead of probed,
+bit for bit the same table.  Tables are cached per process only, keyed on
+the multiplier's canonical name: one with M <= 8 generates in
+milliseconds, an M = 10 cross-format one in well under a second.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -28,8 +33,30 @@ PACK_MAX_M = 15
 _SAFE_EXP = 127
 
 
+def _pipeline_generation_enabled() -> bool:
+    """REPRO_PIPELINE_LUT=0 sends generated multipliers through the
+    black-box Algorithm 1 (probing ``np_mul``) instead of the staged
+    emission; both give the same bits."""
+    return os.environ.get("REPRO_PIPELINE_LUT", "1").lower() not in ("0", "false", "off")
+
+
 def generate_lut(multiplier: Multiplier, M: int | None = None) -> np.ndarray:
-    """Run Algorithm 1 against ``multiplier``; returns uint32[2^(2M)]."""
+    """Run Algorithm 1 against ``multiplier``; returns uint32[2^(2M)].
+
+    A generated multiplier (``multiplier.pipeline`` set) is emitted by
+    ``fpstages.pipeline_lut`` when M is its table's M; any other M goes
+    through the black-box probe, as for the hand-written models."""
+    spec = multiplier.pipeline
+    if (spec is not None and _pipeline_generation_enabled()
+            and (M is None or M == spec.table_bits)):
+        from .fpstages import pipeline_lut
+
+        return pipeline_lut(spec)
+    return _generate_lut_blackbox(multiplier, M)
+
+
+def _generate_lut_blackbox(multiplier: Multiplier, M: int | None = None) -> np.ndarray:
+    """The paper's Algorithm 1 proper: probe ``np_mul`` on the mantissa grid."""
     M = multiplier.mantissa_bits if M is None else M
     if not 1 <= M <= 12:
         raise ValueError(f"LUT mantissa bits must be in [1,12], got {M}")

@@ -6,9 +6,9 @@ product is approximated; sign and exponent are exact, plus a carry from
 mantissa overflow.
 
 Families: ``exact``, ``trunc<M>``, ``bf16``, ``mitchell<M>``, ``afm<M>``
-and ``realm<M>`` (see the JAX module for what each models).  The
-cross-format names (``fp16xbf16``...) are built by the staged generator
-``fpstages``, which a later slice ports; asking for one raises.
+and ``realm<M>`` (see the JAX module for what each models), and the
+cross-format staged pipelines ``<fmt_a>x<fmt_b>[_trunc|_sr<seed>]``
+(``fp16xbf16``...) that the generator ``fpstages`` builds.
 
 Each model also has a torch twin, ``Multiplier.torch_mul``, for the
 ``direct`` mode (LUTs cap at M=12, so afm32 is simulated this way).  It
@@ -22,7 +22,7 @@ import dataclasses
 import difflib
 import re
 from functools import partial
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -225,6 +225,19 @@ class Multiplier:
     np_mul: Callable
     torch_mul: Callable
     exact_family: bool = False  # mantissa product exact up to truncation?
+    # The staged pipeline (fpstages.PipelineSpec) of a generated multiplier;
+    # None for the hand-written zoo.
+    pipeline: Any = None
+
+    @property
+    def operand_bits(self) -> tuple[int, int]:
+        """(ma, mb) significant mantissa bits of operand A / B: the
+        hand-written families are symmetric, a cross-format pipeline has
+        one width an operand (the ``surrogate`` GEMM truncates each operand
+        to its own)."""
+        if self.pipeline is not None:
+            return (self.pipeline.ma_bits, self.pipeline.mb_bits)
+        return (self.mantissa_bits, self.mantissa_bits)
 
     def __call__(self, a, b):
         return self.np_mul(a, b)
@@ -291,17 +304,62 @@ REGISTRY.update({
     "trunc16": make_multiplier("trunc", 7),
 })
 
-# '<fmt_a>x<fmt_b>[_trunc|_sr<seed>]': cross-format staged pipelines.
+# Multipliers built at run time (cross-format pipelines, names added with
+# register_multiplier), kept out of REGISTRY so the canonical zoo stays
+# enumerable.  A lookup returns the same object every time, so the LUT
+# caches, which key on the canonical name, hold one table a multiplier.
+_DYNAMIC: dict[str, Multiplier] = {}
+
+# '<fmt_a>x<fmt_b>[_trunc|_sr<seed>]': cross-format staged pipelines (exact
+# core).  RNE is the default and canonical without a suffix ('fp16xbf16');
+# '_rne' is accepted and normalised away.
 _FMT = "|".join(sorted(FLOAT_FORMATS, key=len, reverse=True))
 _CROSS_RE = re.compile(
-    rf"^(?:{_FMT})x(?:{_FMT})(?:_(?:rne|trunc|sr\d+))?$")
+    rf"^(?P<fa>{_FMT})x(?P<fb>{_FMT})(?:_(?P<rnd>rne|trunc|sr(?P<seed>\d+)))?$")
+
+
+def register_multiplier(mult: Multiplier, *aliases: str) -> Multiplier:
+    """Make ``mult`` resolvable by its name and ``aliases`` through
+    ``get_multiplier`` (so in policy rules and the fault seam).
+    Registering the same object again is a no-op; a name already taken by
+    another model raises (the LUT caches key on names)."""
+    for key in (mult.name, *aliases):
+        existing = REGISTRY.get(key) or _DYNAMIC.get(key)
+        if existing is not None and existing is not mult:
+            raise ValueError(f"multiplier name {key!r} is already registered "
+                             f"(to {existing.name!r})")
+        _DYNAMIC[key] = mult
+    return mult
+
+
+def _parse_cross_format(name: str) -> Multiplier | None:
+    m = _CROSS_RE.match(name)
+    if not m:
+        return None
+    from . import fpstages
+
+    rnd = m.group("rnd") or "rne"
+    rounding = {"rne": "rne", "trunc": "truncate"}.get(rnd, "stochastic")
+    suffix = "" if rounding == "rne" else f"_{rnd}"
+    canonical = f"{m.group('fa')}x{m.group('fb')}{suffix}"
+    if canonical not in _DYNAMIC:
+        spec = fpstages.cross_format_spec(m.group("fa"), m.group("fb"), rounding=rounding,
+                                          seed=int(m.group("seed") or 0))
+        register_multiplier(fpstages.make_pipeline_multiplier(spec, name=canonical))
+    mult = _DYNAMIC[canonical]
+    if name != canonical:
+        _DYNAMIC.setdefault(name, mult)
+    return mult
 
 
 def _unknown_multiplier_error(name: str) -> ValueError:
-    candidates = sorted(set(REGISTRY) | {f"{fam}7" for fam in _CORES})
+    candidates = sorted(set(REGISTRY) | set(_DYNAMIC)
+                        | {f"{a}x{b}" for a in FLOAT_FORMATS for b in FLOAT_FORMATS}
+                        | {f"{fam}7" for fam in _CORES})
     msg = (
         f"unknown multiplier {name!r}. Known names: {', '.join(sorted(REGISTRY))}. "
-        f"Also parsed: '<family><M>' with family in {sorted(_CORES)}."
+        f"Also parsed: '<family><M>' with family in {sorted(_CORES)}, and cross-format "
+        f"'<fmt>x<fmt>[_trunc|_sr<seed>]' with fmt in {sorted(FLOAT_FORMATS)}."
     )
     close = difflib.get_close_matches(name, candidates, n=1, cutoff=0.6)
     if close:
@@ -310,19 +368,21 @@ def _unknown_multiplier_error(name: str) -> ValueError:
 
 
 def get_multiplier(name: str) -> Multiplier:
-    """Resolve a multiplier name: the canonical registry, then
-    '<family><M>' (e.g. 'afm7').  Cross-format names raise
-    NotImplementedError; unknown names raise ValueError with the known
-    names and a nearest-match hint."""
+    """Resolve a multiplier name: the canonical registry, the names built
+    or registered at run time, '<family><M>' (e.g. 'afm7'), then the
+    cross-format grammar '<fmt_a>x<fmt_b>[_trunc|_sr<seed>]' (e.g.
+    'fp16xbf16').  Unknown names raise ValueError with the known names and
+    a nearest-match hint."""
     if name in REGISTRY:
         return REGISTRY[name]
+    if name in _DYNAMIC:
+        return _DYNAMIC[name]
     for fam in _CORES:
         if name.startswith(fam):
             suffix = name[len(fam):]
             if suffix.isdigit():
                 return make_multiplier(fam, int(suffix))
-    if _CROSS_RE.match(name):
-        raise NotImplementedError(
-            f"cross-format multiplier {name!r} needs the staged generator "
-            f"(core/fpstages.py), which the port does not have yet")
+    cross = _parse_cross_format(name)
+    if cross is not None:
+        return cross
     raise _unknown_multiplier_error(name)

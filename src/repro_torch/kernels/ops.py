@@ -2,12 +2,14 @@
 the port's AMDENSE/AMCONV2D ops (§VI) and the LM serving path.
 
 Every GEMM, conv and attention contraction of a model goes through these
-ops with a ``NumericsPolicy`` and a site label; the policy resolves the
-leaf ``(mode, multiplier)`` for the site and pass, and the leaf picks the
-lowering:
+ops with a policy (a flat ``NumericsPolicy`` or a per-site
+``PolicyTable``) and a site label; the policy resolves the leaf ``(mode,
+multiplier)`` for the site and pass, and the leaf picks the lowering:
 
   native       ``torch.matmul`` / ``torch.einsum`` / ``F.conv2d``, exact
                float32 (TF32 off)
+  surrogate    operands cut to the multiplier's per-operand widths, then
+               the exact ``torch.matmul`` (the conv through im2col)
   amsim        the CUDA kernels ``approx_gemm`` / ``approx_gemm_batched`` /
                ``approx_conv2d_fused`` / ``approx_conv2d_dw`` /
                ``approx_attention`` and the decode chain's five
@@ -26,6 +28,13 @@ gradient from a recompute of the per-op lowering (``attend_einsum``, the
 ``decode_*_oracle``s) with grad enabled, as JAX's ``_pattn_bwd`` and
 ``_decode_*_bwd`` do: no backward kernel, the forward kernels on other
 operands.
+
+Every table the ops read comes through ``_amsim_lut`` / ``_oracle_lut``,
+the fault-injection seam (``core/faults.py``): the active fault spec is
+part of the key of the cache of tables on each device, so a faulted table
+is uploaded once and never served under the clean key, and with faults
+off the same tensor as ever comes back.  ``lut_uploads`` counts the
+uploads of each key.
 """
 from __future__ import annotations
 
@@ -34,9 +43,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import faults
+from repro_torch.core.float_bits import torch_round_mantissa, torch_truncate_mantissa
 from repro_torch.core.lutgen import get_lut, get_packed_lut
 from repro_torch.core.multipliers import Multiplier, get_multiplier
-from repro_torch.core.policy import PASSES, NumericsPolicy
+from repro_torch.core.policy import PASSES, Numerics, NumericsPolicy
 from .approx_attention import approx_attention, softmax_scores
 from .approx_conv import (approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads,
                           dilate)
@@ -48,26 +59,42 @@ from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_m
                            fused_wo_norm_plain, silu)
 from .ref import ref_amsim_gemm, ref_direct_gemm, ref_im2col
 
+# (multiplier, M, packed, device, fault spec or None) -> the table there.
 _LUTS: dict[tuple, torch.Tensor] = {}
+# The same keys -> how many times the table was copied to its device.
+lut_uploads: dict[tuple, int] = {}
 
 
 def _lut_on(mult: Multiplier, device: torch.device, packed: bool) -> torch.Tensor:
-    key = (mult.name, mult.mantissa_bits, packed, str(device))
+    """The table of ``mult`` in one layout on ``device`` under the active
+    fault spec.  A spec that leaves this table as it is (zero faults
+    drawn, or aimed at another multiplier) serves the clean tensor."""
+    spec = faults.active_spec()
+    key = (mult.name, mult.mantissa_bits, packed, str(device), spec)
     if key not in _LUTS:
         table = get_packed_lut(mult) if packed else get_lut(mult)
-        _LUTS[key] = lut_tensor(table, device)
+        faulted = table if spec is None else faults.apply_faults(
+            table, mult.mantissa_bits, spec, packed=packed, mult=mult.name)
+        if faulted is table and spec is not None:     # the spec leaves this table as it is
+            with faults.inject(None):
+                _LUTS[key] = _lut_on(mult, device, packed)
+        else:
+            _LUTS[key] = lut_tensor(faulted, device)
+            lut_uploads[key] = lut_uploads.get(key, 0) + 1
     return _LUTS[key]
 
 
 def _amsim_lut(mult: Multiplier, device: torch.device) -> torch.Tensor:
     """Kernel LUT for ``mult`` on ``device``: packed (int16 storage) when
     the table packs, which halves its shared-memory footprint; canonical
-    (int32 storage) otherwise.  Cached per (multiplier, packed, device)."""
+    (int32 storage) otherwise.  The fault seam: faulted by the active spec
+    (``core/faults.py``), cached per (multiplier, layout, device, spec)."""
     return _lut_on(mult, device, get_packed_lut(mult) is not None)
 
 
 def _oracle_lut(mult: Multiplier, device: torch.device) -> torch.Tensor:
-    """Canonical LUT for the ``amsim_torch`` reference mode."""
+    """Canonical LUT for the ``amsim_torch`` reference mode, through the
+    same fault seam (the packed and canonical forms fault alike)."""
     return _lut_on(mult, device, False)
 
 
@@ -91,11 +118,25 @@ _GEMM_MODES = {
 }
 
 
+def _surrogate(a, b, mult: Multiplier):
+    """The ``surrogate`` product (JAX ``_matmul_nograd``): each operand cut
+    to its own width of ``mult.operand_bits`` (bf16 of the hand-written zoo
+    rounds its operands, every other multiplier truncates them), then the
+    exact float32 ``torch.matmul``."""
+    ma, mb = mult.operand_bits
+    cut = (torch_round_mantissa if mult.pipeline is None and mult.name.startswith("bf16")
+           else torch_truncate_mantissa)
+    _exact_fp32()
+    return torch.matmul(cut(a, ma), cut(b, mb))
+
+
 def _gemm2d(a, b, leaf: NumericsPolicy):
     """(m, k) @ (k, n) -> (m, n) under a leaf policy's numerics."""
     if leaf.is_native:
         _exact_fp32()
         return torch.matmul(a, b)
+    if leaf.mode == "surrogate":
+        return _surrogate(a, b, get_multiplier(leaf.multiplier))
     return _GEMM_MODES[leaf.mode](a.contiguous(), b.contiguous(),
                                   get_multiplier(leaf.multiplier))
 
@@ -122,6 +163,8 @@ def _matmul_nograd(a, b, leaf: NumericsPolicy):
     if leaf.is_native:
         _exact_fp32()
         return torch.matmul(a, b)
+    if leaf.mode == "surrogate":
+        return _surrogate(a, b, get_multiplier(leaf.multiplier))
     if leaf.mode == "amsim":
         mult = get_multiplier(leaf.multiplier)
         batch, (m, k), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
@@ -154,7 +197,7 @@ class _PolicyMatmul(torch.autograd.Function):
     and dw leaves of one site."""
 
     @staticmethod
-    def forward(ctx, a, b, policy: NumericsPolicy, site):
+    def forward(ctx, a, b, policy: Numerics, site):
         ctx.save_for_backward(a, b)
         ctx.policy, ctx.site = policy, site
         return _matmul_nograd(a, b, policy.resolve(site))
@@ -181,7 +224,7 @@ class _PolicyMatmul(torch.autograd.Function):
         return da, db, None, None
 
 
-def policy_matmul(a, b, policy: NumericsPolicy, site: str | None = None):
+def policy_matmul(a, b, policy: Numerics, site: str | None = None):
     """Differentiable matmul (..., m, k) @ (k, n) or (..., m, k) @ (..., k,
     n) under the numerics ``policy`` resolves at ``site``: forward under
     the ``fwd`` leaf, the backward products under the ``dx``/``dw`` leaves
@@ -221,11 +264,11 @@ def _parse_einsum(spec: str, a_shape, b_shape):
     return sa, sb, out, batch, contract, afree, bfree, dims
 
 
-def _all_passes_native(policy: NumericsPolicy, site: str | None) -> bool:
+def _all_passes_native(policy: Numerics, site: str | None) -> bool:
     return all(policy.resolve(site, pass_=p).is_native for p in PASSES)
 
 
-def policy_einsum(spec: str, a, b, policy: NumericsPolicy, site: str | None = None):
+def policy_einsum(spec: str, a, b, policy: Numerics, site: str | None = None):
     """2-operand einsum under policy numerics: ``torch.einsum`` when every
     pass resolves native, else a (batch, m, k) @ (batch, k, n)
     ``policy_matmul`` between two permutations."""
@@ -348,7 +391,7 @@ class _ApproxConv2d(torch.autograd.Function):
     """NHWC conv2d with the fwd, dx and dw leaves of site "conv"."""
 
     @staticmethod
-    def forward(ctx, x, w, stride: int, pads, policy: NumericsPolicy):
+    def forward(ctx, x, w, stride: int, pads, policy: Numerics):
         ctx.save_for_backward(x, w)
         ctx.stride, ctx.pads, ctx.policy = stride, pads, policy
         return _conv_nograd(x, w, stride, pads, policy.resolve("conv"))
@@ -367,7 +410,7 @@ class _ApproxConv2d(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def approx_conv2d(x, w, stride: int, padding, policy: NumericsPolicy):
+def approx_conv2d(x, w, stride: int, padding, policy: Numerics):
     """Differentiable NHWC conv2d, x (N,H,W,C), w (KH,KW,C,O), with the
     numerics ``policy`` resolves at site "conv" for each pass.  ``amsim``
     runs the forward and dx through the fused conv kernel and dw through
@@ -390,7 +433,7 @@ def approx_conv2d(x, w, stride: int, padding, policy: NumericsPolicy):
 # kernel's plain version, bit for bit.
 # =====================================================================
 
-def attend_einsum(q, k, v, q_pos, k_pos, policy: NumericsPolicy, *, causal: bool,
+def attend_einsum(q, k, v, q_pos, k_pos, policy: Numerics, *, causal: bool,
                   window: int):
     """Grouped-query einsum attention under ``policy`` numerics: q
     (B,S,H,dh), k/v (B,T,KV,dh), q_pos (S,), k_pos (T,) absolute
@@ -406,7 +449,7 @@ def attend_einsum(q, k, v, q_pos, k_pos, policy: NumericsPolicy, *, causal: bool
     return out.reshape(B, S, H, dh)
 
 
-def attention_fused_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+def attention_fused_leaf(policy: Numerics) -> NumericsPolicy | None:
     """The one leaf both attention contractions resolve to, or None when
     the score and value sites resolve differently."""
     ls = policy.resolve("attn_score")
@@ -416,7 +459,7 @@ def attention_fused_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
     return ls
 
 
-def fused_attention_enabled(policy: NumericsPolicy) -> bool:
+def fused_attention_enabled(policy: Numerics) -> bool:
     """The attention dispatch: the fused kernel for an ``amsim`` leaf,
     at every shape (the kernel has no size guard)."""
     leaf = attention_fused_leaf(policy)
@@ -461,7 +504,7 @@ def _vjp(fn, tensors, needs, grads):
 _BWD_Q_CHUNK = 1024
 
 
-def _attention_bwd(policy: NumericsPolicy, causal: bool, window: int):
+def _attention_bwd(policy: Numerics, causal: bool, window: int):
     """The fused attention's backward (JAX ``_pattn_bwd``): the gradient of
     ``attend_einsum`` recomputed a query chunk at a time when the sequence
     splits into chunks of more than ``_BWD_Q_CHUNK // 16`` rows, so dq
@@ -489,7 +532,7 @@ def _attention_bwd(policy: NumericsPolicy, causal: bool, window: int):
     return bwd
 
 
-def policy_attention(q, k, v, q_pos, k_pos, policy: NumericsPolicy, causal: bool,
+def policy_attention(q, k, v, q_pos, k_pos, policy: Numerics, causal: bool,
                      window: int):
     """Differentiable one-launch fused attention under the policy's
     ``amsim`` leaf: the kernel forward, the gradient from a recompute of
@@ -539,7 +582,7 @@ FUSE_ATTN_MAX_T = 128
 MOE_FFN_MAX_C = 256
 
 
-def _one_leaf(policy: NumericsPolicy, sites) -> NumericsPolicy | None:
+def _one_leaf(policy: Numerics, sites) -> NumericsPolicy | None:
     leaves = [policy.resolve(s) for s in sites]
     first = leaves[0]
     if any((lf.mode, lf.multiplier) != (first.mode, first.multiplier) for lf in leaves[1:]):
@@ -551,35 +594,35 @@ def _chain_leaf_ok(leaf: NumericsPolicy | None) -> bool:
     return leaf is not None and leaf.mode in _CHAIN_MODES and not leaf.is_native
 
 
-def decode_chain_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+def decode_chain_leaf(policy: Numerics) -> NumericsPolicy | None:
     """The one forward leaf every chain and attention site resolves to, or
     None when any two differ."""
     return _one_leaf(policy, _CHAIN_SITES)
 
 
-def decode_chain_enabled(policy: NumericsPolicy) -> bool:
+def decode_chain_enabled(policy: Numerics) -> bool:
     return _chain_leaf_ok(decode_chain_leaf(policy))
 
 
-def moe_ffn_leaf(policy: NumericsPolicy) -> NumericsPolicy | None:
+def moe_ffn_leaf(policy: Numerics) -> NumericsPolicy | None:
     """The one leaf the expert banks' wg/wu/wd resolve to, or None when they
     differ (the router stays a GEMM of its own either way)."""
     return _one_leaf(policy, _MOE_FFN_SITES)
 
 
-def decode_moe_ffn_enabled(policy: NumericsPolicy, C: int) -> bool:
+def decode_moe_ffn_enabled(policy: Numerics, C: int) -> bool:
     """Whether an MoE FFN over a capacity of ``C`` rows an expert runs as
     the one stacked expert-bank launch (``decode_moe_ffn``)."""
     return _chain_leaf_ok(moe_ffn_leaf(policy)) and C <= MOE_FFN_MAX_C
 
 
-def decode_fuse_attn_enabled(policy: NumericsPolicy, T: int) -> bool:
+def decode_fuse_attn_enabled(policy: Numerics, T: int) -> bool:
     """Whether the attention core folds into the back-half launch (2
     launches a layer instead of 3) for a ring of ``T`` slots."""
     return decode_chain_enabled(policy) and T <= FUSE_ATTN_MAX_T
 
 
-def _chain_call(policy: NumericsPolicy, device, leaf: NumericsPolicy | None = None):
+def _chain_call(policy: Numerics, device, leaf: NumericsPolicy | None = None):
     """(plain?, lut, M) of the chain leaf (or ``leaf``): the kernels under
     ``amsim`` with the kernel LUT, the plain versions under
     ``amsim_torch``."""
@@ -601,14 +644,14 @@ def _bias(y, b):
     return y if b is None else y + b
 
 
-def decode_qkv_oracle(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
+def decode_qkv_oracle(x, g1, wq, wk, wv, policy: Numerics, eps: float):
     """The chain's front half per op: rmsnorm, then three ``policy_matmul``
     projections under site "qkv" (JAX ``decode_qkv_oracle``)."""
     h = rmsnorm_expr(x.to(torch.float32), g1, eps)
     return tuple(policy_matmul(h, w, policy, "qkv") for w in (wq, wk, wv))
 
 
-def decode_out_mlp_oracle(x, attn, g2, wo, wg, wu, wd, policy: NumericsPolicy, eps: float,
+def decode_out_mlp_oracle(x, attn, g2, wo, wg, wu, wd, policy: Numerics, eps: float,
                           bo=None, bd=None):
     """The chain's back half per op: wo (+bo), +residual, rmsnorm, the
     swiglu FFN (+bd), +residual (JAX ``decode_out_mlp_oracle``)."""
@@ -616,14 +659,14 @@ def decode_out_mlp_oracle(x, attn, g2, wo, wg, wu, wd, policy: NumericsPolicy, e
     return x1 + _bias(decode_moe_ffn_oracle(h, wg, wu, wd, policy), bd)
 
 
-def decode_wo_norm_oracle(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
+def decode_wo_norm_oracle(x, attn, g2, wo, bo, policy: Numerics, eps: float):
     """The MoE back half's prefix per op: x1 = x + attn @ wo (+bo) and h =
     rmsnorm(x1; g2); returns (x1, h) (JAX ``decode_wo_norm_oracle``)."""
     x1 = x.to(torch.float32) + _bias(policy_matmul(attn, wo, policy, "wo"), bo)
     return x1, rmsnorm_expr(x1, g2, eps)
 
 
-def decode_moe_ffn_oracle(buf, wg, wu, wd, policy: NumericsPolicy):
+def decode_moe_ffn_oracle(buf, wg, wu, wd, policy: Numerics):
     """The swiglu FFN per op, three ``policy_matmul``s under the wg/wu/wd
     sites: of a row block with 2-D weights, or of every expert's capacity
     buffer with the stacked banks (JAX ``decode_moe_ffn_oracle``)."""
@@ -631,7 +674,7 @@ def decode_moe_ffn_oracle(buf, wg, wu, wd, policy: NumericsPolicy):
                          * policy_matmul(buf, wu, policy, "wu"), wd, policy, "wd")
 
 
-def _chain_fn(policy: NumericsPolicy, device, kernel, plain, leaf=None):
+def _chain_fn(policy: Numerics, device, kernel, plain, leaf=None):
     """The chain launch of the leaf (``decode_chain_leaf`` or ``leaf``):
     ``kernel`` under ``amsim``, ``plain`` under ``amsim_torch``, with its
     LUT and M bound."""
@@ -646,7 +689,7 @@ def _oracle_bwd(oracle):
     return lambda tensors, needs, grads: _vjp(oracle, tensors, needs, grads)
 
 
-def decode_qkv(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
+def decode_qkv(x, g1, wq, wk, wv, policy: Numerics, eps: float):
     """rmsnorm(x; g1) and the q/k/v projections of a decode step, x
     (rows, d) -> (q, k, v), in one launch; the gradient recomputes
     :func:`decode_qkv_oracle`.  Callers check
@@ -657,7 +700,7 @@ def decode_qkv(x, g1, wq, wk, wv, policy: NumericsPolicy, eps: float):
         _oracle_bwd(lambda *t: decode_qkv_oracle(*t, policy, eps)), x, g1, wq, wk, wv)
 
 
-def decode_out_mlp_b(x, attn, g2, wo, wg, wu, wd, bo, bd, policy: NumericsPolicy,
+def decode_out_mlp_b(x, attn, g2, wo, wg, wu, wd, bo, bd, policy: Numerics,
                      eps: float):
     """The back half of a decode step with optional wo/wd biases (None
     when absent): x (rows, d) residual stream, attn (rows, H*dh) ->
@@ -671,7 +714,7 @@ def decode_out_mlp_b(x, attn, g2, wo, wg, wu, wd, bo, bd, policy: NumericsPolicy
 
 
 def decode_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd,
-                        policy: NumericsPolicy, eps: float, causal: bool, window: int):
+                        policy: Numerics, eps: float, causal: bool, window: int):
     """The attention core and the back half of a decode step in one launch:
     x (B, d), q (B, 1, H, dh) roped, k/v (B, T, KV, dh) the cache after
     this step's write -> (B, d); the gradient recomputes ``attend_einsum``
@@ -691,7 +734,7 @@ def decode_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd,
         _oracle_bwd(oracle), x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, bo, bd)
 
 
-def decode_wo_norm(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
+def decode_wo_norm(x, attn, g2, wo, bo, policy: Numerics, eps: float):
     """The MoE back half's prefix of a decode step: x (rows, d) residual
     stream, attn (rows, H*dh) -> (x1, h), x1 = x + attn@wo (+bo) and h =
     rmsnorm(x1; g2), in one launch; the gradient recomputes
@@ -703,7 +746,7 @@ def decode_wo_norm(x, attn, g2, wo, bo, policy: NumericsPolicy, eps: float):
         _oracle_bwd(lambda *t: decode_wo_norm_oracle(*t, policy, eps)), x, attn, g2, wo, bo)
 
 
-def decode_moe_ffn(buf, wg, wu, wd, policy: NumericsPolicy):
+def decode_moe_ffn(buf, wg, wu, wd, policy: Numerics):
     """The swiglu FFN of every expert over its capacity buffer: buf (E, C,
     d), wg/wu (E, d, F), wd (E, F, d) -> (E, C, d), in one launch; the
     gradient recomputes :func:`decode_moe_ffn_oracle` (the banks' db under

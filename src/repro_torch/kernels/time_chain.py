@@ -2,7 +2,8 @@
 path's shapes.
 
     python src/repro_torch/kernels/time_chain.py [--src DIR] [--tag NAME] [--match TEXT]
-                                                 [--dw-sweep] [--conv-sweep] [--attn-sweep]
+                                                 [--luts A,B] [--dw-sweep] [--conv-sweep]
+                                                 [--attn-sweep]
 
 Needs an NVIDIA GPU and nvcc.  ``--src`` imports ``repro_torch`` from
 another checkout's ``src`` (its kernels built there), so that two trees
@@ -33,11 +34,13 @@ tokens into a ring of 512, each with its plan and grid where the tree has
 ``attention_plan``; ``--attn-sweep`` also times every tile and table form
 the kernel takes at each shape.  Each time is the mean device
 time of a launch from CUDA events around 5 calls queued behind a spin
-kernel, for afm16 packed (a shared-memory LUT) and afm10 packed (global
-memory); the GEMM also with afm16's packed table kept packed in shared
-memory ("raw"), where the tree has that choice.  Prints one line a kernel
-and shape, then one JSON object {"tag", "device", "power_limit", "ms":
-{name: ms}}.
+kernel, for each packed table of ``--luts`` (default afm16, a
+shared-memory LUT, and afm10, global memory; ``fp16xbf16`` is the
+asymmetric cross-format table, global); the GEMM also with afm16's packed
+table kept packed in shared memory ("raw"), where the tree has that
+choice; the dense back half (``fused_out_mlp``, ``fused_attn_out_mlp``)
+under every table but afm10.  Prints one line a kernel and shape, then
+one JSON object {"tag", "device", "power_limit", "ms": {name: ms}}.
 """
 from __future__ import annotations
 
@@ -349,6 +352,8 @@ def main() -> int:
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--tag", default="", help="a name for this tree in the output")
     ap.add_argument("--match", default="", help="time only the kernels whose line holds this")
+    ap.add_argument("--luts", default="afm16,afm10",
+                    help="the multipliers whose packed tables are timed, comma-separated")
     ap.add_argument("--dw-sweep", action="store_true",
                     help="also time every tile of the dw kernel at each dw shape")
     ap.add_argument("--conv-sweep", action="store_true",
@@ -390,7 +395,7 @@ def main() -> int:
 
     dense, moe_cfg = get_arch("granite-3-2b"), get_arch("granite-moe-3b-a800m")
     B = 4
-    for lut_name in ("afm16", "afm10"):
+    for lut_name in args.luts.split(","):
         lut = lut_tensor(get_packed_lut(lut_name), dev)
         M = get_multiplier(lut_name).mantissa_bits
         time_gemms(timed, randn, lut_name, lut, M, dense, moe_cfg, B,
@@ -405,7 +410,7 @@ def main() -> int:
             timed(f"{lut_name} fused_qkv_norm {cfg.name} {B} rows",
                   lambda: chain.fused_qkv_norm(*qkv, lut, M, eps=cfg.norm_eps))
             del qkv
-        if lut_name == "afm16":
+        if lut_name != "afm10":
             cfg = dense
             d, F, H, KV, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
             K = H * dh

@@ -9,9 +9,15 @@ Full width by default (``--reduced``: the smoke-test widths of
 ``data.pipeline.lm_batch``.  The optimizer is the config's
 (``cfg.optimizer``: adamw for the granite configs) over
 ``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
-(checkpoints under ``--ckpt-dir`` every steps/5).  Prints one numerics
-line and the metrics every steps/10.  ``--numerics`` takes a mode name:
-per-site policy tables are not ported yet.
+(checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
+report and the metrics every steps/10.
+
+Per-site numerics (docs/policies.md): ``--numerics-table table.json``
+loads a ``PolicyTable`` (``--numerics`` takes a table path too), or
+``--assign "qkv=mitchell8,dw=native"`` assigns multipliers per site on
+top of the ``--numerics``/``--multiplier`` default.  Under a table the
+report prints one line for each site whose leaves differ from the
+default's.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import argparse
 import torch
 
 from repro_torch.configs.base import ArchConfig, get_arch, reduced
-from repro_torch.core.policy import MODES, NumericsPolicy, load_numerics
+from repro_torch.core.policy import (MODES, PASSES, SITES, Numerics, PolicyTable,
+                                     load_numerics, table_from_assignments, table_from_json)
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_lm, lm_loss, lm_stacks
@@ -29,7 +36,7 @@ from repro_torch.train.step import make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig, TrainerState
 
 
-def make_lm_train_step(cfg: ArchConfig, policy: NumericsPolicy, *, lr: float, steps: int,
+def make_lm_train_step(cfg: ArchConfig, policy: Numerics, *, lr: float, steps: int,
                        microbatches: int = 1) -> tuple[Optimizer, callable]:
     """(optimizer, ``train_step(model, opt_state, batch)``) of an LM run of
     ``steps`` steps: ``cfg.optimizer`` over ``cosine_schedule(lr, 10,
@@ -40,15 +47,49 @@ def make_lm_train_step(cfg: ArchConfig, policy: NumericsPolicy, *, lr: float, st
     return opt, step
 
 
-def describe_numerics(policy: NumericsPolicy, device: torch.device) -> str:
-    """Which path this run's products take."""
+def _kernels_on(device: torch.device) -> str:
+    return ("the CUDA LUT kernels" if device.type == "cuda"
+            else "the kernels' plain versions on the CPU")
+
+
+def describe_numerics(policy: Numerics, device: torch.device) -> str:
+    """Which path this run's products take.  A table: the default leaf of
+    each pass, then one line for each site whose leaves differ from those."""
+    if isinstance(policy, PolicyTable):
+        def leaves_text(leaves):
+            return ", ".join(f"{p} {'native' if lf.is_native else f'{lf.mode}/{lf.multiplier}'}"
+                             for p, lf in zip(PASSES, leaves))
+
+        default = [policy.resolve(None, "gemm", p) for p in PASSES]
+        lines = [f"numerics table ({len(policy.rules)} rules) on {device}, amsim through "
+                 f"{_kernels_on(device)}: default {leaves_text(default)}"]
+        for site in SITES:
+            leaves = [policy.resolve(site, pass_=p) for p in PASSES]
+            if any((lf.mode, lf.multiplier) != (d.mode, d.multiplier)
+                   for lf, d in zip(leaves, default)):
+                lines.append(f"  {site}: {leaves_text(leaves)}")
+        return "\n".join(lines)
     if policy.is_native:
         return f"numerics=native: exact float32 (TF32 off) on {device}"
     if policy.mode == "amsim":
-        where = ("the CUDA LUT kernels" if device.type == "cuda"
-                 else "the kernels' plain versions on the CPU")
-        return f"numerics=amsim/{policy.multiplier}: {where}"
+        return f"numerics=amsim/{policy.multiplier}: {_kernels_on(device)}"
     return f"numerics={policy.mode}/{policy.multiplier} on {device}"
+
+
+def policy_from_args(args) -> Numerics:
+    """The run's numerics: ``--numerics-table``, or ``--assign`` over the
+    ``--numerics``/``--multiplier`` default, or those two alone (a mode
+    name or a table path)."""
+    if args.numerics_table and args.assign:
+        raise SystemExit("--numerics-table and --assign are mutually exclusive (put the "
+                         "assignments in the table JSON)")
+    if args.numerics_table:
+        return table_from_json(args.numerics_table)
+    if args.assign:
+        default = (("native", "fp32") if args.numerics == "native"
+                   else (args.numerics, args.multiplier))
+        return table_from_assignments(args.assign, default=default)
+    return load_numerics(args.numerics, args.multiplier)
 
 
 def main(argv=None):
@@ -61,9 +102,17 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--numerics", default="native", choices=MODES)
+    ap.add_argument("--numerics", default="native",
+                    help=f"a mode ({'|'.join(MODES)}) or a policy-table JSON path")
     ap.add_argument("--multiplier", default="fp32",
-                    help="the multiplier of a non-native mode (afm16, bf16, mitchell8, ...)")
+                    help="the multiplier of a non-native mode (afm16, bf16, mitchell8, "
+                         "fp16xbf16, ...)")
+    ap.add_argument("--numerics-table", metavar="PATH", default=None,
+                    help="per-site numerics: a policy-table JSON (docs/policies.md); "
+                         "overrides --numerics/--multiplier")
+    ap.add_argument("--assign", metavar="SPEC", default=None,
+                    help="per-site assignments, e.g. 'qkv=mitchell8,head=native,dw=native'; "
+                         "unassigned sites run --numerics/--multiplier")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -74,7 +123,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    policy = load_numerics(args.numerics, args.multiplier)
+    policy = policy_from_args(args)
     print(describe_numerics(policy, device))
 
     model = init_lm(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),

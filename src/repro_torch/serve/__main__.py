@@ -5,19 +5,26 @@ numerics: the twin of ``examples/serve_lm.py``.
     python -m repro_torch.serve --numerics native
     python -m repro_torch.serve --arch granite-moe-3b-a800m     # MoE, 40 experts
     python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
+    python -m repro_torch.serve --numerics table.json           # per-site numerics
 
 Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
-takes the smoke-test widths of ``configs.base.reduced``.  Prints tokens/s,
-the prefill time and the time per decode step.
+takes the smoke-test widths of ``configs.base.reduced``.  ``--numerics``
+takes a mode or a policy-table JSON (docs/policies.md): the fused decode
+chain runs when every chain site (qkv, wo, wg, wu, wd and both attention
+sites) resolves to one ``amsim`` or ``amsim_torch`` leaf, whatever the
+router and the head run; a table that splits them runs the per-op path.
+Prints which, tokens/s, the prefill time and the time per decode step.
 """
 import argparse
 import dataclasses
+import os
 
 import torch
 
 from repro_torch.configs.base import get_arch, reduced
-from repro_torch.core.policy import MODES, load_numerics
+from repro_torch.core.policy import MODES, PolicyTable, load_numerics
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve.engine import ServingEngine
 
@@ -29,8 +36,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=24)
-    ap.add_argument("--numerics", default="amsim", help=f"one of {'|'.join(MODES)}")
-    ap.add_argument("--multiplier", default="afm16")
+    ap.add_argument("--numerics", default="amsim",
+                    help=f"a mode ({'|'.join(MODES)}) or a policy-table JSON path")
+    ap.add_argument("--multiplier", default="afm16",
+                    help="the multiplier of a mode (afm16, bf16, mitchell8, fp16xbf16, ...)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay)")
     ap.add_argument("--reduced", action="store_true",
@@ -45,6 +54,7 @@ def main(argv=None):
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     policy = load_numerics(args.numerics, args.multiplier)
+    print(f"decode chain: {'fused' if ops.decode_chain_enabled(policy) else 'per-op'}")
     gen = torch.Generator(device=device).manual_seed(0)
     model = init_lm(cfg, generator=gen, device=device)
     engine = ServingEngine(model, policy, max_len=args.prompt_len + args.new_tokens + 1)
@@ -54,7 +64,9 @@ def main(argv=None):
     out = engine.generate(prompts, max_new_tokens=args.new_tokens, timings=timings)
     total = timings["prefill_s"] + timings["decode_s"]
     steps = max(timings["decode_steps"], 1)
-    print(f"[{args.numerics}/{args.multiplier}] {cfg.name}, {cfg.n_layers} layers, on "
+    tag = (os.path.basename(args.numerics) if isinstance(policy, PolicyTable)
+           else f"{args.numerics}/{args.multiplier}")
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, on "
           f"{device}: generated {tuple(out.shape)} in {total:.3f} s "
           f"({args.batch * args.new_tokens / total:.1f} tok/s); prefill "
           f"{timings['prefill_s'] * 1e3:.1f} ms, {timings['decode_s'] * 1e3 / steps:.2f} ms "

@@ -10,6 +10,12 @@ the checkpoint directory holds none, so there is always one to go back
 to.  The divergence supervisor raises :class:`DivergenceError` on
 non-finite metrics or a loss spike before the state is counted or saved,
 so no checkpoint holds a diverged state.
+
+:class:`StepFactory` builds the train step of each numerics a run uses and
+counts the builds; its ``ladder`` is a ``degrade_fn`` that demotes a flat
+policy or a per-site table rung by rung (``core.policy.demote_numerics``).
+The sweep runners assert one build per numerics used: ``1 +
+ladder_level``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
+from repro_torch.core.policy import demote_numerics
 
 
 class DivergenceError(RuntimeError):
@@ -64,6 +71,36 @@ class TrainerState:
     opt_state: object
     step: int = 0
     stragglers: list = field(default_factory=list)
+    # (step, metrics) at every log_every step, restored steps again (set by run)
+    history: list = field(default_factory=list)
+
+
+@dataclass
+class StepFactory:
+    """``make(numerics) -> train_step``, counted: ``builds`` is how many
+    steps were made, ``numerics`` the numerics of each, in order."""
+
+    make: Callable
+    builds: int = 0
+    numerics: list = field(default_factory=list)
+
+    def __call__(self, numerics):
+        self.builds += 1
+        self.numerics.append(numerics)
+        return self.make(numerics)
+
+    def ladder(self, policy, log_fn: Callable = lambda s: None) -> Callable:
+        """A ``degrade_fn``: level L builds the step of ``policy`` demoted L
+        times, or gives None when the policy runs out of rungs first."""
+        def degrade(level: int):
+            pol = policy
+            for _ in range(level):
+                pol = demote_numerics(pol)
+                if pol is None:
+                    return None
+            log_fn(f"ladder level {level}: {pol}")
+            return self(pol)
+        return degrade
 
 
 class Trainer:
@@ -80,7 +117,8 @@ class Trainer:
       the read-back of its loss.
 
     After ``run``: ``divergences`` lists each supervisor trip as (step,
-    reason, value) and ``ladder_level`` the rung reached (0: none).
+    reason, value), ``ladder_level`` the rung reached (0: none) and
+    ``step_times`` the seconds of each step that completed.
     """
 
     def __init__(self, train_step, batch_fn, cfg: TrainerConfig):
@@ -90,6 +128,7 @@ class Trainer:
         self.mgr = CheckpointManager(cfg.ckpt_dir, cfg.keep) if cfg.ckpt_dir else None
         self.divergences: list[tuple[int, str, float]] = []
         self.ladder_level = 0
+        self.step_times: list[float] = []
 
     @staticmethod
     def _tree(state: TrainerState) -> dict:
@@ -153,7 +192,8 @@ class Trainer:
                 state = self._restore(state)
         retries = clean_steps = 0
         ema: Optional[float] = None
-        times: list[float] = []
+        times = self.step_times
+        history = []
         last_saved = state.step if self.mgr is not None else -1
         while state.step < cfg.total_steps:
             try:
@@ -175,6 +215,7 @@ class Trainer:
                     cfg.log_fn(f"[watchdog] step {state.step}: {dt:.3f}s vs median "
                                f"{med:.3f}s: straggler flagged")
                 if state.step % cfg.log_every == 0:
+                    history.append((state.step, metrics))
                     cfg.log_fn(f"step {state.step}: "
                                + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
                 if self.mgr is not None and state.step % cfg.ckpt_every == 0:
@@ -197,4 +238,5 @@ class Trainer:
                     state = self._restore(state)
         if self.mgr is not None and state.step != last_saved:
             self._save(state)
+        state.history = history
         return state

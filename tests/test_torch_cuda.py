@@ -16,9 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_arch, reduced  # noqa: E402
 from repro_torch.configs.paper_models import VISION_REGISTRY, VisionConfig  # noqa: E402
-from repro_torch.core import lutgen  # noqa: E402
+from repro_torch.core import faults, lutgen  # noqa: E402
 from repro_torch.core.multipliers import get_multiplier  # noqa: E402
-from repro_torch.core.policy import NumericsPolicy  # noqa: E402
+from repro_torch.core.policy import NumericsPolicy, table_from_assignments  # noqa: E402
 from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
                                  decode_chain, ops, time_chain)
 from repro_torch.data.pipeline import lm_batch  # noqa: E402
@@ -34,9 +34,12 @@ from repro_torch.train.step import make_train_step  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 # Shared-memory tables (afm16 both layouts, mitchell8 packed) and
-# global-memory ones (mitchell8 canonical, M=10).
+# global-memory ones (mitchell8 canonical, M=10); the asymmetric cross-format
+# table fp16xbf16 (global, operand A 10 bits and B 7), and afm16 faulted by
+# a bit-flip spec ("name|spec": core/faults.py).
+FAULTED = "afm16|bitflip:rate=1e-3,seed=0"
 LUTS = [("afm16", True), ("afm16", False), ("mitchell8", True), ("mitchell8", False),
-        ("afm10", True), ("afm10", False)]
+        ("afm10", True), ("afm10", False), ("fp16xbf16", True), (FAULTED, True)]
 CONV_CASES = [
     ((2, 6, 6, 3), (3, 3, 3, 4), 1, "SAME"),
     ((2, 8, 8, 3), (3, 3, 3, 4), 2, "SAME"),   # even input: pads (0, 1)
@@ -54,8 +57,13 @@ def cuda():
 
 
 def _lut(name, packed, device):
+    name, _, spec = name.partition("|")
     table = lutgen.get_packed_lut(name) if packed else lutgen.get_lut(name)
-    return lut_tensor(table, device), get_multiplier(name).mantissa_bits
+    M = get_multiplier(name).mantissa_bits
+    if spec:
+        table = faults.apply_faults(table, M, faults.parse_spec(spec), packed=packed,
+                                    mult=get_multiplier(name).name)
+    return lut_tensor(table, device), M
 
 
 def _randn(rng, shape, device):
@@ -1369,3 +1377,93 @@ def test_amsim_moe_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
         out, _ = _serve(model, "amsim", 16, prompts)
         torch.cuda.synchronize()
         assert out.shape == (2, 4)
+
+
+# ------------------------------------------------- the numerics surface
+def test_faulted_and_clean_tables_differ():
+    """The faulted case of LUTS is a different table from afm16's."""
+    clean, _ = _lut("afm16", True, "cpu")
+    faulted, _ = _lut(FAULTED, True, "cpu")
+    assert not torch.equal(clean, faulted)
+
+
+@pytest.mark.parametrize("mult", ["fp16xbf16", "bf16xfp16"])
+def test_cross_format_ops_run_the_kernels_never_the_plain_versions(cuda, monkeypatch, mult, rng):
+    """A cross-format table on the card runs the CUDA kernels (the
+    counters show it), forward and backward, and never a plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(approx_gemm, "approx_gemm_plain", refuse)
+    monkeypatch.setattr(approx_conv, "approx_conv2d_plain", refuse)
+    monkeypatch.setattr(approx_conv, "approx_conv2d_dw_plain", refuse)
+    pol = NumericsPolicy(mode="amsim", multiplier=mult)
+    counters = (approx_conv.approx_conv2d_fused, approx_conv.approx_conv2d_dw,
+                approx_gemm.approx_gemm)
+    before = [fn.launches for fn in counters]
+    x = _randn(rng, (2, 8, 8, 3), cuda).requires_grad_()
+    w = _randn(rng, (3, 3, 3, 4), cuda).requires_grad_()
+    ops.approx_conv2d(x, w, 1, "SAME", pol).sum().backward()
+    a = _randn(rng, (5, 3), cuda).requires_grad_()
+    ops.policy_matmul(a, _randn(rng, (3, 4), cuda).requires_grad_(), pol).sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 1, 3]
+
+
+def test_lut_cache_keys_on_the_fault_spec_on_the_card(cuda, monkeypatch):
+    """On the card as on the CPU: a fresh tensor when the spec changes, the
+    very same tensor with faults off, one upload a key."""
+    monkeypatch.setattr(ops, "_LUTS", {})
+    monkeypatch.setattr(ops, "lut_uploads", {})
+    mult = get_multiplier("afm16")
+    clean = ops._amsim_lut(mult, cuda)
+    with faults.inject("bitflip:rate=1e-3,seed=0"):
+        faulted = ops._amsim_lut(mult, cuda)
+        assert ops._amsim_lut(mult, cuda) is faulted
+    assert ops._amsim_lut(mult, cuda) is clean and faulted is not clean
+    assert not torch.equal(clean, faulted) and faulted.is_cuda
+    ref, _ = _lut(FAULTED, True, cuda)
+    assert torch.equal(faulted, ref)
+    assert sorted(ops.lut_uploads.values()) == [1, 1]
+
+
+@pytest.mark.parametrize("spec", ["qkv=mitchell8,attn_score=bf16,dw=native,default=afm16",
+                                  "default=fp16xbf16"])
+def test_sweep_point_bitwise_amsim_vs_amsim_torch(cuda, spec):
+    """A depth-2 sweep point (reduced widths, 2 adamw steps) under the table
+    in ``amsim`` and in ``amsim_torch``: the same losses bit for bit, one
+    step built each, and the kernels launched under ``amsim`` only."""
+    from repro_torch.launch import sweep
+    cfg = dataclasses.replace(reduced(get_arch("granite-3-2b")), n_layers=2)
+    counters = (approx_gemm.approx_gemm, approx_gemm.approx_gemm_batched)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            before = [fn.launches for fn in counters]
+            res = sweep.run_point(cfg, table_from_assignments(spec, default_mode=mode), steps=2,
+                                  batch=2, seq=16, device=cuda)
+            torch.cuda.synchronize()
+            runs[mode] = (res, [fn.launches - b for fn, b in zip(counters, before)])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, launched), (b, r_launched) = runs["amsim"], runs["amsim_torch"]
+    assert a["losses"] == b["losses"] and a["traces"] == b["traces"] == 1
+    assert all(n > 0 for n in launched) and r_launched == [0, 0]
+
+
+def test_faulted_vision_point_bitwise_amsim_vs_amsim_torch(cuda):
+    """A faulted LeNet-5 point of the fault campaign (conv, dw and GEMM
+    kernels) trains to the same losses and test accuracy under ``amsim``
+    (the packed table) as under ``amsim_torch`` (the canonical one)."""
+    from repro_torch.launch import faultsweep
+    problem = faultsweep.vision_problem(VISION_REGISTRY["lenet-5"], batch=32, lr=0.05, seed=0,
+                                        device=cuda, n_train=128, n_test=64)
+    spec = faults.FaultSpec(kind="bitflip", rate=1e-3, seed=0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = (faultsweep.run_fault_point(problem, NumericsPolicy(mode=m, multiplier="afm16"),
+                                           spec, steps=2) for m in ("amsim", "amsim_torch"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert a["losses"] == b["losses"] and a["test_acc"] == b["test_acc"]

@@ -490,5 +490,6 @@ def test_train_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--reduced", "--steps", "1"])
-    with pytest.raises(SystemExit):
-        launch_train.main(["--reduced", "--device", "cpu", "--assign", "dw=native"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        launch_train.main(["--reduced", "--device", "cpu", "--assign", "dw=native",
+                           "--numerics-table", "table.json"])
