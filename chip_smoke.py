@@ -178,6 +178,43 @@ The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
     faulted point again for one step under ``amsim`` and ``amsim_torch``,
     bitwise alike (loss, test accuracy); then a training step's time
     with the clean and with the faulted table, in turns.
+Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
+``python -m repro_torch.launch.serve --stream``; after 6d):
+ 7a. the attention kernel and ``fused_attn_out_mlp`` with per-row
+    positions ((B, S) and (B, T)) against their plain versions, bit for bit,
+    with the tables of 3d: decode ticks of 8 slots at their own positions
+    (dead ones among them) over Tcap 304 (the 3-launch form) and 128 (the
+    2-launch form), a paged prefill of 1 x 256 over Tcap 304, inf and NaN
+    in every key no row may read; per-row positions that agree across the
+    rows give the bits of shared ones; each timed at those shapes (afm16);
+ 7b. depth 2 at full width: a ragged two-tier stream (exact=native,
+    cheap=amsim:afm16, pools of 4 pages) token for token the same under
+    cheap=amsim_torch:afm16, with preemption, for granite-3-2b and
+    granite-moe (no deterministic algorithms: the trash page's colliding
+    writes all carry zeros, so dead rows read the same on every run); the per-op
+    path (``REPRO_DECODE_FUSED=0``, the one kill switch this script sets)
+    the chain's tokens; one request's paged decode logits bitwise the ring
+    engine's; a windowed stream (sliding_window 8) recycling a 5-page pool;
+ 7c. granite-3-2b at full width and depth: 32 requests, prompts of 32-256
+    tokens from the seed, 32 new tokens each, tiers exact=native and
+    cheap=amsim:afm16 in turn, 8 slots a lane, pages of 16, one arrival a
+    tick, through ``launch.serve``'s engine with nothing around it:
+    tokens/s, decode ticks and their wall ms, prefill ms an admission by
+    bucket, pages at their high-water mark, one decode build a tier; then
+    the same stream again with its counters zeroed just before it and a
+    probe around each tick: the same tokens, the launches of each kernel
+    and a tick's, device-to-host waits a tick (counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``), the probe's wall beside
+    the clean run's, and a full tick's device busy time; then both pools
+    at half their size: preemptions, the same tokens;
+ 7d. granite-moe-3b-a800m at full width and depth: 8 requests of 16 new
+    tokens on one amsim:afm16 tier, the same numbers (the probed run's
+    tokens those of the clean run: the MoE stream repeats without
+    deterministic algorithms).
+The launches of 7c's and of 7d's probed run are printed on their own
+lines; the kernels line keeps the launches of the earlier paths.
+``python3 chip_smoke.py --phase 7`` runs phases 1, 2 and 7 alone and prints
+no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -658,8 +695,16 @@ def serving_depth2(dev, serve_launches: dict):
 
 
 def _live_keys(q_pos, k_pos, causal=True, window=0) -> int:
+    """Valid (query, key) pairs of the mask: of one batch row for shared
+    positions, of all rows for per-row ones."""
     from repro_torch.kernels.common import attention_mask
     return int(attention_mask(q_pos.cpu(), k_pos.cpu(), causal=causal, window=window).sum())
+
+
+def _pairs(B, q_pos, k_pos, kw) -> int:
+    """Valid (query, key) pairs of a batch of B rows."""
+    live = _live_keys(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
+    return live * (B if q_pos.ndim == 1 else 1)
 
 
 def serving_costs(kname, args, kw, lut_bytes_):
@@ -669,9 +714,8 @@ def serving_costs(kname, args, kw, lut_bytes_):
     if kname == "approx_attention":
         q, k, v, q_pos, k_pos = args[:5]
         B, S, H, dh = q.shape
-        live = _live_keys(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
-        return (f * (2 * q.numel() + k.numel() + v.numel()) + 4 * (S + k.shape[1]) + lut_bytes_,
-                2 * B * H * live * dh)
+        return (f * (2 * q.numel() + k.numel() + v.numel()) + 4 * (q_pos.numel() + k_pos.numel())
+                + lut_bytes_, 2 * H * _pairs(B, q_pos, k_pos, kw) * dh)
     if kname == "fused_qkv_norm":
         x, g1, *ws = args[:5]
         n = sum(wt.shape[1] for wt in ws)
@@ -684,10 +728,10 @@ def serving_costs(kname, args, kw, lut_bytes_):
                 x.shape[0] * weights)
     x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd = args[:11]
     B, S, H, dh = q.shape
-    live = _live_keys(q_pos, k_pos, kw.get("causal", True), kw.get("window", 0))
     weights = wo.numel() + wg.numel() + wu.numel() + wd.numel()
     return (f * (2 * x.numel() + q.numel() + k.numel() + v.numel() + g2.numel() + weights)
-            + 4 * (S + k.shape[1]) + lut_bytes_, x.shape[0] * weights + 2 * B * H * live * dh)
+            + 4 * (q_pos.numel() + k_pos.numel()) + lut_bytes_,
+            x.shape[0] * weights + 2 * H * _pairs(B, q_pos, k_pos, kw) * dh)
 
 
 # Where each serving wrapper takes its LUT.
@@ -2082,10 +2126,525 @@ def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
     print(f"launches on the numerics path (6b-6d, amsim): {launches}")
 
 
-def main() -> int:
+# ------------------------------------------------- continuous batching
+# Phase 7: the paged scheduler (``serve/scheduler.py``) through the
+# entry points of ``python -m repro_torch.launch.serve --stream``.
+# 7c's stream: 32 requests, prompts of 32-256 tokens, 32 new tokens each,
+# tiers exact=native and cheap=amsim:afm16 in turn, 8 slots a lane, pages
+# of 16, one arrival a tick; 7d: granite-moe, 8 requests of 16 new tokens,
+# one amsim tier.  7b: depth 2, prompts of 4-40 tokens (a table of 4 pages:
+# Tcap 64, the chain's 2-launch form).
+STREAM = ["--stream", "32", "--min-prompt-len", "32", "--prompt-len", "256", "--new-tokens",
+          "32", "--tiers", "exact=native,cheap=amsim:afm16", "--capacity", "8", "--page-size",
+          "16", "--arrival-every", "1", "--seed", str(SEED)]
+MOE_STREAM = ["--arch", MOE_ARCH, "--stream", "8", "--min-prompt-len", "32", "--prompt-len",
+              "256", "--new-tokens", "16", "--tiers", "cheap=amsim:afm16", "--capacity", "8",
+              "--page-size", "16", "--seed", str(SEED)]
+STREAM_DEPTH2 = ["--n-layers", "2", "--stream", "8", "--min-prompt-len", "4", "--prompt-len",
+                 "40", "--new-tokens", "8", "--tiers", "exact=native,cheap=amsim:afm16",
+                 "--capacity", "4", "--page-size", "16", "--seed", str(SEED)]
+# Decode ticks of 8 slots at their own positions (one or two dead) over
+# Tcap 304 (7c's table: 19 pages of 16, the 3-launch form) and 128 (the
+# 2-launch form): (starts, live) by Tcap.
+TICKS = {304: ([0, 17, 100, 250, 303, 5, 60, 0], [1, 1, 1, 1, 1, 1, 1, 0]),
+         128: ([3, 40, 127, 0, 64, 90, 11, 0], [1, 1, 1, 0, 1, 1, 1, 0])}
+PAGED_PREFILL = 256      # 7c's largest bucket, at start 0 over Tcap 304
+
+
+def paged_positions(S: int, T: int, starts, live, dev):
+    """Positions of a paged batch (``models/attention._paged_cache_update``):
+    row b's queries at starts[b] .. + S - 1, its keys valid below
+    starts[b] + S when the row is live, every key unwritten when dead."""
+    from repro_torch.kernels.common import POS_PAD
+    starts = torch.tensor(starts, dtype=torch.int32)[:, None]
+    live = torch.tensor(live, dtype=torch.bool)[:, None]
+    t = torch.arange(T, dtype=torch.int32)[None]
+    q = starts + torch.arange(S, dtype=torch.int32)[None]
+    k = torch.where(live & (t < starts + S), t, POS_PAD)
+    return q.to(dev), k.to(torch.int32).to(dev)
+
+
+def poison_unread_keys(k, v, k_pos, gen):
+    """inf, -inf and NaN in the K and V of every key no row may read:
+    released pages keep their old contents, the trash page takes every
+    masked write."""
+    bad = (k_pos < 0)[:, :, None, None].expand_as(k)
+    for a in (k, v):
+        pick = torch.randint(0, 3, a.shape, generator=gen).to(a.device)
+        for i, value in enumerate((float("inf"), -float("inf"), float("nan"))):
+            a[:] = torch.where(bad & (pick == i), value, a)
+
+
+def timed(fn):
+    """(fn(), its milliseconds on the card by CUDA events, run once)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def stream_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
+    """Phase 7a: the attention kernel and fused_attn_out_mlp with per-row
+    positions at the stream's shapes against their plain versions, bit for
+    bit, and per-row positions that agree against shared ones; returns each
+    kernel's largest |difference| and prints its time at those shapes."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels.common import lut_bytes
+    cfg = get_arch(LM_ARCH)
+    d, F, H, KV, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    C = 8
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen).to(dev) * scale
+
+    w = dict(g2=1 + 0.1 * randn(d), wo=randn(H * dh, d, scale=(H * dh) ** -0.5),
+             wg=randn(d, F, scale=d ** -0.5), wu=randn(d, F, scale=d ** -0.5),
+             wd=randn(F, d, scale=F ** -0.5))
+    back = [w[n] for n in ("g2", "wo", "wg", "wu", "wd")]
+    x = randn(C, d)
+    err = {"approx_attention": 0.0, "fused_attn_out_mlp": 0.0}
+
+    def held(name, out, ref, what):
+        e = (out - ref).abs().nan_to_num(0.0).max().item()
+        require(same_bits(out, ref), f"{name} per-row {what}: the bits differ (max|d| {e})")
+        err[name] = max(err[name], e)
+
+    def attention_case(S, T, starts, live):
+        q_pos, k_pos = paged_positions(S, T, starts, live, dev)
+        B = q_pos.shape[0]
+        q, k, v = randn(B, S, H, dh), randn(B, T, KV, dh), randn(B, T, KV, dh)
+        poison_unread_keys(k, v, k_pos, gen)
+        return [q, k, v, q_pos, k_pos]
+
+    cases = {f"decode tick of {C} slots over Tcap {T}": attention_case(1, T, *TICKS[T])
+             for T in TICKS}
+    cases[f"paged prefill of 1 x {PAGED_PREFILL} over Tcap 304"] = attention_case(
+        PAGED_PREFILL, 304, [0], [1])
+    kw = dict(causal=True, window=0)
+    for lut_name, packed in SERVE_LUTS:
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        for what, args in cases.items():
+            out, t = timed(lambda: attn_mod.approx_attention(*args, lut, M))
+            ref, tp = timed(lambda: attn_mod.approx_attention_plain(*args, lut, M, **kw))
+            held("approx_attention", out, ref, f"{tag} {what}")
+            if lut_name == "afm16":
+                t = queued_ms(lambda: attn_mod.approx_attention(*args, lut, M), reps=5)
+                nbytes, lookups = serving_costs("approx_attention", args, kw, lut_bytes(lut))
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                plan = attn_mod.attention_plan(
+                    attn_mod.attention_shape(args[0].shape, args[1].shape), lut,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+                print(f"  approx_attention per-row, {what}: {t:.4f} ms on device (bound "
+                      f"{tb:.4f} ms: {bound_kind(nbytes, lookups, lookups_per_s)}), plain "
+                      f"{tp:.2f} ms; plan {plan}")
+        # the 2-launch form of a tick: the attention phase, then the back half
+        args = cases[f"decode tick of {C} slots over Tcap 128"]
+        out, t = timed(lambda: chain.fused_attn_out_mlp(x, *args, *back, lut, M,
+                                                        eps=cfg.norm_eps))
+        ref, tp = timed(lambda: chain.fused_attn_out_mlp_plain(x, *args, *back, lut, M,
+                                                               eps=cfg.norm_eps, **kw))
+        held("fused_attn_out_mlp", out, ref, f"{tag} decode tick of {C} slots over Tcap 128")
+        if lut_name == "afm16":
+            t = queued_ms(lambda: chain.fused_attn_out_mlp(x, *args, *back, lut, M,
+                                                           eps=cfg.norm_eps), reps=5)
+            cargs = (x, *args, *back)
+            nbytes, lookups = serving_costs("fused_attn_out_mlp", cargs, kw, lut_bytes(lut))
+            tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+            print(f"  fused_attn_out_mlp per-row, {C} slots over Tcap 128: {t:.4f} ms on device "
+                  f"(bound {tb:.4f} ms: {bound_kind(nbytes, lookups, lookups_per_s)}), plain "
+                  f"{tp:.2f} ms")
+            # The 3-launch tick's other two kernels at the stream's 8 rows.
+            attn = randn(C, H * dh, scale=0.3)
+            qkv = (x, 1 + 0.1 * randn(d), randn(d, H * dh, scale=d ** -0.5),
+                   randn(d, KV * dh, scale=d ** -0.5), randn(d, KV * dh, scale=d ** -0.5))
+            for kname, fn, cargs in (
+                    ("fused_qkv_norm", chain.fused_qkv_norm, qkv),
+                    ("fused_out_mlp", chain.fused_out_mlp, (x, attn, *back))):
+                t = queued_ms(lambda: fn(*cargs, lut, M, eps=cfg.norm_eps), reps=5)
+                nbytes, lookups = serving_costs(kname, cargs, {}, lut_bytes(lut))
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                print(f"  {kname} at {C} rows: {t:.4f} ms on device (bound {tb:.4f} ms: "
+                      f"{bound_kind(nbytes, lookups, lookups_per_s)})")
+        # Per-row positions that agree across the rows: the shared bits.
+        for T in TICKS:
+            q_pos = torch.tensor([T - 5], dtype=torch.int32, device=dev)
+            k_pos = _ring_positions(T, T - 4, dev)
+            q, k, v = randn(C, 1, H, dh), randn(C, T, KV, dh), randn(C, T, KV, dh)
+            rows = (q_pos.expand(C, 1).contiguous(), k_pos.expand(C, T).contiguous())
+            require(same_bits(attn_mod.approx_attention(q, k, v, *rows, lut, M),
+                              attn_mod.approx_attention(q, k, v, q_pos, k_pos, lut, M)),
+                    f"approx_attention {tag}: per-row positions that agree differ from shared "
+                    f"ones over T={T}")
+            if T <= 128:
+                require(same_bits(
+                    chain.fused_attn_out_mlp(x, q, k, v, *rows, *back, lut, M, eps=cfg.norm_eps),
+                    chain.fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, *back, lut, M,
+                                             eps=cfg.norm_eps)),
+                    f"fused_attn_out_mlp {tag}: per-row positions that agree differ from shared "
+                    f"ones over T={T}")
+        print(f"per-row kernels == plain (bit for bit): {tag} LUT at {LM_ARCH} widths: attention "
+              f"at {', '.join(cases)}; attention+out-mlp at {C} slots over Tcap 128; inf and NaN "
+              f"in every unread key; per-row positions that agree give the shared bits")
+    return err
+
+
+def stream_args(argv, **changes):
+    """``launch.serve``'s arguments of ``argv``, with ``changes`` set."""
+    from repro_torch.launch import serve as serve_cli
+    args = serve_cli.build_parser().parse_args(argv)
+    vars(args).update(changes)
+    return args
+
+
+def stream_outcome(engine) -> dict:
+    return {rid: (r.out, r.status, r.preemptions, r.tier) for rid, r in engine.finished.items()}
+
+
+def run_stream_once(model, args, n_pages=None):
+    """The stream of ``args`` through ``launch.serve``'s engine (``n_pages``
+    pages a lane); returns (engine, wall seconds of its run)."""
+    from repro_torch.launch import serve as serve_cli
+    engine = serve_cli.stream_engine(args, model, n_pages)
+    stream = serve_cli.synthetic_stream(args, model.cfg.vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(stream)
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+def stream_depth2(dev) -> dict:
+    """Phase 7b: depth 2 at full width.  A ragged two-tier stream under
+    cheap=amsim:afm16 token for token cheap=amsim_torch:afm16 (granite-3-2b
+    and granite-moe, pools of 4 pages to preempt); the per-op path
+    (REPRO_DECODE_FUSED=0) the chain's tokens; one request's paged decode
+    logits bitwise the ring engine's; a windowed stream recycling a 5-page
+    pool."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_lm
+    counters = {**serving_counters(), **moe_counters()}
+    for arch in (LM_ARCH, MOE_ARCH):
+        args = stream_args(["--arch", arch, *STREAM_DEPTH2])
+        cfg = dataclasses.replace(get_arch(arch), n_layers=args.n_layers)
+        model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        max_len = args.prompt_len + args.new_tokens + 1
+        pool = 4   # 3 usable pages a lane: two residents overcommit it
+        outs = {}
+        for mode in ("amsim", "amsim_torch"):
+            margs = stream_args(["--arch", arch, *STREAM_DEPTH2],
+                                tiers=f"exact=native,cheap={mode}:afm16")
+            zero_launches(counters)
+            eng, _ = run_stream_once(model, margs, pool)
+            outs[mode] = stream_outcome(eng)
+            if mode == "amsim":
+                got = launches_of(counters)
+                want = ("approx_gemm", "approx_attention", "fused_qkv_norm") + (
+                    ("fused_attn_out_mlp",) if arch == LM_ARCH else
+                    ("fused_wo_norm", "fused_moe_ffn"))
+                require(all(got[k] > 0 for k in want), f"{arch} depth-2 stream: launches {got}")
+                pre = sum(r.preemptions for r in eng.finished.values())
+                require(pre > 0, f"{arch} depth-2 stream: no preemption in pools of "
+                        f"{pool} pages")
+                print(f"{arch} depth 2, a stream of {args.stream} requests (prompts "
+                      f"{args.min_prompt_len}-{args.prompt_len}, {args.new_tokens} new tokens, "
+                      f"Tcap {-(-max_len // args.page_size) * args.page_size}): "
+                      f"{eng.decode_ticks} decode ticks, {pre} preemptions, launches "
+                      f"{ {k: n for k, n in got.items() if n} }")
+        require(outs["amsim"] == outs["amsim_torch"], f"{arch} depth-2 stream: cheap=amsim "
+                f"tokens differ from cheap=amsim_torch")
+        print(f"  tokens, statuses and preemptions under cheap=amsim:afm16 == "
+              f"cheap=amsim_torch:afm16")
+        if arch == LM_ARCH:
+            os.environ["REPRO_DECODE_FUSED"] = "0"
+            try:
+                zero_launches(counters)
+                eng, _ = run_stream_once(model, args, pool)
+            finally:
+                del os.environ["REPRO_DECODE_FUSED"]
+            got = launches_of(counters)
+            require(got["fused_qkv_norm"] == got["fused_attn_out_mlp"] == 0,
+                    f"REPRO_DECODE_FUSED=0 still launched the chain: {got}")
+            require(stream_outcome(eng) == outs["amsim"], "the per-op path (REPRO_DECODE_FUSED=0) "
+                    "gives other tokens than the chain")
+            print("  the per-op path (REPRO_DECODE_FUSED=0, no chain launch) gives the chain's "
+                  "tokens")
+            paged_vs_ring(model, dev)
+            windowed_stream(model)
+        del model
+        torch.cuda.empty_cache()
+
+
+def paged_vs_ring(model, dev):
+    """One request of 16 tokens and 8 decode steps under amsim: the paged
+    cache's logits (4 pages of 16 in position order) bitwise the ring
+    engine's over 64 slots."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_paged_lm_caches, lm_forward
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.scheduler import _merge_control
+    cfg = model.cfg
+    policy = NumericsPolicy(mode="amsim", multiplier="afm16")
+    ring, ps, new = 64, 16, 8
+    prompt = torch.randint(1, cfg.vocab, (1, 16), generator=torch.Generator().manual_seed(SEED))
+    prompt = prompt.to(dev)
+    toks, logits = ServingEngine(model, policy, max_len=ring).generate(prompt, new,
+                                                                       return_logits=True)
+    pools = init_paged_lm_caches(cfg, ring // ps + 1, ps, dev)
+    ptab = torch.arange(1, ring // ps + 1, dtype=torch.int32, device=dev)[None]
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+    kept, tok = [], prompt
+    for i in range(new):
+        start = torch.full((1,), 0 if i == 0 else prompt.shape[1] + i - 1, dtype=torch.int32,
+                           device=dev)
+        lg, _, _ = lm_forward(model, tok, policy,
+                              caches=_merge_control(pools, ptab, live, start))
+        kept.append(lg[:, -1:])
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+    paged = torch.cat(kept, dim=1)
+    torch.cuda.synchronize()
+    require(same_bits(paged, logits), f"paged decode logits differ from the ring engine's by "
+            f"{(paged - logits).abs().max().item()}")
+    print(f"  one request, prompt 16, {new} tokens under amsim: the paged cache's logits "
+          f"(pages of {ps}, per-row positions) bitwise the ring engine's ({ring} slots)")
+
+
+def windowed_stream(model):
+    """sliding_window=8: a request of 40 new tokens inside a 5-page pool of
+    4-token pages; amsim == amsim_torch, every page back at the end."""
+    import copy
+    import dataclasses
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    mw = copy.copy(model)           # the same weights under the windowed config
+    mw.cfg = dataclasses.replace(model.cfg, sliding_window=8)
+    prompt = torch.randint(1, mw.cfg.vocab, (5,), generator=torch.Generator().manual_seed(SEED))
+    outs = []
+    for mode in ("amsim", "amsim_torch"):
+        eng = ContinuousBatchingEngine(mw, NumericsPolicy(mode=mode, multiplier="afm16"),
+                                       max_len=64, capacity=1, page_size=4, n_pages=5)
+        rid = eng.submit(prompt.tolist(), 40)
+        outs.append(eng.drain()[rid])
+        require(eng.n_free_pages["default"] == 4 and eng.pages_high["default"] <= 4,
+                f"windowed stream: {eng.n_free_pages} pages free at the end, "
+                f"{eng.pages_high} at most held")
+    require(outs[0] == outs[1], "windowed stream: amsim tokens differ from amsim_torch")
+    print(f"  windowed stream (sliding_window 8): 40 tokens in a pool of 4 usable pages of 4, "
+          f"pages recycled, amsim == amsim_torch; tokens {outs[0][:8]}")
+
+
+class StreamProbe:
+    """Counts, for each lane of ``engine``, the kernel launches of each
+    decode tick (around its step) and the device-to-host waits of each
+    decode tick (upload, step, read-back) under
+    ``torch.cuda.set_sync_debug_mode("warn")``, which warns at each wait."""
+
+    def __init__(self, engine, counters, records):
+        self.launches = {n: [] for n in engine._lanes}
+        self.waits = {n: [] for n in engine._lanes}
+        for name, lane in engine._lanes.items():
+            lane.step = self._counted(lane.step, name, counters)
+        orig = engine._decode
+
+        def decode(lane, finished):
+            n0, t0 = len(records), lane.decode_ticks
+            orig(lane, finished)
+            if lane.decode_ticks > t0:
+                self.waits[lane.name].append(len(records) - n0)
+        engine._decode = decode
+
+    def _counted(self, step, name, counters):
+        def counted(*a):
+            before = launches_of(counters)
+            out = step(*a)
+            self.launches[name].append({k: n - before[k] for k, n in launches_of(counters).items()})
+            return out
+        return counted
+
+    def per_tick(self, name) -> dict:
+        ticks = self.launches[name]
+        total = {k: sum(t[k] for t in ticks) for k in (ticks[0] if ticks else {})}
+        return {k: n / len(ticks) for k, n in total.items() if n}
+
+
+def probed_stream(model, args, counters, n_pages=None):
+    """The stream of ``args`` through ``launch.serve``'s engine with a
+    ``StreamProbe``; returns (engine, probe, wall seconds)."""
+    import warnings
+    from repro_torch.launch import serve as serve_cli
+    engine = serve_cli.stream_engine(args, model, n_pages)
+    stream = serve_cli.synthetic_stream(args, model.cfg.vocab)
+    with warnings.catch_warnings(record=True) as records:
+        warnings.simplefilter("always")
+        probe = StreamProbe(engine, counters, records)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            engine.run(stream)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return engine, probe, wall
+
+
+def tick_busy(engine, name) -> tuple:
+    """(wall ms, busy ms) of one decode step of lane ``name`` with every
+    slot live, at positions spread over the table, after the stream (a step
+    at fixed shape: dead slots cost what live ones do)."""
+    lane = engine._lanes[name]
+    C, n_ptab, ps = engine.capacity, engine.n_ptab, engine.page_size
+    tcap = n_ptab * ps
+    dev = engine.device
+    pages = torch.arange(1, C * n_ptab + 1, dtype=torch.int32) % (lane.alloc.n_pages - 1) + 1
+    ptab = pages.reshape(C, n_ptab).to(dev)
+    start = torch.linspace(16, tcap - 2, C).to(torch.int32).to(dev)
+    live = torch.ones((C,), dtype=torch.bool, device=dev)
+    tokens = torch.ones((C, 1), dtype=torch.int32, device=dev)
+    step = lane._step          # the built step itself, not the probe around it
+
+    def one():
+        step(tokens, live, start, ptab, lane.caches)
+    return cuda_ms(one, reps=3), busy_ms(one, reps=2)
+
+
+def report_probe(engine, probe, wall, smi_line, busy=None) -> None:
+    for name, lane in engine._lanes.items():
+        ticks = lane.decode_ticks
+        waits = probe.waits[name]
+        line = (f"  tier {name}: {ticks} decode ticks, launches a tick "
+                f"{ {k: round(v, 3) for k, v in probe.per_tick(name).items()} }, device-to-host "
+                f"waits a tick {sum(waits) / max(len(waits), 1):.2f} (max {max(waits or [0])})")
+        if busy and name in busy:
+            w, b = busy[name]
+            line += (f"; a full tick ({engine.capacity} slots live, Tcap "
+                     f"{engine.n_ptab * engine.page_size}): {w:.3f} ms by CUDA events, "
+                     f"{busy_text(b, w)}")
+        print(line)
+    print(f"  ({smi_line})")
+
+
+def clean_then_probed(model, args, counters, smi_line, what) -> tuple:
+    """The stream of ``args`` as ``python -m repro_torch.launch.serve``
+    runs it (``run_stream``: nothing around the engine; its numbers
+    printed), then again with ``counters`` zeroed just before it and a
+    ``StreamProbe`` under ``set_sync_debug_mode("warn")``: it must emit the
+    same tokens.  Prints the probed run's launches, waits and a full
+    tick's busy time, and its wall beside the clean one's.  Returns (the
+    clean engine's outcome, its report, the probed run's launches)."""
+    from repro_torch.launch import serve as serve_cli
+    torch.cuda.synchronize()
+    engine, rep = serve_cli.run_stream(args, model)
+    torch.cuda.synchronize()
+    require(all(r.status == "ok" and len(r.out) == args.new_tokens
+                for r in engine.finished.values()) and len(engine.finished) == args.stream,
+            f"the {what} did not complete every request")
+    clean = stream_outcome(engine)
+    del engine
+    torch.cuda.empty_cache()
+    zero_launches(counters)
+    engine, probe, wall = probed_stream(model, args, counters)
+    got = launches_of(counters)
+    require(stream_outcome(engine) == clean, f"the {what} run again (probed) emitted other "
+            f"tokens: a stream must repeat, with no deterministic algorithms asked for")
+    busy = {n: tick_busy(engine, n) for n in engine._lanes}
+    print(f"  again with counters and a probe around each tick (the same tokens): "
+          f"{wall:.3f} s against the clean run's {rep['stream']['s']:.3f} s")
+    report_probe(engine, probe, wall, smi_line, busy)
+    print(f"launches on the {what} (its probed run): {got}")
+    del engine
+    torch.cuda.empty_cache()
+    return clean, rep, got
+
+
+def stream_full(dev, smi_line) -> dict:
+    """Phase 7c: granite-3-2b at full width and depth, the stream of
+    ``STREAM`` through ``launch.serve``'s engine (clean, then probed),
+    then again with both pools at half their default size (preemption,
+    the same tokens).  Returns the launches of the probed run."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_lm
+    args = stream_args(STREAM)
+    cfg = get_arch(args.arch)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    torch.cuda.synchronize()
+    print(f"{args.arch} at full width and depth ({cfg.n_layers} layers) drawn in "
+          f"{time.perf_counter() - t0:.1f} s; `python -m repro_torch.launch.serve "
+          f"{' '.join(STREAM)}` ({smi_line}):")
+    counters = serving_counters()
+    first, rep, got = clean_then_probed(model, args, counters, smi_line, "granite-3-2b stream")
+    for k in ("approx_gemm", "approx_attention", "fused_qkv_norm", "fused_out_mlp"):
+        require(got[k] > 0, f"{k} never launched on the stream: {got}")
+    half = (rep["cheap"]["pages"] + 1) // 2
+    engine2, wall2 = run_stream_once(model, stream_args(STREAM), half)
+    print(f"  the same stream, both pools at {half} pages:")
+    from repro_torch.launch import serve as serve_cli
+    rep2 = serve_cli.report_stream(engine2, wall2)
+    require(rep2["stream"]["preemptions"] > 0, f"no preemption with pools of {half} pages")
+    tokens = lambda outcome: {rid: o[0] for rid, o in outcome.items()}  # noqa: E731
+    require(tokens(stream_outcome(engine2)) == tokens(first),
+            "preemption by recompute changed the stream's tokens")
+    print(f"  {rep2['stream']['preemptions']} preemptions, the same tokens as the first run")
+    del model, engine2
+    torch.cuda.empty_cache()
+    return got
+
+
+def moe_stream_full(dev, smi_line) -> dict:
+    """Phase 7d: granite-moe-3b-a800m at full width and depth, the stream
+    of ``MOE_STREAM`` (clean, then probed: the same tokens).  Returns the
+    launches of the probed run."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_lm
+    args = stream_args(MOE_STREAM)
+    cfg = get_arch(args.arch)
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    print(f"{args.arch} at full width and depth ({cfg.n_layers} layers): `python -m "
+          f"repro_torch.launch.serve {' '.join(MOE_STREAM)}` ({smi_line}):")
+    _, _, got = clean_then_probed(model, args, moe_counters(), smi_line, "granite-moe stream")
+    for k in ("approx_gemm", "approx_attention", "fused_qkv_norm", "fused_wo_norm",
+              "fused_moe_ffn"):
+        require(got[k] > 0, f"{k} never launched on the MoE stream: {got}")
+    print("  (the MoE tick's waits: the capacity scatter's boolean index, models/moe.py)")
+    del model
+    torch.cuda.empty_cache()
+    return got
+
+
+def continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> None:
+    """Phase 7: 7a-7d; 7c and 7d print their own launches."""
+    err = stream_kernel_checks(dev, gen, lut_case, lookups_per_s)
+    phase_done("7a per-row kernels vs plain")
+    stream_depth2(dev)
+    phase_done("7b streams, depth 2")
+    stream_full(dev, smi_line)
+    phase_done("7c stream, full depth")
+    moe_stream_full(dev, smi_line)
+    phase_done("7d MoE stream, full depth")
+    print(f"per-row max|d| {err}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # "--phase 7": phases 1, 2 and 7 alone, without the result lines.
+    only7 = argv == ["--phase", "7"]
+    if argv and not only7:
+        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7)", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_models import VISION_REGISTRY
     from repro_torch.core import faults
@@ -2147,6 +2706,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
     phase_done("2 build")
+    if only7:
+        continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+        print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+        return 0
 
     # ------------------------------------- 3. kernels vs plain on the card
     max_err = {"approx_gemm": 0.0, "approx_conv2d_fused": 0.0, "approx_conv2d_dw": 0.0}
@@ -2562,6 +3125,9 @@ def main() -> int:
 
     # ------------------------------------------- 6. the numerics surface
     numerics_surface(dev, lookups_per_s, smi_line, phase_done)
+
+    # ---------------------------------------------- 7. continuous batching
+    continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

@@ -51,6 +51,8 @@ class ArchConfig:
     remat: bool = True           # recompute each block's activations in the backward
     optimizer: str = "adamw"     # adamw | adafactor | sgdm
     q_chunk: int = 1024          # attention query-chunk length of the einsum lowering
+    cache_dtype: str = "float32"  # KV-cache storage type ("bfloat16" halves it; the
+                                  # kernels read float32 views of it)
 
     def __post_init__(self):
         if self.family not in ("dense", "moe"):

@@ -41,13 +41,13 @@ LIBRARIES = {
         "approx_conv_dw_grid": [_I] * 9 + [_P, _P],
     }),
     "approx_attention": ("approx_attention.cu", {
-        "approx_attention_f32": [_P] * 8 + [_I] * 16 + [_P],
+        "approx_attention_f32": [_P] * 8 + [_I] * 17 + [_P],
         "approx_attention_grid": [_I] * 13 + [_P, _P],
     }),
     "decode_chain": ("decode_chain.cu", {
         "fused_qkv_norm_f32": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
         "fused_out_mlp_f32": [_P] * 13 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
-        "fused_attn_out_mlp_f32": [_P] * 19 + [_I] * 14 + [_F] + [_I] * 4 + [_P],
+        "fused_attn_out_mlp_f32": [_P] * 19 + [_I] * 15 + [_F] + [_I] * 4 + [_P],
         "fused_wo_norm_f32": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
         "fused_moe_ffn_f32": [_P] * 8 + [_I] * 8 + [_P],
         "libm_probe_f32": [_P] * 3 + [ctypes.c_longlong, _P],

@@ -5,8 +5,12 @@ value GEMM in one CUDA launch.
 contractions simulated by AMSim (``csrc/approx_attention.cu``; it
 replaces the TPU kernel ``repro/kernels/approx_attention.py:_attn_kernel``).
 q is (B, S, H, dh), k and v (B, T, KV, dh) with H = KV * G (grouped-query
-heads), q_pos (S,) and k_pos (T,) absolute positions (negative k_pos =
-an unwritten ring-cache slot, masked).  On a CUDA tensor it launches the
+heads), q_pos (S,) and k_pos (T,) absolute positions shared by the batch,
+or q_pos (B, S) and k_pos (B, T), one row of positions a batch row (the
+paged serving cache, where every slot sits at its own position; the
+kernel reads row b's at a batch stride, and positions that agree across
+rows give the bits of shared ones).  A negative k_pos is an unwritten
+ring-cache slot or paged position, masked.  On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it runs ``approx_attention_plain``,
 which the kernel agrees with bit for bit:
 
@@ -107,7 +111,9 @@ def approx_attention_plain(q, k, v, q_pos, k_pos, lut, M: int, *, causal: bool,
     G = H // KV
     qg = q.reshape(B, S, KV, G, dh).permute(0, 2, 1, 3, 4).reshape(B, KV, S * G, dh)
     scores = ref_amsim_gemm(qg, k.permute(0, 2, 3, 1), lut, M).reshape(B, KV, S, G, T)
-    mask = attention_mask(q_pos, k_pos, causal=causal, window=window)[:, None, :]
+    mask = attention_mask(q_pos, k_pos, causal=causal, window=window)
+    # (S, T) broadcasts over (B, KV, G); a per-row (B, S, T) over (KV, G)
+    mask = mask[:, None, :] if mask.ndim == 2 else mask[:, None, :, None, :]
     probs = softmax_scores(scores, mask, dh).reshape(B, KV, S * G, T)
     out = ref_amsim_gemm(probs, v.permute(0, 2, 1, 3), lut, M).reshape(B, KV, S, G, dh)
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, H, dh)
@@ -118,9 +124,10 @@ def check_attention_operands(q, k, v, q_pos, k_pos):
             or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
         raise ValueError(f"attention takes q (B,S,H,dh), k/v (B,T,KV,dh) with KV | H, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q_pos.shape != (q.shape[1],) or k_pos.shape != (k.shape[1],):
-        raise ValueError(f"positions must be q_pos (S,) and k_pos (T,), got "
-                         f"{tuple(q_pos.shape)} and {tuple(k_pos.shape)}")
+    B, S, T = q.shape[0], q.shape[1], k.shape[1]
+    if (q_pos.shape, k_pos.shape) not in (((S,), (T,)), ((B, S), (B, T))):
+        raise ValueError(f"positions must be q_pos (S,) and k_pos (T,), or (B, S) and (B, T), "
+                         f"got {tuple(q_pos.shape)} and {tuple(k_pos.shape)}")
     if q.shape[3] > MAX_DH:
         raise ValueError(f"head dim {q.shape[3]} > {MAX_DH}")
     check_float32(q, k, v)
@@ -366,7 +373,7 @@ def approx_attention(q, k, v, q_pos, k_pos, lut, M: int, *, causal: bool = True,
     call_kernel("approx_attention", "approx_attention_f32", device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
                 lut.data_ptr(), out.data_ptr(), scratch.data_ptr(), *shape, int(causal),
-                int(window), M, *_plan_args(plan, lut), scratch_blocks)
+                int(window), int(q_pos.ndim == 2), M, *_plan_args(plan, lut), scratch_blocks)
     approx_attention.launches += 1
     return out
 

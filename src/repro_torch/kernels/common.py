@@ -29,14 +29,21 @@ LANES = 32               # a warp: the width of the kernels' row sums
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
                    window: int) -> torch.Tensor:
-    """(S, T) bool validity mask -- THE attention mask, shared by the
+    """(..., S, T) bool validity mask -- THE attention mask, shared by the
     kernels' plain versions and the einsum lowering (the CUDA kernels test
     the same three conditions per key).  A key is valid iff its absolute
-    position is non-negative (negative = unwritten ring slot), not after
-    the query (``causal``) and inside the sliding ``window`` (0 = off)."""
-    qp = q_pos[:, None]
-    kp = k_pos[None, :]
-    mask = (kp >= 0).expand(qp.shape[0], kp.shape[1])
+    position is non-negative (negative = unwritten ring slot or paged
+    position), not after the query (``causal``) and inside the sliding
+    ``window`` (0 = off).
+
+    Positions are 1-D (``(S,)``/``(T,)`` -> ``(S, T)``, the ring cache's
+    shared layout) or carry a leading batch dim (``(B, S)``/``(B, T)`` ->
+    ``(B, S, T)``) for the paged serving cache, where every slot sits at
+    its own decode position."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    shape = torch.broadcast_shapes(qp.shape, kp.shape)
+    mask = (kp >= 0).expand(shape)
     if causal:
         mask = mask & (kp <= qp)
     if window:
@@ -64,9 +71,17 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
     """
     n = x.shape[-1]
     x = F.pad(x, (0, (-n) % LANES))
-    lanes = torch.zeros((*x.shape[:-1], LANES), dtype=x.dtype, device=x.device)
-    for j in range(0, x.shape[-1], LANES):
-        lanes = lanes + x[..., j:j + LANES]
+    if x.is_cuda:
+        # A CUDA scan over a dim that is not the innermost runs one thread a
+        # column, in order from +0.0 in float32: every lane's sum in order,
+        # in one launch.  (A CPU scan accumulates in double: the loop below.)
+        # That order is not documented by PyTorch: the card test
+        # test_lane_sum_scan_is_the_loop fails if it stops matching the loop.
+        lanes = torch.cumsum(x.reshape(*x.shape[:-1], -1, LANES), dim=-2)[..., -1, :]
+    else:
+        lanes = torch.zeros((*x.shape[:-1], LANES), dtype=x.dtype, device=x.device)
+        for j in range(0, x.shape[-1], LANES):
+            lanes = lanes + x[..., j:j + LANES]
     off = LANES // 2
     while off:
         lanes = lanes[..., :off] + lanes[..., off:2 * off]

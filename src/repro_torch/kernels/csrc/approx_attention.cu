@@ -104,7 +104,9 @@ cudaError_t with_plan(const Attn& a, const AttnLayout& L, int M, int packed, int
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted.  `packed`
+// Returns a cudaError_t code: 0 when the launch was accepted.  Positions
+// are q_pos (S,) and k_pos (T,), or with `per_row` q_pos (B, S) and k_pos
+// (B, T).  `packed`
 // says the LUT holds uint16 entries; `table` (TableKind), `tile`, `cw`,
 // `vkb` and `scores_smem` are the plan of approx_attention.py
 // attention_plan.  Where the scores are in global memory, scratch holds
@@ -113,10 +115,11 @@ cudaError_t with_plan(const Attn& a, const AttnLayout& L, int M, int packed, int
 extern "C" int approx_attention_f32(const float* q, const float* k, const float* v,
                                     const int* q_pos, const int* k_pos, const void* lut,
                                     float* out, float* scratch, int B, int S, int H, int KV,
-                                    int T, int dh, int causal, int window, int M, int packed,
-                                    int table, int tile, int cw, int vkb, int scores_smem,
-                                    int scratch_blocks, void* stream) {
-  const AttnArgs args{amsim::Attn{q, k, v, q_pos, k_pos, B, S, H, KV, T, dh, causal, window},
+                                    int T, int dh, int causal, int window, int per_row,
+                                    int M, int packed, int table, int tile, int cw, int vkb,
+                                    int scores_smem, int scratch_blocks, void* stream) {
+  const AttnArgs args{amsim::Attn{q, k, v, q_pos, k_pos, B, S, H, KV, T, dh, causal, window,
+                                  per_row ? S : 0, per_row ? T : 0},
                       amsim::AttnLayout{cw, vkb, scores_smem}, lut, out, scratch, M, packed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_plan(

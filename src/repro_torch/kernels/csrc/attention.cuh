@@ -62,8 +62,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Grouped-query attention operands: q (B,S,H,dh), k/v (B,T,KV,dh),
-// q_pos (S,), k_pos (T,) (negative = unwritten slot), all contiguous.
+// Grouped-query attention operands: q (B,S,H,dh), k/v (B,T,KV,dh), all
+// contiguous; positions shared by the batch, q_pos (S,) and k_pos (T,), or
+// one row a batch row, q_pos (B,S) and k_pos (B,T) (the paged serving
+// cache, every slot at its own position): row b's positions start at
+// q_pos + b * qpos_b and k_pos + b * kpos_b, strides 0 when shared, S and
+// T when per row.  A negative key position is an unwritten slot.
 struct Attn {
   const float* q;
   const float* k;
@@ -71,6 +75,7 @@ struct Attn {
   const int* q_pos;
   const int* k_pos;
   int B, S, H, KV, T, dh, causal, window;
+  int qpos_b = 0, kpos_b = 0;
 };
 
 // A block's threads as RT row threads x KT lanes: a tile of R = RT x TM
@@ -213,7 +218,9 @@ __device__ void attend_tile(const Attn& a, const AttnLayout& L, const Tab& tab, 
 
   // Q of the tile, decoded once; the rows' positions.
   const int qs = odd(dh);
-  for (int r = tid; r < R; r += kThreads) sm.qpos[r] = r < nr ? a.q_pos[(r0 + r) / G] : 0;
+  const int* q_pos = a.q_pos + static_cast<size_t>(b) * a.qpos_b;
+  const int* k_pos = a.k_pos + static_cast<size_t>(b) * a.kpos_b;
+  for (int r = tid; r < R; r += kThreads) sm.qpos[r] = r < nr ? q_pos[(r0 + r) / G] : 0;
   stage_decoded<true>(sm.q, qs, R, dh, M, vec,
                       [&](int r) { return r < nr ? a.q + row_offset(r) : nullptr; });
   asm volatile("cp.async.wait_all;\n" ::: "memory");   // a table staged by copy_async
@@ -231,7 +238,7 @@ __device__ void attend_tile(const Attn& a, const AttnLayout& L, const Tab& tab, 
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int t = t0 + kt + KT * j;
-      const int kp = t < T ? __ldg(a.k_pos + t) : -1;
+      const int kp = t < T ? __ldg(k_pos + t) : -1;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         valid[i][j] = rt * TM + i < nr && key_valid(qp[i], kp, a.causal, a.window);

@@ -809,6 +809,8 @@ extern "C" int fused_out_mlp_f32(const float* x, const float* attn, const float*
       }));
 }
 
+// Positions are q_pos (1,) and k_pos (T,), or with `per_row` q_pos (rows,
+// 1) and k_pos (rows, T): row b of the batch reads its own.
 // The attention phase's layout (cw, vkb, scores_smem: approx_attention.py
 // attention_layout) must fit fold_bytes(rows); where the scores are in
 // global memory, scratch holds R x T floats for each of `scratch_blocks`
@@ -818,10 +820,12 @@ extern "C" int fused_attn_out_mlp_f32(
     const int* k_pos, const float* g2, const float* wo, const float* wg, const float* wu,
     const float* wd, const float* bo, const float* bd, const void* lut, float* out, float* x1,
     float* act, float* attn, float* scratch, int H, int KV, int T, int dh, int causal,
-    int window, int cw, int vkb, int scores_smem, int scratch_blocks, int rows, int d, int K,
-    int F, float eps, int M, int packed, int smem_lut, int lut_bytes, void* stream) {
+    int window, int per_row, int cw, int vkb, int scores_smem, int scratch_blocks, int rows,
+    int d, int K, int F, float eps, int M, int packed, int smem_lut, int lut_bytes,
+    void* stream) {
   Chain c{x, attn, g2, wo, wg, wu, wd, bo, bd, out, x1, act, rows, d, K, F, eps};
-  amsim::Attn a{q, k, v, q_pos, k_pos, rows, 1, H, KV, T, dh, causal, window};
+  amsim::Attn a{q, k, v, q_pos, k_pos, rows, 1, H, KV, T, dh, causal, window,
+                per_row ? 1 : 0, per_row ? T : 0};
   amsim::AttnLayout L{cw, vkb, scores_smem};
   if (cw < 1 || cw > amsim::kDimChunk || vkb < 1 || vkb > AttnPhaseTile::KB ||
       amsim::attn_smem_bytes(kAttnRows, AttnPhaseTile::KB, dh, T, L) > fold_bytes(rows)) {

@@ -212,8 +212,9 @@ def fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int
                        eps: float, causal: bool = True, window: int = 0, bo=None, bd=None):
     """The attention core of one decode step, then ``fused_out_mlp``, in
     one launch: x (B, d) residual stream, q (B, 1, H, dh) roped queries,
-    k/v (B, T, KV, dh) the cache after this step's write, q_pos (1,),
-    k_pos (T,) -> (B, d)."""
+    k/v (B, T, KV, dh) the cache after this step's write, q_pos (1,) and
+    k_pos (T,), or per batch row q_pos (B, 1) and k_pos (B, T) (the paged
+    cache: row b's attention reads row b's positions) -> (B, d)."""
     _check_rows(x, g2, bo, bd)
     check_attention_operands(q, k, v, q_pos, k_pos)
     B, S, H, dh = q.shape
@@ -241,7 +242,8 @@ def fused_attn_out_mlp(x, q, k, v, q_pos, k_pos, g2, wo, wg, wu, wd, lut, M: int
         [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr()],
         g2, wo, wg, wu, wd, bo, bd, lut, M, eps,
         [attn.data_ptr(), scratch.data_ptr(), H, KV, T, dh, int(causal), int(window),
-         plan.dim_chunk, plan.value_slab, int(plan.scores == "shared"), scratch_blocks])
+         int(q_pos.ndim == 2), plan.dim_chunk, plan.value_slab, int(plan.scores == "shared"),
+         scratch_blocks])
     fused_attn_out_mlp.launches += 1
     return out
 

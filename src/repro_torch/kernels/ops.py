@@ -35,10 +35,20 @@ part of the key of the cache of tables on each device, so a faulted table
 is uploaded once and never served under the clean key, and with faults
 off the same tensor as ever comes back.  ``lut_uploads`` counts the
 uploads of each key.
+
+Four kill switches, read as the JAX package reads them, are explicit
+opt-outs (each defaults to on; "0" or "false" turns it off), never a
+fallback on failure: ``REPRO_CONV_FUSED=0`` runs an ``amsim`` conv (forward,
+dx and dw) through im2col and the GEMM kernel; ``REPRO_ATTN_FUSED=0`` runs
+an ``amsim`` attention as the einsum lowering (two batched GEMMs);
+``REPRO_DECODE_FUSED=0`` runs a decode step per op, without the chain
+kernels or the expert-bank launch; ``REPRO_DECODE_FUSE_ATTN=0`` keeps the
+attention core out of the back-half launch (the chain's 3-launch form).
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +68,19 @@ from .decode_chain import (fused_attn_out_mlp, fused_attn_out_mlp_plain, fused_m
                            fused_qkv_norm, fused_qkv_norm_plain, fused_wo_norm,
                            fused_wo_norm_plain, silu)
 from .ref import ref_amsim_gemm, ref_direct_gemm, ref_im2col
+
+
+def switched_off(name: str) -> bool:
+    """Whether the kill switch ``name`` (an environment variable, on unless
+    "0" or "false") is off."""
+    return os.environ.get(name, "1").lower() in ("0", "false")
+
+
+def conv_fused_enabled(leaf: NumericsPolicy) -> bool:
+    """Whether a conv pass under ``leaf`` runs the conv kernels (an
+    ``amsim`` leaf, ``REPRO_CONV_FUSED`` on); else im2col and a GEMM."""
+    return leaf.mode == "amsim" and not leaf.is_native and not switched_off("REPRO_CONV_FUSED")
+
 
 # (multiplier, M, packed, device, fault spec or None) -> the table there.
 _LUTS: dict[tuple, torch.Tensor] = {}
@@ -317,7 +340,7 @@ def _conv_nograd(x, w, stride: int, pads, leaf: NumericsPolicy):
         _exact_fp32()
         y = F.conv2d(_nchw_padded(x, pads), w.permute(3, 2, 0, 1), stride=stride)
         return y.permute(0, 2, 3, 1).contiguous()
-    if leaf.mode == "amsim":
+    if conv_fused_enabled(leaf):
         mult = get_multiplier(leaf.multiplier)
         return approx_conv2d_fused(x.contiguous(), w.contiguous(), _amsim_lut(mult, x.device),
                                    mult.mantissa_bits, stride=stride, padding=pads)
@@ -332,7 +355,7 @@ def _conv_dw(x, w_shape, g, stride: int, pads, leaf: NumericsPolicy):
         dw = torch.nn.grad.conv2d_weight(_nchw_padded(x, pads), (o, c, kh, kw),
                                          g.permute(0, 3, 1, 2), stride=stride)
         return dw.permute(2, 3, 1, 0).contiguous()
-    if leaf.mode == "amsim":
+    if conv_fused_enabled(leaf):
         mult = get_multiplier(leaf.multiplier)
         return approx_conv2d_dw(x.contiguous(), g, _amsim_lut(mult, x.device),
                                 mult.mantissa_bits, kh=kh, kw=kw, stride=stride, padding=pads)
@@ -377,7 +400,7 @@ def _conv_dx(x_shape, w, g, stride: int, pads, leaf: NumericsPolicy):
                                          w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2),
                                          stride=stride)
         return dxp[:, :, pt:pt + h, pl:pl + wid].permute(0, 2, 3, 1).contiguous()
-    if leaf.mode == "amsim":
+    if conv_fused_enabled(leaf):
         w_rt, dpads = conv_dx_weights(w, g.shape[1:3], (h, wid), stride, pads)
         mult = get_multiplier(leaf.multiplier)
         return approx_conv2d_fused(g.contiguous(), w_rt, _amsim_lut(mult, g.device),
@@ -436,14 +459,18 @@ def approx_conv2d(x, w, stride: int, padding, policy: Numerics):
 def attend_einsum(q, k, v, q_pos, k_pos, policy: Numerics, *, causal: bool,
                   window: int):
     """Grouped-query einsum attention under ``policy`` numerics: q
-    (B,S,H,dh), k/v (B,T,KV,dh), q_pos (S,), k_pos (T,) absolute
-    positions (negative = unwritten ring slot, masked) -> (B,S,H,dh).  The
-    KV-head axis stays a batch axis, so K/V are never repeated G times."""
+    (B,S,H,dh), k/v (B,T,KV,dh), q_pos (S,) and k_pos (T,) absolute
+    positions, or (B, S) and (B, T) per batch row (negative = unwritten
+    slot, masked) -> (B,S,H,dh).  The KV-head axis stays a batch axis, so
+    K/V are never repeated G times."""
     B, S, H, dh = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, dh)
     scores = policy_einsum("bqkgd,btkd->bkgqt", qg, k, policy, "attn_score")
     mask = attention_mask(q_pos, k_pos, causal=causal, window=window)
+    # (S, T) broadcasts over (B, KV, G); a per-row (B, S, T) over (KV, G)
+    if mask.ndim == 3:
+        mask = mask[:, None, None]
     probs = softmax_scores(scores, mask, dh)
     out = policy_einsum("bkgqt,btkd->bqkgd", probs, v, policy, "attn_value")
     return out.reshape(B, S, H, dh)
@@ -461,9 +488,11 @@ def attention_fused_leaf(policy: Numerics) -> NumericsPolicy | None:
 
 def fused_attention_enabled(policy: Numerics) -> bool:
     """The attention dispatch: the fused kernel for an ``amsim`` leaf,
-    at every shape (the kernel has no size guard)."""
+    at every shape (the kernel has no size guard) and every position
+    layout, unless ``REPRO_ATTN_FUSED`` is off."""
     leaf = attention_fused_leaf(policy)
-    return leaf is not None and leaf.mode == "amsim" and not leaf.is_native
+    return (leaf is not None and leaf.mode == "amsim" and not leaf.is_native
+            and not switched_off("REPRO_ATTN_FUSED"))
 
 
 class _Recompute(torch.autograd.Function):
@@ -508,7 +537,9 @@ def _attention_bwd(policy: Numerics, causal: bool, window: int):
     """The fused attention's backward (JAX ``_pattn_bwd``): the gradient of
     ``attend_einsum`` recomputed a query chunk at a time when the sequence
     splits into chunks of more than ``_BWD_Q_CHUNK // 16`` rows, so dq
-    splits by chunk and dk, dv sum over chunks in order; else in one."""
+    splits by chunk and dk, dv sum over chunks in order; else in one.
+    Per-row (B, S) positions (the paged cache's short segments) are
+    recomputed in one, as there."""
     def bwd(tensors, needs, grads):
         q, k, v, q_pos, k_pos = tensors
         (g,) = grads
@@ -520,7 +551,7 @@ def _attention_bwd(policy: Numerics, causal: bool, window: int):
             return _vjp(fn, (q_c, k, v), needs[:3], (g_c,))
 
         bqc = best_chunk(_BWD_Q_CHUNK, S)
-        if not S > bqc > _BWD_Q_CHUNK // 16:
+        if not S > bqc > _BWD_Q_CHUNK // 16 or q_pos.ndim != 1:
             return (*grads_of(q, q_pos, g), None, None)
         dq, dk, dv = [], None, None
         for i in range(0, S, bqc):
@@ -590,7 +621,9 @@ def _one_leaf(policy: Numerics, sites) -> NumericsPolicy | None:
     return first
 
 
-def _chain_leaf_ok(leaf: NumericsPolicy | None) -> bool:
+def chain_leaf_ok(leaf: NumericsPolicy | None) -> bool:
+    """Whether ``leaf`` is a chain leaf: ``amsim`` or ``amsim_torch``, not
+    native."""
     return leaf is not None and leaf.mode in _CHAIN_MODES and not leaf.is_native
 
 
@@ -601,7 +634,9 @@ def decode_chain_leaf(policy: Numerics) -> NumericsPolicy | None:
 
 
 def decode_chain_enabled(policy: Numerics) -> bool:
-    return _chain_leaf_ok(decode_chain_leaf(policy))
+    """Whether a single-token step runs as the chain (one chain leaf,
+    ``REPRO_DECODE_FUSED`` on)."""
+    return chain_leaf_ok(decode_chain_leaf(policy)) and not switched_off("REPRO_DECODE_FUSED")
 
 
 def moe_ffn_leaf(policy: Numerics) -> NumericsPolicy | None:
@@ -613,13 +648,17 @@ def moe_ffn_leaf(policy: Numerics) -> NumericsPolicy | None:
 def decode_moe_ffn_enabled(policy: Numerics, C: int) -> bool:
     """Whether an MoE FFN over a capacity of ``C`` rows an expert runs as
     the one stacked expert-bank launch (``decode_moe_ffn``)."""
-    return _chain_leaf_ok(moe_ffn_leaf(policy)) and C <= MOE_FFN_MAX_C
+    return (chain_leaf_ok(moe_ffn_leaf(policy)) and C <= MOE_FFN_MAX_C
+            and not switched_off("REPRO_DECODE_FUSED"))
 
 
 def decode_fuse_attn_enabled(policy: Numerics, T: int) -> bool:
     """Whether the attention core folds into the back-half launch (2
-    launches a layer instead of 3) for a ring of ``T`` slots."""
-    return decode_chain_enabled(policy) and T <= FUSE_ATTN_MAX_T
+    launches a layer instead of 3) for ``T`` key slots (a ring's, or a
+    paged table's pages x page size): unless ``REPRO_ATTN_FUSED`` or
+    ``REPRO_DECODE_FUSE_ATTN`` is off."""
+    return (decode_chain_enabled(policy) and T <= FUSE_ATTN_MAX_T
+            and not switched_off("REPRO_ATTN_FUSED") and not switched_off("REPRO_DECODE_FUSE_ATTN"))
 
 
 def _chain_call(policy: Numerics, device, leaf: NumericsPolicy | None = None):

@@ -22,7 +22,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from .attention import attention, init_attention, init_cache
+from repro_torch.kernels.decode_chain import rmsnorm_lanes
+from .attention import attention, cache_dtype, init_attention, init_cache
 from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm, unembed
 from .mlp import ffn, init_ffn
 from .moe import init_moe, moe_ffn
@@ -148,7 +149,8 @@ def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: Numeric
                               cache, window: int):
     """One decode step of a block as the chain: fused norm+qkv, then for a
     dense block either the attention core folded into the back-half launch
-    (a ring of at most ``ops.FUSE_ATTN_MAX_T`` slots: 2 launches) or
+    (a ring, or a paged table of pages x page size, of at most
+    ``ops.FUSE_ATTN_MAX_T`` slots: 2 launches) or
     attention and the back half apart (3 launches); for an MoE block
     attention, then wo+residual+norm (emitting x1 and h) and ``moe_ffn`` on
     h.  Rope and the cache write stay in ``attention``."""
@@ -161,7 +163,9 @@ def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: Numeric
     if at["wq"].b is not None:
         q2, k2, v2 = q2 + at["wq"].b, k2 + at["wk"].b, v2 + at["wv"].b
     qkv = (q2.reshape(B, S, H, dh), k2.reshape(B, S, KV, dh), v2.reshape(B, S, KV, dh))
-    if p.moe is None and ops.decode_fuse_attn_enabled(policy, cache["k"].shape[1]):
+    T = (cache["ptab"].shape[1] * cache["pool_k"].shape[1] if "ptab" in cache
+         else cache["k"].shape[1])
+    if p.moe is None and ops.decode_fuse_attn_enabled(policy, T):
         mlp = p.ffn
         (qr, kr, vr, qp, kp), cache = attention(at, x, cfg, policy, cache=cache, window=window,
                                                 qkv=qkv, capture_attend=True)
@@ -182,16 +186,32 @@ def _dense_block_fused_decode(p: DenseLayer, x, cfg: ArchConfig, policy: Numeric
     return y.reshape(B, S, d), cache, 0.0
 
 
+def _block_norm(policy: NumericsPolicy, cache):
+    """The rmsnorm of the block norms and the final norm: in a serving
+    forward (a cache) under a chain leaf, the chain's
+    (``decode_chain.rmsnorm_lanes``, the warp order of its kernels, row by
+    row whatever the rows), so that a prefill, a per-op decode step and the
+    chain give the same bits and recomputing a preempted request reproduces
+    its tokens; else ``layers.rmsnorm``.  Here the port departs from JAX,
+    whose prefill normalises in ``jnp.mean``'s order: such a prefill's
+    logits may differ from JAX's in the last bit (its tokens are held to
+    JAX's in ``tests/test_torch_scheduler.py``)."""
+    if cache is not None and ops.chain_leaf_ok(ops.decode_chain_leaf(policy)):
+        return lambda p, x, eps: rmsnorm_lanes(x, p.g, eps)
+    return rmsnorm
+
+
 def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
                  window: int):
     """One block: (x, cache, aux), aux the MoE load-balance loss (0 in a
     dense block)."""
     if _use_fused_decode_chain(x, cfg, policy, cache):
         return _dense_block_fused_decode(p, x, cfg, policy, cache, window)
-    a, cache = attention(p.attn, rmsnorm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
+    norm = _block_norm(policy, cache)
+    a, cache = attention(p.attn, norm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
                          window=window)
     x = x + a
-    h = rmsnorm(p.n2, x, cfg.norm_eps)
+    h = norm(p.n2, x, cfg.norm_eps)
     if p.moe is not None:
         y, aux = moe_ffn(p.moe, h, cfg, policy)
     else:
@@ -225,7 +245,7 @@ def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, cache
                 x, cache, a = _dense_block(layer, x, cfg, policy, cache, window)
             aux = aux + a
             new_caches.append(cache)
-        x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+        x = _block_norm(policy, caches)(model.final_norm, x, cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = unembed(model.embed, x, policy)
         else:
@@ -255,3 +275,18 @@ def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 
 def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> list:
     """One ring cache per layer (the layout ``lm_forward`` takes)."""
     return [init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers)]
+
+
+def init_paged_lm_caches(cfg: ArchConfig, n_pages: int, page_size: int, device) -> list:
+    """The device state of the paged serving cache: one ``{"pool_k",
+    "pool_v"}`` a layer, each (n_pages, page_size, KV, dh) in
+    ``cfg.cache_dtype``; page 0 is the trash page (JAX
+    ``init_paged_lm_caches``).  The page table, the resident lengths and
+    the liveness are host control that the scheduler merges into each
+    layer's dict for a step (``serve/scheduler.py``).  The dense and MoE
+    families (an MoE FFN in every layer) are the ported ones."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    dt = cache_dtype(cfg)
+    return [{"pool_k": torch.zeros(shape, dtype=dt, device=device),
+             "pool_v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.n_layers)]

@@ -22,7 +22,8 @@ from repro_torch.core.policy import NumericsPolicy, table_from_assignments  # no
 from repro_torch.kernels import (approx_attention, approx_conv, approx_gemm,  # noqa: E402
                                  decode_chain, ops, time_chain)
 from repro_torch.data.pipeline import lm_batch  # noqa: E402
-from repro_torch.kernels.common import POS_PAD, lut_in_smem, lut_tensor  # noqa: E402
+from repro_torch.kernels.common import (LANES, POS_PAD, lane_sum, lut_in_smem,  # noqa: E402
+                                        lut_tensor)
 from repro_torch.launch.train import make_lm_train_step  # noqa: E402
 from repro_torch.models import moe, vision  # noqa: E402
 from repro_torch.models.layers import Linear  # noqa: E402
@@ -857,6 +858,177 @@ def test_amsim_serving_never_reaches_the_plain_versions(cuda, monkeypatch):
         out, _ = _serve(model, "amsim", max_len, prompts)
         torch.cuda.synchronize()
         assert out.shape == (2, 4)
+
+
+# ------------------------------------- per-row positions (the paged cache)
+def _paged_positions(S, T, starts, live, device):
+    """Positions of a paged batch: row b's queries at starts[b] .. + S - 1,
+    its keys valid below starts[b] + S when the row is live, every key
+    unwritten (POS_PAD) when it is dead."""
+    starts, live = np.asarray(starts), np.asarray(live, bool)
+    q = starts[:, None] + np.arange(S)[None]
+    t = np.arange(T)[None]
+    k = np.where(live[:, None] & (t < (starts + S)[:, None]), t, POS_PAD)
+    return (torch.tensor(q, dtype=torch.int32, device=device),
+            torch.tensor(k, dtype=torch.int32, device=device))
+
+
+# (B, S, H, KV, dh, T, starts, live, window): granite-3-2b decode ticks of 8
+# slots over a table of 19 pages of 16 (Tcap 304, the 3-launch form) and of 8
+# (128, the 2-launch form), with dead slots; a paged prefill of a 256-token
+# bucket at start 0 (its rows past a prompt's true length are computed too);
+# G = 3 rows under a sliding window.
+PAGED_CASES = [
+    (8, 1, 32, 8, 64, 304, [0, 17, 100, 250, 303, 5, 60, 0], [1, 1, 1, 1, 1, 1, 1, 0], 0),
+    (8, 1, 32, 8, 64, 128, [3, 40, 127, 0, 64, 90, 11, 0], [1, 1, 1, 0, 1, 1, 1, 0], 0),
+    (1, 256, 32, 8, 64, 304, [0], [1], 0),
+    (3, 5, 6, 3, 48, 70, [3, 30, 60], [1, 0, 1], 8),
+]
+PAGED_LUTS = [("afm16", True), ("afm10", True), ("fp16xbf16", True), (FAULTED, True)]
+
+
+def _paged_inputs(case, rng, device, special=True):
+    """q, k, v, q_pos (B, S), k_pos (B, T), and the keyword arguments; with
+    ``special``, inf, -inf and NaN in the K and V of every key a row may
+    not read (released pages keep old contents, the trash page takes every
+    masked write)."""
+    B, S, H, KV, dh, T, starts, live, window = case
+    q_pos, k_pos = _paged_positions(S, T, starts, live, device)
+    q, k, v = (_randn(rng, (B, S, H, dh), device), _randn(rng, (B, T, KV, dh), device),
+               _randn(rng, (B, T, KV, dh), device))
+    if special:
+        bad = (k_pos < 0)[:, :, None, None].expand_as(k)
+        for a in (k, v):
+            pick = torch.from_numpy(rng.integers(0, 3, a.shape)).to(device)
+            for i, value in enumerate((float("inf"), -float("inf"), float("nan"))):
+                a[:] = torch.where(bad & (pick == i), value, a)
+    return [q, k, v, q_pos, k_pos], dict(causal=True, window=window)
+
+
+@pytest.mark.parametrize("name,packed", PAGED_LUTS)
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
+def test_attention_kernel_per_row_bitwise_vs_plain(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    args, kw = _paged_inputs(PAGED_CASES[case], rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", PAGED_LUTS)
+@pytest.mark.parametrize("T", [128, 304])
+def test_attn_out_mlp_kernel_per_row_bitwise_vs_plain(cuda, name, packed, T, rng):
+    """granite-3-2b's widths, a decode tick of 8 slots at their own
+    positions, one dead, inf and NaN in the keys no row reads."""
+    lut, M = _lut(name, packed, cuda)
+    case = PAGED_CASES[0] if T == 304 else PAGED_CASES[1]
+    args, kw = _paged_inputs(case, rng, cuda)
+    o = _chain_inputs((8, 2048, 32, 8, 64, 8192), rng, cuda)
+    tail = [o[n] for n in ("g", "wo", "wg", "wu", "wd")]
+    out = decode_chain.fused_attn_out_mlp(o["x"], *args, *tail, lut, M, eps=1e-5, **kw)
+    ref = decode_chain.fused_attn_out_mlp_plain(o["x"], *args, *tail, lut, M, eps=1e-5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
+def test_per_row_positions_that_agree_give_the_shared_bits(cuda, name, packed, rng):
+    """Positions repeated across the batch rows give the bits of the one
+    shared vector, in the attention kernel and in fused_attn_out_mlp."""
+    lut, M = _lut(name, packed, cuda)
+    for case in (ATTN_PATH_CASES[0], ATTN_PATH_CASES[1], ATTN_CASES[2]):
+        args, kw = _attention_inputs(case, rng, cuda)
+        B, S, T = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+        rows = [args[3].expand(B, S).contiguous(), args[4].expand(B, T).contiguous()]
+        out = approx_attention.approx_attention(*args[:3], *rows, lut, M, **kw)
+        ref = approx_attention.approx_attention(*args, lut, M, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    rows_, d, H, KV, dh, F = CHAIN_CASES[1]
+    o = _chain_inputs(CHAIN_CASES[1], rng, cuda)
+    args, kw = _attention_inputs((rows_, 1, H, KV, dh, 40, [44], _ring(40, 45), True, 0), rng,
+                                 cuda)
+    tail = [o[n] for n in ("g", "wo", "wg", "wu", "wd")]
+    rows = [args[3].expand(rows_, 1).contiguous(), args[4].expand(rows_, 40).contiguous()]
+    out = decode_chain.fused_attn_out_mlp(o["x"], *args[:3], *rows, *tail, lut, M, eps=1e-5)
+    ref = decode_chain.fused_attn_out_mlp(o["x"], *args, *tail, lut, M, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "granite-moe-3b-a800m"])
+def test_paged_stream_amsim_matches_amsim_torch(cuda, arch):
+    """reduced widths, 2 layers: a ragged two-tier stream through the
+    continuous-batching engine gives the same tokens under
+    ``cheap=amsim:afm16`` (the kernels, per-row positions) and
+    ``cheap=amsim_torch:afm16`` (their plain versions), with preemption;
+    the cheap lane's decode ticks launched the chain's kernels."""
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    cfg = reduced(get_arch(arch), n_layers=2)
+    model = init_lm(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.default_rng(3)
+    stream = [(i, rng.integers(1, cfg.vocab, size=int(rng.integers(3, 20))).tolist(), 8,
+               ("cheap", "exact")[i % 2]) for i in range(8)]
+    outs = []
+    for mode in ("amsim", "amsim_torch"):
+        decode_chain.fused_qkv_norm.launches = 0
+        tiers = {"exact": NumericsPolicy(), "cheap": NumericsPolicy(mode=mode,
+                                                                    multiplier="afm16")}
+        eng = ContinuousBatchingEngine(model, tiers, max_len=40, capacity=3, page_size=4,
+                                       n_pages=12)
+        eng.run(stream)
+        outs.append({rid: (r.out, r.status, r.preemptions) for rid, r in eng.finished.items()})
+        if mode == "amsim":
+            assert decode_chain.fused_qkv_norm.launches == 2 * eng.decode_ticks["cheap"] > 0
+            assert sum(r.preemptions for r in eng.finished.values()) > 0
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("shape", [(8, 2048), (256, 8192), (4, 7, 100), (1, 32), (3, 33)])
+def test_lane_sum_scan_is_the_loop(cuda, shape, rng):
+    """``lane_sum`` on a CUDA tensor takes each lane's sum with one
+    ``torch.cumsum`` over the lane-strided rows, on the premise that the
+    scan adds each column in order from +0.0 in float32.  It must give the
+    bits of the plain loop (``lanes + x[..., j:j + 32]``), which is the
+    order of the kernels' warp sums; values span 2^-40 .. 2^40 so that any
+    other order rounds differently."""
+    x = _randn(rng, shape, cuda) * torch.exp2(
+        torch.from_numpy(rng.integers(-40, 41, shape)).to(cuda, torch.float32))
+    n = shape[-1]
+    xp = torch.nn.functional.pad(x, (0, (-n) % LANES))
+    lanes = torch.zeros((*shape[:-1], LANES), dtype=torch.float32, device=cuda)
+    for j in range(0, xp.shape[-1], LANES):
+        lanes = lanes + xp[..., j:j + LANES]
+    off = LANES // 2
+    while off:
+        lanes = lanes[..., :off] + lanes[..., off:2 * off]
+        off //= 2
+    assert torch.equal(lane_sum(x).view(torch.int32), lanes[..., 0].view(torch.int32))
+
+
+def test_full_width_moe_stream_repeats_its_tokens(cuda):
+    """granite-moe-3b-a800m at full width, 2 layers, a ragged stream on one
+    amsim:afm16 lane of 4 slots (dead slots on most ticks; prompts whose
+    bucket runs past their pages) in a pool small enough to preempt, run
+    twice without deterministic algorithms: the same tokens, statuses and
+    preemptions, and every pool's trash page still zero (the writes that
+    collide there all carry zeros, so dead rows, which take expert
+    capacity, read the same keys on every run)."""
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=2)
+    model = init_lm(cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(4)
+    stream = [(i, rng.integers(1, cfg.vocab, size=int(rng.integers(17, 100))).tolist(), 12,
+               "default") for i in range(8)]
+    outs = []
+    for _ in range(2):
+        eng = ContinuousBatchingEngine(model, NumericsPolicy(mode="amsim", multiplier="afm16"),
+                                       max_len=112, capacity=4, page_size=16, n_pages=12)
+        eng.run(stream)
+        outs.append({rid: (r.out, r.status, r.preemptions) for rid, r in eng.finished.items()})
+        assert all(r.status == "ok" for r in eng.finished.values())
+        for layer in eng._lanes["default"].caches:
+            assert not layer["pool_k"][0].any() and not layer["pool_v"][0].any()
+    assert sum(o[2] for o in outs[0].values()) > 0
+    assert outs[0] == outs[1]
 
 
 # --------------------------------------------------------------- LM training
