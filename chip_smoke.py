@@ -213,8 +213,35 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     deterministic algorithms).
 The launches of 7c's and of 7d's probed run are printed on their own
 lines; the kernels line keeps the launches of the earlier paths.
-``python3 chip_smoke.py --phase 7`` runs phases 1, 2 and 7 alone and prints
-no result lines.
+The SSM families (``models/ssm.py``: mamba2-780m, and zamba2-1.2b with its
+weight-shared attention block; after 7d):
+ 8a. the kernels of their paths at full width (depth 2, the hybrid's shared
+    block after every 2nd layer), captured from the entry points under
+    amsim/afm16 -- a serving prefill of 4 x 64 and a decode step of each
+    model (zamba2 also with its window cut to 32: a ring shorter than the
+    prompt), the SSD products and the attention of a training step at 1 x
+    512 (two chunks of 256) -- each distinct shape again under the tables of
+    3d against its plain version, bit for bit, with its plan, grid and
+    device time;
+ 8b. depth 2 at full width: serving at batch 2, prompt 16, 8 new tokens
+    under amsim and amsim_torch (zamba2 again with its window cut to 8, so
+    that the ring wraps): prefill logits, decode logits and tokens bitwise,
+    the launches each kernel must make; 2 adamw steps at 1 x 64 with the
+    chunk cut to 32 (two chunks: the state recurrence and every SSD
+    gradient product run) under both with deterministic algorithms:
+    losses, parameters and the next gradient bitwise, the launches a step;
+ 8c. full width and depth: each model served at batch 4, prompt 64, 32 new
+    tokens under native and amsim (prefill ms, ms a decode step, tokens/s,
+    idle shares, launches, the GEMM kernel's time at the prefill's and a
+    decode step's shapes), then 3 adamw steps at 4 x 256 (remat for mamba2,
+    none in the hybrid stack, as in JAX): wall ms, busy ms, peak memory,
+    launches a step, finite losses, and step 3's SSD batched products (a
+    row of one chunk runs the scores and intra-chunk products alone) timed
+    beside their bounds, each bitwise its plain version.
+The launches of each of 8c's runs are printed on their own lines; the
+kernels line keeps the launches of the earlier paths.
+``python3 chip_smoke.py --phase 7`` (``--phase 8``) runs phases 1, 2 and 7
+(8) alone and prints no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -332,22 +359,27 @@ def queued_ms(fn, reps: int) -> float:
     raise SystemExit("chip_smoke FAILED: the host could not queue the calls ahead of the card")
 
 
+def profiled(fn):
+    """(``fn()``, the device busy ms of that call): the summed durations of
+    the device activity torch.profiler records (the device alone), None
+    when it records none (CUPTI does not always deliver its records)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, (us / 1e3 if us else None)
+
+
 def busy_ms(fn, reps: int, tries: int = 3) -> float | None:
-    """Mean device busy time (ms) per ``fn()``: the summed durations of all
-    device activity torch.profiler records, None when a few profiles in a row
-    record none (CUPTI does not always deliver its records)."""
+    """Mean device busy ms per ``fn()`` (``profiled`` over ``reps`` calls),
+    None when a few profiles in a row record no device activity."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / reps / 1e3
+        _, ms = profiled(lambda: [fn() for _ in range(reps)])
+        if ms:
+            return ms / reps
     return None
 
 
@@ -1478,14 +1510,15 @@ def train_fits(cfg) -> tuple[bool, str]:
                           f"needed, {free / 1e9:.1f} GB free")
 
 
-def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
-    """Phase 5e, one model: 3 ``amsim``/afm16 adamw steps at full width (and
-    full depth where it fits), each step timed (host wall clock to the loss
-    read back; CUDA events over the step; torch.profiler's device busy time
-    of step 2), the launches of each step, the peak memory, and each
-    kernel's device time at the shapes of step 3 (calls captured), every
-    GEMM shape held bitwise against its plain version.  Returns the
-    launches of one step."""
+def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=None) -> dict:
+    """Phase 5e (and 8c), one model: 3 ``amsim``/afm16 adamw steps at full
+    width (and full depth where it fits) at ``shape`` (batch, seq, steps),
+    each step timed (host wall clock to the loss read back; CUDA events
+    over the step; torch.profiler's device busy time of step 2), the
+    launches of each step, the peak memory, and the device time of each
+    kernel of ``capture`` (default: all) at the shapes of step 3, each
+    shape held bitwise against its plain version.  Returns the launches of
+    the run (counters zeroed before each step, summed)."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policy import NumericsPolicy
@@ -1502,20 +1535,24 @@ def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
         fits, _ = train_fits(cfg)
     depth_note = (f"full depth ({cfg.n_layers} layers)" if cfg.n_layers == get_arch(arch).n_layers
                   else f"depth {cfg.n_layers} of {get_arch(arch).n_layers}: at full depth {why}")
-    B, S, steps = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    B, S, steps = shape["batch"], shape["seq"], shape["steps"]
     policy = NumericsPolicy(mode="amsim", multiplier="afm16")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, state, step = train_setup(cfg, policy, dev)
-    counters = train_counters()
-    want = train_want(cfg)
+    if cfg.ssm is None:
+        counters, want = train_counters(), train_want(cfg)
+    else:
+        counters, want = ssm_counters(), ssm_train_want(cfg, S)
+    remat = cfg.remat and not cfg.attn_every     # the hybrid stack has none, as in JAX
     print(f"{arch} training at full width, {depth_note}: batch {B}, seq {S}, adamw, "
-          f"cosine_schedule({TRAIN_LR}, 10, {steps}), remat {cfg.remat}, amsim/afm16 "
+          f"cosine_schedule({TRAIN_LR}, 10, {steps}), remat {remat}, amsim/afm16 "
           f"({smi_line}):")
     calls = {}                                 # (kernel, shapes) -> [count, args, kw]
     originals = {k: getattr(ops, k) for k in counters}
+    run = dict.fromkeys(want, 0)
 
-    def capture(kname):
+    def captured(kname):
         def wrapped(*a, **kw):
             key = (kname, tuple(tuple(t.shape) for t in a if isinstance(t, torch.Tensor)))
             calls.setdefault(key, [0, a, kw])[0] += 1
@@ -1526,43 +1563,44 @@ def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
         batch = lm_batch(cfg, (B, S), i, dev)
         zero_launches(counters)
         if i == 2:
-            for k in counters:
-                setattr(ops, k, capture(k))
+            for k in capture or counters:
+                setattr(ops, k, captured(k))
         try:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
+            busy = None
             if i == 1:
-                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                with torch.profiler.profile(activities=acts) as prof:
-                    state, metrics = step(model, state, batch)
-                    loss = float(metrics["loss"])
-                us = sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
-                busy = f"device busy {us / 1e3:.2f} ms (torch.profiler)" if us else \
-                    "device busy not measured: torch.profiler recorded no device activity"
+                (state, metrics), busy = profiled(lambda: step(model, state, batch))
             else:
                 state, metrics = step(model, state, batch)
-                loss = float(metrics["loss"])
-                busy = "calls captured" if i == 2 else ""
+            loss = float(metrics["loss"])
             end.record()
             wall = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
         finally:
             for k, fn in originals.items():
                 setattr(ops, k, fn)
+        extra = ""
+        if i == 1:         # the profiled step's wall holds the profiler's own cost
+            extra = (f"device busy {busy:.4f} ms (torch.profiler)" if busy is not None
+                     else busy_text(None, wall))
+        elif i == 2:
+            extra = "calls captured"
         got = launches_of(counters)
         require(got == want, f"{arch} training step {i + 1}: launches {got}, want {want}")
+        for k, n in got.items():
+            run[k] += n
         require(all(map(math.isfinite, (loss, float(metrics["grad_norm"])))),
                 f"{arch} training step {i + 1}: loss {loss}, grad norm {metrics['grad_norm']}")
         print(f"  step {i + 1}: {wall:.1f} ms wall, {start.elapsed_time(end):.1f} ms on device "
-              f"(CUDA events over the step){'; ' + busy if busy else ''}; loss {loss:.6f}, xent "
+              f"(CUDA events over the step){'; ' + extra if extra else ''}; loss {loss:.6f}, xent "
               f"{float(metrics['xent']):.6f}, aux {float(metrics['aux']):.6f}, grad norm "
               f"{float(metrics['grad_norm']):.6f}")
     peak = torch.cuda.max_memory_allocated()
     print(f"  peak memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches a step "
-          f"{want}")
+          f"{ {k: v for k, v in want.items() if v} }")
     plain_of = {"approx_gemm": approx_gemm_plain, "approx_gemm_batched": approx_gemm_batched_plain,
                 "approx_attention": approx_attention_plain, "fused_moe_ffn": fused_moe_ffn_plain}
     sums = {}
@@ -1602,16 +1640,17 @@ def train_full(dev, arch, lookups_per_s, smi_line) -> dict:
               f"{bound:.2f} ms")
     del model, state, step, calls
     torch.cuda.empty_cache()
-    return want
+    return run
 
 
-def depth2_run(cfg, policy, dev, counters):
-    """2 adamw steps (``TRAIN_DEPTH2``) of ``cfg`` under ``policy``: (losses,
-    parameters after them, the gradient at the next batch, launches of each
-    step, seconds)."""
+def depth2_run(cfg, policy, dev, counters, shape=None):
+    """adamw steps of ``cfg`` under ``policy`` at ``shape`` (batch, seq,
+    steps; default ``TRAIN_DEPTH2``): (losses, parameters after them, the
+    gradient at the next batch, launches of each step, seconds)."""
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.models.transformer import lm_loss
-    B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
+    shape = TRAIN_DEPTH2 if shape is None else shape
+    B, S, steps = shape["batch"], shape["seq"], shape["steps"]
     model, state, step = train_setup(cfg, policy, dev)
     t0 = time.perf_counter()
     losses, launches = [], []
@@ -1716,7 +1755,8 @@ def train_resume(dev):
 
 
 def lm_training(dev, lookups_per_s, smi_line) -> dict:
-    """Phase 5e: LM training on the card; returns {arch: launches a step}."""
+    """Phase 5e: LM training on the card; returns {arch: launches of its
+    full-width run}."""
     for arch in TRAIN_ARCHS:
         train_depth2(dev, arch)
     train_resume(dev)
@@ -1850,14 +1890,7 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
             zero_launches(counters)
             try:
                 if i == 1:
-                    acts = [torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]
-                    with torch.profiler.profile(activities=acts) as prof:
-                        out = step(model, state, batch)
-                        torch.cuda.synchronize()
-                    us = sum(e.time_range.elapsed_us() for e in prof.events()
-                             if e.device_type == torch.autograd.DeviceType.CUDA)
-                    rec["busy"] = us / 1e3 if us else None
+                    out, rec["busy"] = profiled(lambda: step(model, state, batch))
                 else:
                     if i == 2:
                         for k in counters:
@@ -2635,15 +2668,467 @@ def continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     print(f"per-row max|d| {err}")
 
 
+# ------------------------------------------------- the SSM families
+# Phase 8: Mamba2 (SSD) and the zamba2 hybrid through ``ServingEngine`` and
+# ``launch.train``'s step.  At a cut depth the hybrid's shared block comes
+# after every 2nd layer (``ssm_cfg``), so that depth 2 runs it once.
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+# 8b trains rows of 2 chunks of 32 (the chunk-state recurrence and every SSD
+# gradient product run; the plain versions' cost grows with the rows); the
+# products at the config's chunk of 256 are held in 8a and 8c.
+SSM_DEPTH2 = dict(batch=2, prompt=16, new=8, window=8, train_batch=1, seq=64, chunk=32,
+                  steps=2)
+SSM_FULL = dict(batch=4, prompt=64, new=32)
+SSM_TRAIN = dict(batch=4, seq=256, steps=3)
+SSM_CUT_WINDOW = 32          # 8a: a zamba2 prefill of 64 tokens into a ring of 32
+SSM_CAPTURE_SEQ = 512        # 8a: a training row of two chunks at the config's 256
+# 8a does not replay GEMM shapes that 3d holds under the same tables
+# (granite-3-2b's FFN at 4 x 64 rows: the shared block's wg/wu/wd).
+SSM_KNOWN_GEMMS = {((256, 2048), (2048, 8192)), ((256, 8192), (8192, 2048))}
+# 8a holds a product of more lookups than this (the heads at 4 x 64 rows)
+# under the first table only: its plain version takes seconds a table.
+SSM_ALL_TABLES_MAX = 6e9
+# Where a kernel wrapper takes its table (M follows it).
+SSM_LUT_SLOT = {**LUT_SLOT, **LUT_ARG}
+
+
+def ssm_counters():
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    return {**serving_counters(), "approx_gemm_batched": gemm_mod.approx_gemm_batched}
+
+
+def ssm_plains():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    return {"approx_gemm": gemm_mod.approx_gemm_plain,
+            "approx_gemm_batched": gemm_mod.approx_gemm_batched_plain,
+            "approx_attention": attn_mod.approx_attention_plain,
+            "fused_qkv_norm": chain.fused_qkv_norm_plain,
+            "fused_out_mlp": chain.fused_out_mlp_plain,
+            "fused_attn_out_mlp": chain.fused_attn_out_mlp_plain}
+
+
+def ssm_cfg(arch, n_layers=None, **changes):
+    """``arch`` at full width; at a cut depth (``n_layers``) the hybrid's
+    shared block after every 2nd layer."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+        if cfg.attn_every:
+            changes["attn_every"] = 2
+    return dataclasses.replace(cfg, **changes)
+
+
+def _shared_blocks(cfg) -> int:
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def ssm_serve_want(cfg, *, prefill: bool, steps: int, ring: int) -> dict:
+    """Launches of a prefill (or none) and ``steps`` decode steps under
+    amsim: a Mamba2 layer's 2 GEMMs (in_proj, out_proj; its recurrence runs
+    no kernel), each shared block's 7 GEMMs and attention in the prefill
+    and its 2 chain launches a decode step (3 over a ring above 128), the
+    head's GEMM."""
+    L, A, pre = cfg.n_layers, _shared_blocks(cfg), int(prefill)
+    fused = ring <= 128
+    return {"approx_gemm": (2 * L + 7 * A + 1) * pre + (2 * L + 1) * steps,
+            "approx_gemm_batched": 0,
+            "approx_attention": A * pre + (0 if fused else A) * steps,
+            "fused_qkv_norm": A * steps, "fused_out_mlp": (0 if fused else A) * steps,
+            "fused_attn_out_mlp": (A if fused else 0) * steps}
+
+
+def ssm_train_want(cfg, seq: int) -> dict:
+    """Launches of one training step at ``seq`` tokens a row under amsim: a
+    Mamba2 layer's 2 GEMMs forward and two gradient products of each; its
+    SSD products, 4 forward and 8 backward, or 2 and 4 when the row is one
+    chunk (the scan then runs the scores and intra-chunk products alone);
+    the forward again in the backward under remat (mamba2; the hybrid stack
+    has none, as in JAX); each shared block's 7 GEMMs + 14 backward, one
+    attention and 6 batched GEMMs of its recomputed gradient; the head's
+    3."""
+    L, A = cfg.n_layers, _shared_blocks(cfg)
+    r = 2 if cfg.remat and not cfg.attn_every else 1
+    ssd = 2 if seq > cfg.ssm.chunk else 1
+    return {"approx_gemm": (2 * r + 4) * L + 21 * A + 3,
+            "approx_gemm_batched": (2 * r + 4) * ssd * L + 6 * A, "approx_attention": A,
+            "fused_qkv_norm": 0, "fused_out_mlp": 0, "fused_attn_out_mlp": 0}
+
+
+def ssm_lookups(kname, args, kw) -> tuple[int, int]:
+    """(bytes, lookups) of one call of a kernel of the SSM paths."""
+    from repro_torch.kernels.common import lut_bytes
+    if kname.startswith("approx_gemm"):
+        return gemm_costs(*args[:3])
+    return serving_costs(kname, args, kw, lut_bytes(args[SSM_LUT_SLOT[kname]]))
+
+
+def ssm_plan_text(kname, args, kw) -> str:
+    """The launch plan and grid of a captured call."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import decode_chain as chain
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lut = args[SSM_LUT_SLOT[kname]]
+    if kname.startswith("approx_gemm"):
+        return gemm_plan_text(*args[:3])
+    if kname == "approx_attention":
+        q, k = args[:2]
+        shape = attn_mod.AttnShape(q.shape[0], q.shape[1], q.shape[2], k.shape[2], k.shape[1],
+                                   q.shape[3])
+        plan = attn_mod.attention_plan(shape, lut, sms)
+        return f"plan {plan}; grid {attn_mod.attention_grid(plan, shape, lut)}"
+    if kname == "fused_qkv_norm":
+        return f"grid {qkv_grid_of(args)}"
+    x = args[0]
+    fused = kname == "fused_attn_out_mlp"
+    heads, kv = (args[1].shape[2], args[2].shape[2]) if fused else (0, 0)
+    wg = args[8] if fused else args[4]
+    grid = chain.back_half_grid(x.shape[0], x.shape[1], wg.shape[1], lut, heads=heads,
+                                kv_heads=kv)
+    return f"grid (work items a phase) {grid}"
+
+
+def ssm_capture(dev) -> dict:
+    """8a's calls: the kernels of the SSM paths at full width, depth 2,
+    under amsim/afm16 -- each model served at batch 4, prompt 64 (the
+    prefill and a decode step; zamba2 again with its window cut to
+    ``SSM_CUT_WINDOW``: a ring shorter than the prompt), and the batched
+    SSD products and the attention of one training forward and backward at
+    1 x ``SSM_CAPTURE_SEQ`` (two chunks: the chunk-state and inter-chunk
+    products run).  {(kernel, shapes, kw): (args cloned, kw, where)}, a call
+    a distinct shape."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm, init_lm_caches, lm_loss
+    from repro_torch.serve.engine import ServingEngine
+    names = list(SSM_LUT_SLOT)
+    originals = {k: getattr(ops, k) for k in names}
+    calls, where = {}, [""]
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+
+    def capture(kname, keep):
+        def wrapped(*a, **kw):
+            key = (kname, tuple(tuple(t.shape) for t in a if torch.is_tensor(t)),
+                   tuple(sorted(kw.items())))
+            if keep and key not in calls:
+                calls[key] = (tuple(t.clone() if torch.is_tensor(t) else t for t in a), kw,
+                              where[0])
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    B, P = SSM_FULL["batch"], SSM_FULL["prompt"]
+    ring = P + SSM_FULL["new"]
+    for arch in SSM_ARCHS:
+        cfg = ssm_cfg(arch, 2)
+        model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        prompts = torch.randint(0, cfg.vocab, (B, P),
+                                generator=torch.Generator().manual_seed(SEED)).to(dev)
+        runs = [(f"{arch} serving", cfg)]
+        if cfg.attn_every:
+            runs.append((f"{arch} serving, window {SSM_CUT_WINDOW}",
+                         ssm_cfg(arch, 2, sliding_window=SSM_CUT_WINDOW)))
+        for label, rcfg in runs:
+            model.cfg = rcfg
+            engine = ServingEngine(model, amsim, max_len=ring)
+            for k in names:
+                setattr(ops, k, capture(k, True))
+            try:
+                where[0] = f"{label} prefill"
+                _, nxt, caches = engine.prefill(prompts, init_lm_caches(rcfg, B, ring, dev))
+                where[0] = f"{label} decode"
+                engine.step(nxt, caches)
+                torch.cuda.synchronize()
+            finally:
+                for k, f in originals.items():
+                    setattr(ops, k, f)
+        model.cfg = cfg
+        batch = lm_batch(cfg, (1, SSM_CAPTURE_SEQ), 0, dev)
+        for k in names:
+            setattr(ops, k, capture(k, k in ("approx_gemm_batched", "approx_attention")))
+        try:
+            where[0] = f"{arch} training 1 x {SSM_CAPTURE_SEQ}"
+            loss, _ = lm_loss(model, batch, amsim)
+            torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+        finally:
+            for k, f in originals.items():
+                setattr(ops, k, f)
+        del model, engine, caches, loss
+        torch.cuda.empty_cache()
+    return calls
+
+
+def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
+    """Phase 8a: each captured call (``ssm_capture``) again under every
+    table of 3d against its plain version, bit for bit as int32 (+0.0 and
+    -0.0 apart); each shape's plan and grid, and its device time under
+    afm16.  Returns each kernel's largest |difference|."""
+    from repro_torch.kernels import ops
+    calls = ssm_capture(dev)
+    plains = ssm_plains()
+    kernels = {k: getattr(ops, k) for k in SSM_LUT_SLOT}
+    err = dict.fromkeys(SSM_LUT_SLOT, 0.0)
+    for i, (lut_name, packed) in enumerate(SERVE_LUTS):
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        held = skipped = large = 0
+        for (kname, shapes, _), (args, kw, where) in calls.items():
+            if kname == "approx_gemm" and shapes[:2] in SSM_KNOWN_GEMMS:
+                skipped += 1
+                continue
+            if i and ssm_lookups(kname, args, kw)[1] > SSM_ALL_TABLES_MAX:
+                large += 1
+                continue
+            slot = SSM_LUT_SLOT[kname]
+            a = list(args)
+            a[slot], a[slot + 1] = lut, M
+            plain_kw = dict(kw)
+            if kname in ("approx_attention", "fused_attn_out_mlp"):
+                plain_kw.setdefault("causal", True)
+                plain_kw.setdefault("window", 0)
+            out, ref = kernels[kname](*a, **kw), plains[kname](*a, **plain_kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            e = max((x - y).abs().max().item() for x, y in zip(outs, refs))
+            require(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in zip(outs, refs)),
+                    f"8a {kname} {tag} at {shapes} ({where}): not bitwise its plain version, "
+                    f"max|d| {e}")
+            err[kname] = max(err[kname], e)
+            held += 1
+            if i == 0:
+                t = queued_ms(lambda: kernels[kname](*a, **kw), reps=3)
+                nbytes, lookups = ssm_lookups(kname, a, kw)
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                print(f"  {where}: {kname} {shapes}: {t:.4f} ms on device (bound {tb:.4f} ms, "
+                      f"{bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups); "
+                      f"{ssm_plan_text(kname, a, kw)}")
+            del out, ref, outs, refs
+        first = f", {large} held under the first table only" if large else ""
+        print(f"SSM kernels == plain (bitwise): {tag}, {held} shapes of the SSM paths "
+              f"({skipped} GEMM shapes held in 3d{first})")
+    del calls
+    torch.cuda.empty_cache()
+    return err
+
+
+def ssm_serving_depth2(dev, cfg, label) -> None:
+    """8b serving: batch 2, prompt 16, 8 new tokens under amsim and
+    amsim_torch (deterministic algorithms): prefill logits, every decode
+    step's logits and tokens bitwise; the amsim launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    B, P, N = SSM_DEPTH2["batch"], SSM_DEPTH2["prompt"], SSM_DEPTH2["new"]
+    max_len = P + N
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    counters = ssm_counters()
+    ring = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    want = ssm_serve_want(cfg, prefill=True, steps=N - 1, ring=ring)
+    results = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            engine = ServingEngine(model, NumericsPolicy(mode=mode, multiplier="afm16"),
+                                   max_len=max_len)
+            zero_launches(counters)
+            toks, logits = engine.generate(prompts, N, return_logits=True)
+            torch.cuda.synchronize()
+            got = launches_of(counters)
+            full, _, _ = engine.prefill(prompts, init_lm_caches(cfg, B, max_len, dev))
+            results[mode] = (toks, logits, full)
+            if mode == "amsim":
+                require(got == want, f"8b {label}: launches {got}, want {want}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (t_a, l_a, f_a), (t_p, l_p, f_p) = results["amsim"], results["amsim_torch"]
+    require(bool(torch.isfinite(l_a).all()) and bool(torch.isfinite(f_a).all()),
+            f"8b {label}: logits not finite")
+    require(_same([f_a], [f_p]), f"8b {label}: prefill logits differ from amsim_torch by "
+            f"{(f_a - f_p).abs().max().item()}")
+    require(_same([l_a], [l_p]) and torch.equal(t_a, t_p),
+            f"8b {label}: decode differs from amsim_torch (logits max|d| "
+            f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
+    print(f"{label}: batch {B}, prompt {P}, {N} new tokens, "
+          f"{'ring ' + str(ring) if cfg.attn_every else 'no attention'}: prefill logits, "
+          f"{N - 1} decode steps' logits and tokens bitwise equal to amsim_torch; amsim launches "
+          f"{ {k: v for k, v in want.items() if v} }; tokens {t_a[0].tolist()}")
+    del model, results
+    torch.cuda.empty_cache()
+
+
+def ssm_train_depth2(dev, cfg, label) -> None:
+    """8b training: 2 adamw steps at 1 x 64 (2 chunks of 32) under amsim and
+    amsim_torch with deterministic algorithms: losses, parameters and the
+    gradient at the next batch bitwise; the amsim launches of each step."""
+    from repro_torch.core.policy import NumericsPolicy
+    counters = ssm_counters()
+    want = ssm_train_want(cfg, SSM_DEPTH2["seq"])
+    shape = dict(batch=SSM_DEPTH2["train_batch"], seq=SSM_DEPTH2["seq"],
+                 steps=SSM_DEPTH2["steps"])
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev,
+                                    counters, shape)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    steps = shape["steps"]
+    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
+            f"8b {label} training launches: amsim {n_a}, amsim_torch {n_p}, want {want} a step")
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"8b {label} losses {l_a}")
+    require(_same(l_a, l_p), f"8b {label} training losses: amsim {l_a}, amsim_torch {l_p}")
+    require(_same(p_a, p_p), f"8b {label} training: parameters after step {steps} differ")
+    require(_same(g_a, g_p), f"8b {label} training: gradients after step {steps} differ")
+    print(f"{label}: batch {shape['batch']} x {shape['seq']}, {steps} adamw steps"
+          f"{' (remat)' if cfg.remat and not cfg.attn_every else ''}: losses "
+          f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
+          f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a "
+          f"step { {k: v for k, v in want.items() if v} }; {t_a:.1f} s amsim, {t_p:.1f} s "
+          f"amsim_torch")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
+    """8c serving: ``arch`` at full width and depth, batch 4, prompt 64, 32
+    new tokens under native and amsim: prefill ms, ms a decode step,
+    tokens/s, idle shares; the amsim run's launches (counters zeroed just
+    before it) on a line of their own; the GEMM kernel's device time at the
+    prefill's and a decode step's shapes."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch(arch)
+    B, P, N = SSM_FULL["batch"], SSM_FULL["prompt"], SSM_FULL["new"]
+    max_len = P + N
+    ring = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = 4 * sum(p.numel() for p in model.parameters())
+    print(f"{arch} at full width and depth ({cfg.n_layers} layers, {_shared_blocks(cfg)} shared "
+          f"blocks, {weight_bytes / 1e9:.2f} GB of float32 weights) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; batch {B}, prompt {P}, {N} new tokens"
+          f"{', ring ' + str(ring) if cfg.attn_every else ''} ({smi_line}):")
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    counters = ssm_counters()
+    want = ssm_serve_want(cfg, prefill=True, steps=N - 1, ring=ring)
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+    res = {}
+    for pname, policy in (("native", NumericsPolicy()), ("amsim", amsim)):
+        engine = ServingEngine(model, policy, max_len=max_len)
+        engine.generate(prompts, 2)          # warm-up
+        zero_launches(counters)
+        timings = {}
+        toks = engine.generate(prompts, N, timings=timings)
+        got = launches_of(counters)
+        if pname == "amsim":
+            require(got == want, f"8c {arch} serving: launches {got}, want {want}")
+            amsim_got = got
+        require(toks.shape == (B, N) and bool((toks >= 0).all() & (toks < cfg.vocab).all()),
+                f"8c {arch} {pname}: tokens out of range")
+        caches = init_lm_caches(cfg, B, max_len, dev)
+        _, nxt, caches = engine.prefill(prompts, caches)
+        busy_step = busy_ms(lambda: engine.step(nxt, caches), reps=3)
+        busy_pre = busy_ms(lambda: engine.prefill(prompts, init_lm_caches(cfg, B, max_len, dev)),
+                           reps=1)
+        pre_ms = timings["prefill_s"] * 1e3
+        step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
+        res[pname] = (pre_ms, step_ms)
+        print(f"  {pname}: prefill {pre_ms:.2f} ms ({busy_text(busy_pre, pre_ms)}), "
+              f"{step_ms:.3f} ms per decode step ({busy_text(busy_step, step_ms)}), "
+              f"{B * N / (timings['prefill_s'] + timings['decode_s']):.2f} tokens/s; tokens "
+              f"{toks[0, :8].tolist()}")
+    print(f"  amsim/native: prefill {res['amsim'][0] / res['native'][0]:.2f}x, decode step "
+          f"{res['amsim'][1] / res['native'][1]:.2f}x")
+    print(f"launches on the {arch} serving run (8c, amsim, prefill and {N - 1} decode steps): "
+          f"{amsim_got}")
+    # The GEMM kernel at this run's shapes: a prefill and a decode step.
+    original = ops.approx_gemm
+    for ctx in ("prefill", "decode step"):
+        shapes = {}
+
+        def wrapped(*a, **kw):
+            shapes.setdefault((tuple(a[0].shape), tuple(a[1].shape)), [a, 0])[1] += 1
+            return original(*a, **kw)
+
+        caches = init_lm_caches(cfg, B, max_len, dev)
+        _, nxt, caches = engine.prefill(prompts, caches)
+        ops.approx_gemm = wrapped
+        try:
+            if ctx == "prefill":
+                engine.prefill(prompts, init_lm_caches(cfg, B, max_len, dev))
+            else:
+                engine.step(nxt, caches)
+            torch.cuda.synchronize()
+        finally:
+            ops.approx_gemm = original
+        total = bound = 0.0
+        n_all = 0
+        for (sa, sb), (a, n) in sorted(shapes.items()):
+            t = queued_ms(lambda: original(*a), reps=3)
+            nbytes, lookups = gemm_costs(*a[:3])
+            tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+            total, bound, n_all = total + n * t, bound + n * tb, n_all + n
+            print(f"  {ctx}: approx_gemm {sa}x{sb} x {n}: {t:.4f} ms each, bound {tb:.4f} ms "
+                  f"({bound_kind(nbytes, lookups, lookups_per_s)}); {gemm_plan_text(*a[:3])}")
+        print(f"  {ctx}: approx_gemm {total:.2f} ms on device over {n_all} launches, bound "
+              f"{bound:.2f} ms")
+    del model, engine, caches
+    torch.cuda.empty_cache()
+
+
+def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
+    """Phase 8: 8a-8c; 8c prints each full-depth run's launches on a line of
+    its own.  Returns each kernel's largest |difference| in 8a."""
+    import dataclasses
+    err = ssm_kernel_checks(dev, lut_case, lookups_per_s)
+    phase_done("8a SSM kernels vs plain")
+    for arch in SSM_ARCHS:
+        cfg = ssm_cfg(arch, 2)
+        label = f"{arch} depth 2" + (", shared block after layer 2" if cfg.attn_every else "")
+        ssm_serving_depth2(dev, cfg, label)
+        if cfg.attn_every:
+            ssm_serving_depth2(dev, ssm_cfg(arch, 2, sliding_window=SSM_DEPTH2["window"]),
+                               f"{label}, window {SSM_DEPTH2['window']}")
+        chunk = SSM_DEPTH2["chunk"]
+        ssm_train_depth2(dev, ssm_cfg(arch, 2, ssm=dataclasses.replace(cfg.ssm, chunk=chunk)),
+                         f"{label}, chunk {chunk}")
+    phase_done("8b SSM serving and training, depth 2")
+    for arch in SSM_ARCHS:
+        ssm_serving_full(dev, arch, lookups_per_s, smi_line)
+        run = train_full(dev, arch, lookups_per_s, smi_line, shape=SSM_TRAIN,
+                         capture=("approx_gemm_batched",))
+        print(f"launches on the {arch} training run (8c, {SSM_TRAIN['steps']} steps at "
+              f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq']}): {run}")
+    phase_done("8c SSM serving and training, full depth")
+    return err
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 7": phases 1, 2 and 7 alone, without the result lines.
-    only7 = argv == ["--phase", "7"]
-    if argv and not only7:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7)", file=sys.stderr)
+    # "--phase 7" / "--phase 8": phases 1, 2 and that one alone, without the
+    # result lines.
+    only = argv[1] if argv in (["--phase", "7"], ["--phase", "8"]) else None
+    if argv and only is None:
+        print(f"chip_smoke: unknown arguments {argv} (none, --phase 7 or --phase 8)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_models import VISION_REGISTRY
@@ -2706,8 +3191,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
     phase_done("2 build")
-    if only7:
+    if only == "7":
         continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+    if only == "8":
+        ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
 
@@ -3119,7 +3607,7 @@ def main(argv=None) -> int:
     # ------------------------------------------------- 5e. LM training
     train_launches = lm_training(dev, lookups_per_s, smi_line)
     for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_moe_ffn"):
-        require(any(want[kname] for want in train_launches.values()),
+        require(any(run[kname] for run in train_launches.values()),
                 f"{kname} never launched on the LM training path")
     phase_done("5e LM training")
 
@@ -3128,6 +3616,12 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------- 7. continuous batching
     continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+
+    # ---------------------------------------------- 8. the SSM families
+    ssm_err = ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    for row in rows_out:
+        if row["name"] in ssm_err:
+            row["max_abs_err"] = max(row["max_abs_err"], ssm_err[row["name"]])
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

@@ -2,9 +2,10 @@
 
 The port's twin of ``repro.configs.base``: a frozen ``ArchConfig`` per
 architecture, registered by name (``get_arch``), and ``reduced`` for the
-smoke-test shape the JAX package's tests use.  The dense and MoE families
-are ported (MoE with an MoE FFN in every layer and no shared expert);
-SSM, hybrid and encoder-decoder fields come with their slices.
+smoke-test shape the JAX package's tests use.  The dense, MoE (an MoE FFN
+in every layer, no shared expert), SSM (Mamba2) and hybrid (Mamba2 with a
+weight-shared attention block) families are ported; encoder-decoder and
+frontend fields come with their slices.
 """
 from __future__ import annotations
 
@@ -30,18 +31,30 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int                 # N
+    head_dim: int = 64           # p
+    expand: int = 2              # d_inner = expand * d_model
+    conv_kernel: int = 4
+    n_groups: int = 1
+    chunk: int = 256             # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe
+    family: str                  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
-    n_heads: int
+    n_heads: int                 # 0 for attention-free
     n_kv_heads: int
     d_ff: int
     vocab: int
     d_head: int = 0              # 0 -> d_model // n_heads
     qkv_bias: bool = False
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0          # hybrid: the shared attention block after every k-th layer
     sliding_window: int = 0      # 0 = full attention
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -55,11 +68,16 @@ class ArchConfig:
                                   # kernels read float32 views of it)
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe"):
-            raise NotImplementedError(f"only the dense and moe families are ported, not "
-                                      f"{self.family!r}")
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise NotImplementedError(f"only the dense, moe, ssm and hybrid families are "
+                                      f"ported, not {self.family!r}")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family {self.family!r} and moe={self.moe!r} disagree")
+        if (self.family in ("ssm", "hybrid")) != (self.ssm is not None):
+            raise ValueError(f"family {self.family!r} and ssm={self.ssm!r} disagree")
+        if (self.family == "hybrid") != (self.attn_every > 0):
+            raise ValueError(f"family {self.family!r} and attn_every={self.attn_every} "
+                             f"disagree")
 
     @property
     def head_dim(self) -> int:
@@ -70,7 +88,7 @@ class ArchConfig:
 
 ARCH_REGISTRY: dict[str, ArchConfig] = {}
 # Modules that register an architecture when imported.
-_ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m")
+_ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m", "mamba2_780m", "zamba2_1_2b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -92,14 +110,19 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     base = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
-        n_heads=min(cfg.n_heads, 4),
-        n_kv_heads=min(cfg.n_kv_heads, 2),
-        d_ff=256,
+        n_heads=min(cfg.n_heads, 4) or 0,
+        n_kv_heads=min(cfg.n_kv_heads, 2) or 0,
+        d_ff=256 if cfg.d_ff else 0,
         vocab=512,
-        d_head=32,
+        d_head=32 if cfg.n_heads else 0,
     )
     if cfg.moe is not None:
         base["moe"] = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 8),
                                           top_k=min(cfg.moe.top_k, 2), d_ff=64)
+    if cfg.ssm is not None:
+        base["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=8)
+    if cfg.attn_every:
+        base["attn_every"] = 2
+        base["n_layers"] = 4
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -121,7 +121,7 @@ def _oracle_lut(mult: Multiplier, device: torch.device) -> torch.Tensor:
     return _lut_on(mult, device, False)
 
 
-def _exact_fp32():
+def exact_fp32():
     """The native baseline is exact float32: cuBLAS and cuDNN may not
     round operands to TF32 (cuDNN convolutions would by default)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,14 +149,14 @@ def _surrogate(a, b, mult: Multiplier):
     ma, mb = mult.operand_bits
     cut = (torch_round_mantissa if mult.pipeline is None and mult.name.startswith("bf16")
            else torch_truncate_mantissa)
-    _exact_fp32()
+    exact_fp32()
     return torch.matmul(cut(a, ma), cut(b, mb))
 
 
 def _gemm2d(a, b, leaf: NumericsPolicy):
     """(m, k) @ (k, n) -> (m, n) under a leaf policy's numerics."""
     if leaf.is_native:
-        _exact_fp32()
+        exact_fp32()
         return torch.matmul(a, b)
     if leaf.mode == "surrogate":
         return _surrogate(a, b, get_multiplier(leaf.multiplier))
@@ -184,7 +184,7 @@ def _matmul_nograd(a, b, leaf: NumericsPolicy):
         return _matmul_nograd(a.expand(*batch, *a.shape[-2:]),
                               b.expand(*batch, *b.shape[-2:]), leaf)
     if leaf.is_native:
-        _exact_fp32()
+        exact_fp32()
         return torch.matmul(a, b)
     if leaf.mode == "surrogate":
         return _surrogate(a, b, get_multiplier(leaf.multiplier))
@@ -298,7 +298,7 @@ def policy_einsum(spec: str, a, b, policy: Numerics, site: str | None = None):
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     if _all_passes_native(policy, site):
-        _exact_fp32()
+        exact_fp32()
         return torch.einsum(spec, a, b)
     sa, sb, out, batch, contract, afree, bfree, dims = _parse_einsum(spec, a.shape, b.shape)
     at = a.permute(*[sa.index(c) for c in batch + afree + contract])
@@ -337,7 +337,7 @@ def _nchw_padded(x, pads):
 def _conv_nograd(x, w, stride: int, pads, leaf: NumericsPolicy):
     """NHWC conv with explicit (top, bottom, left, right) pads under ``leaf``."""
     if leaf.is_native:
-        _exact_fp32()
+        exact_fp32()
         y = F.conv2d(_nchw_padded(x, pads), w.permute(3, 2, 0, 1), stride=stride)
         return y.permute(0, 2, 3, 1).contiguous()
     if conv_fused_enabled(leaf):
@@ -351,7 +351,7 @@ def _conv_dw(x, w_shape, g, stride: int, pads, leaf: NumericsPolicy):
     """Weight gradient (paper Fig. 8b) under ``leaf``."""
     kh, kw, c, o = w_shape
     if leaf.is_native:
-        _exact_fp32()
+        exact_fp32()
         dw = torch.nn.grad.conv2d_weight(_nchw_padded(x, pads), (o, c, kh, kw),
                                          g.permute(0, 3, 1, 2), stride=stride)
         return dw.permute(2, 3, 1, 0).contiguous()
@@ -394,7 +394,7 @@ def _conv_dx(x_shape, w, g, stride: int, pads, leaf: NumericsPolicy):
     the forward lowering on the operands of ``conv_dx_operands``."""
     n, h, wid, c = x_shape
     if leaf.is_native:
-        _exact_fp32()
+        exact_fp32()
         pt, pb, pl, pr = pads
         dxp = torch.nn.grad.conv2d_input((n, c, h + pt + pb, wid + pl + pr),
                                          w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2),

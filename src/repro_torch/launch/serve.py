@@ -35,7 +35,7 @@ import torch
 from repro_torch.configs.base import get_arch, reduced
 from repro_torch.core.policy import MODES, NumericsPolicy, load_numerics
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import check_paged, init_lm
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.scheduler import ContinuousBatchingEngine
 
@@ -123,7 +123,8 @@ def run_stream(args, model) -> tuple[ContinuousBatchingEngine, dict]:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense) or granite-moe-3b-a800m (MoE)")
+                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
+                         "or zamba2-1.2b (hybrid; --stream takes dense and MoE only)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--n-layers", type=int, default=None,
@@ -161,6 +162,11 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if args.stream:
+        try:
+            check_paged(cfg)
+        except NotImplementedError as e:
+            raise SystemExit(f"--stream: {e}") from None
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = init_lm(cfg, generator=gen, device=device)
     if args.stream:

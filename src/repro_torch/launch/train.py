@@ -3,11 +3,15 @@
     python -m repro_torch.launch.train --arch granite-3-2b --steps 3 --batch 4 \
         --seq 64 --numerics amsim --multiplier afm16            # on the card
     python -m repro_torch.launch.train --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --arch mamba2-780m --steps 3 --batch 4 \
+        --seq 256 --numerics amsim --multiplier afm16           # SSD chunks of 256
 
 Full width by default (``--reduced``: the smoke-test widths of
 ``configs.base.reduced``); weights drawn from ``--seed``, batches from
-``data.pipeline.lm_batch``.  The optimizer is the config's
-(``cfg.optimizer``: adamw for the granite configs) over
+``data.pipeline.lm_batch``.  The SSM and hybrid archs (mamba2-780m,
+zamba2-1.2b) scan whole SSD chunks: ``--seq`` must be a multiple of the
+config's chunk (256; 8 under ``--reduced``).  The optimizer is the
+config's (``cfg.optimizer``: adamw for every ported config) over
 ``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
 (checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
 report and the metrics every steps/10.
@@ -45,6 +49,14 @@ def make_lm_train_step(cfg: ArchConfig, policy: Numerics, *, lr: float, steps: i
     step = make_train_step(lambda model, batch: lm_loss(model, batch, policy), opt,
                            microbatches=microbatches)
     return opt, step
+
+
+def check_seq(cfg: ArchConfig, seq: int):
+    """Exit before any work unless ``seq`` fits the arch: the SSD scan of an
+    SSM or hybrid stack takes whole chunks of ``cfg.ssm.chunk`` steps."""
+    if cfg.ssm is not None and seq % cfg.ssm.chunk:
+        raise SystemExit(f"--seq {seq} is not a multiple of {cfg.name}'s SSD chunk "
+                         f"{cfg.ssm.chunk}: the chunked scan takes whole chunks")
 
 
 def _kernels_on(device: torch.device) -> str:
@@ -95,7 +107,8 @@ def policy_from_args(args) -> Numerics:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="LM training on one device")
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense) or granite-moe-3b-a800m (MoE)")
+                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
+                         "or zamba2-1.2b (hybrid)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--steps", type=int, default=100)
@@ -119,10 +132,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    check_seq(cfg, args.seq)
+    device = resolve_device(args.device)
     policy = policy_from_args(args)
     print(describe_numerics(policy, device))
 

@@ -1,16 +1,20 @@
-"""Decoder-only LM, dense and MoE families: the port of
+"""Decoder-only LM, dense, MoE, SSM and hybrid families: the port of
 ``repro.models.transformer``.
 
-Every GEMM (projections, attention score/value, FFN, router, experts, LM
-head) routes through the NumericsPolicy.  The stack is a plain loop over
-layers (the JAX package scans over stacked layer parameters).  A
-single-token decode step of a block under one ``amsim`` or ``amsim_torch``
-leaf runs as the decode chain (``_dense_block_fused_decode``): the CUDA
-chain kernels, or their plain versions, in the same structure, so the two
-modes decode bit for bit alike.  ``lm_forward(..., train=True)`` runs with
-grad enabled (each block under ``torch.utils.checkpoint`` when
-``cfg.remat``) and ``lm_loss`` is the training loss: token cross-entropy
-plus the MoE load-balance loss, which every block hands up the stack.
+Every GEMM (projections, attention score/value, FFN, router, experts, the
+SSD einsums, LM head) routes through the NumericsPolicy.  The stack is a
+plain loop over layers (the JAX package scans over stacked layer
+parameters).  The hybrid (zamba2) runs its Mamba2 layers with one
+weight-shared dense block after every ``cfg.attn_every``-th layer, each
+application with its own KV cache.  A single-token decode step of a
+dense block under one ``amsim`` or ``amsim_torch`` leaf runs as the decode
+chain (``_dense_block_fused_decode``): the CUDA chain kernels, or their
+plain versions, in the same structure, so the two modes decode bit for
+bit alike.  ``lm_forward(..., train=True)`` runs with grad enabled (each
+block of a dense, MoE or SSM stack under ``torch.utils.checkpoint`` when
+``cfg.remat``; the hybrid stack without, as in JAX) and ``lm_loss`` is the
+training loss: token cross-entropy plus the MoE load-balance loss, which
+every block hands up the stack.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from .attention import attention, cache_dtype, init_attention, init_cache
 from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm, unembed
 from .mlp import ffn, init_ffn
 from .moe import init_moe, moe_ffn
+from .ssm import SSMLayer, init_mamba2, init_ssm_cache, mamba2, mamba2_shapes
 
 
 def _linears(tree: dict) -> nn.ModuleDict:
@@ -50,47 +55,63 @@ class DenseLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """A dense or MoE decoder-only LM built from a JAX-layout tree of
-    tensors (``init_tree``, or ``convert.lm_params_from_jax``); parameter
-    names follow the JAX pytree with layers unstacked
-    (``layers.<i>.attn.wq.w``, ``layers.<i>.moe.experts.wg.w``)."""
+    """A decoder-only LM built from a JAX-layout tree of tensors
+    (``init_tree``, or ``convert.lm_params_from_jax``); parameter names
+    follow the JAX pytree with layers unstacked (``layers.<i>.attn.wq.w``,
+    ``layers.<i>.moe.experts.wg.w``, ``layers.<i>.mamba.conv_w``); the
+    hybrid's shared block is ``shared_attn``, one ``DenseLayer``."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
         self.embed = Embedding(**tree["embed"])
         self.final_norm = Norm(**tree["final_norm"])
-        self.layers = nn.ModuleList(DenseLayer(**lp) for lp in tree["layers"])
+        layer = SSMLayer if cfg.ssm is not None else DenseLayer
+        self.layers = nn.ModuleList(layer(**lp) for lp in tree["layers"])
         self.head = None if cfg.tie_embeddings else Linear(**tree["head"])
+        self.shared_attn = DenseLayer(**tree["shared_attn"]) if cfg.attn_every else None
 
 
-def lm_param_shapes(cfg: ArchConfig) -> dict:
-    """{dotted name: shape} of the JAX-layout tree of ``cfg``, layers
-    unstacked, computed without allocating it."""
+def _dense_layer_shapes(cfg: ArchConfig, pre: str) -> dict:
+    """{dotted name: shape} of one dense or MoE layer under prefix ``pre``."""
     d, dh, F = cfg.d_model, cfg.head_dim, cfg.d_ff
     hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
-    shapes = {"embed.emb": (cfg.vocab, d), "final_norm.g": (d,)}
-    if not cfg.tie_embeddings:
-        shapes["head.w"] = (d, cfg.vocab)
     ffn_names = ("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")
     if cfg.moe is None:
         ffn, ffn_dims = "ffn", {"wg": (d, F), "wu": (d, F), "wd": (F, d)}
     else:
         E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
         ffn, ffn_dims = "moe.experts", {"wg": (E, d, Fe), "wu": (E, d, Fe), "wd": (E, Fe, d)}
+    shapes = {}
+    for name, shape in (("wq", (d, hq)), ("wk", (d, hkv)), ("wv", (d, hkv)), ("wo", (hq, d))):
+        shapes[f"{pre}attn.{name}.w"] = shape
+        if cfg.qkv_bias and name != "wo":
+            shapes[f"{pre}attn.{name}.b"] = (shape[1],)
+    shapes[f"{pre}n1.g"] = (d,)
+    shapes[f"{pre}n2.g"] = (d,)
+    if cfg.moe is not None:
+        shapes[f"{pre}moe.router.w"] = (d, E)
+    for name in ffn_names:
+        shapes[f"{pre}{ffn}.{name}.w"] = ffn_dims[name]
+    return shapes
+
+
+def lm_param_shapes(cfg: ArchConfig) -> dict:
+    """{dotted name: shape} of the JAX-layout tree of ``cfg``, layers
+    unstacked, computed without allocating it."""
+    d = cfg.d_model
+    shapes = {"embed.emb": (cfg.vocab, d), "final_norm.g": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["head.w"] = (d, cfg.vocab)
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
-        for name, shape in (("wq", (d, hq)), ("wk", (d, hkv)), ("wv", (d, hkv)),
-                            ("wo", (hq, d))):
-            shapes[f"{pre}attn.{name}.w"] = shape
-            if cfg.qkv_bias and name != "wo":
-                shapes[f"{pre}attn.{name}.b"] = (shape[1],)
-        shapes[f"{pre}n1.g"] = (d,)
-        shapes[f"{pre}n2.g"] = (d,)
-        if cfg.moe is not None:
-            shapes[f"{pre}moe.router.w"] = (d, E)
-        for name in ffn_names:
-            shapes[f"{pre}{ffn}.{name}.w"] = ffn_dims[name]
+        if cfg.ssm is None:
+            shapes.update(_dense_layer_shapes(cfg, pre))
+        else:
+            shapes.update({f"{pre}mamba.{k}": v for k, v in mamba2_shapes(cfg).items()})
+            shapes[f"{pre}n1.g"] = (d,)
+    if cfg.attn_every:
+        shapes.update(_dense_layer_shapes(cfg, "shared_attn."))
     return shapes
 
 
@@ -109,7 +130,7 @@ def lm_stacks(cfg: ArchConfig) -> dict:
 def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """JAX-layout parameters on the generator's device, with the JAX
     package's scales: N(0, 1/d_in) weights, N(0, 0.02^2) embeddings, unit
-    norm scales."""
+    norm scales, and the Mamba2 constants of ``ssm.init_mamba2``."""
     g, dev = generator, generator.device
     ones = lambda: {"g": torch.ones((cfg.d_model,), device=dev)}  # noqa: E731
     tree = {"embed": {"emb": torch.randn((cfg.vocab, cfg.d_model), generator=g, device=dev)
@@ -117,14 +138,22 @@ def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
             "final_norm": ones()}
     if not cfg.tie_embeddings:
         tree["head"] = init_linear(cfg.d_model, cfg.vocab, generator=g)
-    tree["layers"] = []
-    for _ in range(cfg.n_layers):
+
+    def dense_layer():
         layer = {"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones()}
         if cfg.moe is None:
             layer["ffn"] = init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)
         else:
             layer["moe"] = init_moe(cfg, generator=g)
-        tree["layers"].append(layer)
+        return layer
+
+    if cfg.ssm is None:
+        tree["layers"] = [dense_layer() for _ in range(cfg.n_layers)]
+    else:
+        tree["layers"] = [{"mamba": init_mamba2(cfg, generator=g), "n1": ones()}
+                          for _ in range(cfg.n_layers)]
+    if cfg.attn_every:
+        tree["shared_attn"] = dense_layer()
     return tree
 
 
@@ -219,6 +248,34 @@ def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cach
     return x + y, cache, aux
 
 
+def _ssm_block(p: SSMLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache, window: int = 0):
+    """One Mamba2 layer: (x, cache, aux 0).  ``window`` is not read (the
+    signature of ``_dense_block``).  Its norms take ``layers.rmsnorm``
+    (JAX's order) in every forward: the chain-order norm belongs to the
+    dense blocks that decode through the chain."""
+    y, cache = mamba2(p.mamba, rmsnorm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache)
+    return x + y, cache, 0.0
+
+
+def _hybrid_stack(model: LM, x, policy: NumericsPolicy, caches, window: int):
+    """zamba2: the Mamba2 layers in order, the shared block after every
+    ``attn_every``-th one (the same weights each time, its own cache each
+    time); no remat, as in JAX.  caches: (Mamba2 caches, attention caches)
+    or None."""
+    cfg = model.cfg
+    mcaches, acaches = caches if caches is not None else (None, None)
+    new_m, new_a, aux = [], [], 0.0
+    for i, layer in enumerate(model.layers):
+        x, cache, _ = _ssm_block(layer, x, cfg, policy, None if mcaches is None else mcaches[i])
+        new_m.append(cache)
+        if (i + 1) % cfg.attn_every == 0:
+            cache = None if acaches is None else acaches[len(new_a)]
+            x, cache, a = _dense_block(model.shared_attn, x, cfg, policy, cache, window)
+            new_a.append(cache)
+            aux = aux + a
+    return x, (None if caches is None else (new_m, new_a)), aux
+
+
 # ---------------------------------------------------------------- forward
 def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, caches=None,
                window: int | None = None, train: bool = False):
@@ -228,29 +285,36 @@ def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, cache
     (``init_lm_caches``) are updated in place.  ``train=True`` runs with
     grad, each block under ``torch.utils.checkpoint`` when ``cfg.remat``
     (its activations recomputed in the backward: the same bits, fewer
-    held).  ``window`` None means the architecture's own sliding window
-    (0 = off).  aux sums the blocks' MoE load-balance losses."""
+    held; the hybrid stack never, as in JAX).  ``window`` None means the
+    architecture's own sliding window (0 = off).  aux sums the blocks' MoE
+    load-balance losses.  The final norm takes the chain's order where the
+    stack has dense blocks (``_block_norm``), JAX's in an SSM stack."""
     cfg = model.cfg
     window = cfg.sliding_window if window is None else window
     with torch.set_grad_enabled(train):
         x = embed(model.embed, tokens)
-        aux = 0.0
-        new_caches = []
-        for i, layer in enumerate(model.layers):
-            cache = None if caches is None else caches[i]
-            if train and cfg.remat and cache is None:
-                x, cache, a = checkpoint(_dense_block, layer, x, cfg, policy, None, window,
-                                         use_reentrant=False)
-            else:
-                x, cache, a = _dense_block(layer, x, cfg, policy, cache, window)
-            aux = aux + a
-            new_caches.append(cache)
-        x = _block_norm(policy, caches)(model.final_norm, x, cfg.norm_eps)
+        if cfg.family == "hybrid":
+            x, new_caches, aux = _hybrid_stack(model, x, policy, caches, window)
+        else:
+            block = _ssm_block if cfg.family == "ssm" else _dense_block
+            aux = 0.0
+            new_caches = []
+            for i, layer in enumerate(model.layers):
+                cache = None if caches is None else caches[i]
+                if train and cfg.remat and cache is None:
+                    x, cache, a = checkpoint(block, layer, x, cfg, policy, None, window,
+                                             use_reentrant=False)
+                else:
+                    x, cache, a = block(layer, x, cfg, policy, cache, window)
+                aux = aux + a
+                new_caches.append(cache)
+        norm = rmsnorm if cfg.family == "ssm" else _block_norm(policy, caches)
+        x = norm(model.final_norm, x, cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = unembed(model.embed, x, policy)
         else:
             logits = linear(model.head, x, policy, site="head")
-    if not isinstance(aux, torch.Tensor):   # a dense stack: no block had an aux loss
+    if not isinstance(aux, torch.Tensor):   # no MoE block: no aux loss
         aux = logits.new_zeros((), dtype=torch.float32)
     return logits, (new_caches if caches is not None else None), aux
 
@@ -272,9 +336,30 @@ def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 
     return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
-def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> list:
-    """One ring cache per layer (the layout ``lm_forward`` takes)."""
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device):
+    """The decode caches of the whole stack (the layout ``lm_forward``
+    takes): a ring cache a layer (dense, MoE); a Mamba2 state a layer
+    (SSM); for the hybrid (Mamba2 states a layer, a ring of min(max_len,
+    sliding window) slots for each application of the shared block)."""
+    if cfg.family == "ssm":
+        return [init_ssm_cache(cfg, batch, device) for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        ring = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        return ([init_ssm_cache(cfg, batch, device) for _ in range(cfg.n_layers)],
+                [init_cache(cfg, batch, ring, device)
+                 for _ in range(cfg.n_layers // cfg.attn_every)])
     return [init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers)]
+
+
+def check_paged(cfg: ArchConfig):
+    """Raise unless paged serving caches cover ``cfg``'s family (JAX
+    ``init_paged_lm_caches``): dense and MoE stacks, whose decode state is
+    attention KV; an SSM or hybrid state is O(1) a slot and needs no
+    paging."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged serving caches support dense/moe(interleave=1) stacks; {cfg.name} is "
+            f"family {cfg.family!r}")
 
 
 def init_paged_lm_caches(cfg: ArchConfig, n_pages: int, page_size: int, device) -> list:
@@ -283,8 +368,9 @@ def init_paged_lm_caches(cfg: ArchConfig, n_pages: int, page_size: int, device) 
     ``cfg.cache_dtype``; page 0 is the trash page (JAX
     ``init_paged_lm_caches``).  The page table, the resident lengths and
     the liveness are host control that the scheduler merges into each
-    layer's dict for a step (``serve/scheduler.py``).  The dense and MoE
-    families (an MoE FFN in every layer) are the ported ones."""
+    layer's dict for a step (``serve/scheduler.py``).  Refuses the SSM and
+    hybrid families (``check_paged``)."""
+    check_paged(cfg)
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     dt = cache_dtype(cfg)
     return [{"pool_k": torch.zeros(shape, dtype=dt, device=device),

@@ -4,6 +4,8 @@ numerics: the twin of ``examples/serve_lm.py``.
     python -m repro_torch.serve --new-tokens 24                 # on the card
     python -m repro_torch.serve --numerics native
     python -m repro_torch.serve --arch granite-moe-3b-a800m     # MoE, 40 experts
+    python -m repro_torch.serve --arch mamba2-780m              # SSM (Mamba2)
+    python -m repro_torch.serve --arch zamba2-1.2b              # hybrid
     python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
     python -m repro_torch.serve --numerics table.json           # per-site numerics
 
@@ -13,6 +15,8 @@ takes a mode or a policy-table JSON (docs/policies.md): the fused decode
 chain runs when every chain site (qkv, wo, wg, wu, wd and both attention
 sites) resolves to one ``amsim`` or ``amsim_torch`` leaf, whatever the
 router and the head run; a table that splits them runs the per-op path.
+The chain runs the dense blocks (the hybrid's shared block); a Mamba2
+layer decodes by its recurrence.
 Prints which, tokens/s, the prefill time and the time per decode step.
 """
 import argparse
@@ -32,7 +36,8 @@ from repro_torch.serve.engine import ServingEngine
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense) or granite-moe-3b-a800m (MoE)")
+                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
+                         "or zamba2-1.2b (hybrid)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=24)

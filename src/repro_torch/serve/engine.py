@@ -5,7 +5,10 @@ The port of ``repro.serve.engine`` (single device).  ``make_prefill`` and
 ``ServingEngine`` drives batched greedy generation on top of them
 (``python -m repro_torch.serve``).  Under an ``amsim`` policy the prefill
 runs the GEMM and attention kernels and every decode step the decode
-chain (``models/transformer.py``); the caches are updated in place.
+chain (``models/transformer.py``); the caches are updated in place.  The
+caches are the family's (``init_lm_caches``): ring KV caches, Mamba2
+states (SSM), or both (hybrid, whose rings hold min(max_len, sliding
+window) slots).
 """
 from __future__ import annotations
 

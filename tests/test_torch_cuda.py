@@ -27,7 +27,7 @@ from repro_torch.kernels.common import (LANES, POS_PAD, lane_sum, lut_in_smem,  
 from repro_torch.launch.train import make_lm_train_step  # noqa: E402
 from repro_torch.models import moe, vision  # noqa: E402
 from repro_torch.models.layers import Linear  # noqa: E402
-from repro_torch.models.transformer import init_lm, lm_loss  # noqa: E402
+from repro_torch.models.transformer import init_lm, init_lm_caches, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.optim.optimizers import sgdm  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
@@ -1639,3 +1639,143 @@ def test_faulted_vision_point_bitwise_amsim_vs_amsim_torch(cuda):
     finally:
         torch.use_deterministic_algorithms(False)
     assert a["losses"] == b["losses"] and a["test_acc"] == b["test_acc"]
+
+
+# --------------------------------------------------------------- SSM families
+# The GEMM kernel at the SSM paths' new widths: mamba2-780m's in_proj (1536
+# -> 6448) and out_proj (3072 -> 1536), zamba2-1.2b's (2048 -> 8384, 4096 ->
+# 2048), at a prefill's 4 x 64 rows and a decode step's 4; the tied head
+# over vocab 50280 and zamba2's over 32000 at 4 rows.
+SSM_GEMM_SHAPES = [(256, 1536, 6448), (4, 1536, 6448), (256, 3072, 1536), (256, 2048, 8384),
+                   (4, 2048, 8384), (256, 4096, 2048), (4, 1536, 50280), (4, 2048, 32000)]
+# The SSD products of a 1 x 256 chunk, (batch, m, k, n): scores, intra-chunk
+# values (a batch a head), chunk states and inter-chunk output, mamba2 (48
+# heads of 64, N 128) then zamba2 (64 heads, N 64).
+SSM_BATCHED_SHAPES = [(1, 256, 128, 256), (48, 256, 256, 64), (1, 128, 256, 3072),
+                      (1, 256, 128, 3072), (64, 256, 256, 64), (1, 64, 256, 4096),
+                      (1, 256, 64, 4096)]
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("m,k,n", SSM_GEMM_SHAPES)
+def test_gemm_kernel_bitwise_vs_plain_at_ssm_shapes(cuda, name, packed, m, k, n, rng):
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (m, k), cuda), _randn(rng, (k, n), cuda) * k ** -0.5
+    out = approx_gemm.approx_gemm(a, b, lut, M)
+    ref = approx_gemm.approx_gemm_plain(a, b, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("B,m,k,n", SSM_BATCHED_SHAPES)
+def test_batched_gemm_kernel_bitwise_vs_plain_at_ssd_shapes(cuda, name, packed, B, m, k, n,
+                                                           rng):
+    lut, M = _lut(name, packed, cuda)
+    a, b = _randn(rng, (B, m, k), cuda), _randn(rng, (B, k, n), cuda) * k ** -0.5
+    out = approx_gemm.approx_gemm_batched(a, b, lut, M)
+    ref = approx_gemm.approx_gemm_batched_plain(a, b, lut, M)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# zamba2's shared attention: 32 heads over 32 kv heads (G = 1), dh 64: a
+# prefill of 2 x 16 into a ring of 24, the same prefill into a ring of 8
+# (its window cut to 8: the early rows see no valid key), and a decode step
+# over the wrapped ring of 8 and over 96 slots.
+SSM_ATTN_CASES = [
+    (2, 16, 32, 32, 64, 24, range(16), _ring(24, 16), True, 4096),
+    (2, 16, 32, 32, 64, 8, range(16), _ring(8, 16), True, 8),
+    (2, 1, 32, 32, 64, 8, [20], _ring(8, 21), True, 8),
+    (4, 1, 32, 32, 64, 96, [70], _ring(96, 71), True, 4096),
+]
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+@pytest.mark.parametrize("case", range(len(SSM_ATTN_CASES)))
+def test_attention_kernel_bitwise_vs_plain_with_one_head_a_group(cuda, name, packed, case, rng):
+    lut, M = _lut(name, packed, cuda)
+    args, kw = _attention_inputs(SSM_ATTN_CASES[case], rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", FULL_LUTS)
+def test_chain_kernels_bitwise_vs_plain_at_zamba2_widths(cuda, name, packed, rng):
+    """zamba2-1.2b's shared block at 4 rows: qkv with k/v 2048 wide, then
+    attention (G = 1) and the back half in one launch over a ring of 96."""
+    lut, M = _lut(name, packed, cuda)
+    case = (4, 2048, 32, 32, 64, 8192)
+    o = _chain_inputs(case, rng, cuda)
+    qkv = (o["x"], o["g"], o["wq"], o["wk"], o["wv"])
+    out = decode_chain.fused_qkv_norm(*qkv, lut, M, eps=1e-5)
+    ref = decode_chain.fused_qkv_norm_plain(*qkv, lut, M, eps=1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, ref))
+    _attn_out_mlp_bitwise(case, 96, 71, 4096, lut, M, rng, cuda)
+
+
+def _ssm_depth2(arch, **changes):
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, **changes)
+    return dataclasses.replace(cfg, attn_every=2) if cfg.attn_every else cfg
+
+
+@pytest.mark.parametrize("arch,window", [("mamba2-780m", None), ("zamba2-1.2b", None),
+                                         ("zamba2-1.2b", 8)])
+def test_ssm_serving_runs_through_the_kernels_bitwise(cuda, arch, window):
+    """Depth 2 at full width (zamba2's shared block after layer 2; with its
+    window cut to 8 the ring wraps in the prefill): prefill and decode
+    logits and tokens under ``amsim`` bitwise ``amsim_torch``; a decode
+    step launches 2 GEMMs a Mamba2 layer and the head, and the shared
+    block's qkv and attention+out-mlp."""
+    cfg = _ssm_depth2(arch, **({} if window is None else {"sliding_window": window}))
+    model = init_lm(cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(0))
+    counters = {"gemm": approx_gemm.approx_gemm, "qkv": decode_chain.fused_qkv_norm,
+                "attn_out_mlp": decode_chain.fused_attn_out_mlp}
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            engine = ServingEngine(model, NumericsPolicy(mode=mode, multiplier="afm16"),
+                                   max_len=16)
+            _, nxt, caches = engine.prefill(prompts.to(cuda), init_lm_caches(cfg, 2, 16, cuda))
+            for fn in counters.values():
+                fn.launches = 0
+            logits, _, _ = engine.step(nxt, caches)
+            launched = {k: fn.launches for k, fn in counters.items()}
+            runs[mode] = (engine.generate(prompts, 4, return_logits=True), logits, launched)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ((toks, kept), step_logits, launched), ((r_toks, r_kept), r_step, r_launched) = (
+        runs["amsim"], runs["amsim_torch"])
+    A = 1 if cfg.attn_every else 0
+    assert launched == {"gemm": 2 * cfg.n_layers + 1, "qkv": A, "attn_out_mlp": A}
+    assert r_launched == {"gemm": 0, "qkv": 0, "attn_out_mlp": 0}
+    assert torch.equal(toks, r_toks)
+    for a, b in ((kept, r_kept), (step_logits, r_step)):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a.view(torch.int32),
+                                                             b.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_train_steps_run_through_the_kernels_bitwise(cuda, arch):
+    """Two adamw steps of the reduced SSM LM (chunk 8, 2 chunks a row)
+    under ``amsim``: the SSD products through the batched kernel, losses,
+    parameters and the next gradient bitwise ``amsim_torch``."""
+    cfg = reduced(get_arch(arch))
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {mode: _lm_train(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), cuda)
+                for mode in ("amsim", "amsim_torch")}
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (losses, launches, model, grads), (r_losses, r_launches, ref, r_grads) = (
+        runs["amsim"], runs["amsim_torch"])
+    assert all(n["approx_gemm_batched"] > 0 and n["approx_gemm"] > 0 for n in launches)
+    assert r_launches == [{}, {}]
+    assert all(bool(torch.isfinite(v)) for v in losses)
+    for a, b in zip([*losses, *model.parameters(), *grads],
+                    [*r_losses, *ref.parameters(), *r_grads]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
