@@ -97,8 +97,8 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
 MoE serving (granite-moe-3b-a800m at full width,
 ``configs/granite_moe_3b_a800m.py``):
  3e. the batched GEMM kernel at the expert banks' shapes at a capacity of
-    512 (also with dead tail rows, an all-dead expert's B holding inf and
-    NaN) and a ragged shape, the router GEMM at 4 rows, and the wo+norm
+    512 under afm16 and of 64 under the other tables (also with dead tail
+    rows, an all-dead expert's B holding inf and NaN) and a ragged shape, the router GEMM at 4 rows, and the wo+norm
     and expert-bank chain kernels at 4 rows (with and without the wo bias;
     the wo+norm grid printed: ``decode_chain.wo_norm_grid``)
     and at capacities 8 and 64,
@@ -109,7 +109,7 @@ MoE serving (granite-moe-3b-a800m at full width,
     and -0.0 differ);
  4d. depth 2, batch 2, prompt 16, 8 new tokens, ring 64: prefill logits,
     every decode step's logits and the tokens under ``amsim`` bitwise equal
-    to ``amsim_torch``; then a prefill of 4 x 512 tokens (capacity 512: the
+    to ``amsim_torch``; then a prefill of 2 x 520 tokens (capacity 264: the
     expert FFN as three batched GEMMs), logits bitwise equal; the counters
     must read 5 GEMM (wq, wk, wv, wo, router), 1 attention and 1 expert-bank
     launch a layer plus 1 head GEMM for the short prefill, 5 GEMM, 1
@@ -240,8 +240,35 @@ weight-shared attention block; after 7d):
     beside their bounds, each bitwise its plain version.
 The launches of each of 8c's runs are printed on their own lines; the
 kernels line keeps the launches of the earlier paths.
-``python3 chip_smoke.py --phase 7`` (``--phase 8``) runs phases 1, 2 and 7
-(8) alone and prints no result lines.
+The encoder-decoder (``models/encdec.py``: whisper-base, its encoder and
+cross-attention bidirectional over 1500 frames; after 8c):
+ 9a. the kernels of its path at full width and depth 2, captured under
+    amsim/afm16 from ``encode`` (2 x 1500 frames), the decode of a 4-token
+    prompt and a decode step (``serve_step``), and the batched products and
+    attention of a training step at 1 x 64 -- each distinct shape again
+    under the tables of 3d against its plain version, bit for bit, with its
+    plan, grid and device time; the encoder attention timed under every
+    tile and table form; then the attention kernel at causal=False on
+    zeros, -0.0 and subnormals with inf and NaN in every unwritten key,
+    under every tile and table form, bit for bit;
+ 9b. depth 2 at full width: greedy decoding of 2 x 1500 frames, prompt 4,
+    8 new tokens under amsim and amsim_torch: the encoder states, every
+    step's logits and the tokens bitwise, the launches (an encoder layer 6
+    GEMMs + 1 attention, a decoder layer 10 GEMMs + 2 attentions each
+    decode, the head 1 GEMM); 2 adamw steps at 1 x 64 over 1500 frames
+    under both with deterministic algorithms: losses, parameters and the
+    next gradient bitwise, the launches a step;
+ 9c. full width and depth: greedy decoding at batch 4 over 1500 frames,
+    prompt 4, 32 new tokens under native and amsim (encode ms, prompt ms,
+    ms a decode step, tokens/s, idle shares, launches, the GEMM and
+    attention kernels' time at the encode's and a step's shapes beside
+    their bounds); then 3 adamw steps at 4 x 64 over 1500 frames with
+    remat: wall ms, busy ms, peak memory, launches a step, finite losses,
+    step 3's attention and batched shapes timed beside their bounds, each
+    bitwise its plain version.
+The launches of 9c's runs are printed on their own lines.
+``python3 chip_smoke.py --phase 7`` (``--phase 8``, ``--phase 9``) runs
+phases 1, 2 and 7 (8, 9) alone and prints no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -310,6 +337,12 @@ MOE_ARCH = "granite-moe-3b-a800m"
 MOE_DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, ring=64)
 MOE_FULL = dict(batch=4, prompt=64, new=32)
 MOE_LONG = dict(batch=4, prompt=512)
+# 4d's long prefill: the least tokens whose capacity (264) takes the batched
+# route, so that its plain version stays short.
+MOE_DEPTH2_LONG = dict(batch=2, prompt=520)
+# 3e holds the banks' batched products at a capacity of 512 under the first
+# table, and of 64 (the training backward's) under the others.
+MOE_CHECK_C = (512, 64)
 MOE_SOURCES = {
     "approx_gemm_batched": ("approx_gemm.cu", "src/repro/kernels/approx_gemm.py:72"),
     "fused_wo_norm": ("decode_chain.cu", "src/repro/kernels/decode_chain.py:646"),
@@ -1087,24 +1120,25 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
     dead_rows[1:, 2::4] = -0.0
     dead_rows[1:, 3::4] = tiny[3::4]
 
-    for lut_name, packed in SERVE_LUTS:
+    for i, (lut_name, packed) in enumerate(SERVE_LUTS):
         lut, M = lut_case(lut_name, packed)
         tag = f"{lut_name} {'packed' if packed else 'canonical'}"
-        for B, m, k, n in ((E, 512, d, F), (E, 512, F, d), (3, 67, 130, 33)):
+        C = MOE_CHECK_C[min(i, 1)]
+        for B, m, k, n in ((E, C, d, F), (E, C, F, d), (3, 67, 130, 33)):
             a, b = randn(B, m, k), randn(B, k, n, scale=k ** -0.5)
             held("approx_gemm_batched", gemm_mod.approx_gemm_batched(a, b, lut, M),
                  gemm_mod.approx_gemm_batched_plain(a, b, lut, M), f"{tag} {(B, m, k, n)}")
         # Dead tail rows as moe_ffn leaves them; expert 0 all dead, inf/NaN in its B.
-        a, b = randn(E, 512, d), randn(E, d, F, scale=d ** -0.5)
-        tail = torch.zeros((512, d), device=dev)
+        a, b = randn(E, C, d), randn(E, d, F, scale=d ** -0.5)
+        tail = torch.zeros((C, d), device=dev)
         tail[1::3], tail[2::3] = -0.0, tiny[0]
-        for e, n_live in enumerate(torch.randint(0, 512, (E,), generator=gen).tolist()):
+        for e, n_live in enumerate(torch.randint(0, C, (E,), generator=gen).tolist()):
             a[e, n_live:] = tail[n_live:]
         a[0] = tail
         b[0, ::3], b[0, 1::3], b[0, 2::3] = float("inf"), float("nan"), -float("inf")
         held("approx_gemm_batched", gemm_mod.approx_gemm_batched(a, b, lut, M),
              gemm_mod.approx_gemm_batched_plain(a, b, lut, M), f"{tag} dead tail rows")
-        print(f"{tag}: approx_gemm_batched {(E, 512, d, F)} with dead tail rows "
+        print(f"{tag}: approx_gemm_batched {(E, C, d, F)} with dead tail rows "
               f"{gemm_plan_text(a, b, lut)}")
         del a, b
         a, b = randn(4, d), randn(d, E, scale=d ** -0.5)
@@ -1135,7 +1169,7 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
              chain.fused_moe_ffn_plain(dead_rows, *bad, lut, M), f"{tag} dead rows")
         del bad
         print(f"MoE serving kernels == plain (bitwise): {tag} LUT at {MOE_ARCH} widths: batched "
-              f"GEMM ({E}, 512, {d})x({E}, {d}, {F}) (also with dead tail rows), ({E}, 512, "
+              f"GEMM ({E}, {C}, {d})x({E}, {d}, {F}) (also with dead tail rows), ({E}, {C}, "
               f"{F})x({E}, {F}, {d}) and (3, 67, 130)x(3, 130, 33), the router GEMM; wo+norm "
               f"at 4 rows with and without bo; expert banks at C=8, 64, "
               f"on the buffer moe_ffn scatters for a decode step of 4 tokens ({int(live.sum())} "
@@ -1161,19 +1195,23 @@ def routed_decode_buffer(dev, gen, cfg):
 
 def moe_serving_depth2(dev, moe_launches: dict):
     """Phase 4d: depth 2 at full width, amsim bitwise amsim_torch for a
-    short prefill and decode and for a 4 x 512 prefill, with launch counts."""
+    short prefill and decode and for a 2 x 520 prefill, with launch counts."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.models.transformer import init_lm, init_lm_caches
     from repro_torch.serve.engine import ServingEngine
     cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_DEPTH2["n_layers"])
+    require(moe_capacity(cfg, MOE_DEPTH2_LONG["batch"] * MOE_DEPTH2_LONG["prompt"])
+            > ops.MOE_FFN_MAX_C, f"4d: {MOE_DEPTH2_LONG} does not take the batched route")
     model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
     cpu_gen = torch.Generator().manual_seed(SEED)
     prompts = torch.randint(0, cfg.vocab, (MOE_DEPTH2["batch"], MOE_DEPTH2["prompt"]),
                             generator=cpu_gen).to(dev)
-    long_prompts = torch.randint(0, cfg.vocab, (MOE_LONG["batch"], MOE_LONG["prompt"]),
-                                 generator=cpu_gen).to(dev)
+    long_prompts = torch.randint(0, cfg.vocab, (MOE_DEPTH2_LONG["batch"],
+                                                MOE_DEPTH2_LONG["prompt"]), generator=cpu_gen).to(dev)
     counters = moe_counters()
     L, ring, steps = cfg.n_layers, MOE_DEPTH2["ring"], MOE_DEPTH2["new"] - 1
     want = moe_want(L, prefill=True, steps=steps)
@@ -1190,14 +1228,16 @@ def moe_serving_depth2(dev, moe_launches: dict):
             got = launches_of(counters)
             full, _, _ = engine.prefill(prompts, init_lm_caches(cfg, prompts.shape[0], ring, dev))
             zero_launches(counters)
-            long_logits, _, _ = ServingEngine(model, policy, max_len=MOE_LONG["prompt"]).prefill(
-                long_prompts, init_lm_caches(cfg, MOE_LONG["batch"], MOE_LONG["prompt"], dev))
+            long_logits, _, _ = ServingEngine(
+                model, policy, max_len=MOE_DEPTH2_LONG["prompt"]).prefill(
+                long_prompts, init_lm_caches(cfg, MOE_DEPTH2_LONG["batch"],
+                                             MOE_DEPTH2_LONG["prompt"], dev))
             torch.cuda.synchronize()
             got_long = launches_of(counters)
             results[mode] = (toks, logits, full, long_logits)
             if mode == "amsim":
                 require(got == want, f"{MOE_ARCH} depth-2 serving: launches {got}, want {want}")
-                require(got_long == want_long, f"{MOE_ARCH} depth-2 prefill of {MOE_LONG}: "
+                require(got_long == want_long, f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: "
                         f"launches {got_long}, want {want_long}")
                 for k in counters:
                     moe_launches[k] = moe_launches.get(k, 0) + got[k] + got_long[k]
@@ -1217,14 +1257,16 @@ def moe_serving_depth2(dev, moe_launches: dict):
     require(torch.equal(l_a, l_p) and torch.equal(t_a, t_p),
             f"{MOE_ARCH} depth-2 decode: amsim differs from amsim_torch (logits max|d| "
             f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
-    require(torch.equal(g_a, g_p), f"{MOE_ARCH} depth-2 prefill of {MOE_LONG}: amsim logits "
+    require(torch.equal(g_a, g_p), f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: amsim logits "
             f"differ from amsim_torch by {(g_a - g_p).abs().max().item()}")
     print(f"{MOE_ARCH} depth {L}, batch {MOE_DEPTH2['batch']}, prompt {MOE_DEPTH2['prompt']}, "
           f"{MOE_DEPTH2['new']} new tokens, ring {ring}: prefill logits (capacity 8), {steps} "
           f"decode steps' logits and tokens bitwise equal to amsim_torch; amsim launches "
           f"{launches[0]}; tokens {t_a[0].tolist()}")
-    print(f"{MOE_ARCH} depth {L}, prefill of {MOE_LONG['batch']} x {MOE_LONG['prompt']} tokens "
-          f"(capacity 512: the batched route): logits {tuple(g_a.shape)} bitwise equal to "
+    print(f"{MOE_ARCH} depth {L}, prefill of {MOE_DEPTH2_LONG['batch']} x "
+          f"{MOE_DEPTH2_LONG['prompt']} tokens (capacity "
+          f"{moe_capacity(cfg, MOE_DEPTH2_LONG['batch'] * MOE_DEPTH2_LONG['prompt'])}: the "
+          f"batched route): logits {tuple(g_a.shape)} bitwise equal to "
           f"amsim_torch; amsim launches {launches[1]}")
     del model, results
     torch.cuda.empty_cache()
@@ -1491,8 +1533,10 @@ def train_want(cfg) -> dict:
 def train_setup(cfg, policy, dev, seed=SEED):
     """(model, optimizer state, step) of ``launch.train``'s step builder."""
     from repro_torch.launch.train import make_lm_train_step
+    from repro_torch.models.encdec import init_encdec
     from repro_torch.models.transformer import init_lm
-    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    init = init_encdec if cfg.family == "encdec" else init_lm
+    model = init(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
     opt, step = make_lm_train_step(cfg, policy, lr=TRAIN_LR, steps=TRAIN_FULL["steps"])
     return model, opt.init(dict(model.named_parameters())), step
 
@@ -1502,8 +1546,10 @@ def train_fits(cfg) -> tuple[bool, str]:
     memory: parameters, gradients, two moments and the updates (a step's
     peak holds five copies; the clip briefly holds two of the gradients),
     plus 4 GB for activations, the logits and the allocator."""
+    from repro_torch.models.encdec import encdec_param_shapes
     from repro_torch.models.transformer import lm_param_shapes
-    param_bytes = 4 * sum(math.prod(s) for s in lm_param_shapes(cfg).values())
+    shapes = encdec_param_shapes if cfg.family == "encdec" else lm_param_shapes
+    param_bytes = 4 * sum(math.prod(s) for s in shapes(cfg).values())
     need = 5 * param_bytes + 4e9
     free = torch.cuda.mem_get_info()[0]
     return need <= free, (f"{param_bytes / 1e9:.2f} GB of parameters: ~{need / 1e9:.1f} GB "
@@ -1540,7 +1586,9 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, state, step = train_setup(cfg, policy, dev)
-    if cfg.ssm is None:
+    if cfg.family == "encdec":
+        counters, want = encdec_counters(), encdec_train_want(cfg, S)
+    elif cfg.ssm is None:
         counters, want = train_counters(), train_want(cfg)
     else:
         counters, want = ssm_counters(), ssm_train_want(cfg, S)
@@ -1594,10 +1642,10 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
             run[k] += n
         require(all(map(math.isfinite, (loss, float(metrics["grad_norm"])))),
                 f"{arch} training step {i + 1}: loss {loss}, grad norm {metrics['grad_norm']}")
+        aux = f", aux {float(metrics['aux']):.6f}" if "aux" in metrics else ""
         print(f"  step {i + 1}: {wall:.1f} ms wall, {start.elapsed_time(end):.1f} ms on device "
               f"(CUDA events over the step){'; ' + extra if extra else ''}; loss {loss:.6f}, xent "
-              f"{float(metrics['xent']):.6f}, aux {float(metrics['aux']):.6f}, grad norm "
-              f"{float(metrics['grad_norm']):.6f}")
+              f"{float(metrics['xent']):.6f}{aux}, grad norm {float(metrics['grad_norm']):.6f}")
     peak = torch.cuda.max_memory_allocated()
     print(f"  peak memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches a step "
           f"{ {k: v for k, v in want.items() if v} }")
@@ -1648,7 +1696,9 @@ def depth2_run(cfg, policy, dev, counters, shape=None):
     steps; default ``TRAIN_DEPTH2``): (losses, parameters after them, the
     gradient at the next batch, launches of each step, seconds)."""
     from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.encdec import encdec_loss
     from repro_torch.models.transformer import lm_loss
+    loss_fn = encdec_loss if cfg.family == "encdec" else lm_loss
     shape = TRAIN_DEPTH2 if shape is None else shape
     B, S, steps = shape["batch"], shape["seq"], shape["steps"]
     model, state, step = train_setup(cfg, policy, dev)
@@ -1659,7 +1709,7 @@ def depth2_run(cfg, policy, dev, counters, shape=None):
         state, metrics = step(model, state, lm_batch(cfg, (B, S), i, dev))
         losses.append(metrics["loss"])
         launches.append(launches_of(counters))
-    loss, _ = lm_loss(model, lm_batch(cfg, (B, S), steps, dev), policy)
+    loss, _ = loss_fn(model, lm_batch(cfg, (B, S), steps, dev), policy)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     torch.cuda.synchronize()
     return (losses, [p.detach() for p in model.parameters()], grads, launches,
@@ -2165,16 +2215,16 @@ def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
 # 7c's stream: 32 requests, prompts of 32-256 tokens, 32 new tokens each,
 # tiers exact=native and cheap=amsim:afm16 in turn, 8 slots a lane, pages
 # of 16, one arrival a tick; 7d: granite-moe, 8 requests of 16 new tokens,
-# one amsim tier.  7b: depth 2, prompts of 4-40 tokens (a table of 4 pages:
-# Tcap 64, the chain's 2-launch form).
+# one amsim tier.  7b: depth 2, 6 requests, prompts of 4-40 tokens, 6 new
+# tokens (a table of 3 pages: Tcap 48, the chain's 2-launch form).
 STREAM = ["--stream", "32", "--min-prompt-len", "32", "--prompt-len", "256", "--new-tokens",
           "32", "--tiers", "exact=native,cheap=amsim:afm16", "--capacity", "8", "--page-size",
           "16", "--arrival-every", "1", "--seed", str(SEED)]
 MOE_STREAM = ["--arch", MOE_ARCH, "--stream", "8", "--min-prompt-len", "32", "--prompt-len",
               "256", "--new-tokens", "16", "--tiers", "cheap=amsim:afm16", "--capacity", "8",
               "--page-size", "16", "--seed", str(SEED)]
-STREAM_DEPTH2 = ["--n-layers", "2", "--stream", "8", "--min-prompt-len", "4", "--prompt-len",
-                 "40", "--new-tokens", "8", "--tiers", "exact=native,cheap=amsim:afm16",
+STREAM_DEPTH2 = ["--n-layers", "2", "--stream", "6", "--min-prompt-len", "4", "--prompt-len",
+                 "40", "--new-tokens", "6", "--tiers", "exact=native,cheap=amsim:afm16",
                  "--capacity", "4", "--page-size", "16", "--seed", str(SEED)]
 # Decode ticks of 8 slots at their own positions (one or two dead) over
 # Tcap 304 (7c's table: 19 pages of 16, the 3-launch form) and 128 (the
@@ -2775,9 +2825,7 @@ def ssm_plan_text(kname, args, kw) -> str:
     if kname.startswith("approx_gemm"):
         return gemm_plan_text(*args[:3])
     if kname == "approx_attention":
-        q, k = args[:2]
-        shape = attn_mod.AttnShape(q.shape[0], q.shape[1], q.shape[2], k.shape[2], k.shape[1],
-                                   q.shape[3])
+        shape = attn_mod.attention_shape(args[0].shape, args[1].shape, kw.get("causal", True))
         plan = attn_mod.attention_plan(shape, lut, sms)
         return f"plan {plan}; grid {attn_mod.attention_grid(plan, shape, lut)}"
     if kname == "fused_qkv_norm":
@@ -3118,16 +3166,505 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
     return err
 
 
+# ------------------------------------------------- the encoder-decoder
+# Phase 9: whisper-base (``models/encdec.py``) through ``encode``, greedy
+# decoding (``serve_step`` with ring caches) and ``launch.train``'s step.
+# Its encoder and cross-attention run the attention kernel bidirectionally
+# (``causal=False``) over the 1500 frames.
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_DEPTH2 = dict(batch=2, prompt=4, new=8, train_batch=1, seq=64, steps=2)
+ENCDEC_FULL = dict(batch=4, prompt=4, new=32)
+ENCDEC_TRAIN = dict(batch=4, seq=64, steps=3)
+# 9a holds a product of more lookups than this under the first table only.
+ENCDEC_ALL_TABLES_MAX = 6e9
+# 9a's bidirectional special-value shapes: (label, B, S, H, KV, T, unwritten
+# keys); the unwritten keys (k_pos < 0) hold inf and NaN, which no row reads.
+ENCDEC_SPECIAL_SHAPES = [("encoder-like 2x96 over 200 frames", 2, 96, 8, 8, 200, 40),
+                         ("cross decode 4x1 over 1500 frames", 4, 1, 8, 8, 1500, 100),
+                         ("cross prefill 2x4 over 1500 frames", 2, 4, 8, 8, 1500, 7)]
+
+
+def encdec_counters():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    return {"approx_gemm": gemm_mod.approx_gemm,
+            "approx_gemm_batched": gemm_mod.approx_gemm_batched,
+            "approx_attention": attn_mod.approx_attention}
+
+
+def encdec_cfg(n_layers=None):
+    """whisper-base at full width; at a cut depth ``n_layers`` encoder and as
+    many decoder layers."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(ENCDEC_ARCH)
+    if n_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers, n_enc_layers=n_layers)
+
+
+def encdec_serve_want(cfg, new: int) -> dict:
+    """Launches of an ``encode`` and ``new`` greedy tokens under amsim (the
+    prompt's decode, then new - 1 steps): an encoder layer's 6 GEMMs (q, k,
+    v, wo, wu, wd) and attention; a decoder layer's 10 GEMMs (self and
+    cross q/k/v/wo, wu, wd) and 2 attentions each decode; the head's GEMM
+    each decode.  The gelu decoder takes no chain kernel."""
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    return {"approx_gemm": 6 * Le + (10 * Ld + 1) * new, "approx_gemm_batched": 0,
+            "approx_attention": Le + 2 * Ld * new}
+
+
+def _bwd_chunks(S: int) -> int:
+    """Query chunks of the attention backward's recompute at S queries
+    (``ops._attention_bwd``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import best_chunk
+    bqc = best_chunk(ops._BWD_Q_CHUNK, S)
+    return S // bqc if S > bqc > ops._BWD_Q_CHUNK // 16 else 1
+
+
+def encdec_train_want(cfg, seq: int) -> dict:
+    """Launches of one training step under amsim with remat: each layer's
+    GEMMs forward, recomputed and twice backward (dx, dw); its attentions
+    forward and recomputed, and 6 batched GEMMs (the score and value
+    products, their 4 gradients) for each query chunk of each attention's
+    backward (the encoder's 1500 frames split in 2 chunks of 750); the
+    head's 3 GEMMs."""
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    return {"approx_gemm": 4 * 6 * Le + 4 * 10 * Ld + 3,
+            "approx_gemm_batched": 6 * Le * _bwd_chunks(cfg.n_frontend_tokens)
+            + 2 * 6 * Ld * _bwd_chunks(seq),
+            "approx_attention": 2 * Le + 4 * Ld}
+
+
+def encdec_inputs(cfg, batch: int, prompt: int, dev):
+    """(frames (batch, F, d), prompts (batch, prompt)) drawn from SEED."""
+    gen = torch.Generator().manual_seed(SEED)
+    frames = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen)
+    return frames.to(dev), prompts.to(dev)
+
+
+def encdec_capture(dev) -> dict:
+    """9a's calls: the kernels of the path at full width, depth 2, under
+    amsim/afm16 -- an ``encode`` of 2 x 1500 frames, the decode of a prompt
+    of 4 tokens, a decode step, and the batched products and attention of a
+    training step at 1 x 64 over 1500 frames.  {(kernel, shapes, kw): (args
+    cloned, kw, where)}, a call a distinct shape."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    names = list(encdec_counters())
+    originals = {k: getattr(ops, k) for k in names}
+    calls, where = {}, [""]
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+
+    def capture(kname, keep):
+        def wrapped(*a, **kw):
+            key = (kname, tuple(tuple(t.shape) for t in a if torch.is_tensor(t)),
+                   tuple(sorted(kw.items())))
+            if keep and key not in calls:
+                calls[key] = (tuple(t.clone() if torch.is_tensor(t) else t for t in a), kw,
+                              where[0])
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    cfg = encdec_cfg(2)
+    B, P = ENCDEC_DEPTH2["batch"], ENCDEC_DEPTH2["prompt"]
+    model = encdec.init_encdec(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    frames, prompts = encdec_inputs(cfg, B, P, dev)
+    for k in names:
+        setattr(ops, k, capture(k, True))
+    try:
+        where[0] = f"encode {B} x {cfg.n_frontend_tokens}"
+        enc = encdec.encode(model, frames, amsim)
+        caches = encdec.init_encdec_caches(cfg, B, P + ENCDEC_DEPTH2["new"], dev)
+        where[0] = f"decode of a {P}-token prompt"
+        _, nxt, caches = encdec.serve_step(model, prompts, enc, caches, amsim)
+        where[0] = "decode step"
+        encdec.serve_step(model, nxt, enc, caches, amsim)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in originals.items():
+            setattr(ops, k, f)
+    batch = lm_batch(cfg, (1, ENCDEC_DEPTH2["seq"]), 0, dev)
+    for k in names:
+        setattr(ops, k, capture(k, k != "approx_gemm"))
+    try:
+        where[0] = f"training 1 x {ENCDEC_DEPTH2['seq']} over {cfg.n_frontend_tokens} frames"
+        loss, _ = encdec.encdec_loss(model, batch, amsim)
+        torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+    finally:
+        for k, f in originals.items():
+            setattr(ops, k, f)
+    del model, enc, caches, loss
+    torch.cuda.empty_cache()
+    return calls
+
+
+def encdec_tile_times(calls, lut_case):
+    """The encoder's attention (2 x 1500 over 1500, causal=False) timed under
+    every tile and table form of afm16 packed, beside the plan's pick: the
+    plan ranks tiles by a rate fitted on causal shapes whose scores fit in
+    shared memory, and picks here a tile whose scores sit in global
+    memory."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    lut, M = lut_case("afm16", True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q, k, v, q_pos, k_pos = next(args[:5] for (kname, shapes, _), (args, kw, _) in calls.items()
+                                 if kname == "approx_attention" and shapes[0][1] > 1000)
+    shape = attn_mod.attention_shape(q.shape, k.shape, False)
+    plan_of = attn_mod.attention_plan
+    picked = plan_of(shape, lut, sms)
+    nbytes = lut.numel() * lut.element_size()
+    times = []
+    for tile in range(len(attn_mod.ATTN_TILES)):
+        for table in ("smem canonical", "smem packed"):
+            space = attn_mod.SMEM_BLOCK_MAX - attn_mod._table_bytes(table, True, nbytes)
+            layout = attn_mod.attention_layout(tile, shape.dh, shape.T, space)
+            if layout is None:
+                continue
+            forced = attn_mod._tile_plan(shape, tile, table, layout, "prefill")
+            attn_mod.attention_plan = lambda *a, f=forced: f
+            try:
+                t = queued_ms(lambda: attn_mod.approx_attention(q, k, v, q_pos, k_pos, lut, M,
+                                                                causal=False), reps=3)
+            finally:
+                attn_mod.attention_plan = plan_of
+            times.append((t, forced))
+    print(f"  encoder attention {tuple(q.shape)} over {shape.T} frames under afm16 packed, every "
+          f"tile and table form (the plan picks: {picked}):")
+    for t, forced in sorted(times, key=lambda x: x[0]):
+        print(f"    {t:.4f} ms: {forced}{'  <- the plan' if forced == picked else ''}")
+
+
+def bidirectional_attention_checks(dev, gen, lut, M, tag):
+    """9a: the attention kernel at causal=False on zeros, -0.0 and
+    subnormals in q, k and v, with inf and NaN in every unwritten key
+    (k_pos < 0, which no row may read), at ``ENCDEC_SPECIAL_SHAPES``, under
+    the plan and every tile x table form, bit for bit as int32."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels.common import POS_PAD
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_of = attn_mod.attention_plan
+    packed = lut.dtype == torch.int16
+    nbytes = lut.numel() * lut.element_size()
+    tables = ["smem canonical", "smem packed"] if packed and 2 * nbytes <= 128 * 1024 else \
+        [plan_of(attn_mod.AttnShape(1, 1, 1, 1, 1, 64), lut, sms).table]
+    dh = 64
+    for label, B, S, H, KV, T, unwritten in ENCDEC_SPECIAL_SHAPES:
+        shape = attn_mod.AttnShape(B, S, H, KV, T, dh, False)
+        k_pos = torch.arange(T, dtype=torch.int32)
+        k_pos[torch.randperm(T, generator=gen)[:unwritten]] = POS_PAD
+        k_pos = k_pos.to(dev)
+        q_pos = torch.arange(S, dtype=torch.int32, device=dev)
+        q, k, v = (special_values(s, gen, dev) for s in
+                   ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh)))
+        q = torch.where(torch.isfinite(q), q, 0.0)
+        readable = (k_pos >= 0)[None, :, None, None]
+        k = torch.where(readable & ~torch.isfinite(k), -0.0, k)
+        v = torch.where(readable & ~torch.isfinite(v), 1e-39, v)
+        args = (q, k, v, q_pos, k_pos)
+        plan = plan_of(shape, lut, sms)
+        plans = [plan]
+        for tile in range(len(attn_mod.ATTN_TILES)):
+            for table in tables:
+                space = attn_mod.SMEM_BLOCK_MAX - attn_mod._table_bytes(table, packed, nbytes)
+                layout = attn_mod.attention_layout(tile, dh, T, space)
+                if layout is not None:
+                    plans.append(attn_mod._tile_plan(shape, tile, table, layout, plan.path))
+        ref = attn_mod.approx_attention_plain(*args, lut, M, causal=False, window=0)
+        for forced in plans:
+            attn_mod.attention_plan = lambda *a, f=forced: f
+            try:
+                out = attn_mod.approx_attention(*args, lut, M, causal=False)
+            finally:
+                attn_mod.attention_plan = plan_of
+            require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                    f"9a approx_attention {tag} {label}, causal=False, special values, plan "
+                    f"{forced}: not bitwise its plain version")
+        print(f"{tag}: approx_attention {label}, causal=False == plain (bitwise) on zeros, -0.0, "
+              f"subnormals, inf and NaN in {unwritten} unwritten keys: the plan ({plan}) and "
+              f"{len(plans) - 1} forced tile x table forms")
+
+
+def encdec_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
+    """Phase 9a: each captured call (``encdec_capture``) again under every
+    table of 3d against its plain version, bit for bit as int32; each
+    shape's plan, grid and device time under afm16; the encoder attention
+    under every tile; then ``bidirectional_attention_checks``.  Returns each
+    kernel's largest |difference|."""
+    from repro_torch.kernels import ops
+    calls = encdec_capture(dev)
+    plains = ssm_plains()
+    kernels = {k: getattr(ops, k) for k in encdec_counters()}
+    err = dict.fromkeys(kernels, 0.0)
+    for i, (lut_name, packed) in enumerate(SERVE_LUTS):
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        held = large = 0
+        for (kname, shapes, _), (args, kw, where) in calls.items():
+            if i and ssm_lookups(kname, args, kw)[1] > ENCDEC_ALL_TABLES_MAX:
+                large += 1
+                continue
+            slot = SSM_LUT_SLOT[kname]
+            a = list(args)
+            a[slot], a[slot + 1] = lut, M
+            out, ref = kernels[kname](*a, **kw), plains[kname](*a, **kw)
+            e = (out - ref).abs().max().item()
+            require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+                    f"9a {kname} {tag} at {shapes} {dict(kw)} ({where}): not bitwise its plain "
+                    f"version, max|d| {e}")
+            err[kname] = max(err[kname], e)
+            held += 1
+            if i == 0:
+                t = queued_ms(lambda: kernels[kname](*a, **kw), reps=3)
+                nbytes, lookups = ssm_lookups(kname, a, kw)
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                print(f"  {where}: {kname} {shapes} {dict(kw)}: {t:.4f} ms on device (bound "
+                      f"{tb:.4f} ms, {bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} "
+                      f"lookups); {ssm_plan_text(kname, a, kw)}")
+            del out, ref
+        first = f", {large} held under the first table only" if large else ""
+        print(f"encdec kernels == plain (bitwise): {tag}, {held} shapes of the whisper-base "
+              f"path{first}")
+        bidirectional_attention_checks(dev, gen, lut, M, tag)
+    encdec_tile_times(calls, lut_case)
+    del calls
+    torch.cuda.empty_cache()
+    return err
+
+
+def encdec_serving_depth2(dev) -> None:
+    """9b serving: depth 2, greedy decoding of 2 x 1500 frames, prompt 4, 8
+    new tokens under amsim and amsim_torch (deterministic algorithms): the
+    encoder states, every step's logits and the tokens bitwise; the amsim
+    launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models import encdec
+    cfg = encdec_cfg(2)
+    B, P, N = ENCDEC_DEPTH2["batch"], ENCDEC_DEPTH2["prompt"], ENCDEC_DEPTH2["new"]
+    model = encdec.init_encdec(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    frames, prompts = encdec_inputs(cfg, B, P, dev)
+    counters = encdec_counters()
+    want = encdec_serve_want(cfg, N)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            t0 = time.perf_counter()
+            zero_launches(counters)
+            runs[mode] = encdec.greedy(model, frames, prompts, N,
+                                       NumericsPolicy(mode=mode, multiplier="afm16"))
+            torch.cuda.synchronize()
+            runs[mode] += (launches_of(counters), time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (e_a, t_a, l_a, n_a, s_a), (e_p, t_p, l_p, n_p, s_p) = runs["amsim"], runs["amsim_torch"]
+    require(n_a == want and set(n_p.values()) == {0},
+            f"9b whisper-base serving launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
+    require(bool(torch.isfinite(e_a).all()) and bool(torch.isfinite(l_a).all()),
+            "9b whisper-base: encoder states or logits not finite")
+    require(_same([e_a], [e_p]), f"9b whisper-base: encoder states differ from amsim_torch by "
+            f"{(e_a - e_p).abs().max().item()}")
+    require(_same([l_a], [l_p]) and torch.equal(t_a, t_p),
+            f"9b whisper-base: decoding differs from amsim_torch (logits max|d| "
+            f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
+    print(f"{ENCDEC_ARCH} depth 2 + 2: greedy decoding of {B} x {cfg.n_frontend_tokens} frames, "
+          f"prompt {P}, {N} new tokens: encoder states, every step's logits and the tokens "
+          f"bitwise equal to amsim_torch; amsim launches {n_a}; {s_a:.1f} s amsim, {s_p:.1f} s "
+          f"amsim_torch; tokens {t_a[0].tolist()}")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def encdec_train_depth2(dev) -> None:
+    """9b training: 2 adamw steps at 1 x 64 over 1500 frames under amsim
+    and amsim_torch with deterministic algorithms: losses, parameters and
+    the gradient at the next batch bitwise; the amsim launches a step."""
+    from repro_torch.core.policy import NumericsPolicy
+    cfg = encdec_cfg(2)
+    counters = encdec_counters()
+    shape = dict(batch=ENCDEC_DEPTH2["train_batch"], seq=ENCDEC_DEPTH2["seq"],
+                 steps=ENCDEC_DEPTH2["steps"])
+    want = encdec_train_want(cfg, shape["seq"])
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev,
+                                    counters, shape)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    steps = shape["steps"]
+    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
+            f"9b whisper-base training launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"9b whisper-base losses {l_a}")
+    require(_same(l_a, l_p), f"9b whisper-base training losses: amsim {l_a}, amsim_torch {l_p}")
+    require(_same(p_a, p_p), f"9b whisper-base training: parameters after step {steps} differ")
+    require(_same(g_a, g_p), f"9b whisper-base training: gradients after step {steps} differ")
+    print(f"{ENCDEC_ARCH} depth 2 + 2: batch {shape['batch']} x {shape['seq']} over "
+          f"{cfg.n_frontend_tokens} frames, {steps} adamw steps (remat): losses "
+          f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
+          f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a "
+          f"step {want}; {t_a:.1f} s amsim, {t_p:.1f} s amsim_torch")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def timed_greedy(model, frames, prompts, new: int, policy):
+    """``models.encdec.greedy``'s calls, timed: (tokens, encode ms, prompt
+    decode ms, ms a decode step), host wall clock with the card synchronized
+    around each part."""
+    from repro_torch.models import encdec
+    B, P = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encdec.encode(model, frames, policy)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = encdec.init_encdec_caches(model.cfg, B, P + new, frames.device)
+    _, nxt, caches = encdec.serve_step(model, prompts, enc, caches, policy)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    toks = [nxt]
+    for _ in range(new - 1):
+        _, nxt, caches = encdec.serve_step(model, nxt, enc, caches, policy)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (torch.cat(toks, dim=1), (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+            (t3 - t2) * 1e3 / max(new - 1, 1))
+
+
+def encdec_serving_full(dev, lookups_per_s, smi_line) -> dict:
+    """9c serving: whisper-base at full width and depth, greedy decoding at
+    batch 4 over 1500 frames, prompt 4, 32 new tokens under native and
+    amsim: encode ms, prompt ms, ms a decode step, tokens/s, idle shares;
+    the amsim run's launches (counters zeroed just before it); the GEMM and
+    attention kernels' device time at the encode's and a decode step's
+    shapes beside their bounds.  Returns the amsim run's launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    cfg = encdec_cfg()
+    B, P, N = ENCDEC_FULL["batch"], ENCDEC_FULL["prompt"], ENCDEC_FULL["new"]
+    t0 = time.perf_counter()
+    model = encdec.init_encdec(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = 4 * sum(p.numel() for p in model.parameters())
+    print(f"{ENCDEC_ARCH} at full width and depth ({cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, {weight_bytes / 1e9:.2f} GB of float32 weights) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; batch {B}, {cfg.n_frontend_tokens} frames, prompt "
+          f"{P}, {N} new tokens ({smi_line}):")
+    frames, prompts = encdec_inputs(cfg, B, P, dev)
+    counters = encdec_counters()
+    want = encdec_serve_want(cfg, N)
+    amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
+    res, got = {}, None
+    for pname, policy in (("native", NumericsPolicy()), ("amsim", amsim)):
+        timed_greedy(model, frames, prompts, 2, policy)          # warm-up
+        zero_launches(counters)
+        toks, enc_ms, pre_ms, step_ms = timed_greedy(model, frames, prompts, N, policy)
+        if pname == "amsim":
+            got = launches_of(counters)
+            require(got == want, f"9c whisper-base serving: launches {got}, want {want}")
+        require(toks.shape == (B, N) and bool((toks >= 0).all() & (toks < cfg.vocab).all()),
+                f"9c whisper-base {pname}: tokens out of range")
+        enc = encdec.encode(model, frames, policy)
+        require(bool(torch.isfinite(enc).all()), f"9c whisper-base {pname}: encoder states")
+        caches = encdec.init_encdec_caches(cfg, B, P + N, dev)
+        logits, nxt, caches = encdec.serve_step(model, prompts, enc, caches, policy)
+        require(bool(torch.isfinite(logits).all()), f"9c whisper-base {pname}: logits")
+        busy_enc = busy_ms(lambda: encdec.encode(model, frames, policy), reps=1)
+        busy_step = busy_ms(lambda: encdec.serve_step(model, nxt, enc, caches, policy), reps=3)
+        total_s = (enc_ms + pre_ms + step_ms * (N - 1)) / 1e3
+        res[pname] = (enc_ms, pre_ms, step_ms)
+        print(f"  {pname}: encode {enc_ms:.2f} ms ({busy_text(busy_enc, enc_ms)}), prompt "
+              f"{pre_ms:.2f} ms, {step_ms:.3f} ms per decode step "
+              f"({busy_text(busy_step, step_ms)}), {B * N / total_s:.2f} tokens/s (encode "
+              f"included); tokens {toks[0, :8].tolist()}")
+    print(f"  amsim/native: encode {res['amsim'][0] / res['native'][0]:.2f}x, decode step "
+          f"{res['amsim'][2] / res['native'][2]:.2f}x")
+    print(f"launches on the {ENCDEC_ARCH} serving run (9c, amsim, encode, prompt and {N - 1} "
+          f"decode steps): {got}")
+    # The GEMM and attention kernels at this run's shapes: an encode and a decode step.
+    originals = {k: getattr(ops, k) for k in ("approx_gemm", "approx_attention")}
+    enc = encdec.encode(model, frames, amsim)
+    caches = encdec.init_encdec_caches(cfg, B, P + N, dev)
+    _, nxt, caches = encdec.serve_step(model, prompts, enc, caches, amsim)
+    for ctx in ("encode", "decode step"):
+        shapes = {}
+
+        def wrapped(kname):
+            def call(*a, **kw):
+                key = (kname, tuple(tuple(t.shape) for t in a[:2]), tuple(sorted(kw.items())))
+                shapes.setdefault(key, [a, kw, 0])[2] += 1
+                return originals[kname](*a, **kw)
+            return call
+
+        for k in originals:
+            setattr(ops, k, wrapped(k))
+        try:
+            if ctx == "encode":
+                encdec.encode(model, frames, amsim)
+            else:
+                encdec.serve_step(model, nxt, enc, caches, amsim)
+            torch.cuda.synchronize()
+        finally:
+            for k, f in originals.items():
+                setattr(ops, k, f)
+        sums = {}
+        for (kname, sh, _), (a, kw, n) in sorted(shapes.items()):
+            t = queued_ms(lambda: originals[kname](*a, **kw), reps=3)
+            nbytes, lookups = ssm_lookups(kname, a, kw)
+            tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+            s = sums.setdefault(kname, [0.0, 0.0, 0])
+            s[0], s[1], s[2] = s[0] + n * t, s[1] + n * tb, s[2] + n
+            print(f"  {ctx}: {kname} {sh} {dict(kw)} x {n}: {t:.4f} ms each, bound {tb:.4f} ms "
+                  f"({bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups); "
+                  f"{ssm_plan_text(kname, a, kw)}")
+        for kname, (t, tb, n) in sums.items():
+            print(f"  {ctx}: {kname} {t:.2f} ms on device over {n} launches, bound {tb:.2f} ms")
+    del model, enc, caches
+    torch.cuda.empty_cache()
+    return got
+
+
+def encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
+    """Phase 9: 9a-9c; 9c prints each full-depth run's launches on a line of
+    its own.  Returns each kernel's largest |difference| in 9a."""
+    err = encdec_kernel_checks(dev, gen, lut_case, lookups_per_s)
+    phase_done("9a encdec kernels vs plain")
+    encdec_serving_depth2(dev)
+    encdec_train_depth2(dev)
+    phase_done("9b encdec decoding and training, depth 2")
+    encdec_serving_full(dev, lookups_per_s, smi_line)
+    run = train_full(dev, ENCDEC_ARCH, lookups_per_s, smi_line, shape=ENCDEC_TRAIN,
+                     capture=("approx_gemm_batched", "approx_attention"))
+    print(f"launches on the {ENCDEC_ARCH} training run (9c, {ENCDEC_TRAIN['steps']} steps at "
+          f"{ENCDEC_TRAIN['batch']} x {ENCDEC_TRAIN['seq']} over 1500 frames): {run}")
+    phase_done("9c encdec decoding and training, full depth")
+    return err
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 7" / "--phase 8": phases 1, 2 and that one alone, without the
-    # result lines.
-    only = argv[1] if argv in (["--phase", "7"], ["--phase", "8"]) else None
+    # "--phase 7" / "--phase 8" / "--phase 9": phases 1, 2 and that one alone,
+    # without the result lines.
+    only = argv[1] if argv in (["--phase", "7"], ["--phase", "8"], ["--phase", "9"]) else None
     if argv and only is None:
-        print(f"chip_smoke: unknown arguments {argv} (none, --phase 7 or --phase 8)",
+        print(f"chip_smoke: unknown arguments {argv} (none, --phase 7, --phase 8 or --phase 9)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -3195,6 +3732,8 @@ def main(argv=None) -> int:
         continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     if only == "8":
         ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    if only == "9":
+        encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
@@ -3619,9 +4158,13 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------- 8. the SSM families
     ssm_err = ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+
+    # ---------------------------------------------- 9. the encoder-decoder
+    encdec_err = encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     for row in rows_out:
-        if row["name"] in ssm_err:
-            row["max_abs_err"] = max(row["max_abs_err"], ssm_err[row["name"]])
+        for err in (ssm_err, encdec_err):
+            if row["name"] in err:
+                row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi_line)

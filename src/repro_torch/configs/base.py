@@ -3,9 +3,11 @@
 The port's twin of ``repro.configs.base``: a frozen ``ArchConfig`` per
 architecture, registered by name (``get_arch``), and ``reduced`` for the
 smoke-test shape the JAX package's tests use.  The dense, MoE (an MoE FFN
-in every layer, no shared expert), SSM (Mamba2) and hybrid (Mamba2 with a
-weight-shared attention block) families are ported; encoder-decoder and
-frontend fields come with their slices.
+in every layer, no shared expert), SSM (Mamba2), hybrid (Mamba2 with a
+weight-shared attention block) and encoder-decoder (whisper-style, the
+audio frontend a stub: the encoder takes precomputed frame embeddings)
+families are ported; a decoder-only family with frontend tokens (llava)
+comes with its slice.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid
+    family: str                  # dense | moe | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int                 # 0 for attention-free
@@ -55,11 +57,16 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0          # hybrid: the shared attention block after every k-th layer
+    n_enc_layers: int = 0        # encdec: encoder depth (n_layers = decoder)
     sliding_window: int = 0      # 0 = full attention
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "swiglu"          # swiglu | gelu
+    # Modality frontend stubs: the number of precomputed embedding positions
+    # (audio frames of an encdec encoder; image patches of a decoder-only LM).
+    n_frontend_tokens: int = 0
+    frontend: str = "none"       # none | audio | vision
     # Training (the JAX package's defaults):
     remat: bool = True           # recompute each block's activations in the backward
     optimizer: str = "adamw"     # adamw | adafactor | sgdm
@@ -68,9 +75,16 @@ class ArchConfig:
                                   # kernels read float32 views of it)
 
     def __post_init__(self):
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(f"only the dense, moe, ssm and hybrid families are "
-                                      f"ported, not {self.family!r}")
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+            raise NotImplementedError(f"only the dense, moe, ssm, hybrid and encdec families "
+                                      f"are ported, not {self.family!r}")
+        if self.n_frontend_tokens and self.family != "encdec":
+            raise NotImplementedError(
+                f"{self.name}: frontend tokens of a decoder-only LM (lm_forward(embeds=)) are "
+                f"not ported yet: they come with the slice that serves llava-next-34b")
+        if (self.family == "encdec") != (self.n_enc_layers > 0):
+            raise ValueError(f"family {self.family!r} and n_enc_layers={self.n_enc_layers} "
+                             f"disagree")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family {self.family!r} and moe={self.moe!r} disagree")
         if (self.family in ("ssm", "hybrid")) != (self.ssm is not None):
@@ -88,7 +102,8 @@ class ArchConfig:
 
 ARCH_REGISTRY: dict[str, ArchConfig] = {}
 # Modules that register an architecture when imported.
-_ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m", "mamba2_780m", "zamba2_1_2b")
+_ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m", "mamba2_780m", "zamba2_1_2b",
+                 "whisper_base")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -115,6 +130,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         d_ff=256 if cfg.d_ff else 0,
         vocab=512,
         d_head=32 if cfg.n_heads else 0,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        n_frontend_tokens=min(cfg.n_frontend_tokens, 8),
     )
     if cfg.moe is not None:
         base["moe"] = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 8),

@@ -3,8 +3,9 @@ to the port, and back.
 
 The port keeps the JAX layouts (NHWC, HWIO, (d_in, d_out)) and pytree
 names, so carrying weights across is a copy: no transpose, no reorder.
-An LM's layer-stacked leaves are unstacked into one module per layer, and
-stacked again on the way back.  Optimizer states follow their parameters:
+An LM's layer-stacked leaves (an encoder-decoder's ``enc_layers`` and
+``dec_layers``) are unstacked into one module per layer, and stacked
+again on the way back.  Optimizer states follow their parameters:
 sgdm's ``mu`` and adamw's ``m``/``v`` are trees of the parameters' shape;
 adafactor's factors are keyed by JAX leaf name in the port
 (``optim.adafactor``), so they carry across by name.
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.paper_models import VisionConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDec, encdec_param_shapes
 from repro_torch.models.transformer import LM, lm_param_shapes
 from repro_torch.models.vision import VisionModel, init_tree
 
@@ -72,10 +74,22 @@ def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     (default: the card).  The tied head's
     ``emb.T`` is made contiguous here, once.  Raises if the tree's names or
     shapes are not those ``cfg`` gives."""
+    return _model_from_jax(LM, lm_param_shapes, tree, cfg, device)
+
+
+def encdec_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> EncDec:
+    """The port's encoder-decoder holding the parameters of a JAX
+    ``init_encdec`` pytree (``enc_layers`` and ``dec_layers`` stacked on a
+    leading axis), on ``device`` (default: the card).  Raises if the tree's
+    names or shapes are not those ``cfg`` gives."""
+    return _model_from_jax(EncDec, encdec_param_shapes, tree, cfg, device)
+
+
+def _model_from_jax(cls, param_shapes, tree: dict, cfg: ArchConfig, device):
     device = resolve_device(device)
     flat = _lm_tree_to_flat(tree)
-    _check_shapes({k: v.shape for k, v in flat.items()}, lm_param_shapes(cfg), cfg.name)
-    return LM(cfg, _nest({k: torch.from_numpy(v) for k, v in flat.items()})).to(device)
+    _check_shapes({k: v.shape for k, v in flat.items()}, param_shapes(cfg), cfg.name)
+    return cls(cfg, _nest({k: torch.from_numpy(v) for k, v in flat.items()})).to(device)
 
 
 def _nest(flat: dict) -> dict:
@@ -124,21 +138,28 @@ def _dotted(tree, prefix="", stop=lambda node: False) -> dict:
     return {prefix[:-1]: tree}
 
 
+# The subtrees whose leaves the JAX package stacks over layers.
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _lm_tree_to_flat(tree: dict) -> dict:
     """{port parameter name: numpy float32 copy} of a JAX layer-stacked LM
-    tree, layers in order."""
-    layers = _dotted(tree["layers"])
-    flat = _dotted({k: v for k, v in tree.items() if k != "layers"})
-    for i in range(len(next(iter(layers.values())))):
-        flat.update({f"layers.{i}.{k}": v[i] for k, v in layers.items()})
+    or encoder-decoder tree, layers in order."""
+    flat = _dotted({k: v for k, v in tree.items() if k not in _STACKED})
+    for top in (k for k in _STACKED if k in tree):
+        layers = _dotted(tree[top])
+        for i in range(len(next(iter(layers.values())))):
+            flat.update({f"{top}.{i}.{k}": v[i] for k, v in layers.items()})
     return {k: np.array(v, dtype=np.float32) for k, v in flat.items()}
 
 
 def lm_tree_to_numpy(flat: dict) -> dict:
     """The JAX layer-stacked tree (numpy leaves) of a {port parameter name:
-    tensor} dict: an LM's parameters, their gradients or a moment."""
+    tensor} dict: an LM's or an encoder-decoder's parameters, their
+    gradients or a moment."""
     tree = _nest({name: _numpy(t) for name, t in flat.items()})
-    tree["layers"] = _stack(tree["layers"])
+    for top in (k for k in _STACKED if k in tree):
+        tree[top] = _stack(tree[top])
     return tree
 
 
@@ -148,14 +169,20 @@ def lm_params_to_numpy(model: LM) -> dict:
     return lm_tree_to_numpy(dict(model.named_parameters()))
 
 
+def encdec_params_to_numpy(model: EncDec) -> dict:
+    """The JAX ``init_encdec`` pytree (numpy float32 leaves, layers stacked)
+    of a port encoder-decoder: the inverse of ``encdec_params_from_jax``."""
+    return lm_tree_to_numpy(dict(model.named_parameters()))
+
+
 def _is_factors(node) -> bool:
     return isinstance(node, dict) and set(node) in ({"r", "c"}, {"v"})
 
 
 def lm_opt_state_from_jax(state: dict, device=None) -> dict:
     """The port's optimizer state (``optim.optimizers``: sgdm, adamw or
-    adafactor) of a JAX one over an LM's layer-stacked parameters, on
-    ``device`` (default: the card)."""
+    adafactor) of a JAX one over an LM's or an encoder-decoder's
+    layer-stacked parameters, on ``device`` (default: the card)."""
     device = resolve_device(device)
     to_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)  # noqa: E731
     out = {"step": int(np.asarray(state["step"]))}

@@ -23,20 +23,30 @@ from repro_torch.configs.base import ArchConfig
 # ---------------------------------------------------------------- LM side
 def lm_batch(cfg: ArchConfig, shape: tuple[int, int], step: int, device="cpu") -> dict:
     """The synthetic next-token batch of global step ``step``: shape (B, S)
-    -> {"tokens", "labels"} int64 (B, S) on ``device``, the labels the
-    tokens shifted left with -1 (no loss) last.  Tokens mix the JAX
+    -> {"tokens", "labels"} int64 (B, text length) on ``device``, the labels
+    the tokens shifted left with -1 (no loss) last.  Tokens mix the JAX
     package's way: uniform ids, each replaced with probability 1/2 by its
     left neighbour (the row rolled by one), so the loss is learnable.  The
     draw comes from a ``torch.Generator`` seeded from (1234, step) (JAX's
-    threefry stream cannot be matched).  The port's configs have no
-    frontend tokens, so every position is text."""
+    threefry stream cannot be matched).
+
+    With frontend tokens (``cfg.n_frontend_tokens`` = F) the batch also
+    holds "embeds", (B, F, d_model) standard normals from the same
+    generator.  An encdec's frames feed the encoder and the decoder keeps
+    all S positions as text; a decoder-only frontend takes F of the S
+    positions, so its text is S - F tokens."""
     B, S = shape
+    F = cfg.n_frontend_tokens
+    text_len = S if cfg.family == "encdec" or not F else S - F
     gen = torch.Generator().manual_seed(1234 * 2 ** 32 + int(step))
-    base = torch.randint(0, cfg.vocab, (B, S), generator=gen)
-    mix = torch.rand((B, S), generator=gen) < 0.5
+    base = torch.randint(0, cfg.vocab, (B, text_len), generator=gen)
+    mix = torch.rand((B, text_len), generator=gen) < 0.5
     tokens = torch.where(mix, torch.roll(base, 1, dims=1) % cfg.vocab, base)
     labels = torch.cat([tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype)], dim=1)
-    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+    batch = {"tokens": tokens.to(device), "labels": labels.to(device)}
+    if F:
+        batch["embeds"] = torch.randn((B, F, cfg.d_model), generator=gen).to(device)
+    return batch
 
 
 # ------------------------------------------------------------ vision side

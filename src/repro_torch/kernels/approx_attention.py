@@ -135,18 +135,25 @@ def check_attention_operands(q, k, v, q_pos, k_pos):
 
 # ------------------------------------------------------------------ the plan
 class AttnShape(NamedTuple):
-    """An attention launch's geometry: q (B, S, H, dh), k/v (B, T, KV, dh)."""
+    """An attention launch's geometry: q (B, S, H, dh), k/v (B, T, KV, dh),
+    and whether its mask is causal (``dims`` drops it: the C entry points
+    take the six dims, and ``causal`` apart)."""
     B: int
     S: int
     H: int
     KV: int
     T: int
     dh: int
+    causal: bool = True
+
+    @property
+    def dims(self) -> tuple:
+        return tuple(self[:6])
 
 
-def attention_shape(q_shape, k_shape) -> AttnShape:
+def attention_shape(q_shape, k_shape, causal: bool = True) -> AttnShape:
     B, S, H, dh = q_shape
-    return AttnShape(B, S, H, k_shape[2], k_shape[1], dh)
+    return AttnShape(B, S, H, k_shape[2], k_shape[1], dh, bool(causal))
 
 
 def _odd(n: int) -> int:
@@ -232,11 +239,14 @@ def _table_bytes(table: str, packed: bool, nbytes: int) -> int:
 
 
 def _made_keys(shape: AttnShape, key_slab: int) -> int:
-    """Keys a prefill tile folds, on average, where its queries are the
-    last S positions of a causal ring: its slabs up to its last query's
-    position, S / 2 + KB / 2 past the first, and at least one slab."""
-    return min(_ceil(shape.T, key_slab) * key_slab,
-               max(key_slab, shape.S // 2 + key_slab // 2))
+    """Keys a prefill tile folds, on average.  Causal, where its queries are
+    the last S positions of a ring: its slabs up to its last query's
+    position, S / 2 + KB / 2 past the first, and at least one slab.
+    Bidirectional: every slab of the T keys."""
+    every = _ceil(shape.T, key_slab) * key_slab
+    if not shape.causal:
+        return every
+    return min(every, max(key_slab, shape.S // 2 + key_slab // 2))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -298,7 +308,7 @@ def attention_grid(plan: AttnPlan, shape: AttnShape, lut: torch.Tensor) -> dict:
     (a block's shared bytes).  ``lut`` is the CUDA table it would read."""
     out = (ctypes.c_longlong * 3)()
     M = (lut.numel().bit_length() - 1) // 2      # the table has 2^(2M) entries
-    call_kernel("approx_attention", "approx_attention_grid", lut.device, *shape, M,
+    call_kernel("approx_attention", "approx_attention_grid", lut.device, *shape.dims, M,
                 *_plan_args(plan, lut), out)
     return dict(zip(("blocks", "tiles", "smem"), out))
 
@@ -363,7 +373,7 @@ def approx_attention(q, k, v, q_pos, k_pos, lut, M: int, *, causal: bool = True,
     q_pos = q_pos.to(torch.int32)
     k_pos = k_pos.to(torch.int32)
     check_contiguous(q, k, v, q_pos, k_pos, lut)
-    shape = attention_shape(q.shape, k.shape)
+    shape = attention_shape(q.shape, k.shape, causal)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -372,7 +382,7 @@ def approx_attention(q, k, v, q_pos, k_pos, lut, M: int, *, causal: bool = True,
     scratch, scratch_blocks = attention_scratch(plan, shape.T, sms, device)
     call_kernel("approx_attention", "approx_attention_f32", device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                lut.data_ptr(), out.data_ptr(), scratch.data_ptr(), *shape, int(causal),
+                lut.data_ptr(), out.data_ptr(), scratch.data_ptr(), *shape.dims, int(causal),
                 int(window), int(q_pos.ndim == 2), M, *_plan_args(plan, lut), scratch_blocks)
     approx_attention.launches += 1
     return out

@@ -58,7 +58,7 @@ from repro_torch.core.float_bits import torch_round_mantissa, torch_truncate_man
 from repro_torch.core.lutgen import get_lut, get_packed_lut
 from repro_torch.core.multipliers import Multiplier, get_multiplier
 from repro_torch.core.policy import PASSES, Numerics, NumericsPolicy
-from .approx_attention import approx_attention, softmax_scores
+from .approx_attention import approx_attention, approx_attention_plain, softmax_scores
 from .approx_conv import (approx_conv2d_dw, approx_conv2d_fused, conv_out_shape, conv_pads,
                           dilate)
 from .approx_gemm import approx_gemm, approx_gemm_batched
@@ -448,12 +448,17 @@ def approx_conv2d(x, w, stride: int, padding, policy: Numerics):
 # Attention: the fused kernel and the einsum lowering
 #
 # ``policy_attention`` runs the one-launch kernel (approx_attention.py)
-# for an ``amsim`` leaf at every shape; every other mode runs
-# ``attend_einsum``.  Both contractions of the einsum lowering resolve
-# under their own sites ("attn_score" / "attn_value"); the kernel bakes
-# one LUT, so it needs the two to resolve alike.  The softmax of both is
-# ``softmax_scores``, so ``attend_einsum`` under ``amsim_torch`` is the
-# kernel's plain version, bit for bit.
+# for an ``amsim`` leaf at every shape, and its plain version for an
+# ``amsim_torch`` leaf; every other mode runs ``attend_einsum``.  Both
+# contractions of the einsum lowering resolve under their own sites
+# ("attn_score" / "attn_value"); the kernel bakes one LUT, so it needs the
+# two to resolve alike.  The softmax of both is ``softmax_scores``, so
+# ``attend_einsum`` under ``amsim_torch`` is the kernel's plain version, bit
+# for bit.  ``amsim_torch`` takes ``policy_attention`` too, so that its
+# backward is the kernel's (the recompute, a query chunk at a time past
+# ``_BWD_Q_CHUNK``): a chunked dk sums its chunks' folds, which autograd
+# through the einsum lowering would fold in one, so only the same structure
+# trains bit for bit alike at 1500 encoder frames.
 # =====================================================================
 
 def attend_einsum(q, k, v, q_pos, k_pos, policy: Numerics, *, causal: bool,
@@ -490,9 +495,21 @@ def fused_attention_enabled(policy: Numerics) -> bool:
     """The attention dispatch: the fused kernel for an ``amsim`` leaf,
     at every shape (the kernel has no size guard) and every position
     layout, unless ``REPRO_ATTN_FUSED`` is off."""
+    return _one_call_attention_mode(policy) == "amsim"
+
+
+def one_call_attention_enabled(policy: Numerics) -> bool:
+    """Whether attention runs as ``policy_attention``: the fused kernel
+    (``amsim``) or its plain version (``amsim_torch``)."""
+    return _one_call_attention_mode(policy) is not None
+
+
+def _one_call_attention_mode(policy: Numerics) -> str | None:
     leaf = attention_fused_leaf(policy)
-    return (leaf is not None and leaf.mode == "amsim" and not leaf.is_native
-            and not switched_off("REPRO_ATTN_FUSED"))
+    if (leaf is None or leaf.mode not in ("amsim", "amsim_torch") or leaf.is_native
+            or switched_off("REPRO_ATTN_FUSED")):
+        return None
+    return leaf.mode
 
 
 class _Recompute(torch.autograd.Function):
@@ -566,15 +583,19 @@ def _attention_bwd(policy: Numerics, causal: bool, window: int):
 def policy_attention(q, k, v, q_pos, k_pos, policy: Numerics, causal: bool,
                      window: int):
     """Differentiable one-launch fused attention under the policy's
-    ``amsim`` leaf: the kernel forward, the gradient from a recompute of
-    ``attend_einsum`` (each backward product under its site's dx leaf).
-    Callers check :func:`fused_attention_enabled`."""
-    mult = get_multiplier(attention_fused_leaf(policy).multiplier)
+    ``amsim`` leaf (its plain version under ``amsim_torch``): the kernel
+    forward, the gradient from a recompute of ``attend_einsum`` (each
+    backward product under its site's dx leaf).  Callers check
+    :func:`one_call_attention_enabled`."""
+    leaf = attention_fused_leaf(policy)
+    mult = get_multiplier(leaf.multiplier)
+    attend, lut_of = ((approx_attention, _amsim_lut) if leaf.mode == "amsim"
+                      else (approx_attention_plain, _oracle_lut))
 
     def fwd(q, k, v, q_pos, k_pos):
-        return approx_attention(q.contiguous(), k.contiguous(), v.contiguous(), q_pos, k_pos,
-                                _amsim_lut(mult, q.device), mult.mantissa_bits,
-                                causal=causal, window=int(window))
+        return attend(q.contiguous(), k.contiguous(), v.contiguous(), q_pos, k_pos,
+                      lut_of(mult, q.device), mult.mantissa_bits, causal=causal,
+                      window=int(window))
 
     return _Recompute.apply(fwd, _attention_bwd(policy, causal, int(window)),
                             q.to(torch.float32), k.to(torch.float32), v.to(torch.float32),

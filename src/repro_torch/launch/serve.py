@@ -21,7 +21,8 @@ admission by bucket, and asserts one decode build per tier.  Without
 Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
 takes the smoke-test widths of ``configs.base.reduced``.  Weights are
 drawn from ``--seed`` on the device.  Multi-GPU serving (``--mesh``) is a
-later slice.
+later slice.  An encoder-decoder arch (whisper-base) exits before any work
+with the JAX CLI's message.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from repro_torch.configs.base import get_arch, reduced
 from repro_torch.core.policy import MODES, NumericsPolicy, load_numerics
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import ENGINE_REFUSAL
 from repro_torch.models.transformer import check_paged, init_lm
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.scheduler import ContinuousBatchingEngine
@@ -156,8 +158,10 @@ def main(argv=None):
     if args.mesh:
         raise SystemExit("--mesh: multi-GPU serving (sharded paged pools) is a later slice of "
                          "the port; serve on one device")
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(ENGINE_REFUSAL)
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
     if args.n_layers is not None:

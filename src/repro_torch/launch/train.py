@@ -5,12 +5,17 @@
     python -m repro_torch.launch.train --reduced --device cpu --steps 2
     python -m repro_torch.launch.train --arch mamba2-780m --steps 3 --batch 4 \
         --seq 256 --numerics amsim --multiplier afm16           # SSD chunks of 256
+    python -m repro_torch.launch.train --arch whisper-base --steps 3 --batch 4 \
+        --seq 64 --numerics amsim --multiplier afm16            # over 1500 frames
 
 Full width by default (``--reduced``: the smoke-test widths of
 ``configs.base.reduced``); weights drawn from ``--seed``, batches from
 ``data.pipeline.lm_batch``.  The SSM and hybrid archs (mamba2-780m,
 zamba2-1.2b) scan whole SSD chunks: ``--seq`` must be a multiple of the
-config's chunk (256; 8 under ``--reduced``).  The optimizer is the
+config's chunk (256; 8 under ``--reduced``).  The encoder-decoder
+(whisper-base) trains ``encdec_loss``: ``--seq`` is the decoder's length,
+and the encoder takes ``n_frontend_tokens`` frames (1500; 8 under
+``--reduced``) that ``lm_batch`` draws.  The optimizer is the
 config's (``cfg.optimizer``: adamw for every ported config) over
 ``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
 (checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
@@ -34,6 +39,7 @@ from repro_torch.core.policy import (MODES, PASSES, SITES, Numerics, PolicyTable
                                      load_numerics, table_from_assignments, table_from_json)
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import encdec_loss, encdec_stacks, init_encdec
 from repro_torch.models.transformer import init_lm, lm_loss, lm_stacks
 from repro_torch.optim.optimizers import Optimizer, cosine_schedule, make_optimizer
 from repro_torch.train.step import make_train_step
@@ -44,9 +50,12 @@ def make_lm_train_step(cfg: ArchConfig, policy: Numerics, *, lr: float, steps: i
                        microbatches: int = 1) -> tuple[Optimizer, callable]:
     """(optimizer, ``train_step(model, opt_state, batch)``) of an LM run of
     ``steps`` steps: ``cfg.optimizer`` over ``cosine_schedule(lr, 10,
-    steps)`` on ``lm_loss`` under ``policy``, global-norm clip 1.0."""
-    opt = make_optimizer(cfg.optimizer, cosine_schedule(lr, 10, steps), stacks=lm_stacks(cfg))
-    step = make_train_step(lambda model, batch: lm_loss(model, batch, policy), opt,
+    steps)`` on ``lm_loss`` (``encdec_loss`` for an encoder-decoder) under
+    ``policy``, global-norm clip 1.0."""
+    encdec = cfg.family == "encdec"
+    loss, stacks = (encdec_loss, encdec_stacks) if encdec else (lm_loss, lm_stacks)
+    opt = make_optimizer(cfg.optimizer, cosine_schedule(lr, 10, steps), stacks=stacks(cfg))
+    step = make_train_step(lambda model, batch: loss(model, batch, policy), opt,
                            microbatches=microbatches)
     return opt, step
 
@@ -107,13 +116,15 @@ def policy_from_args(args) -> Numerics:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="LM training on one device")
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
-                         "or zamba2-1.2b (hybrid)")
+                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM), "
+                         "zamba2-1.2b (hybrid) or whisper-base (encoder-decoder)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="tokens a row (an encoder-decoder's decoder length; its encoder "
+                         "takes the config's frames)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--numerics", default="native",
                     help=f"a mode ({'|'.join(MODES)}) or a policy-table JSON path")
@@ -140,8 +151,9 @@ def main(argv=None):
     policy = policy_from_args(args)
     print(describe_numerics(policy, device))
 
-    model = init_lm(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
-                    device=device)
+    init = init_encdec if cfg.family == "encdec" else init_lm
+    model = init(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
+                 device=device)
     opt, step = make_lm_train_step(cfg, policy, lr=args.lr, steps=args.steps,
                                    microbatches=args.microbatches)
     trainer = Trainer(step, lambda s: lm_batch(cfg, (args.batch, args.seq), s, device),

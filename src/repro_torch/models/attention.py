@@ -1,10 +1,13 @@
 """GQA attention with RoPE and a ring or paged KV cache, every contraction
 routed through the policy.
 
-The port of the single-device, self-attention part of
-``repro.models.attention``: projections "qkv"/"wo" go through
+The port of the single-device part of ``repro.models.attention``:
+self-attention, causal or bidirectional (``causal=False``, the encoder's),
+and cross-attention (``kv_src``: K/V projected from the encoder states,
+no rope, keys at positions 0 .. Tsrc - 1).  Projections "qkv"/"wo" go through
 ``layers.linear``; the score/value contractions take the fused attention
-kernel under an ``amsim`` leaf and the grouped-query einsum lowering
+kernel under an ``amsim`` leaf (its plain version, in the same structure,
+under ``amsim_torch``) and the grouped-query einsum lowering
 (``ops.attend_einsum``) otherwise.  The decode chain hands in its own
 projections (``qkv=``), takes the pre-``wo`` context (``project_out=False``)
 or stops after rope and the cache write (``capture_attend=True``).
@@ -19,8 +22,7 @@ and k_pos are (B, S) and (B, T), and the same two lowerings take them
 (the kernel reads each row's positions, the einsum masks per row).  A
 cache stored in ``cfg.cache_dtype`` (bfloat16 halves it) is read back as
 float32 before any lowering, as the JAX kernels' wrappers cast it.  Not
-ported (no path of the port needs them yet): cross-attention and
-full-head / sharded attention.
+ported (no path of the port needs it yet): full-head / sharded attention.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.kernels.common import POS_PAD
-from repro_torch.kernels.ops import attend_einsum, fused_attention_enabled, policy_attention
+from repro_torch.kernels.ops import attend_einsum, one_call_attention_enabled, policy_attention
 from .layers import init_linear, linear
 
 TRASH_PAGE = 0   # the pools' reserved page (serve/paged_cache.TRASH_PAGE)
@@ -147,10 +149,17 @@ def _paged_cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor, q_pos: to
     return k_view, v_view, k_pos
 
 
-def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, cache=None,
-              window: int = 0, qkv=None, project_out: bool = True,
-              capture_attend: bool = False):
-    """Self-attention of x (B, S, d).  Returns (out, cache).
+def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, kv_src=None,
+              causal: bool = True, use_rope: bool = True, cache=None, window: int = 0,
+              qkv=None, project_out: bool = True, capture_attend: bool = False):
+    """Attention of x (B, S, d).  Returns (out, cache).
+
+    kv_src: (B, Tsrc, d) encoder states for cross-attention: K/V are
+           projected from them, rope is not applied and the keys sit at
+           positions 0 .. Tsrc - 1 (``causal=False`` expected).  Takes no
+           paged cache and no ``qkv=``.
+    causal: False attends to every valid key (the encoder, cross-attention).
+    use_rope: False skips rope on q and k (rope never applies under kv_src).
 
     cache: a ring cache (``init_cache``), updated in place; the returned
            dict carries the new length.  Or a paged cache (a dict with a
@@ -168,41 +177,51 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, ca
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if qkv is not None:
+        if kv_src is not None:
+            raise ValueError("qkv= is decoder self-attention only (no kv_src)")
         q, k, v = qkv
     else:
+        src = x if kv_src is None else kv_src
+        T = src.shape[1]
         q = linear(p["wq"], x, policy, site="qkv").reshape(B, S, H, dh)
-        k = linear(p["wk"], x, policy, site="qkv").reshape(B, S, KV, dh)
-        v = linear(p["wv"], x, policy, site="qkv").reshape(B, S, KV, dh)
+        k = linear(p["wk"], src, policy, site="qkv").reshape(B, T, KV, dh)
+        v = linear(p["wv"], src, policy, site="qkv").reshape(B, T, KV, dh)
     paged = cache is not None and "ptab" in cache
     if paged:
+        if kv_src is not None:
+            raise ValueError("paged KV caches are decoder-self-attention only (no "
+                             "cross-attention)")
         q_pos = cache["start"][:, None] + torch.arange(S, dtype=torch.int32,
                                                        device=x.device)[None]
     else:
         start = cache["len"] if cache is not None else 0
         q_pos = torch.arange(start, start + S, dtype=torch.int32, device=x.device)
-    q = rope(q, q_pos, cfg.rope_theta)
-    k = rope(k, q_pos, cfg.rope_theta)
+    if use_rope and kv_src is None:
+        q = rope(q, q_pos, cfg.rope_theta)
+        k = rope(k, q_pos, cfg.rope_theta)
     if paged:
         k, v, k_pos = _paged_cache_update(cache, k, v, q_pos)
     elif cache is not None:
         cache = _ring_write(cache, k, v, q_pos)
         k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+    elif kv_src is not None:
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     else:
         k_pos = q_pos
     k, v = k.to(torch.float32), v.to(torch.float32)
     if capture_attend:
         return (q, k, v, q_pos, k_pos), cache
-    if fused_attention_enabled(policy):
-        out = policy_attention(q, k, v, q_pos, k_pos, policy, True, window)
+    if one_call_attention_enabled(policy):
+        out = policy_attention(q, k, v, q_pos, k_pos, policy, causal, window)
     elif S > cfg.q_chunk and S % cfg.q_chunk == 0:
         # The einsum lowering a query chunk at a time, as the JAX package's
         # q-chunk scan: it holds (B, KV, G, q_chunk, T) scores, not S rows'.
         c = cfg.q_chunk
         out = torch.cat([attend_einsum(q[:, i:i + c], k, v, q_pos[..., i:i + c], k_pos, policy,
-                                       causal=True, window=window) for i in range(0, S, c)],
+                                       causal=causal, window=window) for i in range(0, S, c)],
                         dim=1)
     else:
-        out = attend_einsum(q, k, v, q_pos, k_pos, policy, causal=True, window=window)
+        out = attend_einsum(q, k, v, q_pos, k_pos, policy, causal=causal, window=window)
     out = out.reshape(B, S, H * dh)
     if not project_out:
         return out, cache

@@ -319,20 +319,25 @@ def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, cache
     return logits, (new_caches if caches is not None else None), aux
 
 
-def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 0.01):
-    """batch {"tokens": (B, S), "labels": (B, S) (-1 = no loss)} ->
-    (mean token cross-entropy + aux_weight x the MoE aux loss, {"xent",
-    "aux"}), as JAX ``lm_loss``: the label's logit taken by mask and sum,
-    not a gather."""
-    logits, _, aux = lm_forward(model, batch["tokens"], policy, train=True)
-    labels = batch["labels"]
+def label_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean token cross-entropy of logits (B, S, vocab) at labels (B, S)
+    (-1 = no loss), as JAX ``lm_loss`` and ``encdec_loss`` take it: the
+    label's logit by mask and sum, not a gather (a scatter-free backward)."""
     valid = labels >= 0
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     ll = torch.sum(torch.where(iota == labels.clamp(min=0)[..., None], logits, 0.0), dim=-1)
     xent = torch.where(valid, lse - ll, 0.0)
-    loss = torch.sum(xent) / torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(xent) / torch.clamp(torch.sum(valid), min=1)
+
+
+def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 0.01):
+    """batch {"tokens": (B, S), "labels": (B, S) (-1 = no loss)} ->
+    (mean token cross-entropy + aux_weight x the MoE aux loss, {"xent",
+    "aux"}), as JAX ``lm_loss``."""
+    logits, _, aux = lm_forward(model, batch["tokens"], policy, train=True)
+    loss = label_xent(logits, batch["labels"])
     return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 

@@ -16,7 +16,8 @@ chain runs when every chain site (qkv, wo, wg, wu, wd and both attention
 sites) resolves to one ``amsim`` or ``amsim_torch`` leaf, whatever the
 router and the head run; a table that splits them runs the per-op path.
 The chain runs the dense blocks (the hybrid's shared block); a Mamba2
-layer decodes by its recurrence.
+layer decodes by its recurrence.  An encoder-decoder arch (whisper-base)
+exits before any work with the JAX CLI's message: no engine serves one.
 Prints which, tokens/s, the prefill time and the time per decode step.
 """
 import argparse
@@ -29,6 +30,7 @@ from repro_torch.configs.base import get_arch, reduced
 from repro_torch.core.policy import MODES, PolicyTable, load_numerics
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models.encdec import ENGINE_REFUSAL
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve.engine import ServingEngine
 
@@ -52,8 +54,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(ENGINE_REFUSAL)
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
     if args.n_layers is not None:

@@ -9,7 +9,9 @@ Same numpy inputs, made from a seed, through both packages on the CPU:
   bit for bit (so ``amsim`` and ``amsim_torch`` attention agree on the
   card), and under ``native`` against JAX ``native``;
 covering causal prefill, a sliding window, G = 1 and G > 1 heads per KV
-head, and decode over a ring with wrapped and unwritten slots.
+head, decode over a ring with wrapped and unwritten slots, and the
+bidirectional (``causal=False``) attention of an encoder and of
+cross-attention: S = T, S != T, one query over T keys.
 """
 import numpy as np
 import pytest
@@ -59,6 +61,9 @@ CASES = {
     "prefill_window3": (2, 8, 4, 2, 32, 8, range(8), range(8), True, 3),
     "decode_ring_wrapped": (2, 1, 4, 2, 32, 16, [19], RING_WRAPPED, True, 0),
     "decode_ring_unwritten": (2, 1, 4, 2, 32, 16, [9], RING_PARTIAL, True, 0),
+    "bidirectional_G2": (2, 8, 4, 2, 32, 8, range(8), range(8), False, 0),
+    "cross_S6_T11_G1": (2, 6, 2, 2, 32, 11, range(6), range(11), False, 0),
+    "cross_decode_T11": (2, 1, 4, 2, 32, 11, [0], range(11), False, 0),
 }
 
 
@@ -251,6 +256,32 @@ def test_attention_backward_chunked_matches_unchunked(monkeypatch):
             q, k, v, pos, pos, amsim, True, 0), q, k, v, g)
         assert calls == ([S] if chunk == 1024 else [32, 32])
     (dq, dk, dv), (cq, ck, cv) = out[1024], out[32]
+    assert torch.equal(dq.view(torch.int32), cq.view(torch.int32))
+    np.testing.assert_allclose(ck.numpy(), dk.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(cv.numpy(), dv.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_attention_backward_chunked_bidirectional_cross(monkeypatch):
+    """Cross-attention of 64 queries over 40 keys, ``causal=False``, the
+    backward's query chunk forced to 32: dq splits by chunk, bitwise the
+    unchunked recompute's; dk and dv, of the 40 keys, sum two chunks' folds
+    in order (JAX ``_pattn_bwd``'s sum over its two chunks), within rtol
+    1e-5, atol 1e-6 of the one fold.  The unchunked gradients are held to
+    JAX's in ``test_policy_attention_gradient_is_the_einsum_lowerings``."""
+    rng = np.random.default_rng(8)
+    B, S, T, H, KV, dh = 2, 64, 40, 4, 2, 16
+    q, k, v, g = (rng.standard_normal(s).astype(np.float32) for s in
+                  ((B, S, H, dh), (B, T, KV, dh), (B, T, KV, dh), (B, S, H, dh)))
+    qp, kp = np.arange(S, dtype=np.int32), np.arange(T, dtype=np.int32)
+    amsim = NumericsPolicy(mode="amsim", multiplier=MULT)
+    out = {}
+    for chunk in (1024, 32):
+        monkeypatch.setattr(ops, "_BWD_Q_CHUNK", chunk)
+        out[chunk] = _attention_grads(lambda q, k, v: ops.policy_attention(
+            q, k, v, _torch([qp])[0], _torch([kp])[0], amsim, False, 0),
+            *_torch([q, k, v, g]))
+    (dq, dk, dv), (cq, ck, cv) = out[1024], out[32]
+    assert ck.shape == (B, T, KV, dh) and cv.shape == (B, T, KV, dh)
     assert torch.equal(dq.view(torch.int32), cq.view(torch.int32))
     np.testing.assert_allclose(ck.numpy(), dk.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(cv.numpy(), dv.numpy(), rtol=1e-5, atol=1e-6)

@@ -46,7 +46,12 @@ RING_PARTIAL = list(range(10)) + [POS_PAD] * 6
 # CASES, test_torch_cuda's ATTN_CASES, then the serving shapes:
 # granite-3-2b's prefill into a ring of 96 and a decode step over 160,
 # granite-moe-3b-a800m's decode step (G = 3), a prefill of 512 into a ring
-# of 512, and head dims past a value chunk (odd, and 256).
+# of 512, and head dims past a value chunk (odd, and 256); then
+# bidirectional attention (``causal=False``): whisper-base's encoder (1500
+# frames; here one KV head pair, the plan's other inputs as there), its
+# cross prefill of 4 tokens and a cross decode step over 1500 frames, small
+# encoder and cross shapes, and a bidirectional read of a partly written
+# ring (keys that no row may read).
 SHAPES = {
     "prefill_causal_G2": (2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
     "prefill_causal_G1": (2, 8, 2, 2, 32, 8, range(8), range(8), True, 0),
@@ -64,15 +69,22 @@ SHAPES = {
     "ring_512": (1, 512, 24, 8, 64, 512, range(512), _ring(512, 512), True, 0),
     "dh37_G8": (1, 3, 16, 2, 37, 70, range(40, 43), _ring(70, 43), True, 0),
     "dh256": (1, 2, 4, 1, 256, 67, range(60, 62), _ring(67, 62), True, 0),
+    "whisper_encoder": (1, 1500, 2, 2, 64, 1500, range(1500), range(1500), False, 0),
+    "whisper_cross_prefill": (4, 4, 8, 8, 64, 1500, range(4), range(1500), False, 0),
+    "whisper_cross_decode": (4, 1, 8, 8, 64, 1500, [4], range(1500), False, 0),
+    "bidir_G2": (2, 8, 4, 2, 32, 8, range(8), range(8), False, 0),
+    "bidir_cross_S6_T70": (1, 6, 4, 4, 32, 70, range(6), range(70), False, 0),
+    "bidir_unwritten": (2, 3, 4, 2, 32, 16, range(3), RING_PARTIAL, False, 0),
 }
 # the shapes small enough for the kernel's order in torch
 TWIN_SHAPES = ["prefill_causal_G2", "prefill_window3", "decode_ring_wrapped",
-               "decode_ring_unwritten", "cuda_2", "dh37_G8"]
+               "decode_ring_unwritten", "cuda_2", "dh37_G8", "bidir_G2", "bidir_cross_S6_T70",
+               "bidir_unwritten"]
 
 
 def _shape(name):
-    B, S, H, KV, dh, T, *_ = SHAPES[name]
-    return attn.AttnShape(B, S, H, KV, T, dh)
+    B, S, H, KV, dh, T, _, _, causal, _ = SHAPES[name]
+    return attn.AttnShape(B, S, H, KV, T, dh, causal)
 
 
 def _lut(name="afm16", packed=True):
@@ -175,6 +187,24 @@ def test_plans_at_the_serving_shapes():
     lut10, _ = _lut("afm10")
     assert attn.attention_plan(_shape("granite_prefill"), lut10, SMS).rows == 16
     assert attn.attention_plan(_shape("ring_512"), lut10, SMS).rows == 4
+
+
+def test_bidirectional_plans_count_every_key():
+    """A bidirectional tile folds every slab of its T keys (a causal one
+    about S / 2 + KB / 2): the cost the plan ranks tiles by.  At
+    whisper-base's encoder (4 x 1500 over 1500 frames, 8 heads of 64) under
+    afm16 that picks tiles of 64 rows, their scores (384 KiB) in the global
+    scratch; a cross decode step takes the decode tile, a cross prefill of
+    4 tokens tiles of 4 rows, the scores of 1500 keys in shared memory."""
+    for causal, want in ((True, 1000 // 2 + 64 // 2), (False, 1536)):
+        assert attn._made_keys(attn.AttnShape(4, 1000, 8, 8, 1500, 64, causal), 64) == want
+    lut, _ = _lut()
+    enc = attn.attention_plan(attn.AttnShape(4, 1500, 8, 8, 1500, 64, False), lut, SMS)
+    assert (enc.rows, enc.scores, enc.table) == (64, "global", "smem packed")
+    step = attn.attention_plan(_shape("whisper_cross_decode"), lut, SMS)
+    assert (step.path, step.rows, step.scores) == ("decode", 4, "shared")
+    pre = attn.attention_plan(_shape("whisper_cross_prefill"), lut, SMS)
+    assert (pre.path, pre.rows, pre.scores) == ("prefill", 4, "shared")
 
 
 @pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 32])

@@ -25,7 +25,7 @@ from repro_torch.data.pipeline import lm_batch  # noqa: E402
 from repro_torch.kernels.common import (LANES, POS_PAD, lane_sum, lut_in_smem,  # noqa: E402
                                         lut_tensor)
 from repro_torch.launch.train import make_lm_train_step  # noqa: E402
-from repro_torch.models import moe, vision  # noqa: E402
+from repro_torch.models import encdec, moe, vision  # noqa: E402
 from repro_torch.models.layers import Linear  # noqa: E402
 from repro_torch.models.transformer import init_lm, init_lm_caches, lm_loss  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
@@ -511,13 +511,18 @@ def _ring(T, written):
     return pos
 
 
-# (B, S, H, KV, dh, T, q_pos, k_pos, causal, window)
+# (B, S, H, KV, dh, T, q_pos, k_pos, causal, window); the last three are
+# bidirectional (an encoder's and cross-attention's): S != T, 16 queries
+# over whisper-base's 1500 frames, and a decode step over them.
 ATTN_CASES = [
     (2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
     (2, 8, 4, 4, 64, 8, range(8), range(8), True, 3),
     (3, 5, 6, 3, 48, 70, range(60, 65), _ring(70, 65), True, 0),
     (2, 1, 8, 2, 64, 40, [44], _ring(40, 45), True, 0),
     (2, 1, 8, 2, 64, 160, [29], _ring(160, 30), True, 8),
+    (2, 6, 4, 2, 32, 11, range(6), range(11), False, 0),
+    (2, 16, 8, 8, 64, 1500, range(16), range(1500), False, 0),
+    (4, 1, 8, 8, 64, 1500, [3], range(1500), False, 0),
 ]
 
 
@@ -660,7 +665,8 @@ def test_attention_kernel_bitwise_vs_plain_under_every_plan(cuda, monkeypatch, n
              (1, 9, 16, 2, 37, 70, range(40, 49), _ring(70, 49), True, 5),
              (2, 1, 8, 8, 64, 131, [129], _ring(131, 130), True, 0),
              (1, 3, 4, 1, 256, 67, range(60, 63), _ring(67, 63), True, 0),
-             (2, 12, 4, 2, 32, 8, range(12), _ring(8, 12), True, 0)]
+             (2, 12, 4, 2, 32, 8, range(12), _ring(8, 12), True, 0),
+             (1, 70, 8, 8, 64, 1500, range(70), range(1500), False, 0)]
     for case in cases:
         args, kw = _attention_inputs(case, rng, cuda)
         assert _attention_bits(args, kw, lut, M), case
@@ -672,6 +678,25 @@ def test_attention_kernel_bitwise_vs_plain_under_every_plan(cuda, monkeypatch, n
     grid = approx_attention.attention_grid(forced(shape, lut, 132), shape, lut)
     assert grid["tiles"] == forced(shape, lut, 132).tiles
     args, kw = _attention_inputs(case, rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+
+
+@pytest.mark.parametrize("name,packed", [("afm16", True), ("afm10", True)])
+def test_attention_kernel_bitwise_vs_plain_at_whisper_encoder(cuda, name, packed, rng):
+    """whisper-base's encoder attention, 4 x 1500 frames over themselves
+    (causal=False): under afm16 its plan takes tiles of 64 rows whose scores
+    (384 KiB) sit in the global scratch; the bits are the plain version's,
+    with special values in q, k and v too."""
+    lut, M = _lut(name, packed, cuda)
+    case = (4, 1500, 8, 8, 64, 1500, range(1500), range(1500), False, 0)
+    shape = approx_attention.AttnShape(4, 1500, 8, 8, 1500, 64, False)
+    plan = approx_attention.attention_plan(
+        shape, lut, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if name == "afm16":
+        assert (plan.rows, plan.scores) == (64, "global")
+    args, kw = _attention_inputs(case, rng, cuda)
+    assert _attention_bits(args, kw, lut, M)
+    args, kw = _special_attention_inputs(case, rng, cuda)
     assert _attention_bits(args, kw, lut, M)
 
 
@@ -1774,6 +1799,87 @@ def test_ssm_train_steps_run_through_the_kernels_bitwise(cuda, arch):
     (losses, launches, model, grads), (r_losses, r_launches, ref, r_grads) = (
         runs["amsim"], runs["amsim_torch"])
     assert all(n["approx_gemm_batched"] > 0 and n["approx_gemm"] > 0 for n in launches)
+    assert r_launches == [{}, {}]
+    assert all(bool(torch.isfinite(v)) for v in losses)
+    for a, b in zip([*losses, *model.parameters(), *grads],
+                    [*r_losses, *ref.parameters(), *r_grads]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _whisper_launches():
+    return {"approx_gemm": approx_gemm.approx_gemm,
+            "approx_gemm_batched": approx_gemm.approx_gemm_batched,
+            "approx_attention": approx_attention.approx_attention}
+
+
+def test_encdec_greedy_runs_through_the_kernels_bitwise(cuda):
+    """whisper-base at full width, 2 + 2 layers, 256 frames (the widths of
+    the path, fewer frames): greedy decoding of batch 2, prompt 4, 3 new
+    tokens under ``amsim``: the encoder states, every step's logits and the
+    tokens bitwise ``amsim_torch``.  An encoder layer launches 6 GEMMs and
+    the attention kernel (bidirectional); a decoder layer 10 GEMMs (self
+    and cross q/k/v/wo, wu, wd) and 2 attentions at the prefill and every
+    step; the head 1 GEMM."""
+    cfg = dataclasses.replace(get_arch("whisper-base"), n_layers=2, n_enc_layers=2,
+                              n_frontend_tokens=256)
+    model = encdec.init_encdec(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    frames = torch.randn((2, 256, cfg.d_model), generator=gen).to(cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 4), generator=gen).to(cuda)
+    counters = _whisper_launches()
+    runs = {}
+    for mode in ("amsim", "amsim_torch"):
+        for fn in counters.values():
+            fn.launches = 0
+        runs[mode] = encdec.greedy(model, frames, prompts, 3,
+                                   NumericsPolicy(mode=mode, multiplier="afm16"))
+        torch.cuda.synchronize()
+        runs[mode] += ({k: fn.launches for k, fn in counters.items()},)
+    *got, launched = runs["amsim"]
+    *ref, r_launched = runs["amsim_torch"]
+    L, steps = 2, 3          # the prompt's decode, then two steps
+    assert launched == {"approx_gemm": 6 * L + (10 * L + 1) * steps, "approx_gemm_batched": 0,
+                        "approx_attention": L + 2 * L * steps}
+    assert set(r_launched.values()) == {0}
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, ref))
+
+
+def test_encdec_train_steps_run_through_the_kernels_bitwise(cuda):
+    """Two adamw steps of reduced whisper-base (2 + 2 layers, 8 frames)
+    under ``amsim``: GEMMs, attention and the attention backward's batched
+    products through the kernels; losses, parameters and the next gradient
+    bitwise ``amsim_torch``."""
+    cfg = reduced(get_arch("whisper-base"))
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            policy = NumericsPolicy(mode=mode, multiplier="afm16")
+            model = encdec.init_encdec(cfg, generator=torch.Generator().manual_seed(0),
+                                       device=cuda)
+            opt, step = make_lm_train_step(cfg, policy, lr=3e-4, steps=3)
+            state = opt.init(dict(model.named_parameters()))
+            counters = _whisper_launches()
+            losses, launches = [], []
+            for i in range(2):
+                for fn in counters.values():
+                    fn.launches = 0
+                state, metrics = step(model, state, lm_batch(cfg, (2, 16), i, cuda))
+                losses.append(metrics["loss"])
+                launches.append({k: fn.launches for k, fn in counters.items() if fn.launches})
+            loss, _ = encdec.encdec_loss(model, lm_batch(cfg, (2, 16), 2, cuda), policy)
+            runs[mode] = (losses, launches, model,
+                          torch.autograd.grad(loss, list(model.parameters())))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (losses, launches, model, grads), (r_losses, r_launches, ref, r_grads) = (
+        runs["amsim"], runs["amsim_torch"])
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    assert launches == [{"approx_gemm": 24 * Le + 40 * Ld + 3, "approx_gemm_batched":
+                         6 * Le + 12 * Ld, "approx_attention": 2 * Le + 4 * Ld}] * 2
     assert r_launches == [{}, {}]
     assert all(bool(torch.isfinite(v)) for v in losses)
     for a, b in zip([*losses, *model.parameters(), *grads],

@@ -158,13 +158,18 @@ def test_remat_keeps_the_bits(arch):
 
 def test_q_chunked_einsum_attention_keeps_the_bits():
     """The einsum lowering a query chunk (``cfg.q_chunk``) at a time: the
-    same logits and gradients, bit for bit, as in one piece."""
+    same logits and gradients, bit for bit, as in one piece.  The score and
+    value sites take two multipliers, so that the einsum lowering runs (one
+    LUT for both takes ``policy_attention``, under ``amsim_torch`` too)."""
+    from repro_torch.core.policy import table_from_assignments
+    policy = table_from_assignments("attn_value=amsim_torch:mitchell8,default=amsim_torch:afm16")
+    assert not ops.one_call_attention_enabled(policy)
     cfg = _small("granite-3-2b")
     batch = _port_batch(*_batch(cfg, S=16))
     out = []
     for q_chunk in (4, 1024):
         model = init_lm(dataclasses.replace(cfg, q_chunk=q_chunk), device="cpu")
-        loss, _ = lm_loss(model, batch, AMSIM_TORCH)
+        loss, _ = lm_loss(model, batch, policy)
         out.append([loss, *torch.autograd.grad(loss, list(model.parameters()))])
     for a, b in zip(*out):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
