@@ -130,23 +130,25 @@ MoE serving (granite-moe-3b-a800m at full width,
     GEMMs): same bits, the device time of each.
 LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
 ``cosine_schedule(3e-4, 10, 3)``, remat; after the serving phases):
- 5e. depth 2 at full width, batch 2 x 16, 2 steps under ``amsim`` and
+ 5e. depth 2 at full width, batch 1 x 16, 2 steps under ``amsim`` and
     ``amsim_torch`` with deterministic algorithms: losses, parameters after
     step 2 and the gradient at the next batch bitwise equal (int32 views),
     the launches of every step as ``train_want`` counts them; a resume
     through the trainer (2 steps, a checkpoint under
     ``build/chip_smoke_ckpt/``, a restore into a model drawn from another
     seed, 1 step) bitwise equal to 3 steps straight; then 3 steps of each
-    model at full width and full depth (cut, with the reason printed, only
-    if a step would not fit the card's free memory), batch 4 x 64: each
+    model at full width and full depth (which must fit the card's free
+    memory: ``train_fits``), batch 4 x 64: each
     step's wall ms, CUDA-event ms and loss (step 2 also its device busy
     time from torch.profiler), the peak memory, the launches of each step,
     and every kernel shape of step 3 timed, with its bound and plan, and
-    held bitwise against its plain version.
+    held bitwise against its plain version (a GEMM of more than 1e10
+    lookups, an LM head at 256 rows, on its first and last output tiles
+    and every 7th column: ``held_columns``).
 The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
 ``core/faults.py``, ``launch/sweep.py``, ``launch/faultsweep.py``; after
 5e):
- 6a. granite-3-2b depth 2 at full width, batch 2 x 16, 2 adamw steps with
+ 6a. granite-3-2b depth 2 at full width, batch 1 x 16, 2 adamw steps with
     deterministic algorithms: a uniform ``PolicyTable`` of amsim/afm16
     bitwise the flat policy (losses, parameters after step 2, the gradient
     at the next batch; the same launches); the mixed table
@@ -226,10 +228,10 @@ weight-shared attention block; after 7d):
  8b. depth 2 at full width: serving at batch 2, prompt 16, 8 new tokens
     under amsim and amsim_torch (zamba2 again with its window cut to 8, so
     that the ring wraps): prefill logits, decode logits and tokens bitwise,
-    the launches each kernel must make; 2 adamw steps at 1 x 64 with the
+    the launches each kernel must make; an adamw step at 1 x 64 with the
     chunk cut to 32 (two chunks: the state recurrence and every SSD
-    gradient product run) under both with deterministic algorithms:
-    losses, parameters and the next gradient bitwise, the launches a step;
+    gradient product run) under both with deterministic algorithms: the
+    loss, the parameters and the next gradient bitwise, the launches;
  8c. full width and depth: each model served at batch 4, prompt 64, 32 new
     tokens under native and amsim (prefill ms, ms a decode step, tokens/s,
     idle shares, launches, the GEMM kernel's time at the prefill's and a
@@ -251,13 +253,13 @@ cross-attention bidirectional over 1500 frames; after 8c):
     tile and table form; then the attention kernel at causal=False on
     zeros, -0.0 and subnormals with inf and NaN in every unwritten key,
     under every tile and table form, bit for bit;
- 9b. depth 2 at full width: greedy decoding of 2 x 1500 frames, prompt 4,
+ 9b. depth 2 at full width: greedy decoding of 1 x 1500 frames, prompt 4,
     8 new tokens under amsim and amsim_torch: the encoder states, every
     step's logits and the tokens bitwise, the launches (an encoder layer 6
     GEMMs + 1 attention, a decoder layer 10 GEMMs + 2 attentions each
-    decode, the head 1 GEMM); 2 adamw steps at 1 x 64 over 1500 frames
-    under both with deterministic algorithms: losses, parameters and the
-    next gradient bitwise, the launches a step;
+    decode, the head 1 GEMM); an adamw step at 1 x 64 over 1500 frames
+    under both with deterministic algorithms: the loss, the parameters and
+    the next gradient bitwise, the launches;
  9c. full width and depth: greedy decoding at batch 4 over 1500 frames,
     prompt 4, 32 new tokens under native and amsim (encode ms, prompt ms,
     ms a decode step, tokens/s, idle shares, launches, the GEMM and
@@ -267,13 +269,52 @@ cross-attention bidirectional over 1500 frames; after 8c):
     step 3's attention and batched shapes timed beside their bounds, each
     bitwise its plain version.
 The launches of 9c's runs are printed on their own lines.
-``python3 chip_smoke.py --phase 7`` (``--phase 8``, ``--phase 9``) runs
-phases 1, 2 and 7 (8, 9) alone and prints no result lines.
+The rest of the dense registry (``configs/llava_next_34b.py``,
+``qwen2_5_32b.py``, ``qwen1_5_110b.py``, ``stablelm_12b.py``: heads of 128
+and 160, q/k/v biases, llava's patch embeddings before its text; after 9c):
+ 10a. the kernels of the dense path at the new shapes against their plain
+    versions, bit for bit, under afm16 packed and afm10 (a global table):
+    the attention kernel at heads of 128 (G = 7, 5) and 160 (G = 4),
+    causal prefills and decode steps over rings with unwritten slots
+    (llava's last 16 prefill positions over its 2976 keys, scores in the
+    global scratch), under its plan and every tile x table form, on special
+    values too, each plan and grid printed, and timed under afm16 at the
+    path's own shapes (llava's whole prefill over 2976 keys, the 4 x 64
+    prefills and the steps of the others); ``fused_qkv_norm``,
+    ``fused_attn_out_mlp`` and ``fused_out_mlp`` in 10c's decode forms
+    (ZOO_CHAIN): stablelm-12b's and qwen2.5-32b's 4 rows over a ring of 96
+    (attention+out-mlp), llava-next-34b's 1 row over 2976 (out-mlp),
+    qwen1.5-110b's at 1 row of 10c's 4 over 72, with their grids; the GEMM
+    at qwen1.5's d_ff 49152 (4 and 16 rows) and its vocab of 152064 (4
+    rows), on ``held_columns``, with its plan; each timed under afm16 beside
+    its bound;
+ 10b. depth 1 at full width under amsim and amsim_torch with deterministic
+    algorithms: llava (its frontend cut to 8 patches) prefilled through
+    ``lm_forward(embeds=, caches=)`` with 4 text tokens, qwen2.5 (biases)
+    and stablelm (heads of 160) with prompts of 4, then 2 greedy steps
+    through the decode chain: the prefill's and every step's logits and
+    the tokens bitwise, the launches; stablelm's adamw step at 1 x 4 and
+    the gradient after it bitwise;
+ 10c. full width: stablelm-12b at full depth (40 layers, 48.6 GB) served
+    at batch 4, prompt 64, 32 new under native and amsim; llava-next-34b at
+    depth 4 prefilled with 2880 patches and 64 text tokens, then 32 greedy
+    steps over a ring of 2976; qwen2.5-32b at depth 8 served 4 x 64, 32
+    new; qwen1.5-110b at depth 2 served 4 x 64, 8 new (amsim): prefill ms
+    (and its device busy time in a profiled rerun), ms a decode step, busy,
+    idle share, tokens/s, peak memory, the launches; then 2 training steps
+    each of stablelm (adamw, depth 2, 4 x 64), llava (adamw, depth 2, 1 x
+    (2880 + 64)) and qwen1.5 (adafactor, depth 1, 4 x 64): wall, busy,
+    peak memory, launches, finite losses.
+The launches of 10c's runs are printed on their own lines; the kernels
+line keeps the launches of the earlier paths.
+``python3 chip_smoke.py --phase 7`` (8, 9, 10) runs phases 1, 2 and 7 (8,
+9, 10) alone and prints no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -630,9 +671,10 @@ def attention_lookups(plan, shape, q_pos, k_pos) -> tuple[int, int]:
     return made, 2 * int(mask.sum()) * shape.dh * shape.B * shape.KV
 
 
-def attention_plan_checks(dev, gen, lut, M, tag):
+def attention_plan_checks(dev, gen, lut, M, tag, shapes=ATTN_PATH_SHAPES):
     """Phase 3d's attention checks at ATTN_PATH_SHAPES (see the module
-    doc): bit for bit as int32, +0.0 and -0.0 apart."""
+    doc), and 10a's at ZOO_ATTN_SHAPES (an 8th entry: the head dim, else
+    64): bit for bit as int32, +0.0 and -0.0 apart."""
     from repro_torch.kernels import approx_attention as attn_mod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan_of = attn_mod.attention_plan
@@ -648,8 +690,8 @@ def attention_plan_checks(dev, gen, lut, M, tag):
     nbytes = lut.numel() * lut.element_size()
     tables = ["smem canonical", "smem packed"] if packed and 2 * nbytes <= 128 * 1024 else \
         [plan_of(attn_mod.AttnShape(1, 1, 1, 1, 1, 64), lut, sms).table]
-    for label, B, S, H, KV, T, written in ATTN_PATH_SHAPES:
-        dh = 64
+    for label, B, S, H, KV, T, written, *head in shapes:
+        dh = head[0] if head else 64
         shape = attn_mod.AttnShape(B, S, H, KV, T, dh)
         k_pos = _ring_positions(T, written, dev)
         q_pos = torch.arange(written - S, written, dtype=torch.int32, device=dev)
@@ -695,6 +737,19 @@ def serving_counters():
             "fused_attn_out_mlp": chain.fused_attn_out_mlp, "approx_gemm": gemm_mod.approx_gemm}
 
 
+def serve_want(cfg, steps: int, ring: int) -> dict:
+    """Launches of a dense LM's prefill and ``steps`` decode steps under
+    amsim, in ``serving_counters``' order: a layer's attention and 7 GEMMs
+    at the prefill and the head's GEMM; a decode step's qkv and
+    attention+out-mlp a layer (a ring of at most FUSE_ATTN_MAX_T slots) or
+    qkv, attention and out-mlp (more), and the head."""
+    from repro_torch.kernels import ops
+    L, two = cfg.n_layers, ring <= ops.FUSE_ATTN_MAX_T
+    return {"approx_attention": L + (0 if two else L * steps), "fused_qkv_norm": L * steps,
+            "fused_out_mlp": 0 if two else L * steps, "fused_attn_out_mlp": L * steps if two else 0,
+            "approx_gemm": 7 * L + 1 + steps}
+
+
 def serving_depth2(dev, serve_launches: dict):
     """Phase 4c: depth 2 at full width, amsim bitwise amsim_torch, launch
     counts per prefill and per decode step."""
@@ -711,11 +766,7 @@ def serving_depth2(dev, serve_launches: dict):
     L, steps = cfg.n_layers, DEPTH2["new"] - 1
     for ring in DEPTH2["rings"]:
         fused = ring <= 128
-        # (attention, qkv, out-mlp, attention+out-mlp, GEMM) per decode step
-        per_step = (0, L, 0, L, 1) if fused else (L, L, L, 0, 1)
-        want = dict(zip(counters, (L + per_step[0] * steps, per_step[1] * steps,
-                                   per_step[2] * steps, per_step[3] * steps,
-                                   7 * L + 1 + per_step[4] * steps)))
+        want = serve_want(cfg, steps, ring)
         results, launches = {}, {}
         torch.use_deterministic_algorithms(True)
         try:
@@ -1498,10 +1549,55 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
     return rows
 
 
+# A GEMM launch of more lookups than this (an LM head at 256 training rows)
+# is held against its plain version on a set of its output columns that
+# reaches every lane of the launch's tiles and the ragged edge: the first
+# and the last output tile of its plan, and every HELD_COLUMN_STRIDE-th
+# column (odd, so coprime to every tile width and to a thread's 1 or 2
+# register columns).  The kernel's output is the path's own launch; the
+# plain version runs on those columns of b (an output column depends on its
+# column of b alone).
+HELD_COLUMNS_MIN = 1e10
+HELD_COLUMN_STRIDE = 7
+
+
+def held_columns(m: int, k: int, n: int, lut) -> tuple[list, str]:
+    """(the output columns held of a 2-D GEMM (m, k) @ (k, n), what they are)."""
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tn = gemm_mod.gemm_plan(1, m, k, n, lut, sms).tile[1]
+    last = (n - 1) // tn * tn
+    cols = sorted(set(range(min(tn, n))) | set(range(last, n))
+                  | set(range(0, n, HELD_COLUMN_STRIDE)))
+    return cols, (f"{len(cols)} of {n} columns: the first tile's {min(tn, n)}, the last "
+                  f"tile's {n - last} and every {HELD_COLUMN_STRIDE}th")
+
+
+def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN):
+    """(the kernel's output bitwise its plain version, as int32 views; what
+    was held) of one call; a 2-D GEMM of more than ``min_lookups`` lookups
+    on ``held_columns``."""
+    out = fn(*args, **kw)
+    if kname == "approx_gemm" and gemm_costs(*args[:3])[1] > min_lookups:
+        a, b, lut, *rest = args
+        cols, what = held_columns(*a.shape, b.shape[1], lut)
+        idx = torch.tensor(cols, device=b.device)
+        # detached: a captured b may be a view of a parameter that the
+        # optimizer has since updated in place (the tied head's emb.T)
+        ref = plain(a, b.detach().index_select(1, idx).contiguous(), lut, *rest, **kw)
+        out = out.index_select(1, idx)
+    else:
+        ref = plain(*args, **kw)
+        what = "every output"
+    return torch.equal(out.contiguous().view(torch.int32), ref.view(torch.int32)), what
+
+
 # ------------------------------------------------------------ LM training
 TRAIN_LR = 3e-4
 TRAIN_FULL = dict(batch=4, seq=64, steps=3)          # the schedule spans these 3 steps
-TRAIN_DEPTH2 = dict(n_layers=2, batch=2, seq=16, steps=2)
+# 5e's (and 6a's) depth-2 runs: one row of 16 tokens, 2 steps (the plain
+# versions' cost grows with the rows).
+TRAIN_DEPTH2 = dict(n_layers=2, batch=1, seq=16, steps=2)
 TRAIN_ARCHS = (LM_ARCH, MOE_ARCH)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"        # .gitignore lists build/
 
@@ -1515,16 +1611,17 @@ def train_counters():
             "approx_attention": attn_mod.approx_attention, "fused_moe_ffn": chain.fused_moe_ffn}
 
 
-def train_want(cfg) -> dict:
+def train_want(cfg, seq: int) -> dict:
     """Launches of one LM training step under amsim with remat
     (tests/test_torch_cuda.py ``lm_train_launches``): a dense layer's 7
     GEMMs forward, 7 recomputed and 14 backward, attention forward and
-    recomputed, 6 batched GEMMs for its backward; an MoE layer's 5 GEMMs
+    recomputed, 6 batched GEMMs for each query chunk of its backward (one
+    up to 1024 positions: ``_bwd_chunks``); an MoE layer's 5 GEMMs
     likewise, the expert banks twice and 9 batched GEMMs for their
-    backward; the tied head's 3 GEMMs."""
+    backward; the head's 3 GEMMs."""
     L = cfg.n_layers
     if cfg.moe is None:
-        return {"approx_gemm": 28 * L + 3, "approx_gemm_batched": 6 * L,
+        return {"approx_gemm": 28 * L + 3, "approx_gemm_batched": 6 * L * _bwd_chunks(seq),
                 "approx_attention": 2 * L, "fused_moe_ffn": 0}
     return {"approx_gemm": 20 * L + 3, "approx_gemm_batched": 15 * L,
             "approx_attention": 2 * L, "fused_moe_ffn": 2 * L}
@@ -1542,29 +1639,33 @@ def train_setup(cfg, policy, dev, seed=SEED):
 
 
 def train_fits(cfg) -> tuple[bool, str]:
-    """Whether a full-width adamw step of ``cfg`` fits the card's free
-    memory: parameters, gradients, two moments and the updates (a step's
-    peak holds five copies; the clip briefly holds two of the gradients),
-    plus 4 GB for activations, the logits and the allocator."""
+    """Whether a full-width training step of ``cfg`` fits the card's free
+    memory: under adamw parameters, gradients, two moments and the updates
+    (a step's peak holds five copies; the clip briefly holds two of the
+    gradients), under adafactor three copies, plus 4 GB for activations,
+    the logits and the allocator."""
     from repro_torch.models.encdec import encdec_param_shapes
     from repro_torch.models.transformer import lm_param_shapes
     shapes = encdec_param_shapes if cfg.family == "encdec" else lm_param_shapes
     param_bytes = 4 * sum(math.prod(s) for s in shapes(cfg).values())
-    need = 5 * param_bytes + 4e9
+    # adafactor keeps factored moments: parameters, gradients and updates
+    need = (5 if cfg.optimizer == "adamw" else 3) * param_bytes + 4e9
     free = torch.cuda.mem_get_info()[0]
     return need <= free, (f"{param_bytes / 1e9:.2f} GB of parameters: ~{need / 1e9:.1f} GB "
                           f"needed, {free / 1e9:.1f} GB free")
 
 
-def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=None) -> dict:
-    """Phase 5e (and 8c), one model: 3 ``amsim``/afm16 adamw steps at full
-    width (and full depth where it fits) at ``shape`` (batch, seq, steps),
-    each step timed (host wall clock to the loss read back; CUDA events
-    over the step; torch.profiler's device busy time of step 2), the
-    launches of each step, the peak memory, and the device time of each
-    kernel of ``capture`` (default: all) at the shapes of step 3, each
-    shape held bitwise against its plain version.  Returns the launches of
-    the run (counters zeroed before each step, summed)."""
+def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=None,
+               n_layers=None) -> dict:
+    """Phase 5e (and 8c, 9c, 10c), one model: ``cfg.optimizer`` steps under
+    ``amsim``/afm16 at full width and full depth (or ``n_layers``), which
+    must fit the card (``train_fits``), at ``shape`` (batch, seq, steps), each
+    step timed (host wall clock to the loss read back; CUDA events over
+    the step; torch.profiler's device busy time of step 2), the launches of
+    each step, the peak memory, and, in a run of 3 steps, the device time
+    of each kernel of ``capture`` (default: all) at the shapes of step 3,
+    each shape held bitwise against its plain version.  Returns the
+    launches of the run (counters zeroed before each step, summed)."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policy import NumericsPolicy
@@ -1574,26 +1675,27 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
     from repro_torch.kernels.approx_gemm import approx_gemm_batched_plain, approx_gemm_plain
     from repro_torch.kernels.common import lut_bytes
     from repro_torch.kernels.decode_chain import fused_moe_ffn_plain
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
     fits, why = train_fits(cfg)
-    while not fits and cfg.n_layers > 1:
-        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // 2)
-        fits, _ = train_fits(cfg)
-    depth_note = (f"full depth ({cfg.n_layers} layers)" if cfg.n_layers == get_arch(arch).n_layers
-                  else f"depth {cfg.n_layers} of {get_arch(arch).n_layers}: at full depth {why}")
+    require(fits, f"{arch} training at depth {cfg.n_layers}: {why}")
+    depth_note = (f"full depth ({cfg.n_layers} layers)" if cfg.n_layers == full.n_layers
+                  else f"depth {cfg.n_layers} of {full.n_layers}: at full depth "
+                  f"{train_fits(full)[1]}")
     B, S, steps = shape["batch"], shape["seq"], shape["steps"]
     policy = NumericsPolicy(mode="amsim", multiplier="afm16")
+    gc.collect()                 # an earlier run's model, if a cycle holds it
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, state, step = train_setup(cfg, policy, dev)
     if cfg.family == "encdec":
         counters, want = encdec_counters(), encdec_train_want(cfg, S)
     elif cfg.ssm is None:
-        counters, want = train_counters(), train_want(cfg)
+        counters, want = train_counters(), train_want(cfg, S)
     else:
         counters, want = ssm_counters(), ssm_train_want(cfg, S)
     remat = cfg.remat and not cfg.attn_every     # the hybrid stack has none, as in JAX
-    print(f"{arch} training at full width, {depth_note}: batch {B}, seq {S}, adamw, "
+    print(f"{arch} training at full width, {depth_note}: batch {B}, seq {S}, {cfg.optimizer}, "
           f"cosine_schedule({TRAIN_LR}, 10, {steps}), remat {remat}, amsim/afm16 "
           f"({smi_line}):")
     calls = {}                                 # (kernel, shapes) -> [count, args, kw]
@@ -1665,20 +1767,18 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
         bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
         torch.cuda.synchronize()
         t_plain = time.perf_counter()
-        ref = plain_of[kname](*args, **kw)
-        out = fn(*args, **kw)
+        same, what = held_against_plain(kname, fn, plain_of[kname], args, kw)
         torch.cuda.synchronize()
         t_plain = (time.perf_counter() - t_plain) * 1e3
-        require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
-                f"{arch} training: {kname} at {shapes} differs from its plain version by "
-                f"{(out - ref).abs().max().item()}")
+        require(same, f"{arch} training: {kname} at {shapes} differs from its plain version "
+                f"({what})")
         pass_ = ""
         if kname == "approx_gemm":
             pass_ = " dw" if args[0].shape[1] == B * S else " fwd/dx"
         note = f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm") else ""
         print(f"  {kname}{pass_} {shapes} x {n}: {t:.4f} ms on device each (bound {bound:.4f} "
               f"ms, {bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups), bitwise "
-              f"its plain version ({t_plain:.1f} ms with the check){note}")
+              f"its plain version on {what} ({t_plain:.1f} ms with the check){note}")
         s = sums.setdefault(f"{kname}{pass_}", [0, 0.0, 0.0])
         s[0] += n
         s[1] += n * t
@@ -1732,7 +1832,7 @@ def train_depth2(dev, arch):
     cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_DEPTH2["n_layers"])
     B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
     counters = train_counters()
-    want = train_want(cfg)
+    want = train_want(cfg, S)
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -1864,7 +1964,7 @@ def table_depth2(dev):
     B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
     counters = train_counters()
     require(table_train_want(cfg, NumericsPolicy(mode="amsim", multiplier="afm16"))
-            == train_want(cfg), "table_train_want of the flat policy differs from train_want")
+            == train_want(cfg, S), "table_train_want of the flat policy differs from train_want")
     policies = {"flat": NumericsPolicy(mode="amsim", multiplier="afm16"),
                 "uniform": PolicyTable((PolicyRule("amsim", "afm16"),)),
                 "mixed amsim": table_from_assignments(MIXED_TABLE),
@@ -1884,7 +1984,7 @@ def table_depth2(dev):
                 f"6a: {a} and {b} differ (losses {[float(v) for v in l_a]} and "
                 f"{[float(v) for v in l_b]})")
     want_mixed = table_train_want(cfg, policies["mixed amsim"])
-    for name, want in (("flat", train_want(cfg)), ("uniform", train_want(cfg)),
+    for name, want in (("flat", train_want(cfg, S)), ("uniform", train_want(cfg, S)),
                        ("mixed amsim", want_mixed),
                        ("mixed amsim_torch", dict.fromkeys(want_mixed, 0))):
         require(runs[name][3] == [want] * steps,
@@ -1892,7 +1992,7 @@ def table_depth2(dev):
     print(f"{LM_ARCH} depth {cfg.n_layers}, batch {B}, seq {S}, {steps} adamw steps: the uniform "
           f"table amsim/afm16 bitwise the flat policy (losses "
           f"{[round(float(v), 6) for v in runs['flat'][0]]}, parameters, the next gradient; "
-          f"launches {train_want(cfg)} a step); the mixed table {MIXED_TABLE!r} bitwise between "
+          f"launches {train_want(cfg, S)} a step); the mixed table {MIXED_TABLE!r} bitwise between "
           f"amsim and amsim_torch (losses {[round(float(v), 6) for v in runs['mixed amsim'][0]]}; "
           f"amsim launches {want_mixed} a step); seconds "
           + ", ".join(f"{k} {v[4]:.1f}" for k, v in runs.items()))
@@ -2003,10 +2103,9 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
         lut, M = args[slot], args[slot + 1]
         require(M == 10 and torch.equal(lut, x16),
                 f"6b: {kname} at {shapes} did not get the fp16xbf16 table")
-        out, ref = fn(*args, **kw), plain_of[kname](*args, **kw)
-        require(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
-                f"6b fp16xbf16: {kname} at {shapes} differs from its plain version by "
-                f"{(out - ref).abs().max().item()}")
+        same, what = held_against_plain(kname, fn, plain_of[kname], args, kw)
+        require(same, f"6b fp16xbf16: {kname} at {shapes} differs from its plain version "
+                f"({what})")
         swapped = (*args[:slot], afm16, 7, *args[slot + 2:])
         t_x = queued_ms(lambda: fn(*args, **kw), reps=3)
         t_a = queued_ms(lambda: fn(*swapped, **kw), reps=3)
@@ -2019,7 +2118,8 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
         bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
         note = f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm") else ""
         print(f"  fp16xbf16 {kname} {shapes} x {n}: {t_x:.4f} ms on device each, afm16 {t_a:.4f} "
-              f"(x{t_x / t_a:.2f}), bound {bound:.4f} ms; bitwise its plain version{note}")
+              f"(x{t_x / t_a:.2f}), bound {bound:.4f} ms; bitwise its plain version on "
+              f"{what}{note}")
         s = sums.setdefault(kname, [0, 0.0, 0.0, 0.0])
         for i, v in enumerate((n, n * t_x, n * t_a, n * bound)):
             s[i] += v
@@ -2725,9 +2825,10 @@ def continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
 SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
 # 8b trains rows of 2 chunks of 32 (the chunk-state recurrence and every SSD
 # gradient product run; the plain versions' cost grows with the rows); the
-# products at the config's chunk of 256 are held in 8a and 8c.
+# products at the config's chunk of 256 are held in 8a and 8c.  8b takes
+# one step of it and the gradient after it (5e holds adamw's second step).
 SSM_DEPTH2 = dict(batch=2, prompt=16, new=8, window=8, train_batch=1, seq=64, chunk=32,
-                  steps=2)
+                  steps=1)
 SSM_FULL = dict(batch=4, prompt=64, new=32)
 SSM_TRAIN = dict(batch=4, seq=256, steps=3)
 SSM_CUT_WINDOW = 32          # 8a: a zamba2 prefill of 64 tokens into a ring of 32
@@ -3012,9 +3113,9 @@ def ssm_serving_depth2(dev, cfg, label) -> None:
 
 
 def ssm_train_depth2(dev, cfg, label) -> None:
-    """8b training: 2 adamw steps at 1 x 64 (2 chunks of 32) under amsim and
-    amsim_torch with deterministic algorithms: losses, parameters and the
-    gradient at the next batch bitwise; the amsim launches of each step."""
+    """8b training: an adamw step at 1 x 64 (2 chunks of 32) under amsim and
+    amsim_torch with deterministic algorithms: the loss, the parameters and
+    the gradient at the next batch bitwise; the amsim launches."""
     from repro_torch.core.policy import NumericsPolicy
     counters = ssm_counters()
     want = ssm_train_want(cfg, SSM_DEPTH2["seq"])
@@ -3172,7 +3273,9 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
 # Its encoder and cross-attention run the attention kernel bidirectionally
 # (``causal=False``) over the 1500 frames.
 ENCDEC_ARCH = "whisper-base"
-ENCDEC_DEPTH2 = dict(batch=2, prompt=4, new=8, train_batch=1, seq=64, steps=2)
+# 9a captures at batch 2; 9b decodes one row and trains one step and the
+# gradient after it (5e holds adamw's second step).
+ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=8, train_batch=1, seq=64, steps=1)
 ENCDEC_FULL = dict(batch=4, prompt=4, new=32)
 ENCDEC_TRAIN = dict(batch=4, seq=64, steps=3)
 # 9a holds a product of more lookups than this under the first table only.
@@ -3439,14 +3542,14 @@ def encdec_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
 
 
 def encdec_serving_depth2(dev) -> None:
-    """9b serving: depth 2, greedy decoding of 2 x 1500 frames, prompt 4, 8
+    """9b serving: depth 2, greedy decoding of 1 x 1500 frames, prompt 4, 8
     new tokens under amsim and amsim_torch (deterministic algorithms): the
     encoder states, every step's logits and the tokens bitwise; the amsim
     launches."""
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.models import encdec
     cfg = encdec_cfg(2)
-    B, P, N = ENCDEC_DEPTH2["batch"], ENCDEC_DEPTH2["prompt"], ENCDEC_DEPTH2["new"]
+    B, P, N = ENCDEC_DEPTH2["serve_batch"], ENCDEC_DEPTH2["prompt"], ENCDEC_DEPTH2["new"]
     model = encdec.init_encdec(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
                                device=dev)
     frames, prompts = encdec_inputs(cfg, B, P, dev)
@@ -3483,9 +3586,9 @@ def encdec_serving_depth2(dev) -> None:
 
 
 def encdec_train_depth2(dev) -> None:
-    """9b training: 2 adamw steps at 1 x 64 over 1500 frames under amsim
-    and amsim_torch with deterministic algorithms: losses, parameters and
-    the gradient at the next batch bitwise; the amsim launches a step."""
+    """9b training: an adamw step at 1 x 64 over 1500 frames under amsim
+    and amsim_torch with deterministic algorithms: the loss, the parameters
+    and the gradient at the next batch bitwise; the amsim launches."""
     from repro_torch.core.policy import NumericsPolicy
     cfg = encdec_cfg(2)
     counters = encdec_counters()
@@ -3655,16 +3758,421 @@ def encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> 
     return err
 
 
+# ------------------------------------------------- the rest of the dense registry
+# Phase 10: llava-next-34b (2880 patch embeddings before the text:
+# ``lm_forward(embeds=, caches=)``, ``lm_loss``'s crop), qwen2.5-32b and
+# qwen1.5-110b (q/k/v biases added after the chain's q/k/v products;
+# qwen1.5 trains with adafactor) and stablelm-12b (heads of 160), through
+# the dense block's kernels at heads of 128 and 160 and at widths up to d
+# 8192, d_ff 49152 and a vocab of 152064.
+ZOO = {"llava": "llava-next-34b", "qwen2.5": "qwen2.5-32b", "qwen1.5": "qwen1.5-110b",
+       "stablelm": "stablelm-12b"}
+ZOO_LUTS = [("afm16", True), ("afm10", True)]   # one shared-memory and one global table
+# 10a's attention shapes (label, B, S, H, KV, ring slots, keys written, dh):
+# causal prefills and decode steps over rings with unwritten slots at the
+# zoo's heads; llava's last 16 prefill positions (112 rows a group) over its
+# ring of 2976 keep their scores (R x 2976 floats a tile) in the global
+# scratch at tiles of 16 rows and more.
+ZOO_ATTN_SHAPES = [("llava prefill 1x16 ring 48 (dh 128, G 7)", 1, 16, 56, 8, 48, 40, 128),
+                   ("llava decode ring 160 (dh 128, G 7)", 1, 1, 56, 8, 160, 100, 128),
+                   ("llava prefill positions 2928-2943 ring 2976 (dh 128)", 1, 16, 56, 8, 2976,
+                    2944, 128),
+                   ("llava decode ring 2976 (dh 128)", 1, 1, 56, 8, 2976, 2950, 128),
+                   ("qwen2.5 decode ring 96 (dh 128, G 5)", 4, 1, 40, 8, 96, 70, 128),
+                   ("stablelm prefill 4x16 ring 48 (dh 160, G 4)", 4, 16, 32, 8, 48, 40, 160),
+                   ("stablelm decode ring 160 (dh 160, G 4)", 4, 1, 32, 8, 160, 100, 160)]
+# 10a times the attention kernel (no plain version) at the path's own
+# shapes, as ZOO_ATTN_SHAPES: llava's whole prefill and a step over its ring
+# of 2976; the 4 x 64 prefills and the steps of the others.
+ZOO_ATTN_TIMED = [("llava prefill 1x2944 ring 2976", 1, 2944, 56, 8, 2976, 2944, 128),
+                  ("llava decode ring 2976", 1, 1, 56, 8, 2976, 2945, 128),
+                  ("stablelm prefill 4x64 ring 96", 4, 64, 32, 8, 96, 64, 160),
+                  ("stablelm decode ring 96", 4, 1, 32, 8, 96, 65, 160),
+                  ("qwen2.5 prefill 4x64 ring 96", 4, 64, 40, 8, 96, 64, 128),
+                  ("qwen1.5 prefill 4x64 ring 72", 4, 64, 64, 8, 72, 64, 128)]
+# 10a's chain: (arch, rows, ring) of 10c's decode steps, held in the form
+# the ring takes there (attention+out-mlp up to FUSE_ATTN_MAX_T slots, else
+# attention apart and out-mlp).  The plain versions fold the back half's
+# weights once a row at under 1 G lookups a second, so qwen1.5-110b (2.6 G
+# lookups a row) is held at 1 of its 4 rows.
+ZOO_CHAIN = (("stablelm", 4, 96), ("qwen2.5", 4, 96), ("llava", 1, 2976), ("qwen1.5", 1, 72))
+# 10a's GEMMs: qwen1.5-110b's up and down projections (d_ff 49152) at a
+# decode step's 4 rows (the column path) and 16 rows (the tiled path), and
+# its head (vocab 152064) at 4 rows; each held on ``held_columns``.
+ZOO_GEMMS = ((4, 8192, 49152), (4, 49152, 8192), (16, 8192, 49152), (4, 8192, 152064))
+# 10b: depth 1 at full width, amsim against amsim_torch: (prompt, frontend
+# patches) of a prefill, then ZOO_STEPS greedy steps; stablelm then one
+# adamw step at 1 x 4.  The plain versions make a few G lookups a second,
+# and the heads (0.5-0.8 G lookups a position at these vocabularies) take
+# most of it: each position costs about a second.
+ZOO_DEPTH1 = {"llava": (4, 8), "qwen2.5": (4, 0), "stablelm": (4, 0)}
+ZOO_STEPS = 2
+ZOO_TRAIN1 = dict(batch=1, seq=4, steps=1)
+# 10c: (arch, depth, batch, prompt, new, policies served) and the training
+# runs (arch, depth, batch, seq, steps).  llava's prompt is its 2880
+# patches and 64 text tokens.
+ZOO_SERVE = (("stablelm", None, 4, 64, 32, ("native", "amsim")),
+             ("llava", 4, 1, 64, 32, ("amsim",)),
+             ("qwen2.5", 8, 4, 64, 32, ("amsim",)),
+             ("qwen1.5", 2, 4, 64, 8, ("amsim",)))
+ZOO_TRAIN = (("stablelm", 2, 4, 64, 2), ("llava", 2, 1, 2944, 2), ("qwen1.5", 1, 4, 64, 2))
+
+
+def zoo_counters():
+    return {**serving_counters(), **{k: v for k, v in train_counters().items()
+                                     if k != "fused_moe_ffn"}}
+
+
+def zoo_cfg(key, n_layers=None, **changes):
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(ZOO[key])
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def zoo_inputs(cfg, batch: int, prompt: int, patches: int, dev):
+    """(text tokens (batch, prompt), patch embeddings (batch, patches, d) or
+    None), drawn from SEED."""
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen).to(dev)
+    embeds = (torch.randn((batch, patches, cfg.d_model), generator=gen).to(dev) if patches
+              else None)
+    return tokens, embeds
+
+
+def zoo_greedy(model, tokens, embeds, steps: int, ring: int, policy, last_only=False):
+    """A prefill (the patches first) into rings of ``ring`` slots through
+    ``lm_forward(embeds=, caches=)``, then ``steps`` greedy decode steps of
+    ``serve.engine.make_serve_step``: (tokens (B, steps + 1), the logits of
+    the prefill (its last position's with ``last_only``) and of each step,
+    prefill ms, ms a step); the times are the host's wall clock with the
+    card synchronized around each part."""
+    from repro_torch.models.transformer import init_lm_caches, lm_forward
+    from repro_torch.serve.engine import make_serve_step
+    caches = init_lm_caches(model.cfg, tokens.shape[0], ring, tokens.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, _ = lm_forward(model, tokens, policy, embeds=embeds, caches=caches)
+    nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step = make_serve_step(model, policy)
+    toks, kept = [nxt], [logits[:, -1:] if last_only else logits]
+    for _ in range(steps):
+        lg, nxt, caches = step(nxt, caches)
+        toks.append(nxt)
+        kept.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.cat(toks, 1), kept, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps, 1))
+
+
+def zoo_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
+    """Phase 10a: each kernel of the path at the zoo's new shapes against
+    its plain version, bit for bit as int32, under ZOO_LUTS: the attention
+    kernel at heads of 128 and 160 (``attention_plan_checks``: the plan,
+    every tile x table form, special values); ``fused_qkv_norm`` and the
+    back half in 10c's decode forms (ZOO_CHAIN: ``fused_attn_out_mlp`` over
+    a ring of at most FUSE_ATTN_MAX_T slots, else ``fused_out_mlp``; both
+    where the ring fits the first form, as earlier slices held them); the
+    GEMM at qwen1.5's d_ff and vocab on ``held_columns``.  Operands are
+    drawn once on the card and held under each table.  Each shape's plan
+    and grid and its device time under afm16 beside its bound, and each
+    block's seconds.  Returns each kernel's largest |difference|."""
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import lut_bytes
+    err = dict.fromkeys(("approx_attention", "fused_qkv_norm", "fused_out_mlp",
+                         "fused_attn_out_mlp", "approx_gemm"), 0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    luts = [(f"{name} {'packed' if packed else 'canonical'}", *lut_case(name, packed))
+            for name, packed in ZOO_LUTS]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=dgen, device=dev) * scale
+
+    def held(name, out, ref, what):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        e = max((a - b).abs().max().item() for a, b in zip(outs, refs))
+        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(outs, refs)), f"10a {name} {what}: max|d|={e}")
+        err[name] = max(err[name], e)
+
+    def timed(name, fn, args, nbytes, lookups):
+        t = queued_ms(lambda: fn(*args), reps=3)
+        tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+        return (f"{name} {t:.4f} ms on device (bound {tb:.4f} ms, "
+                f"{bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups)")
+
+    t0 = time.perf_counter()
+    for tag, lut, M in luts:
+        attention_plan_checks(dev, gen, lut, M, tag, shapes=ZOO_ATTN_SHAPES)
+    _, lut, M = luts[0]
+    for label, B, S, H, KV, T, written, dh in ZOO_ATTN_TIMED:
+        q, k, v = randn(B, S, H, dh), randn(B, T, KV, dh), randn(B, T, KV, dh)
+        args = (q, k, v, torch.arange(written - S, written, dtype=torch.int32, device=dev),
+                _ring_positions(T, written, dev), lut, M)
+        plan = attn_mod.attention_plan(attn_mod.AttnShape(B, S, H, KV, T, dh), lut, sms)
+        cost = serving_costs("approx_attention", args, {}, lut_bytes(lut))
+        print(f"  {label} (dh {dh}): "
+              f"{timed('approx_attention', attn_mod.approx_attention, args, *cost)} on valid "
+              f"keys; {plan}")
+        del q, k, v, args
+    print(f"  10a attention: {time.perf_counter() - t0:.1f} s")
+    for key, B, ring in ZOO_CHAIN:
+        t0 = time.perf_counter()
+        cfg = zoo_cfg(key)
+        d, F, H, KV, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        eps = cfg.norm_eps
+        w = dict(g1=1 + 0.1 * randn(d), g2=1 + 0.1 * randn(d),
+                 wq=randn(d, H * dh, scale=d ** -0.5), wk=randn(d, KV * dh, scale=d ** -0.5),
+                 wv=randn(d, KV * dh, scale=d ** -0.5),
+                 wo=randn(H * dh, d, scale=(H * dh) ** -0.5), wg=randn(d, F, scale=d ** -0.5),
+                 wu=randn(d, F, scale=d ** -0.5), wd=randn(F, d, scale=F ** -0.5))
+        x, attn = randn(B, d), randn(B, H * dh, scale=0.3)
+        back = [w[n] for n in ("g2", "wo", "wg", "wu", "wd")]
+        qkv = (x, w["g1"], w["wq"], w["wk"], w["wv"])
+        written, fused = ring - 26, ring <= ops.FUSE_ATTN_MAX_T
+        sargs = ((randn(B, 1, H, dh), randn(B, ring, KV, dh), randn(B, ring, KV, dh),
+                  torch.tensor([written - 1], dtype=torch.int32, device=dev),
+                  _ring_positions(ring, written, dev)) if fused else ())
+        for i, (tag, lut, M) in enumerate(luts):
+            held("fused_qkv_norm", chain.fused_qkv_norm(*qkv, lut, M, eps=eps),
+                 chain.fused_qkv_norm_plain(*qkv, lut, M, eps=eps), f"{tag} {key}")
+            held("fused_out_mlp", chain.fused_out_mlp(x, attn, *back, lut, M, eps=eps),
+                 chain.fused_out_mlp_plain(x, attn, *back, lut, M, eps=eps), f"{tag} {key}")
+            text = "the attention apart (the ring exceeds the attention phase's)"
+            if fused:
+                held("fused_attn_out_mlp",
+                     chain.fused_attn_out_mlp(x, *sargs, *back, lut, M, eps=eps),
+                     chain.fused_attn_out_mlp_plain(x, *sargs, *back, lut, M, eps=eps,
+                                                    causal=True, window=0), f"{tag} {key}")
+                text = (f"attention phase, {written} written: "
+                        f"{chain.attention_phase_plan(B, H, KV, ring, dh, lut)}")
+            print(f"{tag}: {key} chain at {B} rows (d {d}, d_ff {F}, {H}/{KV} heads of {dh}) "
+                  f"== plain (bitwise): qkv grid {chain.qkv_grid(B, H * dh, KV * dh, KV * dh, lut)}"
+                  f"; back-half grid {chain.back_half_grid(B, d, F, lut, heads=H, kv_heads=KV)}; "
+                  f"a ring of {ring}, {text}")
+            for name, fn, args in (() if i else (
+                    ("fused_qkv_norm", chain.fused_qkv_norm, (*qkv, lut, M)),
+                    ("fused_out_mlp", chain.fused_out_mlp, (x, attn, *back, lut, M)),
+                    *((("fused_attn_out_mlp", chain.fused_attn_out_mlp,
+                        (x, *sargs, *back, lut, M)),) if fused else ()))):
+                cost = serving_costs(name, args, {}, lut_bytes(lut))
+                print(f"  {key} {B} rows: "
+                      f"{timed(name, lambda *a, fn=fn: fn(*a, eps=eps), args, *cost)}")
+        print(f"  10a {key} chain: {time.perf_counter() - t0:.1f} s")
+        del w, back, qkv, sargs
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for m, k, n in ZOO_GEMMS:
+        a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+        for i, (tag, lut, M) in enumerate(luts):
+            same, what = held_against_plain("approx_gemm", gemm_mod.approx_gemm,
+                                            gemm_mod.approx_gemm_plain, (a, b, lut, M), {},
+                                            min_lookups=0)
+            require(same, f"10a approx_gemm {tag} {(m, k, n)}: not bitwise its plain version "
+                    f"({what})")
+            note = (f"{tag}: approx_gemm {(m, k, n)} == plain (bitwise, {what}); "
+                    f"{gemm_plan_text(a, b, lut)}")
+            if i == 0:
+                note += "; " + timed("approx_gemm", gemm_mod.approx_gemm, (a, b, lut, M),
+                                     *gemm_costs(a, b, lut))
+            print(note)
+        del a, b
+    torch.cuda.empty_cache()
+    print(f"  10a GEMMs: {time.perf_counter() - t0:.1f} s")
+    print(f"10a: {sms} SMs; every zoo shape bitwise its plain version under "
+          f"{[t for t, _, _ in luts]}")
+    return err
+
+
+def zoo_depth1(dev) -> None:
+    """Phase 10b: depth 1 at full width, amsim against amsim_torch with
+    deterministic algorithms: a prefill (llava: 8 patches, the frontend cut
+    from 2880, then 4 text tokens; the qwen2.5 and stablelm prompts of 4)
+    into rings through ``lm_forward(embeds=, caches=)``, then ZOO_STEPS
+    greedy steps through the decode chain (qwen2.5's biases added after its
+    q/k/v products): the prefill's and every step's logits and the tokens
+    bitwise, the amsim launches; then one adamw step of stablelm at 1 x 4
+    and the gradient after it: the loss, the parameters and the gradient
+    bitwise, the launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm
+    counters = zoo_counters()
+    for key, (prompt, patches) in ZOO_DEPTH1.items():
+        cfg = zoo_cfg(key, 1, **({"n_frontend_tokens": patches} if patches else {}))
+        ring = patches + prompt + ZOO_STEPS
+        model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        tokens, embeds = zoo_inputs(cfg, 1, prompt, patches, dev)
+        want = {**serve_want(cfg, ZOO_STEPS, ring), "approx_gemm_batched": 0}
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for mode in ("amsim", "amsim_torch"):
+                t0 = time.perf_counter()
+                zero_launches(counters)
+                toks, kept, _, _ = zoo_greedy(model, tokens, embeds, ZOO_STEPS, ring,
+                                              NumericsPolicy(mode=mode, multiplier="afm16"))
+                runs[mode] = (toks, kept, launches_of(counters), time.perf_counter() - t0)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (t_a, l_a, n_a, s_a), (t_p, l_p, n_p, s_p) = runs["amsim"], runs["amsim_torch"]
+        require(n_a == want and set(n_p.values()) == {0},
+                f"10b {cfg.name} depth 1 serving launches: amsim {n_a}, amsim_torch {n_p}, "
+                f"want {want}")
+        require(l_a[0].shape == (1, patches + prompt, cfg.vocab)
+                and all(bool(torch.isfinite(lg).all()) for lg in l_a),
+                f"10b {cfg.name}: prefill logits {tuple(l_a[0].shape)} or not finite")
+        require(_same(l_a, l_p) and torch.equal(t_a, t_p),
+                f"10b {cfg.name}: amsim differs from amsim_torch (logits max|d| "
+                f"{max((a - b).abs().max().item() for a, b in zip(l_a, l_p))}, tokens equal "
+                f"{torch.equal(t_a, t_p)})")
+        print(f"{cfg.name} depth 1 at full width: prefill of {patches} patches + {prompt} tokens "
+              f"(logits {tuple(l_a[0].shape)}), {ZOO_STEPS} greedy steps over a ring of {ring}: "
+              f"logits and tokens bitwise equal to amsim_torch; amsim launches {n_a}; "
+              f"{s_a:.1f} s amsim, {s_p:.1f} s amsim_torch; tokens {t_a[0].tolist()}")
+        del model, runs
+        torch.cuda.empty_cache()
+    cfg = zoo_cfg("stablelm", 1)
+    tc = train_counters()
+    want = train_want(cfg, ZOO_TRAIN1["seq"])
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev, tc,
+                                    ZOO_TRAIN1)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    steps = ZOO_TRAIN1["steps"]
+    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
+            f"10b {cfg.name} training launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"10b {cfg.name} losses {l_a}")
+    require(_same(l_a, l_p) and _same(p_a, p_p) and _same(g_a, g_p),
+            f"10b {cfg.name} training: amsim and amsim_torch differ (losses {l_a}, {l_p})")
+    print(f"{cfg.name} depth 1 at full width (heads of {cfg.head_dim}): batch "
+          f"{ZOO_TRAIN1['batch']} x {ZOO_TRAIN1['seq']}, {steps} adamw step: loss "
+          f"{[round(float(v), 6) for v in l_a]}, parameters and the next gradient bitwise equal "
+          f"to amsim_torch ({len(p_a)} tensors); amsim launches {want}; {t_a:.1f} s amsim, "
+          f"{t_p:.1f} s amsim_torch")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def zoo_serve_full(dev, key, depth, batch, prompt, new, modes, smi_line) -> dict:
+    """Phase 10c serving: one zoo model at full width (and ``depth``, or
+    full depth), weights drawn on the card: for each mode a warm-up, then a
+    timed prefill (llava's of its 2880 patches and ``prompt`` text tokens)
+    and ``new`` - 1 greedy steps, with the launches (amsim: counters zeroed
+    just before the run, held to ``serve_want``), the device busy time
+    of the prefill and of a step, the peak memory, tokens/s.  Returns the
+    amsim run's launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm, init_lm_caches, lm_forward
+    from repro_torch.serve.engine import make_serve_step
+    cfg = zoo_cfg(key, depth)
+    patches = cfg.n_frontend_tokens
+    ring = patches + prompt + new
+    gc.collect()                 # the previous run's model, if a cycle holds it
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = 4 * sum(p.numel() for p in model.parameters())
+    full = zoo_cfg(key).n_layers
+    depth_note = "full depth" if cfg.n_layers == full else f"depth {cfg.n_layers} of {full}"
+    print(f"{cfg.name} at full width, {depth_note} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}{', q/k/v biases' if cfg.qkv_bias else ''}; "
+          f"{weight_bytes / 1e9:.2f} GB of float32 weights) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; batch {batch}, "
+          + (f"{patches} patches + " if patches else "")
+          + f"prompt {prompt}, {new} new tokens, ring {ring} ({smi_line}):")
+    tokens, embeds = zoo_inputs(cfg, batch, prompt, patches, dev)
+    counters = zoo_counters()
+    got = None
+    for mode in modes:
+        policy = (NumericsPolicy() if mode == "native"
+                  else NumericsPolicy(mode=mode, multiplier="afm16"))
+        warm_tokens, warm_embeds = zoo_inputs(cfg, batch, 8, min(patches, 16), dev)
+        zoo_greedy(model, warm_tokens, warm_embeds, 1, 8 + min(patches, 16) + 1, policy)
+        zero_launches(counters)
+        toks, kept, pre_ms, step_ms = zoo_greedy(model, tokens, embeds, new - 1, ring, policy,
+                                                 last_only=True)
+        if mode == "amsim":
+            got = launches_of(counters)
+            want = {**serve_want(cfg, new - 1, ring), "approx_gemm_batched": 0}
+            require(got == want, f"10c {cfg.name} serving: launches {got}, want {want}")
+        require(toks.shape == (batch, new) and bool((toks >= 0).all() & (toks < cfg.vocab).all())
+                and all(bool(torch.isfinite(lg).all()) for lg in kept),
+                f"10c {cfg.name} {mode}: tokens out of range or logits not finite")
+        caches = init_lm_caches(cfg, batch, ring, dev)
+        (_, caches, _), busy_pre = profiled(lambda: lm_forward(model, tokens, policy,
+                                                               embeds=embeds, caches=caches))
+        nxt = toks[:, -1:]
+        step = make_serve_step(model, policy)
+        busy_step = busy_ms(lambda: step(nxt, caches), reps=3)
+        total_s = (pre_ms + step_ms * (new - 1)) / 1e3
+        print(f"  {mode}: prefill {pre_ms:.2f} ms (" + (
+            f"device busy {busy_pre:.2f} ms in a profiled rerun" if busy_pre is not None
+            else "device busy not measured") + f"), {step_ms:.3f} ms per decode step "
+              f"({busy_text(busy_step, step_ms)}), {batch * new / total_s:.2f} tokens/s; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens "
+              f"{toks[0, :8].tolist()}")
+        del caches, step
+    print(f"launches on the {cfg.name} serving run (10c, amsim, prefill and {new - 1} decode "
+          f"steps): {got}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> tuple:
+    """Phase 10: 10a-10c; 10c prints each run's launches on a line of its
+    own.  Returns (each kernel's largest |difference| in 10a, the launches
+    of 10c's amsim runs summed, to show that each kernel ran there)."""
+    err = zoo_kernel_checks(dev, gen, lut_case, lookups_per_s)
+    phase_done("10a zoo kernels vs plain")
+    zoo_depth1(dev)
+    phase_done("10b zoo amsim vs amsim_torch, depth 1")
+    launches = {}
+    for key, depth, batch, prompt, new, modes in ZOO_SERVE:
+        for k, n in zoo_serve_full(dev, key, depth, batch, prompt, new, modes,
+                                   smi_line).items():
+            launches[k] = launches.get(k, 0) + n
+    for key, depth, batch, seq, steps in ZOO_TRAIN:
+        run = train_full(dev, ZOO[key], lookups_per_s, smi_line,
+                         shape=dict(batch=batch, seq=seq, steps=steps), n_layers=depth)
+        print(f"launches on the {ZOO[key]} training run (10c, {steps} steps at {batch} x {seq}, "
+              f"depth {depth}): {run}")
+        for k, n in run.items():
+            launches[k] = launches.get(k, 0) + n
+    phase_done("10c zoo serving and training, full width")
+    return err, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 7" / "--phase 8" / "--phase 9": phases 1, 2 and that one alone,
-    # without the result lines.
-    only = argv[1] if argv in (["--phase", "7"], ["--phase", "8"], ["--phase", "9"]) else None
+    # "--phase 7" ... "--phase 10": phases 1, 2 and that one alone, without the
+    # result lines.
+    only = argv[1] if len(argv) == 2 and argv[0] == "--phase" and argv[1] in (
+        "7", "8", "9", "10") else None
     if argv and only is None:
-        print(f"chip_smoke: unknown arguments {argv} (none, --phase 7, --phase 8 or --phase 9)",
+        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7, 8, 9 or 10)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -3734,6 +4242,8 @@ def main(argv=None) -> int:
         ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
     if only == "9":
         encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+    if only == "10":
+        dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
@@ -4161,11 +4671,20 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------- 9. the encoder-decoder
     encdec_err = encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+
+    # ------------------------------------ 10. the rest of the dense registry
+    zoo_err, zoo_launches = dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+    for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
+                  "fused_out_mlp", "fused_attn_out_mlp"):
+        require(zoo_launches.get(kname, 0) > 0, f"{kname} never launched on phase 10's path")
+    # each row keeps its own path's launches, beside the time of that run;
+    # phase 10's runs print theirs on lines of their own (10c)
     for row in rows_out:
-        for err in (ssm_err, encdec_err):
+        for err in (ssm_err, encdec_err, zoo_err):
             if row["name"] in err:
                 row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
-    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; whole script {sum(phase_s.values()):.1f}")
 
     print(smi_line)
     print(json.dumps({"kernels": rows_out}))

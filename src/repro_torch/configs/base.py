@@ -2,12 +2,16 @@
 
 The port's twin of ``repro.configs.base``: a frozen ``ArchConfig`` per
 architecture, registered by name (``get_arch``), and ``reduced`` for the
-smoke-test shape the JAX package's tests use.  The dense, MoE (an MoE FFN
-in every layer, no shared expert), SSM (Mamba2), hybrid (Mamba2 with a
-weight-shared attention block) and encoder-decoder (whisper-style, the
-audio frontend a stub: the encoder takes precomputed frame embeddings)
-families are ported; a decoder-only family with frontend tokens (llava)
-comes with its slice.
+smoke-test shape the JAX package's tests use.  The dense (q/k/v biases
+too), MoE (an MoE FFN in every layer, no shared expert), SSM (Mamba2),
+hybrid (Mamba2 with a weight-shared attention block) and encoder-decoder
+(whisper-style, the audio frontend a stub: the encoder takes precomputed
+frame embeddings) families are ported, and a decoder-only LM with frontend
+tokens (llava: precomputed patch embeddings prepended to the text,
+``lm_forward(embeds=)``).  Every JAX arch is registered but
+llama4-maverick-400b-a17b, whose interleaved MoE stack and shared expert
+come with their slice.  JAX's ``fsdp`` and ``scan_layers`` hints are not
+carried: the port runs on one device and loops over its layers.
 """
 from __future__ import annotations
 
@@ -78,10 +82,6 @@ class ArchConfig:
         if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
             raise NotImplementedError(f"only the dense, moe, ssm, hybrid and encdec families "
                                       f"are ported, not {self.family!r}")
-        if self.n_frontend_tokens and self.family != "encdec":
-            raise NotImplementedError(
-                f"{self.name}: frontend tokens of a decoder-only LM (lm_forward(embeds=)) are "
-                f"not ported yet: they come with the slice that serves llava-next-34b")
         if (self.family == "encdec") != (self.n_enc_layers > 0):
             raise ValueError(f"family {self.family!r} and n_enc_layers={self.n_enc_layers} "
                              f"disagree")
@@ -103,7 +103,7 @@ class ArchConfig:
 ARCH_REGISTRY: dict[str, ArchConfig] = {}
 # Modules that register an architecture when imported.
 _ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m", "mamba2_780m", "zamba2_1_2b",
-                 "whisper_base")
+                 "whisper_base", "llava_next_34b", "qwen2_5_32b", "qwen1_5_110b", "stablelm_12b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

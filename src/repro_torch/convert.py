@@ -68,7 +68,8 @@ def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> Vision
 def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     """The port's LM holding the parameters of a JAX ``init_lm`` pytree of
     the dense, MoE, SSM or hybrid family (numpy or JAX array leaves, layers
-    stacked on a leading axis; an MoE layer's router ``w`` (d, E) and expert
+    stacked on a leading axis; the q/k/v biases ``b`` of a ``qkv_bias``
+    config beside their ``w``; an MoE layer's router ``w`` (d, E) and expert
     banks (E, d, F) / (E, F, d); a Mamba2 layer's ``conv_w`` (K, ch); the
     hybrid's ``shared_attn``, one layer, unstacked), on ``device``
     (default: the card).  The tied head's

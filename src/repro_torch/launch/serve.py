@@ -20,8 +20,10 @@ admission by bucket, and asserts one decode build per tier.  Without
 
 Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
 takes the smoke-test widths of ``configs.base.reduced``.  Weights are
-drawn from ``--seed`` on the device.  Multi-GPU serving (``--mesh``) is a
-later slice.  An encoder-decoder arch (whisper-base) exits before any work
+drawn from ``--seed`` on the device.  Every dense arch serves, llava-next-34b
+on text tokens only, as JAX's engines do (a prefill with its patch
+embeddings is ``lm_forward(embeds=, caches=)``).  Multi-GPU serving
+(``--mesh``) is a later slice.  An encoder-decoder arch (whisper-base) exits before any work
 with the JAX CLI's message.
 """
 from __future__ import annotations
@@ -125,8 +127,10 @@ def run_stream(args, model) -> tuple[ContinuousBatchingEngine, dict]:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
-                         "or zamba2-1.2b (hybrid; --stream takes dense and MoE only)")
+                    help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b, "
+                         "llava-next-34b (dense; llava serves text tokens only), "
+                         "granite-moe-3b-a800m (MoE), mamba2-780m (SSM) or zamba2-1.2b "
+                         "(hybrid; --stream takes dense and MoE only)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--n-layers", type=int, default=None,

@@ -7,6 +7,8 @@
         --seq 256 --numerics amsim --multiplier afm16           # SSD chunks of 256
     python -m repro_torch.launch.train --arch whisper-base --steps 3 --batch 4 \
         --seq 64 --numerics amsim --multiplier afm16            # over 1500 frames
+    python -m repro_torch.launch.train --arch llava-next-34b --reduced --device cpu \
+        --steps 2 --batch 2 --seq 16                            # 8 patches + 8 text
 
 Full width by default (``--reduced``: the smoke-test widths of
 ``configs.base.reduced``); weights drawn from ``--seed``, batches from
@@ -15,8 +17,12 @@ zamba2-1.2b) scan whole SSD chunks: ``--seq`` must be a multiple of the
 config's chunk (256; 8 under ``--reduced``).  The encoder-decoder
 (whisper-base) trains ``encdec_loss``: ``--seq`` is the decoder's length,
 and the encoder takes ``n_frontend_tokens`` frames (1500; 8 under
-``--reduced``) that ``lm_batch`` draws.  The optimizer is the
-config's (``cfg.optimizer``: adamw for every ported config) over
+``--reduced``) that ``lm_batch`` draws.  A decoder-only LM with a
+frontend (llava-next-34b) trains ``lm_loss`` on ``lm_batch``'s patch
+embeddings and text: of ``--seq`` positions, ``n_frontend_tokens`` (2880;
+8 under ``--reduced``) are patches, the rest text, so ``--seq`` must
+exceed them.  The optimizer is the config's (``cfg.optimizer``: adafactor
+for qwen1.5-110b, adamw for every other ported config) over
 ``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
 (checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
 report and the metrics every steps/10.
@@ -62,10 +68,16 @@ def make_lm_train_step(cfg: ArchConfig, policy: Numerics, *, lr: float, steps: i
 
 def check_seq(cfg: ArchConfig, seq: int):
     """Exit before any work unless ``seq`` fits the arch: the SSD scan of an
-    SSM or hybrid stack takes whole chunks of ``cfg.ssm.chunk`` steps."""
+    SSM or hybrid stack takes whole chunks of ``cfg.ssm.chunk`` steps; a
+    decoder-only frontend's patches take ``cfg.n_frontend_tokens`` of the
+    positions, and the text the rest."""
     if cfg.ssm is not None and seq % cfg.ssm.chunk:
         raise SystemExit(f"--seq {seq} is not a multiple of {cfg.name}'s SSD chunk "
                          f"{cfg.ssm.chunk}: the chunked scan takes whole chunks")
+    F = cfg.n_frontend_tokens
+    if F and cfg.family != "encdec" and seq <= F:
+        raise SystemExit(f"--seq {seq} leaves no text: {cfg.name}'s {F} frontend positions "
+                         f"come first, so --seq must exceed {F}")
 
 
 def _kernels_on(device: torch.device) -> str:
@@ -116,15 +128,18 @@ def policy_from_args(args) -> Numerics:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="LM training on one device")
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM), "
-                         "zamba2-1.2b (hybrid) or whisper-base (encoder-decoder)")
+                    help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b (dense), "
+                         "llava-next-34b (dense, patch embeddings first), granite-moe-3b-a800m "
+                         "(MoE), mamba2-780m (SSM), zamba2-1.2b (hybrid) or whisper-base "
+                         "(encoder-decoder)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128,
-                    help="tokens a row (an encoder-decoder's decoder length; its encoder "
-                         "takes the config's frames)")
+                    help="positions a row (an encoder-decoder's decoder length, its encoder "
+                         "takes the config's frames; a decoder-only frontend's patches and "
+                         "text together)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--numerics", default="native",
                     help=f"a mode ({'|'.join(MODES)}) or a policy-table JSON path")

@@ -55,7 +55,7 @@ class EncDec(nn.Module):
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
-        self.embed = Embedding(**tree["embed"])
+        self.embed = Embedding(**tree["embed"], tied=False)
         self.enc_layers = nn.ModuleList(_layer(lp) for lp in tree["enc_layers"])
         self.dec_layers = nn.ModuleList(_layer(lp) for lp in tree["dec_layers"])
         self.enc_norm = Norm(**tree["enc_norm"])

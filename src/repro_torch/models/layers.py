@@ -57,18 +57,20 @@ def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
-    """A token embedding ``emb`` (vocab, d) and, for the tied LM head, its
-    transpose ``emb_t`` (d, vocab), made contiguous: the head's GEMM takes
-    contiguous operands, and transposing per decode step would copy the
-    whole table (400 MB at granite-3-2b) every step.  ``emb_t`` is a buffer
-    made again from ``emb`` when ``emb`` has changed in place since it was
-    made (an optimizer step, a checkpoint restore), as its version counter
-    tells."""
+    """A token embedding ``emb`` (vocab, d) and, for the tied LM head
+    (``tied``), its transpose ``emb_t`` (d, vocab), made contiguous: the
+    head's GEMM takes contiguous operands, and transposing per decode step
+    would copy the whole table (400 MB at granite-3-2b) every step.
+    ``emb_t`` is a buffer made again from ``emb`` when ``emb`` has changed
+    in place since it was made (an optimizer step, a checkpoint restore), as
+    its version counter tells.  An untied model keeps none (5 GB at
+    qwen1.5-110b's vocab of 152064)."""
 
-    def __init__(self, emb: torch.Tensor):
+    def __init__(self, emb: torch.Tensor, tied: bool):
         super().__init__()
         self.emb = nn.Parameter(emb)
-        self.register_buffer("emb_t", emb.detach().T.contiguous(), persistent=False)
+        if tied:
+            self.register_buffer("emb_t", emb.detach().T.contiguous(), persistent=False)
         self._emb_t_of = self.emb._version
 
     def transposed(self) -> torch.Tensor:

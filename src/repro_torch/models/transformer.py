@@ -14,7 +14,9 @@ bit alike.  ``lm_forward(..., train=True)`` runs with grad enabled (each
 block of a dense, MoE or SSM stack under ``torch.utils.checkpoint`` when
 ``cfg.remat``; the hybrid stack without, as in JAX) and ``lm_loss`` is the
 training loss: token cross-entropy plus the MoE load-balance loss, which
-every block hands up the stack.
+every block hands up the stack.  A decoder-only LM with a frontend (llava)
+takes its precomputed patch embeddings before the text
+(``lm_forward(embeds=)``); ``lm_loss`` crops those positions.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
-        self.embed = Embedding(**tree["embed"])
+        self.embed = Embedding(**tree["embed"], tied=cfg.tie_embeddings)
         self.final_norm = Norm(**tree["final_norm"])
         layer = SSMLayer if cfg.ssm is not None else DenseLayer
         self.layers = nn.ModuleList(layer(**lp) for lp in tree["layers"])
@@ -277,46 +279,63 @@ def _hybrid_stack(model: LM, x, policy: NumericsPolicy, caches, window: int):
 
 
 # ---------------------------------------------------------------- forward
-def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, caches=None,
-               window: int | None = None, train: bool = False):
-    """tokens (B, S) -> (logits (B, S, vocab), new caches or None, aux loss).
+def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embeds, caches,
+                  window: int, train: bool):
+    """The stack's output after the final norm: (x (B, F + S, d), new
+    caches or None, aux); ``embeds`` (B, F, d) or None go before the
+    tokens' embeddings."""
+    cfg = model.cfg
+    x = embed(model.embed, tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    if cfg.family == "hybrid":
+        x, new_caches, aux = _hybrid_stack(model, x, policy, caches, window)
+    else:
+        block = _ssm_block if cfg.family == "ssm" else _dense_block
+        aux = 0.0
+        new_caches = []
+        for i, layer in enumerate(model.layers):
+            cache = None if caches is None else caches[i]
+            if train and cfg.remat and cache is None:
+                x, cache, a = checkpoint(block, layer, x, cfg, policy, None, window,
+                                         use_reentrant=False)
+            else:
+                x, cache, a = block(layer, x, cfg, policy, cache, window)
+            aux = aux + a
+            new_caches.append(cache)
+    norm = rmsnorm if cfg.family == "ssm" else _block_norm(policy, caches)
+    x = norm(model.final_norm, x, cfg.norm_eps)
+    if not isinstance(aux, torch.Tensor):   # no MoE block: no aux loss
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, (new_caches if caches is not None else None), aux
+
+
+def _lm_head(model: LM, x: torch.Tensor, policy: NumericsPolicy) -> torch.Tensor:
+    if model.cfg.tie_embeddings:
+        return unembed(model.embed, x, policy)
+    return linear(model.head, x, policy, site="head")
+
+
+def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, embeds=None,
+               caches=None, window: int | None = None, train: bool = False):
+    """tokens (B, S), and optional frontend embeddings ``embeds`` (B, F, d)
+    put before them (cast to the embeddings' type, as JAX does) -> (logits
+    (B, F + S, vocab), new caches or None, aux loss).
 
     Serving (``train=False``) runs without grad; ``caches``
-    (``init_lm_caches``) are updated in place.  ``train=True`` runs with
+    (``init_lm_caches``) are updated in place, the F + S positions of a
+    prefill with ``embeds`` written to the ring.  ``train=True`` runs with
     grad, each block under ``torch.utils.checkpoint`` when ``cfg.remat``
     (its activations recomputed in the backward: the same bits, fewer
     held; the hybrid stack never, as in JAX).  ``window`` None means the
     architecture's own sliding window (0 = off).  aux sums the blocks' MoE
     load-balance losses.  The final norm takes the chain's order where the
     stack has dense blocks (``_block_norm``), JAX's in an SSM stack."""
-    cfg = model.cfg
-    window = cfg.sliding_window if window is None else window
+    window = model.cfg.sliding_window if window is None else window
     with torch.set_grad_enabled(train):
-        x = embed(model.embed, tokens)
-        if cfg.family == "hybrid":
-            x, new_caches, aux = _hybrid_stack(model, x, policy, caches, window)
-        else:
-            block = _ssm_block if cfg.family == "ssm" else _dense_block
-            aux = 0.0
-            new_caches = []
-            for i, layer in enumerate(model.layers):
-                cache = None if caches is None else caches[i]
-                if train and cfg.remat and cache is None:
-                    x, cache, a = checkpoint(block, layer, x, cfg, policy, None, window,
-                                             use_reentrant=False)
-                else:
-                    x, cache, a = block(layer, x, cfg, policy, cache, window)
-                aux = aux + a
-                new_caches.append(cache)
-        norm = rmsnorm if cfg.family == "ssm" else _block_norm(policy, caches)
-        x = norm(model.final_norm, x, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = unembed(model.embed, x, policy)
-        else:
-            logits = linear(model.head, x, policy, site="head")
-    if not isinstance(aux, torch.Tensor):   # no MoE block: no aux loss
-        aux = logits.new_zeros((), dtype=torch.float32)
-    return logits, (new_caches if caches is not None else None), aux
+        x, new_caches, aux = _final_hidden(model, tokens, policy, embeds, caches, window, train)
+        logits = _lm_head(model, x, policy)
+    return logits, new_caches, aux
 
 
 def label_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -333,11 +352,21 @@ def label_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 0.01):
-    """batch {"tokens": (B, S), "labels": (B, S) (-1 = no loss)} ->
-    (mean token cross-entropy + aux_weight x the MoE aux loss, {"xent",
-    "aux"}), as JAX ``lm_loss``."""
-    logits, _, aux = lm_forward(model, batch["tokens"], policy, train=True)
-    loss = label_xent(logits, batch["labels"])
+    """batch {"tokens": (B, S), "labels": (B, S) (-1 = no loss), optional
+    "embeds": (B, F, d)} -> (mean token cross-entropy + aux_weight x the MoE
+    aux loss, {"xent", "aux"}), as JAX ``lm_loss``.  The frontend positions
+    carry no loss: JAX crops the logits to the labels' length; here the
+    final hidden states are cropped before the head, so that the head makes
+    no product for those positions.  Each logit row and, since the head's
+    backward folds its rows in order from +0.0 and a cropped row only adds
+    zeros there, every gradient keep their bits
+    (``tests/test_torch_dense_zoo.py``)."""
+    with torch.set_grad_enabled(True):
+        x, _, aux = _final_hidden(model, batch["tokens"], policy, batch.get("embeds"), None,
+                                  model.cfg.sliding_window, True)
+        labels = batch["labels"]
+        logits = _lm_head(model, x[:, x.shape[1] - labels.shape[1]:], policy)
+        loss = label_xent(logits, labels)
     return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 

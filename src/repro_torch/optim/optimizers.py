@@ -187,22 +187,26 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0, decay: float 
         beta = 1.0 - _power(float(step), -decay)
 
         def leaf(g, f, p):
+            # In place where a temporary of the leaf's size would be freed
+            # at once: the same values, and a leaf of 5 GB (qwen1.5-110b's
+            # head) holds two such temporaries at a time, not five.
             g = g.to(torch.float32)
-            g2 = torch.square(g) + eps
+            g2 = torch.square(g).add_(eps)
             if g.ndim >= 2:
                 r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
                 c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                del g2
                 rc = torch.mean(r, dim=-1, keepdim=True)
                 vhat = (r[..., None] / torch.clamp(rc[..., None], min=eps)) * c[..., None, :]
-                u = g * torch.rsqrt(torch.clamp(vhat, min=eps))
+                u = vhat.clamp_(min=eps).rsqrt_().mul_(g)
                 nf = {"r": r, "c": c}
             else:
                 v = beta * f["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(torch.clamp(v, min=eps))
                 nf = {"v": v}
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return -lr_t * (u + weight_decay * p), nf
+            u = u.div_(torch.clamp(rms / clip_threshold, min=1.0))
+            return u.add_(weight_decay * p).mul_(-lr_t), nf
 
         g_s, p_s = _stacked(grads, stacks), _stacked(params, stacks)
         out = {n: leaf(g_s[n], state["f"][n], p_s[n]) for n in g_s}

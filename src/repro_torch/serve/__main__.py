@@ -6,6 +6,8 @@ numerics: the twin of ``examples/serve_lm.py``.
     python -m repro_torch.serve --arch granite-moe-3b-a800m     # MoE, 40 experts
     python -m repro_torch.serve --arch mamba2-780m              # SSM (Mamba2)
     python -m repro_torch.serve --arch zamba2-1.2b              # hybrid
+    python -m repro_torch.serve --arch stablelm-12b             # heads of 160, 48.6 GB
+    python -m repro_torch.serve --arch qwen2.5-32b --n-layers 8 # q/k/v biases
     python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
     python -m repro_torch.serve --numerics table.json           # per-site numerics
 
@@ -16,7 +18,10 @@ chain runs when every chain site (qkv, wo, wg, wu, wd and both attention
 sites) resolves to one ``amsim`` or ``amsim_torch`` leaf, whatever the
 router and the head run; a table that splits them runs the per-op path.
 The chain runs the dense blocks (the hybrid's shared block); a Mamba2
-layer decodes by its recurrence.  An encoder-decoder arch (whisper-base)
+layer decodes by its recurrence.  llava-next-34b serves text tokens only,
+as JAX's ``ServingEngine`` does: its prefill with patch embeddings is
+``lm_forward(embeds=, caches=)``.  The 30-110 B archs (llava, the qwens)
+fit one card only at a cut depth.  An encoder-decoder arch (whisper-base)
 exits before any work with the JAX CLI's message: no engine serves one.
 Prints which, tokens/s, the prefill time and the time per decode step.
 """
@@ -38,8 +43,9 @@ from repro_torch.serve.engine import ServingEngine
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b",
-                    help="granite-3-2b (dense), granite-moe-3b-a800m (MoE), mamba2-780m (SSM) "
-                         "or zamba2-1.2b (hybrid)")
+                    help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b, "
+                         "llava-next-34b (dense; llava on text tokens), granite-moe-3b-a800m "
+                         "(MoE), mamba2-780m (SSM) or zamba2-1.2b (hybrid)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=24)

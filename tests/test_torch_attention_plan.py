@@ -75,11 +75,19 @@ SHAPES = {
     "bidir_G2": (2, 8, 4, 2, 32, 8, range(8), range(8), False, 0),
     "bidir_cross_S6_T70": (1, 6, 4, 4, 32, 70, range(6), range(70), False, 0),
     "bidir_unwritten": (2, 3, 4, 2, 32, 16, range(3), RING_PARTIAL, False, 0),
+    # heads of 128 (two whole value chunks) and 160 (a ragged chunk of 32):
+    # llava-next-34b's G = 7 at a short prefill over a ring, qwen2.5-32b's
+    # decode (G = 5), stablelm-12b's G = 4 at prefill and at a windowed
+    # decode over a ring of 160
+    "dh128_G7_prefill": (1, 9, 14, 2, 128, 40, range(31, 40), _ring(40, 40), True, 0),
+    "dh128_G5_decode": (2, 1, 10, 2, 128, 96, [79], _ring(96, 80), True, 0),
+    "dh160_G4_prefill": (2, 6, 8, 2, 160, 70, range(60, 66), _ring(70, 66), True, 0),
+    "dh160_G4_decode_window": (2, 1, 8, 2, 160, 160, [95], _ring(160, 96), True, 8),
 }
 # the shapes small enough for the kernel's order in torch
 TWIN_SHAPES = ["prefill_causal_G2", "prefill_window3", "decode_ring_wrapped",
                "decode_ring_unwritten", "cuda_2", "dh37_G8", "bidir_G2", "bidir_cross_S6_T70",
-               "bidir_unwritten"]
+               "bidir_unwritten", "dh160_G4_prefill"]
 
 
 def _shape(name):
@@ -209,7 +217,7 @@ def test_bidirectional_plans_count_every_key():
 
 @pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 32])
 @pytest.mark.parametrize("T", [20, 96, 128, 160, 4096])
-@pytest.mark.parametrize("dh", [37, 64, 256])
+@pytest.mark.parametrize("dh", [37, 64, 128, 160, 256])
 def test_attention_phase_fits_the_fold_buffers(rows, T, dh):
     """fused_attn_out_mlp's attention phase lays its tile out in the fold
     buffers of its rows: scores in shared memory up to a ring of 128 at
@@ -224,6 +232,74 @@ def test_attention_phase_fits_the_fold_buffers(rows, T, dh):
     if rows >= 4 and T <= 128:
         assert plan.scores == "shared" and plan.dim_chunk >= min(dh, 64) // 2
         assert plan.value_slab >= 64
+
+
+# The new heads' launches at the zoo's full widths: (label, AttnShape).
+# llava-next-34b: 56 heads of 128 over 8 KV heads (G = 7), a prefill of
+# 2880 patches and 64 text tokens into a ring of 2976 and a decode step over
+# it; qwen2.5-32b (G = 5) and qwen1.5-110b (G = 8) at 4 x 64 into a ring of
+# 96 and a decode step; stablelm-12b, 32 heads of 160 (G = 4), the same.
+ZOO_SHAPES = [
+    ("llava prefill 1 x 2944", attn.AttnShape(1, 2944, 56, 8, 2976, 128)),
+    ("llava decode over 2976", attn.AttnShape(1, 1, 56, 8, 2976, 128)),
+    ("qwen2.5 prefill 4 x 64", attn.AttnShape(4, 64, 40, 8, 96, 128)),
+    ("qwen2.5 decode over 96", attn.AttnShape(4, 1, 40, 8, 96, 128)),
+    ("qwen1.5 prefill 4 x 64", attn.AttnShape(4, 64, 64, 8, 96, 128)),
+    ("stablelm prefill 4 x 64", attn.AttnShape(4, 64, 32, 8, 96, 160)),
+    ("stablelm decode over 160", attn.AttnShape(4, 1, 32, 8, 160, 160)),
+]
+
+
+@pytest.mark.parametrize("label,shape", ZOO_SHAPES, ids=[z[0] for z in ZOO_SHAPES])
+def test_heads_of_128_and_160_fit_a_block_under_every_tile_and_table(label, shape):
+    """Every tile x table form the kernel may take at a zoo shape has a
+    layout that fits ``SMEM_BLOCK_MAX`` beside its table, and so does the
+    plan's own pick, for afm16 packed and canonical and afm10 (global
+    memory).  K chunks take at most 64 dims of the head, so a head of 160
+    ends on a chunk of 32.  llava's 2944-row prefill keeps its scores (R x
+    2976 floats a tile) in the global scratch under the plan's pick."""
+    for lut_name, packed in (("afm16", True), ("afm16", False), ("afm10", True)):
+        lut, _ = _lut(lut_name, packed)
+        nbytes = lut.numel() * lut.element_size()
+        plan = attn.attention_plan(shape, lut, SMS)
+        forms = [(plan.tile, plan.table)]
+        if shape.S > 1:
+            forms += [(tile, table) for tile in range(len(attn.ATTN_TILES))
+                      for table in ("smem canonical", "smem packed")
+                      if packed and 2 * nbytes <= 128 * 1024 or table == plan.table]
+        for tile, table in forms:
+            space = attn.SMEM_BLOCK_MAX - attn._table_bytes(table, packed, nbytes)
+            layout = attn.attention_layout(tile, shape.dh, shape.T, space)
+            assert layout is not None, (label, tile, table)
+            cw, vkb, scores_smem = layout
+            rows, kb = attn.tile_rows_keys(tile)
+            assert cw <= attn.DIM_CHUNK and shape.dh % cw in (0, 32), (label, layout)
+            assert attn.attention_smem_bytes(rows, kb, shape.dh, shape.T, *layout) <= space
+            if scores_smem:
+                assert 4 * rows * shape.T <= space
+        if label.startswith("llava prefill"):
+            assert plan.scores == "global" and plan.path == "prefill"
+        assert (plan.path == "decode") == (shape.S == 1)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("dh,T", [(128, 96), (128, 128), (160, 96), (160, 128), (128, 2976)])
+def test_attention_phase_at_the_new_heads(rows, dh, T):
+    """``fused_attn_out_mlp``'s attention phase at heads of 128 (qwen2.5's
+    40 / 8 heads) and 160 (stablelm's 32 / 8) in the fold buffers of its
+    rows, for afm16 packed and afm10: it fits them, takes a tile for each
+    4 heads of a group (G = 5 at qwen2.5: two), and keeps its scores in
+    shared memory at rings of at most 128 and 4 rows or more."""
+    H = 40 if dh == 128 else 32
+    for lut_name in ("afm16", "afm10"):
+        lut, _ = _lut(lut_name)
+        plan = decode_chain.attention_phase_plan(rows, H, 8, T, dh, lut)
+        smem = attn.attention_smem_bytes(plan.rows, plan.key_slab, dh, T, plan.dim_chunk,
+                                         plan.value_slab, plan.scores == "shared")
+        assert smem <= decode_chain.fold_bytes(rows), (lut_name, plan)
+        assert plan.tiles == rows * 8 * -(-(H // 8) // 4)
+        if rows >= 4 and T <= 128:
+            assert plan.scores == "shared"
 
 
 def _inputs(name, seed, special=False):

@@ -511,9 +511,13 @@ def _ring(T, written):
     return pos
 
 
-# (B, S, H, KV, dh, T, q_pos, k_pos, causal, window); the last three are
+# (B, S, H, KV, dh, T, q_pos, k_pos, causal, window); rows 6-8 are
 # bidirectional (an encoder's and cross-attention's): S != T, 16 queries
-# over whisper-base's 1500 frames, and a decode step over them.
+# over whisper-base's 1500 frames, and a decode step over them; the last
+# three are heads of 128 (two whole value chunks: G = 7 as llava-next-34b's,
+# a causal prefill into a ring, and a decode step over a ring) and of 160
+# (a ragged chunk of 32: G = 4 as stablelm-12b's, a ring of 160 with a
+# window).
 ATTN_CASES = [
     (2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
     (2, 8, 4, 4, 64, 8, range(8), range(8), True, 3),
@@ -523,6 +527,9 @@ ATTN_CASES = [
     (2, 6, 4, 2, 32, 11, range(6), range(11), False, 0),
     (2, 16, 8, 8, 64, 1500, range(16), range(1500), False, 0),
     (4, 1, 8, 8, 64, 1500, [3], range(1500), False, 0),
+    (1, 9, 14, 2, 128, 40, range(31, 40), _ring(40, 40), True, 0),
+    (2, 1, 14, 2, 128, 96, [79], _ring(96, 80), True, 0),
+    (2, 1, 8, 2, 160, 160, [95], _ring(160, 96), True, 8),
 ]
 
 
@@ -656,8 +663,9 @@ def test_attention_kernel_bitwise_vs_plain_under_every_plan(cuda, monkeypatch, n
     """Each tile at its edges: G = 1, 3 and 8 (more heads than a decode
     tile), more rows than a tile, T not a multiple of a slab, a window, an
     odd head dim and one of 256 (four value chunks), decode, rows without a
-    valid key and special values in unwritten slots; then more tiles than
-    the card holds blocks."""
+    valid key, heads of 128 (G = 7) and 160 (a ragged chunk) and special
+    values in unwritten slots; then more tiles than the card holds
+    blocks."""
     lut, M = _lut(name, packed, cuda)
     forced = _force_attention(monkeypatch, tile, table, quarter, scores_smem)
     cases = [(2, 8, 4, 2, 32, 8, range(8), range(8), True, 0),
@@ -666,7 +674,9 @@ def test_attention_kernel_bitwise_vs_plain_under_every_plan(cuda, monkeypatch, n
              (2, 1, 8, 8, 64, 131, [129], _ring(131, 130), True, 0),
              (1, 3, 4, 1, 256, 67, range(60, 63), _ring(67, 63), True, 0),
              (2, 12, 4, 2, 32, 8, range(12), _ring(8, 12), True, 0),
-             (1, 70, 8, 8, 64, 1500, range(70), range(1500), False, 0)]
+             (1, 70, 8, 8, 64, 1500, range(70), range(1500), False, 0),
+             (1, 9, 14, 2, 128, 40, range(31, 40), _ring(40, 40), True, 0),
+             (2, 6, 8, 2, 160, 70, range(60, 66), _ring(70, 66), True, 0)]
     for case in cases:
         args, kw = _attention_inputs(case, rng, cuda)
         assert _attention_bits(args, kw, lut, M), case
@@ -806,6 +816,33 @@ def test_back_half_grid_covers_every_sm(cuda, name, packed):
             assert (g["wo"], g["gate_up"], g["down"], g["attention"]) == (
                 items, items, items, rows * kv_heads)
             assert sms <= g["blocks"] <= items
+
+
+# The chain at heads of 128 and 160: (rows, d, H, KV, dh, F) with qwen2.5's
+# G = 5 at dh 128 and stablelm's G = 4 at dh 160, narrow; then stablelm-12b's
+# own widths.
+BIG_HEAD_CHAIN = [(4, 640, 10, 2, 128, 300), (4, 640, 8, 2, 160, 300),
+                  (4, 5120, 32, 8, 160, 13824)]
+
+
+@pytest.mark.parametrize("name,packed", LUTS)
+@pytest.mark.parametrize("case", range(len(BIG_HEAD_CHAIN)))
+def test_chain_kernels_bitwise_vs_plain_at_heads_of_128_and_160(cuda, name, packed, case, rng):
+    """``fused_qkv_norm`` (q of H x dh columns, k and v of KV x dh) and
+    ``fused_attn_out_mlp`` (its attention phase over a ring of 96 with 70
+    written, and of 128 with a window of 16) at heads of 128 and 160: the
+    plain versions' bits."""
+    if case == len(BIG_HEAD_CHAIN) - 1 and (name, packed) not in FULL_LUTS:
+        pytest.skip("full width only with one shared-memory and one global-memory table")
+    lut, M = _lut(name, packed, cuda)
+    o = _chain_inputs(BIG_HEAD_CHAIN[case], rng, cuda)
+    qkv = [o[n] for n in ("x", "g", "wq", "wk", "wv")]
+    out = decode_chain.fused_qkv_norm(*qkv, lut, M, eps=1e-5)
+    ref = decode_chain.fused_qkv_norm_plain(*qkv, lut, M, eps=1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    for T, written, window in ((96, 70, 0), (128, 100, 16)):
+        _attn_out_mlp_bitwise(BIG_HEAD_CHAIN[case], T, written, window, lut, M, rng, cuda)
 
 
 @pytest.mark.parametrize("name,packed", LUTS)

@@ -154,11 +154,12 @@ def test_arch_config_matches_jax():
 
 
 def test_decoder_only_frontends_wait_for_their_slice():
-    """A decoder-only LM with frontend tokens (llava) raises, naming its
-    slice; an encdec without an encoder raises."""
-    with pytest.raises(NotImplementedError, match="llava-next-34b"):
-        ArchConfig(name="vlm", family="dense", n_layers=2, d_model=64, n_heads=4,
-                   n_kv_heads=4, d_ff=128, vocab=64, n_frontend_tokens=16, frontend="vision")
+    """A decoder-only LM with frontend tokens (llava) builds now that its
+    slice is ported (``tests/test_torch_dense_zoo.py`` holds it against
+    JAX); an encdec without an encoder raises."""
+    vlm = ArchConfig(name="vlm", family="dense", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=4, d_ff=128, vocab=64, n_frontend_tokens=16, frontend="vision")
+    assert (vlm.family, vlm.n_enc_layers, vlm.n_frontend_tokens) == ("dense", 0, 16)
     with pytest.raises(ValueError, match="n_enc_layers"):
         dataclasses.replace(get_arch(ARCH), n_enc_layers=0)
 
