@@ -82,7 +82,7 @@ LM serving (granite-3-2b at full width, ``configs/granite_3_2b.py``):
     head (4 rows, the column path) and at every projection of a 4 x 64
     prefill (q, k/v, gate/up, down: each register tile those launch); and the kernels' expf/rsqrtf against torch.exp/torch.rsqrt
     over a sweep of float32;
- 4c. depth 2, batch 2, prompt 16, 8 new tokens, with a ring of 64 slots
+ 4c. depth 2, batch 2, prompt 16, 4 new tokens, with a ring of 64 slots
     (2 chain launches a layer) and of 160 (3): logits and tokens under
     ``amsim`` bitwise equal to ``amsim_torch``; the counters must read 7
     GEMM + 1 attention launches a layer and 1 head GEMM for the prefill,
@@ -107,7 +107,7 @@ MoE serving (granite-moe-3b-a800m at full width,
     an all-dead expert whose banks hold inf and NaN), against their plain
     versions with the tables of 3d; every result bit for bit equal (+0.0
     and -0.0 differ);
- 4d. depth 2, batch 2, prompt 16, 8 new tokens, ring 64: prefill logits,
+ 4d. depth 2, batch 2, prompt 16, 4 new tokens, ring 64: prefill logits,
     every decode step's logits and the tokens under ``amsim`` bitwise equal
     to ``amsim_torch``; then a prefill of 2 x 520 tokens (capacity 264: the
     expert FFN as three batched GEMMs), logits bitwise equal; the counters
@@ -130,7 +130,7 @@ MoE serving (granite-moe-3b-a800m at full width,
     GEMMs): same bits, the device time of each.
 LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
 ``cosine_schedule(3e-4, 10, 3)``, remat; after the serving phases):
- 5e. depth 2 at full width, batch 1 x 16, 2 steps under ``amsim`` and
+ 5e. depth 2 at full width, batch 1 x 8, 2 steps under ``amsim`` and
     ``amsim_torch`` with deterministic algorithms: losses, parameters after
     step 2 and the gradient at the next batch bitwise equal (int32 views),
     the launches of every step as ``train_want`` counts them; a resume
@@ -142,13 +142,13 @@ LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
     step's wall ms, CUDA-event ms and loss (step 2 also its device busy
     time from torch.profiler), the peak memory, the launches of each step,
     and every kernel shape of step 3 timed, with its bound and plan, and
-    held bitwise against its plain version (a GEMM of more than 1e10
-    lookups, an LM head at 256 rows, on its first and last output tiles
-    and every 7th column: ``held_columns``).
+    held bitwise against its plain version at its first call, inside the
+    step (a GEMM of more than 1e10 lookups, an LM head at 256 rows, on its
+    first and last output tiles and every 7th column: ``held_columns``).
 The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
 ``core/faults.py``, ``launch/sweep.py``, ``launch/faultsweep.py``; after
 5e):
- 6a. granite-3-2b depth 2 at full width, batch 1 x 16, 2 adamw steps with
+ 6a. granite-3-2b depth 2 at full width, batch 1 x 8, 2 adamw steps with
     deterministic algorithms: a uniform ``PolicyTable`` of amsim/afm16
     bitwise the flat policy (losses, parameters after step 2, the gradient
     at the next batch; the same launches); the mixed table
@@ -165,7 +165,7 @@ The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
     the tables uploaded; then every kernel shape of the fp16xbf16 point's
     step 3 held bitwise against its plain version and timed under
     fp16xbf16 and under afm16 on the same operands;
- 6c. granite-3-2b depth 2 serving (batch 2, prompt 16, 8 new tokens, ring
+ 6c. granite-3-2b depth 2 serving (batch 2, prompt 16, 4 new tokens, ring
     64) under ``unembed=native,default=fp16xbf16`` (the fused decode
     chain engages: its sites share a leaf) and ``wd=bf16,default=afm16``
     (it does not: the per-op path): logits and greedy tokens bitwise
@@ -177,9 +177,10 @@ The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
     stuck1 at 1e-3; the launches of each step, the tables uploaded (none
     for the clean point, one for each faulted table), test accuracy
     against the rate; a zero-rate spec bitwise the clean point; each
-    faulted point again for one step under ``amsim`` and ``amsim_torch``,
-    bitwise alike (loss, test accuracy); then a training step's time
-    with the clean and with the faulted table, in turns.
+    faulted point again for one step under ``amsim`` and ``amsim_torch`` at
+    batch 16 with 64 test images, bitwise alike (loss, test accuracy);
+    then a training step's time with the clean and with the faulted table,
+    in turns.
 Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
 ``python -m repro_torch.launch.serve --stream``; after 6d):
  7a. the attention kernel and ``fused_attn_out_mlp`` with per-row
@@ -198,7 +199,7 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     the chain's tokens; one request's paged decode logits bitwise the ring
     engine's; a windowed stream (sliding_window 8) recycling a 5-page pool;
  7c. granite-3-2b at full width and depth: 32 requests, prompts of 32-256
-    tokens from the seed, 32 new tokens each, tiers exact=native and
+    tokens from the seed, 16 new tokens each, tiers exact=native and
     cheap=amsim:afm16 in turn, 8 slots a lane, pages of 16, one arrival a
     tick, through ``launch.serve``'s engine with nothing around it:
     tokens/s, decode ticks and their wall ms, prefill ms an admission by
@@ -208,7 +209,7 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     and a tick's, device-to-host waits a tick (counted under
     ``torch.cuda.set_sync_debug_mode("warn")``), the probe's wall beside
     the clean run's, and a full tick's device busy time; then both pools
-    at half their size: preemptions, the same tokens;
+    at a third of their size: preemptions, the same tokens;
  7d. granite-moe-3b-a800m at full width and depth: 8 requests of 16 new
     tokens on one amsim:afm16 tier, the same numbers (the probed run's
     tokens those of the clean run: the MoE stream repeats without
@@ -225,11 +226,11 @@ weight-shared attention block; after 7d):
     512 (two chunks of 256) -- each distinct shape again under the tables of
     3d against its plain version, bit for bit, with its plan, grid and
     device time;
- 8b. depth 2 at full width: serving at batch 2, prompt 16, 8 new tokens
+ 8b. depth 2 at full width: serving at batch 1, prompt 16, 4 new tokens
     under amsim and amsim_torch (zamba2 again with its window cut to 8, so
     that the ring wraps): prefill logits, decode logits and tokens bitwise,
-    the launches each kernel must make; an adamw step at 1 x 64 with the
-    chunk cut to 32 (two chunks: the state recurrence and every SSD
+    the launches each kernel must make; an adamw step at 1 x 32 with the
+    chunk cut to 16 (two chunks: the state recurrence and every SSD
     gradient product run) under both with deterministic algorithms: the
     loss, the parameters and the next gradient bitwise, the launches;
  8c. full width and depth: each model served at batch 4, prompt 64, 32 new
@@ -254,7 +255,7 @@ cross-attention bidirectional over 1500 frames; after 8c):
     zeros, -0.0 and subnormals with inf and NaN in every unwritten key,
     under every tile and table form, bit for bit;
  9b. depth 2 at full width: greedy decoding of 1 x 1500 frames, prompt 4,
-    8 new tokens under amsim and amsim_torch: the encoder states, every
+    4 new tokens under amsim and amsim_torch: the encoder states, every
     step's logits and the tokens bitwise, the launches (an encoder layer 6
     GEMMs + 1 attention, a decoder layer 10 GEMMs + 2 attentions each
     decode, the head 1 GEMM); an adamw step at 1 x 64 over 1500 frames
@@ -291,7 +292,7 @@ and 160, q/k/v biases, llava's patch embeddings before its text; after 9c):
  10b. depth 1 at full width under amsim and amsim_torch with deterministic
     algorithms: llava (its frontend cut to 8 patches) prefilled through
     ``lm_forward(embeds=, caches=)`` with 4 text tokens, qwen2.5 (biases)
-    and stablelm (heads of 160) with prompts of 4, then 2 greedy steps
+    and stablelm (heads of 160) with prompts of 4, then a greedy step
     through the decode chain: the prefill's and every step's logits and
     the tokens bitwise, the launches; stablelm's adamw step at 1 x 4 and
     the gradient after it bitwise;
@@ -307,8 +308,45 @@ and 160, q/k/v biases, llava's patch embeddings before its text; after 9c):
     peak memory, launches, finite losses.
 The launches of 10c's runs are printed on their own lines; the kernels
 line keeps the launches of the earlier paths.
-``python3 chip_smoke.py --phase 7`` (8, 9, 10) runs phases 1, 2 and 7 (8,
-9, 10) alone and prints no result lines.
+llama4-maverick-400b-a17b (``configs/llama4_maverick_400b_a17b.py``:
+(dense, MoE) pairs, 128 routed experts, top-1, beside an always-on shared
+expert; after 10c, with everything before it freed): one pair at full
+width with all 128 experts (18.55 G parameters, 74.2 GB) drawn once on the
+card with the generator, the free memory printed first;
+ 11a. the kernels of its serving path captured under amsim/afm16 from a
+    prefill of 4 x 64 (the 256-row projections, router and shared expert,
+    the attention, the expert banks at E 128, C 8 and the head), a decode
+    step of its 4 rows over a ring of 96
+    (``fused_qkv_norm``, ``fused_attn_out_mlp`` at d 5120 / d_ff 8192, the
+    MoE layer's attention, ``fused_wo_norm`` at d 5120, the router (4 x 5120
+    x 128), shared-expert and head GEMMs at 4 rows, the banks on the buffer a
+    step of 4 tokens scatters) and a step over a ring of 160
+    (``fused_out_mlp``, the 3-launch form), each again under afm16 packed and
+    afm10 (a global table) against its plain version, bit for bit (the
+    banks on all 128 experts: the plain version computes the live ones, 8
+    at a time, and writes +0.0 over the dead ones, as the kernel does; the
+    prefill's under afm10 on the first live row of each live expert and
+    +0.0 at every dead row); a GEMM of more than 1e10 lookups (the head at
+    256 rows, the FFN projections) on every 71st column; each call's device
+    time under afm16 beside its bound, its plan and grid;
+ 11b. amsim against amsim_torch with deterministic algorithms: the same
+    model served a prompt of 1 x 4 and 2 greedy steps (the prefill's and
+    every step's logits and the tokens bitwise, the launches); then, with
+    the model freed, one adafactor step at full width and depth 2 with the
+    experts cut to 16 at 1 x 4 (the loss, the parameters and the next
+    gradient bitwise; the amsim run's tensors wait on the host);
+ 11c. the same model served at batch 4, prompt 64, 32 new tokens under
+    native and amsim (prefill ms and its busy time in a profiled rerun, ms a
+    decode step, busy, idle share, tokens/s, peak memory, the launches, 11a's
+    kernel times of the prefill and of a step beside their bounds); then 2
+    adafactor steps at 4 x 64, depth 2, 16 experts (``train_full``: wall,
+    busy, peak memory against ``train_fits``, launches, finite losses; every
+    kernel shape of step 1 timed beside its bound and held against its
+    plain version inside the step, a GEMM of more than 1e10 lookups on
+    every 71st column, the banks on the first live row of each expert).
+The launches of 11c's runs are printed on their own lines.
+``python3 chip_smoke.py --phase 7`` (8, 9, 10, 11) runs phases 1, 2 and 7
+(8, 9, 10, 11) alone and prints no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -368,14 +406,14 @@ TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-1
 # LM serving: the arch, the tables of phase 3d, and the runs of 4c and 5c.
 LM_ARCH = "granite-3-2b"
 SERVE_LUTS = [("afm16", True), ("afm10", True), ("fp16xbf16", True), (FAULTED_AFM16, True)]
-DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, rings=(64, 160))
+DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=4, rings=(64, 160))
 FULL = dict(batch=4, prompt=64, new=32)
 LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
 # MoE serving: the arch, and the runs of 4d and 5d.  4 x 64 tokens give a
 # capacity of 64 rows an expert and a decode step of 4 tokens one of 8 (the
 # expert-bank kernel); 4 x 512 tokens give 512 (the batched GEMM kernel).
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=8, ring=64)
+MOE_DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=4, ring=64)
 MOE_FULL = dict(batch=4, prompt=64, new=32)
 MOE_LONG = dict(batch=4, prompt=512)
 # 4d's long prefill: the least tokens whose capacity (264) takes the batched
@@ -1246,15 +1284,25 @@ def routed_decode_buffer(dev, gen, cfg):
 
 def moe_serving_depth2(dev, moe_launches: dict):
     """Phase 4d: depth 2 at full width, amsim bitwise amsim_torch for a
-    short prefill and decode and for a 2 x 520 prefill, with launch counts."""
+    short prefill and decode and for a 2 x 520 prefill, with launch counts.
+    Of the long prefill, the stack's output (after the final norm) is held
+    bitwise between the two modes, and the tied head (1040 x 1536 x 49155,
+    ~79 G plain lookups) under amsim bitwise its plain version on
+    ``held_columns``; the engine's amsim logits are that head's output."""
     import dataclasses
     from repro_torch.configs.base import get_arch
+    from repro_torch.core.multipliers import get_multiplier
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.kernels import ops
+    from repro_torch.kernels.approx_gemm import approx_gemm, approx_gemm_plain
     from repro_torch.models.moe import capacity as moe_capacity
-    from repro_torch.models.transformer import init_lm, init_lm_caches
+    from repro_torch.models.transformer import _final_hidden, init_lm, init_lm_caches
     from repro_torch.serve.engine import ServingEngine
     cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_DEPTH2["n_layers"])
+
+    def long_caches():
+        return init_lm_caches(cfg, MOE_DEPTH2_LONG["batch"], MOE_DEPTH2_LONG["prompt"], dev)
+
     require(moe_capacity(cfg, MOE_DEPTH2_LONG["batch"] * MOE_DEPTH2_LONG["prompt"])
             > ops.MOE_FFN_MAX_C, f"4d: {MOE_DEPTH2_LONG} does not take the batched route")
     model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -1279,13 +1327,14 @@ def moe_serving_depth2(dev, moe_launches: dict):
             got = launches_of(counters)
             full, _, _ = engine.prefill(prompts, init_lm_caches(cfg, prompts.shape[0], ring, dev))
             zero_launches(counters)
-            long_logits, _, _ = ServingEngine(
-                model, policy, max_len=MOE_DEPTH2_LONG["prompt"]).prefill(
-                long_prompts, init_lm_caches(cfg, MOE_DEPTH2_LONG["batch"],
-                                             MOE_DEPTH2_LONG["prompt"], dev))
+            long_logits = (ServingEngine(model, policy, max_len=MOE_DEPTH2_LONG["prompt"]).prefill(
+                long_prompts, long_caches())[0] if mode == "amsim" else None)
             torch.cuda.synchronize()
             got_long = launches_of(counters)
-            results[mode] = (toks, logits, full, long_logits)
+            with torch.no_grad():
+                hidden = _final_hidden(model, long_prompts, policy, None, long_caches(),
+                                       cfg.sliding_window, False)[0]
+            results[mode] = (toks, logits, full, long_logits, hidden)
             if mode == "amsim":
                 require(got == want, f"{MOE_ARCH} depth-2 serving: launches {got}, want {want}")
                 require(got_long == want_long, f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: "
@@ -1300,7 +1349,7 @@ def moe_serving_depth2(dev, moe_launches: dict):
         raise
     finally:
         torch.use_deterministic_algorithms(False)
-    (t_a, l_a, f_a, g_a), (t_p, l_p, f_p, g_p) = results["amsim"], results["amsim_torch"]
+    (t_a, l_a, f_a, g_a, h_a), (t_p, l_p, f_p, _, h_p) = results["amsim"], results["amsim_torch"]
     require(all(bool(torch.isfinite(v).all()) for v in (l_a, f_a, g_a)),
             f"{MOE_ARCH} depth-2 serving: logits not finite")
     require(torch.equal(f_a, f_p), f"{MOE_ARCH} depth-2 prefill logits: amsim differs from "
@@ -1308,8 +1357,15 @@ def moe_serving_depth2(dev, moe_launches: dict):
     require(torch.equal(l_a, l_p) and torch.equal(t_a, t_p),
             f"{MOE_ARCH} depth-2 decode: amsim differs from amsim_torch (logits max|d| "
             f"{(l_a - l_p).abs().max().item()}, tokens equal {torch.equal(t_a, t_p)})")
-    require(torch.equal(g_a, g_p), f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: amsim logits "
-            f"differ from amsim_torch by {(g_a - g_p).abs().max().item()}")
+    require(_same([h_a], [h_p]), f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: the stack's "
+            f"output under amsim differs from amsim_torch by {(h_a - h_p).abs().max().item()}")
+    h2, head = h_a.reshape(-1, cfg.d_model), model.embed.transposed()
+    lut, M = ops._amsim_lut(get_multiplier("afm16"), dev), get_multiplier("afm16").mantissa_bits
+    same, held = held_against_plain("approx_gemm", approx_gemm, approx_gemm_plain,
+                                    (h2, head, lut, M), {})
+    require(same and _same([g_a.reshape(h2.shape[0], -1)], [approx_gemm(h2, head, lut, M)]),
+            f"{MOE_ARCH} depth-2 prefill of {MOE_DEPTH2_LONG}: the head's kernel differs from "
+            f"its plain version ({held}) or from the engine's logits")
     print(f"{MOE_ARCH} depth {L}, batch {MOE_DEPTH2['batch']}, prompt {MOE_DEPTH2['prompt']}, "
           f"{MOE_DEPTH2['new']} new tokens, ring {ring}: prefill logits (capacity 8), {steps} "
           f"decode steps' logits and tokens bitwise equal to amsim_torch; amsim launches "
@@ -1317,8 +1373,9 @@ def moe_serving_depth2(dev, moe_launches: dict):
     print(f"{MOE_ARCH} depth {L}, prefill of {MOE_DEPTH2_LONG['batch']} x "
           f"{MOE_DEPTH2_LONG['prompt']} tokens (capacity "
           f"{moe_capacity(cfg, MOE_DEPTH2_LONG['batch'] * MOE_DEPTH2_LONG['prompt'])}: the "
-          f"batched route): logits {tuple(g_a.shape)} bitwise equal to "
-          f"amsim_torch; amsim launches {launches[1]}")
+          f"batched route): the stack's output bitwise equal to amsim_torch, the head "
+          f"(logits {tuple(g_a.shape)}) bitwise its plain version on {held}; amsim launches "
+          f"{launches[1]}")
     del model, results
     torch.cuda.empty_cache()
 
@@ -1556,36 +1613,57 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
 # column (odd, so coprime to every tile width and to a thread's 1 or 2
 # register columns).  The kernel's output is the path's own launch; the
 # plain version runs on those columns of b (an output column depends on its
-# column of b alone).
+# column of b alone).  An expert-bank launch of more lookups is held on the
+# first live row of each expert that holds one (an output row depends on
+# its row of h alone), and on +0.0 at every dead row.
 HELD_COLUMNS_MIN = 1e10
 HELD_COLUMN_STRIDE = 7
 
 
-def held_columns(m: int, k: int, n: int, lut) -> tuple[list, str]:
-    """(the output columns held of a 2-D GEMM (m, k) @ (k, n), what they are)."""
+def held_columns(batch: int, m: int, k: int, n: int, lut,
+                 stride: int = HELD_COLUMN_STRIDE) -> tuple[list, str]:
+    """(the output columns held of a GEMM of ``batch`` (m, k) @ (k, n), what
+    they are): the first and last output tiles and every ``stride``-th
+    column (odd)."""
     from repro_torch.kernels import approx_gemm as gemm_mod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tn = gemm_mod.gemm_plan(1, m, k, n, lut, sms).tile[1]
+    tn = gemm_mod.gemm_plan(batch, m, k, n, lut, sms).tile[1]
     last = (n - 1) // tn * tn
-    cols = sorted(set(range(min(tn, n))) | set(range(last, n))
-                  | set(range(0, n, HELD_COLUMN_STRIDE)))
+    cols = sorted(set(range(min(tn, n))) | set(range(last, n)) | set(range(0, n, stride)))
     return cols, (f"{len(cols)} of {n} columns: the first tile's {min(tn, n)}, the last "
-                  f"tile's {n - last} and every {HELD_COLUMN_STRIDE}th")
+                  f"tile's {n - last} and every {stride}th")
 
 
-def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN):
+@torch.no_grad()
+def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN,
+                       stride=HELD_COLUMN_STRIDE):
     """(the kernel's output bitwise its plain version, as int32 views; what
-    was held) of one call; a 2-D GEMM of more than ``min_lookups`` lookups
-    on ``held_columns``."""
+    was held) of one call: a GEMM (2-D or batched) of more than
+    ``min_lookups`` lookups on ``held_columns`` (every ``stride``-th
+    column), an expert-bank launch of more on the first live row of each
+    live expert and +0.0 at every dead row, any other call whole."""
     out = fn(*args, **kw)
-    if kname == "approx_gemm" and gemm_costs(*args[:3])[1] > min_lookups:
+    if kname.startswith("approx_gemm") and gemm_costs(*args[:3])[1] > min_lookups:
         a, b, lut, *rest = args
-        cols, what = held_columns(*a.shape, b.shape[1], lut)
+        cols, what = held_columns(a.shape[0] if a.ndim == 3 else 1, *a.shape[-2:], b.shape[-1],
+                                  lut, stride)
         idx = torch.tensor(cols, device=b.device)
         # detached: a captured b may be a view of a parameter that the
         # optimizer has since updated in place (the tied head's emb.T)
-        ref = plain(a, b.detach().index_select(1, idx).contiguous(), lut, *rest, **kw)
-        out = out.index_select(1, idx)
+        ref = plain(a, b.detach().index_select(-1, idx).contiguous(), lut, *rest, **kw)
+        out = out.index_select(-1, idx)
+    elif kname == "fused_moe_ffn" and moe_costs(kname, args, kw)[1] > min_lookups:
+        from repro_torch.kernels.common import live_elements
+        h = args[0]
+        live_rows = live_elements(h).any(dim=-1)                  # (E, C)
+        experts = torch.nonzero(live_rows.any(dim=1))[:, 0]
+        held = torch.zeros_like(live_rows)
+        held[experts, live_rows.to(torch.float32).argmax(dim=1)[experts]] = True
+        ref = plain(h.masked_fill(~held[..., None], 0.0), *args[1:], **kw)
+        dead_zero = not bool(out[~live_rows].view(torch.int32).any())
+        return (dead_zero and torch.equal(out[held].view(torch.int32), ref[held].view(torch.int32)),
+                f"the first live row of each of its {len(experts)} live experts (of "
+                f"{int(live_rows.sum())} live rows), and +0.0 at every dead row")
     else:
         ref = plain(*args, **kw)
         what = "every output"
@@ -1595,9 +1673,9 @@ def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN)
 # ------------------------------------------------------------ LM training
 TRAIN_LR = 3e-4
 TRAIN_FULL = dict(batch=4, seq=64, steps=3)          # the schedule spans these 3 steps
-# 5e's (and 6a's) depth-2 runs: one row of 16 tokens, 2 steps (the plain
+# 5e's (and 6a's) depth-2 runs: one row of 8 tokens, 2 steps (the plain
 # versions' cost grows with the rows).
-TRAIN_DEPTH2 = dict(n_layers=2, batch=1, seq=16, steps=2)
+TRAIN_DEPTH2 = dict(n_layers=2, batch=1, seq=8, steps=2)
 TRAIN_ARCHS = (LM_ARCH, MOE_ARCH)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"        # .gitignore lists build/
 
@@ -1617,14 +1695,16 @@ def train_want(cfg, seq: int) -> dict:
     GEMMs forward, 7 recomputed and 14 backward, attention forward and
     recomputed, 6 batched GEMMs for each query chunk of its backward (one
     up to 1024 positions: ``_bwd_chunks``); an MoE layer's 5 GEMMs
-    likewise, the expert banks twice and 9 batched GEMMs for their
-    backward; the head's 3 GEMMs."""
-    L = cfg.n_layers
-    if cfg.moe is None:
-        return {"approx_gemm": 28 * L + 3, "approx_gemm_batched": 6 * L * _bwd_chunks(seq),
-                "approx_attention": 2 * L, "fused_moe_ffn": 0}
-    return {"approx_gemm": 20 * L + 3, "approx_gemm_batched": 15 * L,
-            "approx_attention": 2 * L, "fused_moe_ffn": 2 * L}
+    likewise (and a shared expert's 3), the expert banks twice and 9
+    batched GEMMs for their backward; the head's 3 GEMMs.  A llama4 stack
+    has a dense layer and an MoE layer a pair."""
+    moe = 0 if cfg.moe is None else cfg.n_layers // cfg.moe.interleave
+    dense = cfg.n_layers - moe
+    shared = 12 if cfg.moe is not None and cfg.moe.n_shared_experts else 0
+    chunks = _bwd_chunks(seq)
+    return {"approx_gemm": 28 * dense + (20 + shared) * moe + 3,
+            "approx_gemm_batched": 6 * chunks * dense + (9 + 6 * chunks) * moe,
+            "approx_attention": 2 * (dense + moe), "fused_moe_ffn": 2 * moe}
 
 
 def train_setup(cfg, policy, dev, seed=SEED):
@@ -1640,34 +1720,52 @@ def train_setup(cfg, policy, dev, seed=SEED):
 
 def train_fits(cfg) -> tuple[bool, str]:
     """Whether a full-width training step of ``cfg`` fits the card's free
-    memory: under adamw parameters, gradients, two moments and the updates
-    (a step's peak holds five copies; the clip briefly holds two of the
-    gradients), under adafactor three copies, plus 4 GB for activations,
-    the logits and the allocator."""
-    from repro_torch.models.encdec import encdec_param_shapes
-    from repro_torch.models.transformer import lm_param_shapes
-    shapes = encdec_param_shapes if cfg.family == "encdec" else lm_param_shapes
-    param_bytes = 4 * sum(math.prod(s) for s in shapes(cfg).values())
-    # adafactor keeps factored moments: parameters, gradients and updates
-    need = (5 if cfg.optimizer == "adamw" else 3) * param_bytes + 4e9
-    free = torch.cuda.mem_get_info()[0]
+    memory, by what its peak holds.  Under adamw: five copies of the
+    parameters (parameters, gradients, two moments and the updates; the
+    clip briefly holds two of the gradients) and five of the largest leaf
+    (the temporaries of its update, whose root is taken in float64).  Under
+    adafactor: three copies (parameters, clipped gradients, updates), two
+    more of every tensor that a JAX leaf stacks (the update stacks the
+    gradients and the parameters of each such leaf, ``lm_stacks``, even a
+    stack of one layer) and one of the largest leaf (its update's
+    temporary).  Plus 4 GB for activations, the logits and the allocator.
+    Free is the card's free memory and what the allocator holds unused (a
+    small live tensor can keep a freed segment of gigabytes reserved)."""
+    from repro_torch.models.encdec import encdec_param_shapes, encdec_stacks
+    from repro_torch.models.transformer import lm_param_shapes, lm_stacks
+    encdec = cfg.family == "encdec"
+    sizes = {n: 4 * math.prod(s)
+             for n, s in (encdec_param_shapes if encdec else lm_param_shapes)(cfg).items()}
+    param_bytes, largest = sum(sizes.values()), max(sizes.values())
+    if cfg.optimizer == "adamw":
+        need = 5 * param_bytes + 5 * largest
+    else:
+        stacks = (encdec_stacks if encdec else lm_stacks)(cfg)
+        need = 3 * param_bytes + 2 * sum(sizes[n] for ns in stacks.values() for n in ns) + largest
+    need += 4e9
+    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
     return need <= free, (f"{param_bytes / 1e9:.2f} GB of parameters: ~{need / 1e9:.1f} GB "
                           f"needed, {free / 1e9:.1f} GB free")
 
 
 def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=None,
-               n_layers=None) -> dict:
-    """Phase 5e (and 8c, 9c, 10c), one model: ``cfg.optimizer`` steps under
-    ``amsim``/afm16 at full width and full depth (or ``n_layers``), which
+               capture_step=3, stride=HELD_COLUMN_STRIDE, n_layers=None,
+               n_experts=None) -> dict:
+    """Phase 5e (and 8c, 9c, 10c, 11c), one model: ``cfg.optimizer`` steps under
+    ``amsim``/afm16 at full width and full depth (or ``n_layers``; an MoE
+    arch's experts cut to ``n_experts``), which
     must fit the card (``train_fits``), at ``shape`` (batch, seq, steps), each
     step timed (host wall clock to the loss read back; CUDA events over
     the step; torch.profiler's device busy time of step 2), the launches of
-    each step, the peak memory, and, in a run of 3 steps, the device time
-    of each kernel of ``capture`` (default: all) at the shapes of step 3,
-    each shape held bitwise against its plain version.  Returns the
-    launches of the run (counters zeroed before each step, summed)."""
-    import dataclasses
-    from repro_torch.configs.base import get_arch
+    each step, the peak memory, and, in a run of at least ``capture_step``
+    steps, each kernel of ``capture`` (default: all) at each shape of that
+    step, at its first call there: its device time, and the kernel held
+    bitwise against its plain version (``held_against_plain``, every
+    ``stride``-th column of a large GEMM), inside the step, so that no
+    tensor of the step outlives it.  Returns the launches of the run
+    (counters zeroed before each step, summed)."""
+    from repro_torch.configs.base import cut, get_arch
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.kernels import ops
@@ -1676,16 +1774,18 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
     from repro_torch.kernels.common import lut_bytes
     from repro_torch.kernels.decode_chain import fused_moe_ffn_plain
     full = get_arch(arch)
-    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    cfg = cut(full, n_layers=n_layers or full.n_layers, n_experts=n_experts)
+    gc.collect()                 # an earlier run's model, if a cycle holds it
+    torch.cuda.empty_cache()
     fits, why = train_fits(cfg)
     require(fits, f"{arch} training at depth {cfg.n_layers}: {why}")
     depth_note = (f"full depth ({cfg.n_layers} layers)" if cfg.n_layers == full.n_layers
                   else f"depth {cfg.n_layers} of {full.n_layers}: at full depth "
                   f"{train_fits(full)[1]}")
+    if n_experts is not None:
+        depth_note += f"; {n_experts} of its {full.moe.n_experts} experts"
     B, S, steps = shape["batch"], shape["seq"], shape["steps"]
     policy = NumericsPolicy(mode="amsim", multiplier="afm16")
-    gc.collect()                 # an earlier run's model, if a cycle holds it
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, state, step = train_setup(cfg, policy, dev)
     if cfg.family == "encdec":
@@ -1695,24 +1795,53 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
     else:
         counters, want = ssm_counters(), ssm_train_want(cfg, S)
     remat = cfg.remat and not cfg.attn_every     # the hybrid stack has none, as in JAX
-    print(f"{arch} training at full width, {depth_note}: batch {B}, seq {S}, {cfg.optimizer}, "
-          f"cosine_schedule({TRAIN_LR}, 10, {steps}), remat {remat}, amsim/afm16 "
-          f"({smi_line}):")
-    calls = {}                                 # (kernel, shapes) -> [count, args, kw]
+    print(f"{arch} training at full width, {depth_note}; this run: {why}; batch {B}, seq {S}, "
+          f"{cfg.optimizer}, cosine_schedule({TRAIN_LR}, 10, {steps}), remat {remat}, "
+          f"amsim/afm16 ({smi_line}):")
+    plain_of = {"approx_gemm": approx_gemm_plain, "approx_gemm_batched": approx_gemm_batched_plain,
+                "approx_attention": approx_attention_plain, "fused_moe_ffn": fused_moe_ffn_plain}
+    calls = {}                                 # (kernel, shapes) -> [count, what was held]
     originals = {k: getattr(ops, k) for k in counters}
     run = dict.fromkeys(want, 0)
+
+    def hold(kname, args, kw) -> dict:
+        fn = originals[kname]
+        counts = launches_of(counters)       # the check's own launches are not the step's
+        with torch.no_grad():
+            t = queued_ms(lambda: fn(*args, **kw), reps=3)
+        if kname == "approx_attention":
+            nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(args[5]))
+        elif kname == "approx_gemm":
+            nbytes, lookups = gemm_costs(*args[:3])
+        else:
+            nbytes, lookups = moe_costs(kname, args, kw)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        same, what = held_against_plain(kname, fn, plain_of[kname], args, kw, stride=stride)
+        torch.cuda.synchronize()
+        for k, f in counters.items():
+            f.launches = counts[k]
+        pass_ = ""
+        if kname == "approx_gemm":
+            pass_ = " dw" if args[0].shape[1] == B * S else " fwd/dx"
+        return dict(t=t, nbytes=nbytes, lookups=lookups, same=same, what=what, pass_=pass_,
+                    t_plain=(time.perf_counter() - t_plain) * 1e3,
+                    note=(f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm")
+                          else ""))
 
     def captured(kname):
         def wrapped(*a, **kw):
             key = (kname, tuple(tuple(t.shape) for t in a if isinstance(t, torch.Tensor)))
-            calls.setdefault(key, [0, a, kw])[0] += 1
+            if key not in calls:       # held at once: no tensor of the step outlives it
+                calls[key] = [0, hold(kname, a, kw)]
+            calls[key][0] += 1
             return originals[kname](*a, **kw)
         return wrapped
 
     for i in range(steps):
         batch = lm_batch(cfg, (B, S), i, dev)
         zero_launches(counters)
-        if i == 2:
+        if i == capture_step - 1:
             for k in capture or counters:
                 setattr(ops, k, captured(k))
         try:
@@ -1732,12 +1861,13 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
         finally:
             for k, fn in originals.items():
                 setattr(ops, k, fn)
-        extra = ""
+        extra = []
         if i == 1:         # the profiled step's wall holds the profiler's own cost
-            extra = (f"device busy {busy:.4f} ms (torch.profiler)" if busy is not None
-                     else busy_text(None, wall))
-        elif i == 2:
-            extra = "calls captured"
+            extra.append(f"device busy {busy:.4f} ms (torch.profiler)" if busy is not None
+                         else busy_text(None, wall))
+        if i == capture_step - 1:
+            extra.append("each kernel's shapes timed and held against their plain versions "
+                         "inside it")
         got = launches_of(counters)
         require(got == want, f"{arch} training step {i + 1}: launches {got}, want {want}")
         for k, n in got.items():
@@ -1746,42 +1876,25 @@ def train_full(dev, arch, lookups_per_s, smi_line, shape=TRAIN_FULL, capture=Non
                 f"{arch} training step {i + 1}: loss {loss}, grad norm {metrics['grad_norm']}")
         aux = f", aux {float(metrics['aux']):.6f}" if "aux" in metrics else ""
         print(f"  step {i + 1}: {wall:.1f} ms wall, {start.elapsed_time(end):.1f} ms on device "
-              f"(CUDA events over the step){'; ' + extra if extra else ''}; loss {loss:.6f}, xent "
-              f"{float(metrics['xent']):.6f}{aux}, grad norm {float(metrics['grad_norm']):.6f}")
+              f"(CUDA events over the step){'; ' + '; '.join(extra) if extra else ''}; loss "
+              f"{loss:.6f}, xent {float(metrics['xent']):.6f}{aux}, grad norm "
+              f"{float(metrics['grad_norm']):.6f}")
     peak = torch.cuda.max_memory_allocated()
     print(f"  peak memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); launches a step "
           f"{ {k: v for k, v in want.items() if v} }")
-    plain_of = {"approx_gemm": approx_gemm_plain, "approx_gemm_batched": approx_gemm_batched_plain,
-                "approx_attention": approx_attention_plain, "fused_moe_ffn": fused_moe_ffn_plain}
     sums = {}
-    for (kname, shapes), (n, args, kw) in sorted(calls.items(), key=lambda c: c[0]):
-        fn = originals[kname]
-        t = queued_ms(lambda: fn(*args, **kw), reps=3)
-        require(t > 0, f"no device time measured for {kname} at {shapes}")
-        if kname == "approx_attention":
-            nbytes, lookups = serving_costs(kname, args, kw, lut_bytes(args[5]))
-        elif kname == "approx_gemm":
-            nbytes, lookups = gemm_costs(*args[:3])
-        else:
-            nbytes, lookups = moe_costs(kname, args, kw)
-        bound = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
-        torch.cuda.synchronize()
-        t_plain = time.perf_counter()
-        same, what = held_against_plain(kname, fn, plain_of[kname], args, kw)
-        torch.cuda.synchronize()
-        t_plain = (time.perf_counter() - t_plain) * 1e3
-        require(same, f"{arch} training: {kname} at {shapes} differs from its plain version "
-                f"({what})")
-        pass_ = ""
-        if kname == "approx_gemm":
-            pass_ = " dw" if args[0].shape[1] == B * S else " fwd/dx"
-        note = f"; {gemm_plan_text(*args[:3])}" if kname.startswith("approx_gemm") else ""
-        print(f"  {kname}{pass_} {shapes} x {n}: {t:.4f} ms on device each (bound {bound:.4f} "
-              f"ms, {bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups), bitwise "
-              f"its plain version on {what} ({t_plain:.1f} ms with the check){note}")
-        s = sums.setdefault(f"{kname}{pass_}", [0, 0.0, 0.0])
+    for (kname, shapes), (n, r) in sorted(calls.items(), key=lambda c: c[0]):
+        require(r["t"] > 0, f"no device time measured for {kname} at {shapes}")
+        require(r["same"], f"{arch} training: {kname} at {shapes} differs from its plain version "
+                f"({r['what']})")
+        bound = max(r["nbytes"] / HBM_BYTES_PER_S, r["lookups"] / lookups_per_s) * 1e3
+        print(f"  {kname}{r['pass_']} {shapes} x {n}: {r['t']:.4f} ms on device each (bound "
+              f"{bound:.4f} ms, {bound_kind(r['nbytes'], r['lookups'], lookups_per_s)}; "
+              f"{r['lookups']} lookups), bitwise its plain version on {r['what']} "
+              f"({r['t_plain']:.1f} ms with the check){r['note']}")
+        s = sums.setdefault(f"{kname}{r['pass_']}", [0, 0.0, 0.0])
         s[0] += n
-        s[1] += n * t
+        s[1] += n * r["t"]
         s[2] += n * bound
     for name, (n, t, bound) in sums.items():
         print(f"  kernel {name}: {t:.2f} ms on device a training step over {n} launches, bound "
@@ -1918,9 +2031,11 @@ MIXED_TABLE = "qkv=mitchell8,attn_score=bf16,dw=native,default=afm16"
 SWEEP_POINTS = (MIXED_TABLE, "default=fp16xbf16")
 SERVE_TABLES = {"unembed=native,default=fp16xbf16": True, "wd=bf16,default=afm16": False}
 # The campaign under amsim (the accuracy curve), and its faulted points again
-# for BITWISE_STEPS under amsim and amsim_torch.
+# for BITWISE_STEPS under amsim and amsim_torch, at FAULT_BITWISE's batch and
+# test set (the plain versions' cost grows with the images).
 FAULT_RUN = dict(arch="resnet-mini", steps=40, batch=64, rates="0,1e-4,1e-3", stuck1="1e-3")
 BITWISE_STEPS = 1
+FAULT_BITWISE = dict(batch=16, n_test=64)
 # Where a kernel wrapper takes its table (the argument after it is M).
 LUT_SLOT = {"approx_gemm": 2, "approx_gemm_batched": 2, "approx_attention": 5}
 
@@ -2189,8 +2304,8 @@ def fault_campaign(dev, smi_line) -> dict:
     """Phase 6d: ``launch.faultsweep.main`` on resnet-mini under amsim with
     deterministic algorithms, launches and uploads counted; a zero-rate
     spec bitwise the clean point; each faulted point bitwise between amsim
-    and amsim_torch over ``BITWISE_STEPS``; then a step's time with the
-    clean and the faulted table.  Returns the campaign's launches by
+    and amsim_torch over ``BITWISE_STEPS`` at FAULT_BITWISE's sizes; then a
+    step's time with the clean and the faulted table.  Returns the campaign's launches by
     kernel."""
     from repro_torch.configs.paper_models import VISION_REGISTRY
     from repro_torch.core import faults
@@ -2235,7 +2350,9 @@ def fault_campaign(dev, smi_line) -> dict:
         zero = faultsweep.run_fault_point(problem, amsim, faults.FaultSpec(kind="bitflip",
                                                                            rate=0.0),
                                           steps=FAULT_RUN["steps"])
-        pairs = [(p, [faultsweep.run_fault_point(problem, pol, faults.FaultSpec(**p["spec"]),
+        small = faultsweep.vision_problem(VISION_REGISTRY[FAULT_RUN["arch"]], lr=0.05, seed=0,
+                                          device=dev, **FAULT_BITWISE)
+        pairs = [(p, [faultsweep.run_fault_point(small, pol, faults.FaultSpec(**p["spec"]),
                                                  steps=BITWISE_STEPS) for pol in (amsim, plain)])
                  for p in points if p["spec"] is not None]
     finally:
@@ -2260,8 +2377,10 @@ def fault_campaign(dev, smi_line) -> dict:
                 f"6d {pt['model']} {pt['label']}, {BITWISE_STEPS} steps: amsim (losses "
                 f"{a['losses']}, acc {a['test_acc']}) differs from amsim_torch (losses "
                 f"{p['losses']}, acc {p['test_acc']}, {p['uploads']} uploads)")
-        print(f"  {pt['model']} {pt['label']}, {BITWISE_STEPS} steps: amsim bitwise amsim_torch "
-              f"(losses {[round(v, 6) for v in a['losses']]}, test accuracy {a['test_acc']:.4f}; "
+        print(f"  {pt['model']} {pt['label']}, {BITWISE_STEPS} steps at batch "
+              f"{FAULT_BITWISE['batch']}, {FAULT_BITWISE['n_test']} test images: amsim bitwise "
+              f"amsim_torch (losses {[round(v, 6) for v in a['losses']]}, test accuracy "
+              f"{a['test_acc']:.4f}; "
               f"amsim_torch {sorted(p['step_ms'])[0]:.0f} ms a step, its faulted canonical table "
               f"uploaded once)")
     print("  test accuracy against the rate: " + ", ".join(
@@ -2312,13 +2431,13 @@ def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
 # ------------------------------------------------- continuous batching
 # Phase 7: the paged scheduler (``serve/scheduler.py``) through the
 # entry points of ``python -m repro_torch.launch.serve --stream``.
-# 7c's stream: 32 requests, prompts of 32-256 tokens, 32 new tokens each,
+# 7c's stream: 32 requests, prompts of 32-256 tokens, 16 new tokens each,
 # tiers exact=native and cheap=amsim:afm16 in turn, 8 slots a lane, pages
 # of 16, one arrival a tick; 7d: granite-moe, 8 requests of 16 new tokens,
 # one amsim tier.  7b: depth 2, 6 requests, prompts of 4-40 tokens, 6 new
 # tokens (a table of 3 pages: Tcap 48, the chain's 2-launch form).
 STREAM = ["--stream", "32", "--min-prompt-len", "32", "--prompt-len", "256", "--new-tokens",
-          "32", "--tiers", "exact=native,cheap=amsim:afm16", "--capacity", "8", "--page-size",
+          "16", "--tiers", "exact=native,cheap=amsim:afm16", "--capacity", "8", "--page-size",
           "16", "--arrival-every", "1", "--seed", str(SEED)]
 MOE_STREAM = ["--arch", MOE_ARCH, "--stream", "8", "--min-prompt-len", "32", "--prompt-len",
               "256", "--new-tokens", "16", "--tiers", "cheap=amsim:afm16", "--capacity", "8",
@@ -2753,8 +2872,8 @@ def clean_then_probed(model, args, counters, smi_line, what) -> tuple:
 def stream_full(dev, smi_line) -> dict:
     """Phase 7c: granite-3-2b at full width and depth, the stream of
     ``STREAM`` through ``launch.serve``'s engine (clean, then probed),
-    then again with both pools at half their default size (preemption,
-    the same tokens).  Returns the launches of the probed run."""
+    then again with both pools at a third of their default size
+    (preemption, the same tokens).  Returns the launches of the probed run."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_lm
     args = stream_args(STREAM)
@@ -2769,12 +2888,15 @@ def stream_full(dev, smi_line) -> dict:
     first, rep, got = clean_then_probed(model, args, counters, smi_line, "granite-3-2b stream")
     for k in ("approx_gemm", "approx_attention", "fused_qkv_norm", "fused_out_mlp"):
         require(got[k] > 0, f"{k} never launched on the stream: {got}")
-    half = (rep["cheap"]["pages"] + 1) // 2
-    engine2, wall2 = run_stream_once(model, stream_args(STREAM), half)
-    print(f"  the same stream, both pools at {half} pages:")
+    # A third of the default pools: at 16 new tokens a request faults one
+    # page at most, and pools of half (72 pages) never run dry at a fault;
+    # 48 do, twice (the page schedule is the host's, replayable on the CPU).
+    third = (rep["cheap"]["pages"] + 2) // 3
+    engine2, wall2 = run_stream_once(model, stream_args(STREAM), third)
+    print(f"  the same stream, both pools at {third} pages:")
     from repro_torch.launch import serve as serve_cli
     rep2 = serve_cli.report_stream(engine2, wall2)
-    require(rep2["stream"]["preemptions"] > 0, f"no preemption with pools of {half} pages")
+    require(rep2["stream"]["preemptions"] > 0, f"no preemption with pools of {third} pages")
     tokens = lambda outcome: {rid: o[0] for rid, o in outcome.items()}  # noqa: E731
     require(tokens(stream_outcome(engine2)) == tokens(first),
             "preemption by recompute changed the stream's tokens")
@@ -2823,11 +2945,11 @@ def continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
 # ``launch.train``'s step.  At a cut depth the hybrid's shared block comes
 # after every 2nd layer (``ssm_cfg``), so that depth 2 runs it once.
 SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
-# 8b trains rows of 2 chunks of 32 (the chunk-state recurrence and every SSD
+# 8b trains rows of 2 chunks of 16 (the chunk-state recurrence and every SSD
 # gradient product run; the plain versions' cost grows with the rows); the
 # products at the config's chunk of 256 are held in 8a and 8c.  8b takes
 # one step of it and the gradient after it (5e holds adamw's second step).
-SSM_DEPTH2 = dict(batch=2, prompt=16, new=8, window=8, train_batch=1, seq=64, chunk=32,
+SSM_DEPTH2 = dict(batch=1, prompt=16, new=4, window=8, train_batch=1, seq=32, chunk=16,
                   steps=1)
 SSM_FULL = dict(batch=4, prompt=64, new=32)
 SSM_TRAIN = dict(batch=4, seq=256, steps=3)
@@ -2909,11 +3031,15 @@ def ssm_train_want(cfg, seq: int) -> dict:
             "fused_qkv_norm": 0, "fused_out_mlp": 0, "fused_attn_out_mlp": 0}
 
 
-def ssm_lookups(kname, args, kw) -> tuple[int, int]:
-    """(bytes, lookups) of one call of a kernel of the SSM paths."""
+def call_costs(kname, args, kw) -> tuple[int, int]:
+    """(bytes, lookups this run's data needs) of one captured call of a
+    kernel wrapper: the GEMMs, the attention, the decode chain and the MoE
+    kernels."""
     from repro_torch.kernels.common import lut_bytes
     if kname.startswith("approx_gemm"):
         return gemm_costs(*args[:3])
+    if kname in ("fused_wo_norm", "fused_moe_ffn"):
+        return moe_costs(kname, args, kw)
     return serving_costs(kname, args, kw, lut_bytes(args[SSM_LUT_SLOT[kname]]))
 
 
@@ -3029,7 +3155,7 @@ def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
             if kname == "approx_gemm" and shapes[:2] in SSM_KNOWN_GEMMS:
                 skipped += 1
                 continue
-            if i and ssm_lookups(kname, args, kw)[1] > SSM_ALL_TABLES_MAX:
+            if i and call_costs(kname, args, kw)[1] > SSM_ALL_TABLES_MAX:
                 large += 1
                 continue
             slot = SSM_LUT_SLOT[kname]
@@ -3051,7 +3177,7 @@ def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
             held += 1
             if i == 0:
                 t = queued_ms(lambda: kernels[kname](*a, **kw), reps=3)
-                nbytes, lookups = ssm_lookups(kname, a, kw)
+                nbytes, lookups = call_costs(kname, a, kw)
                 tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
                 print(f"  {where}: {kname} {shapes}: {t:.4f} ms on device (bound {tb:.4f} ms, "
                       f"{bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups); "
@@ -3066,7 +3192,7 @@ def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
 
 
 def ssm_serving_depth2(dev, cfg, label) -> None:
-    """8b serving: batch 2, prompt 16, 8 new tokens under amsim and
+    """8b serving: batch 1, prompt 16, 4 new tokens under amsim and
     amsim_torch (deterministic algorithms): prefill logits, every decode
     step's logits and tokens bitwise; the amsim launches."""
     from repro_torch.core.policy import NumericsPolicy
@@ -3113,7 +3239,7 @@ def ssm_serving_depth2(dev, cfg, label) -> None:
 
 
 def ssm_train_depth2(dev, cfg, label) -> None:
-    """8b training: an adamw step at 1 x 64 (2 chunks of 32) under amsim and
+    """8b training: an adamw step at 1 x 32 (2 chunks of 16) under amsim and
     amsim_torch with deterministic algorithms: the loss, the parameters and
     the gradient at the next batch bitwise; the amsim launches."""
     from repro_torch.core.policy import NumericsPolicy
@@ -3275,7 +3401,7 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
 ENCDEC_ARCH = "whisper-base"
 # 9a captures at batch 2; 9b decodes one row and trains one step and the
 # gradient after it (5e holds adamw's second step).
-ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=8, train_batch=1, seq=64, steps=1)
+ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=4, train_batch=1, seq=64, steps=1)
 ENCDEC_FULL = dict(batch=4, prompt=4, new=32)
 ENCDEC_TRAIN = dict(batch=4, seq=64, steps=3)
 # 9a holds a product of more lookups than this under the first table only.
@@ -3510,7 +3636,7 @@ def encdec_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
         tag = f"{lut_name} {'packed' if packed else 'canonical'}"
         held = large = 0
         for (kname, shapes, _), (args, kw, where) in calls.items():
-            if i and ssm_lookups(kname, args, kw)[1] > ENCDEC_ALL_TABLES_MAX:
+            if i and call_costs(kname, args, kw)[1] > ENCDEC_ALL_TABLES_MAX:
                 large += 1
                 continue
             slot = SSM_LUT_SLOT[kname]
@@ -3525,7 +3651,7 @@ def encdec_kernel_checks(dev, gen, lut_case, lookups_per_s) -> dict:
             held += 1
             if i == 0:
                 t = queued_ms(lambda: kernels[kname](*a, **kw), reps=3)
-                nbytes, lookups = ssm_lookups(kname, a, kw)
+                nbytes, lookups = call_costs(kname, a, kw)
                 tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
                 print(f"  {where}: {kname} {shapes} {dict(kw)}: {t:.4f} ms on device (bound "
                       f"{tb:.4f} ms, {bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} "
@@ -3727,7 +3853,7 @@ def encdec_serving_full(dev, lookups_per_s, smi_line) -> dict:
         sums = {}
         for (kname, sh, _), (a, kw, n) in sorted(shapes.items()):
             t = queued_ms(lambda: originals[kname](*a, **kw), reps=3)
-            nbytes, lookups = ssm_lookups(kname, a, kw)
+            nbytes, lookups = call_costs(kname, a, kw)
             tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
             s = sums.setdefault(kname, [0.0, 0.0, 0])
             s[0], s[1], s[2] = s[0] + n * t, s[1] + n * tb, s[2] + n
@@ -3806,7 +3932,7 @@ ZOO_GEMMS = ((4, 8192, 49152), (4, 49152, 8192), (16, 8192, 49152), (4, 8192, 15
 # and the heads (0.5-0.8 G lookups a position at these vocabularies) take
 # most of it: each position costs about a second.
 ZOO_DEPTH1 = {"llava": (4, 8), "qwen2.5": (4, 0), "stablelm": (4, 0)}
-ZOO_STEPS = 2
+ZOO_STEPS = 1
 ZOO_TRAIN1 = dict(batch=1, seq=4, steps=1)
 # 10c: (arch, depth, batch, prompt, new, policies served) and the training
 # runs (arch, depth, batch, seq, steps).  llava's prompt is its 2880
@@ -4162,17 +4288,415 @@ def dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> tuple:
     return err, launches
 
 
+# ------------------------------------------------------------------ llama4
+# Phase 11: llama4-maverick-400b-a17b (``configs/llama4_maverick_400b_a17b.py``):
+# (dense, MoE) pairs, 128 routed experts (top-1) beside an always-on shared
+# expert, d 5120, 40/8 heads of 128, d_ff 8192, vocab 202048.  One pair with
+# every expert holds 18.55 G float32 parameters (74.2 GB): it is drawn once
+# on the card and served at depth 2.  Training holds parameters, gradients
+# and updates, so it cuts the experts to 16 (Llama-4-Scout's count).
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+LLAMA4_DEPTH = 2
+LLAMA4_TRAIN_EXPERTS = 16
+LLAMA4_SERVE = dict(batch=4, prompt=64, new=32)    # 11c; 11a captures its prefill and a step
+LLAMA4_LONG_RING = 160      # 11a: a step over more than FUSE_ATTN_MAX_T slots (3 launches)
+LLAMA4_BITWISE = dict(batch=1, prompt=4, steps=2)  # 11b serving
+LLAMA4_TRAIN1 = dict(batch=1, seq=4, steps=1)      # 11b training
+LLAMA4_TRAIN = dict(batch=4, seq=64, steps=2)      # 11c training; its first step held
+# 11a and 11c's training hold a GEMM of more than HELD_COLUMNS_MIN lookups
+# (the head at 256 rows, the 256-row FFN projections, the banks' backward)
+# on every 71st column (odd, so every lane and register column; every 7th
+# would be 38 G plain lookups for a head).  11a holds the expert banks whole
+# under afm16 (their plain version computes the live experts alone, as the
+# kernel does: a 4 x 64 prefill's ~85 of 128, ~20 s), and under afm10 the
+# prefill's buffer on the first live row of each live expert
+# (``held_against_plain``).
+LLAMA4_HEAD_STRIDE = 71
+# Where each kernel wrapper of the path takes its table (M follows it).
+LLAMA4_LUT_SLOT = {"approx_gemm": 2, **LUT_ARG, "fused_wo_norm": 4, "fused_moe_ffn": 4}
+
+
+def llama4_cfg(n_experts=None):
+    from repro_torch.configs.base import cut, get_arch
+    return cut(get_arch(LLAMA4_ARCH), n_layers=LLAMA4_DEPTH, n_experts=n_experts)
+
+
+def llama4_counters():
+    return {**serving_counters(), **moe_counters()}
+
+
+def llama4_serve_want(cfg, steps: int, ring: int) -> dict:
+    """Launches of a prefill and ``steps`` decode steps of (dense, MoE)
+    pairs under amsim: at the prefill, a pair's 7 dense GEMMs, 5 of its MoE
+    layer (q/k/v/o, router) and 3 of its shared expert, two attentions and
+    the expert banks (a capacity of at most MOE_FFN_MAX_C), and the head; a
+    decode step's dense layer qkv and attention+out-mlp (a ring of at most
+    FUSE_ATTN_MAX_T slots) or qkv, attention and out-mlp, its MoE layer
+    qkv, attention, wo+norm, the router's and the shared expert's 4 GEMMs
+    and the banks, and the head."""
+    from repro_torch.kernels import ops
+    P, two = cfg.n_layers // 2, ring <= ops.FUSE_ATTN_MAX_T
+    return {"approx_attention": 2 * P + (1 if two else 2) * P * steps,
+            "fused_qkv_norm": 2 * P * steps, "fused_out_mlp": 0 if two else P * steps,
+            "fused_attn_out_mlp": P * steps if two else 0,
+            "approx_gemm": 15 * P + 1 + (4 * P + 1) * steps, "approx_gemm_batched": 0,
+            "fused_wo_norm": P * steps, "fused_moe_ffn": P * (1 + steps)}
+
+
+def llama4_capture(model, dev) -> dict:
+    """11a's calls under amsim/afm16 at the path's shapes: a prefill of 4 x
+    64 into a ring of 96 (its 256-row projections, router and shared
+    expert, the attention, the expert banks and the head), a decode step of
+    its 4 rows (every kernel: the dense layer's qkv and attention+out-mlp,
+    the MoE layer's attention, wo+norm, router, shared expert and banks,
+    the head), and a step over a ring of LLAMA4_LONG_RING (the attention
+    and the dense layer's out-mlp apart).
+    {(kernel, shapes, part): [calls, args, kw]}, a distinct shape a part;
+    the tensors that are not the model's parameters cloned."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm_caches
+    from repro_torch.serve.engine import ServingEngine
+    cfg = model.cfg
+    params = {p.data_ptr() for p in model.parameters()}
+    originals = {k: getattr(ops, k) for k in LLAMA4_LUT_SLOT}
+    calls, part = {}, ["", ()]
+
+    def capture(kname):
+        def wrapped(*a, **kw):
+            label, keep = part
+            if kname in keep:
+                key = (kname, tuple(tuple(t.shape) for t in a if torch.is_tensor(t)), label)
+                if key not in calls:
+                    calls[key] = [0, tuple(t.clone() if torch.is_tensor(t)
+                                           and t.data_ptr() not in params else t for t in a),
+                                  dict(kw)]
+                calls[key][0] += 1
+            return originals[kname](*a, **kw)
+        return wrapped
+
+    B, P = LLAMA4_SERVE["batch"], LLAMA4_SERVE["prompt"]
+    ring = P + LLAMA4_SERVE["new"]
+    prompts = torch.randint(0, cfg.vocab, (B, P),
+                            generator=torch.Generator().manual_seed(SEED)).to(dev)
+    runs = ((ring, (f"prefill {B}x{P}", ("approx_gemm", "approx_attention", "fused_moe_ffn")),
+             (f"decode step, ring {ring}", tuple(originals))),
+            (LLAMA4_LONG_RING, ("", ()),
+             (f"decode step, ring {LLAMA4_LONG_RING}", ("approx_attention", "fused_out_mlp"))))
+    for k in originals:
+        setattr(ops, k, capture(k))
+    try:
+        for T, prefill, step in runs:
+            engine = ServingEngine(model, NumericsPolicy(mode="amsim", multiplier="afm16"),
+                                   max_len=T)
+            part[:] = prefill
+            _, nxt, caches = engine.prefill(prompts, init_lm_caches(cfg, B, T, dev))
+            part[:] = step
+            engine.step(nxt, caches)
+            torch.cuda.synchronize()
+    finally:
+        for k, f in originals.items():
+            setattr(ops, k, f)
+    return calls
+
+
+def llama4_plan_text(kname, args, kw) -> str:
+    from repro_torch.kernels import decode_chain as chain
+    if kname == "fused_wo_norm":
+        return f"grid {chain.wo_norm_grid(args[0].shape[0], args[0].shape[1], args[4])}"
+    if kname == "fused_moe_ffn":
+        h, wg = args[:2]
+        live = chain.live_rows(h)
+        grid = chain.moe_ffn_grid(*h.shape, wg.shape[2], args[4], live=live.tolist())
+        return (f"{int(live.sum())} live rows in {int((live > 0).sum())} of {h.shape[0]} "
+                f"experts; grid {grid}")
+    return ssm_plan_text(kname, args, kw)
+
+
+def llama4_kernel_checks(model, dev, lut_case, lookups_per_s) -> tuple[dict, dict]:
+    """Phase 11a: each captured call (``llama4_capture``) again under
+    ZOO_LUTS against its plain version, bit for bit as int32 (+0.0 and -0.0
+    apart), a GEMM of more than HELD_COLUMNS_MIN lookups on
+    ``held_columns`` (every LLAMA4_HEAD_STRIDE-th column), the prefill's
+    expert banks under afm10 on the first live row of each live expert;
+    each call's device time under afm16 beside its bound, with its plan and
+    grid.
+    Returns (each kernel's largest |difference|, {(kernel, part, shapes):
+    (device ms, bound ms, calls)})."""
+    from repro_torch.kernels import decode_chain as chain
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    calls = llama4_capture(model, dev)
+    print(f"  11a: {len(calls)} calls captured in {time.perf_counter() - t0:.1f} s")
+    plains = {**ssm_plains(), "fused_wo_norm": chain.fused_wo_norm_plain,
+              "fused_moe_ffn": chain.fused_moe_ffn_plain}
+    kernels = {k: getattr(ops, k) for k in LLAMA4_LUT_SLOT}
+    err = dict.fromkeys(LLAMA4_LUT_SLOT, 0.0)
+    times = {}
+    for i, (lut_name, packed) in enumerate(ZOO_LUTS):
+        lut, M = lut_case(lut_name, packed)
+        tag = f"{lut_name} {'packed' if packed else 'canonical'}"
+        t_table = time.perf_counter()
+        for (kname, shapes, part), (n, args, kw) in calls.items():
+            slot = LLAMA4_LUT_SLOT[kname]
+            a = list(args)
+            a[slot], a[slot + 1] = lut, M
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if kname in ("approx_gemm", "fused_moe_ffn"):
+                whole = kname == "fused_moe_ffn" and i == 0
+                same, what = held_against_plain(
+                    kname, kernels[kname], plains[kname], a, kw,
+                    min_lookups=math.inf if whole else HELD_COLUMNS_MIN, stride=LLAMA4_HEAD_STRIDE)
+                require(same, f"11a {kname} {tag} at {shapes} ({part}): not bitwise its plain "
+                        f"version ({what})")
+                e = 0.0
+            else:
+                what = "every output"
+                plain_kw = dict(kw)
+                if kname in ("approx_attention", "fused_attn_out_mlp"):
+                    plain_kw.setdefault("causal", True)
+                    plain_kw.setdefault("window", 0)
+                out, ref = kernels[kname](*a, **kw), plains[kname](*a, **plain_kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                refs = ref if isinstance(ref, tuple) else (ref,)
+                e = max((x - y).abs().max().item() for x, y in zip(outs, refs))
+                require(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                            for x, y in zip(outs, refs)),
+                        f"11a {kname} {tag} at {shapes} ({part}): not bitwise its plain "
+                        f"version, max|d| {e}")
+                del out, ref, outs, refs
+            torch.cuda.synchronize()
+            note = (f"{tag}: {part}: {kname} {shapes[:-1]} x {n}: bitwise its plain version on "
+                    f"{what} ({time.perf_counter() - t1:.1f} s with the check)")
+            err[kname] = max(err[kname], e)
+            if i == 0:
+                t = queued_ms(lambda: kernels[kname](*a, **kw), reps=3)
+                nbytes, lookups = call_costs(kname, a, kw)
+                tb = max(nbytes / HBM_BYTES_PER_S, lookups / lookups_per_s) * 1e3
+                times[(kname, part, shapes)] = (t, tb, n)
+                note += (f"; {t:.4f} ms on device (bound {tb:.4f} ms, "
+                         f"{bound_kind(nbytes, lookups, lookups_per_s)}; {lookups} lookups); "
+                         f"{llama4_plan_text(kname, a, kw)}")
+            print(note)
+        print(f"11a: {tag}: every llama4 shape bitwise its plain version "
+              f"({time.perf_counter() - t_table:.1f} s)")
+    del calls
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def llama4_serving_bitwise(model, dev) -> None:
+    """Phase 11b serving: depth 2 at full width with all 128 experts, a
+    prompt of LLAMA4_BITWISE, then greedy steps through the decode chain
+    under amsim and amsim_torch with deterministic algorithms: the
+    prefill's and every step's logits and the tokens bitwise, the amsim
+    launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    cfg = model.cfg
+    B, P, steps = (LLAMA4_BITWISE[k] for k in ("batch", "prompt", "steps"))
+    ring = P + steps
+    tokens = torch.randint(0, cfg.vocab, (B, P),
+                           generator=torch.Generator().manual_seed(SEED)).to(dev)
+    counters = llama4_counters()
+    want = llama4_serve_want(cfg, steps, ring)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("amsim", "amsim_torch"):
+            t0 = time.perf_counter()
+            zero_launches(counters)
+            toks, kept, _, _ = zoo_greedy(model, tokens, None, steps, ring,
+                                          NumericsPolicy(mode=mode, multiplier="afm16"))
+            runs[mode] = (toks, kept, launches_of(counters), time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (t_a, l_a, n_a, s_a), (t_p, l_p, n_p, s_p) = runs["amsim"], runs["amsim_torch"]
+    require(n_a == want and set(n_p.values()) == {0},
+            f"11b {cfg.name} serving launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
+    require(l_a[0].shape == (B, P, cfg.vocab) and all(bool(torch.isfinite(lg).all())
+                                                      for lg in l_a),
+            f"11b {cfg.name}: prefill logits {tuple(l_a[0].shape)} or not finite")
+    require(_same(l_a, l_p) and torch.equal(t_a, t_p),
+            f"11b {cfg.name}: amsim differs from amsim_torch (logits max|d| "
+            f"{max((a - b).abs().max().item() for a, b in zip(l_a, l_p))}, tokens equal "
+            f"{torch.equal(t_a, t_p)})")
+    print(f"{cfg.name} depth {cfg.n_layers} at full width, {cfg.moe.n_experts} experts: a prompt "
+          f"of {B} x {P}, {steps} greedy steps over a ring of {ring}: the prefill's and every "
+          f"step's logits and the tokens bitwise equal to amsim_torch; amsim launches "
+          f"{ {k: v for k, v in n_a.items() if v} }; {s_a:.1f} s amsim, {s_p:.1f} s amsim_torch; "
+          f"tokens {t_a[0].tolist()}")
+
+
+def llama4_serve_full(model, dev, smi_line, times) -> dict:
+    """Phase 11c serving: depth 2 at full width with all 128 experts, batch
+    4, prompt 64, 32 new tokens under native and amsim: for each a warm-up,
+    then a timed prefill and 31 greedy steps, the amsim launches (counters
+    zeroed just before the run, held to ``llama4_serve_want``), the device
+    busy time of the prefill (a profiled rerun) and of a step, tokens/s and
+    the peak memory; then 11a's device times of the prefill's and of a
+    decode step's kernels beside their bounds.  Returns the amsim run's
+    launches."""
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm_caches, lm_forward
+    from repro_torch.serve.engine import make_serve_step
+    cfg = model.cfg
+    B, P, new = (LLAMA4_SERVE[k] for k in ("batch", "prompt", "new"))
+    ring = P + new
+    tokens = torch.randint(0, cfg.vocab, (B, P),
+                           generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    counters = llama4_counters()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{cfg.name} at full width, depth {cfg.n_layers} (one (dense, MoE) pair, "
+          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, a shared expert): batch {B}, prompt "
+          f"{P}, {new} new tokens, ring {ring} ({smi_line}):")
+    got = None
+    for mode in ("native", "amsim"):
+        policy = (NumericsPolicy() if mode == "native"
+                  else NumericsPolicy(mode=mode, multiplier="afm16"))
+        zoo_greedy(model, tokens[:, :8], None, 1, 9, policy)
+        zero_launches(counters)
+        toks, kept, pre_ms, step_ms = zoo_greedy(model, tokens, None, new - 1, ring, policy,
+                                                 last_only=True)
+        if mode == "amsim":
+            got = launches_of(counters)
+            want = llama4_serve_want(cfg, new - 1, ring)
+            require(got == want, f"11c {cfg.name} serving: launches {got}, want {want}")
+        require(toks.shape == (B, new) and bool((toks >= 0).all() & (toks < cfg.vocab).all())
+                and all(bool(torch.isfinite(lg).all()) for lg in kept),
+                f"11c {cfg.name} {mode}: tokens out of range or logits not finite")
+        caches = init_lm_caches(cfg, B, ring, dev)
+        (_, caches, _), busy_pre = profiled(lambda: lm_forward(model, tokens, policy,
+                                                               caches=caches))
+        nxt = toks[:, -1:]
+        step = make_serve_step(model, policy)
+        busy_step = busy_ms(lambda: step(nxt, caches), reps=3)
+        total_s = (pre_ms + step_ms * (new - 1)) / 1e3
+        print(f"  {mode}: prefill {pre_ms:.2f} ms (" + (
+            f"device busy {busy_pre:.2f} ms in a profiled rerun" if busy_pre is not None
+            else "device busy not measured") + f"), {step_ms:.3f} ms per decode step "
+              f"({busy_text(busy_step, step_ms)}), {B * new / total_s:.2f} tokens/s; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens "
+              f"{toks[0, :8].tolist()}")
+        del caches, step
+    print(f"launches on the {cfg.name} serving run (11c, amsim, prefill and {new - 1} decode "
+          f"steps): {got}")
+    for part in (f"prefill {B}x{P}", f"decode step, ring {ring}"):
+        rows = [(k, t, tb, n) for (k, p, _), (t, tb, n) in sorted(times.items()) if p == part]
+        print(f"  11a's kernels of the {part} (device ms x calls, bound): "
+              + "; ".join(f"{k} {t:.4f} x {n} ({tb:.4f})" for k, t, tb, n in rows)
+              + f"; in all {sum(t * n for _, t, _, n in rows):.3f} ms against "
+              f"{sum(tb * n for _, _, tb, n in rows):.3f}")
+    return got
+
+
+def llama4_train_bitwise(dev) -> None:
+    """Phase 11b training: one adafactor step at full width, depth 2, the
+    experts cut to LLAMA4_TRAIN_EXPERTS, at LLAMA4_TRAIN1, under amsim and
+    amsim_torch with deterministic algorithms: the loss, the parameters and
+    the gradient at the next batch bitwise, the amsim launches.  Both runs'
+    parameters and gradients do not fit the card together: the amsim run's
+    wait on the host."""
+    from repro_torch.core.policy import NumericsPolicy
+    cfg = llama4_cfg(LLAMA4_TRAIN_EXPERTS)
+    counters = train_counters()
+    want = train_want(cfg, LLAMA4_TRAIN1["seq"])
+    torch.use_deterministic_algorithms(True)
+    try:
+        l_a, p_a, g_a, n_a, t_a = depth2_run(cfg, NumericsPolicy(mode="amsim", multiplier="afm16"),
+                                             dev, counters, LLAMA4_TRAIN1)
+        t0 = time.perf_counter()
+        l_a, p_a, g_a = ([t.cpu() for t in ts] for ts in (l_a, p_a, g_a))
+        moved = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        l_p, p_p, g_p, n_p, t_p = depth2_run(cfg, NumericsPolicy(mode="amsim_torch",
+                                                                 multiplier="afm16"),
+                                             dev, counters, LLAMA4_TRAIN1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = LLAMA4_TRAIN1["steps"]
+    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
+            f"11b {cfg.name} training launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"11b {cfg.name} losses {l_a}")
+    t0 = time.perf_counter()
+    for what, xs, ys in (("losses", l_a, l_p), ("parameters", p_a, p_p),
+                         ("gradients", g_a, g_p)):
+        require(all(torch.equal(x.to(dev).view(torch.int32), y.view(torch.int32))
+                    for x, y in zip(xs, ys)), f"11b {cfg.name} training: amsim and "
+                f"amsim_torch {what} differ")
+    del xs, ys                 # the loop's last pair: the amsim_torch run's gradients
+    moved += time.perf_counter() - t0
+    nbytes = 4 * sum(p.numel() for p in p_a)
+    print(f"{cfg.name} depth {cfg.n_layers} at full width, {cfg.moe.n_experts} experts "
+          f"({nbytes / 1e9:.2f} GB of parameters): batch {LLAMA4_TRAIN1['batch']} x "
+          f"{LLAMA4_TRAIN1['seq']}, {steps} {cfg.optimizer} step: loss "
+          f"{[round(float(v), 6) for v in l_a]}, parameters and the next gradient bitwise equal "
+          f"to amsim_torch ({len(p_a)} tensors); amsim launches "
+          f"{ {k: v for k, v in want.items() if v} }; {t_a:.1f} s amsim, {t_p:.1f} s amsim_torch, "
+          f"{moved:.1f} s holding the amsim run's tensors on the host")
+    del p_a, g_a, p_p, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llama4(dev, lut_case, lookups_per_s, smi_line, phase_done) -> tuple:
+    """Phase 11: the model drawn once (everything before it freed), 11a, 11b
+    and 11c's serving on it, then, with it freed, 11b's and 11c's training
+    at 16 experts; 11c prints each run's launches on a line of its own.
+    Returns (each kernel's largest |difference| in 11a, the launches of
+    11c's amsim runs summed)."""
+    from repro_torch.models.transformer import init_lm, lm_param_shapes
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama4_cfg()
+    free, total = torch.cuda.mem_get_info()
+    need = 4 * sum(math.prod(s) for s in lm_param_shapes(cfg).values())
+    print(f"phase 11: {free / 1e9:.2f} GB of {total / 1e9:.2f} GB free before {cfg.name} at "
+          f"depth {cfg.n_layers} ({need / 1e9:.2f} GB of float32 parameters) is drawn")
+    require(need < free, f"{cfg.name} at depth {cfg.n_layers} does not fit the free memory")
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name} drawn on the card in {time.perf_counter() - t0:.1f} s at full width (d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff}, top-{cfg.moe.top_k}, "
+          f"{cfg.moe.n_shared_experts} shared, vocab {cfg.vocab}), depth {cfg.n_layers}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    err, times = llama4_kernel_checks(model, dev, lut_case, lookups_per_s)
+    phase_done("11a llama4 kernels vs plain")
+    llama4_serving_bitwise(model, dev)
+    phase_done("11b llama4 serving, amsim vs amsim_torch")
+    launches = llama4_serve_full(model, dev, smi_line, times)
+    phase_done("11c llama4 serving, full width")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama4_train_bitwise(dev)
+    phase_done("11b llama4 training, amsim vs amsim_torch")
+    run = train_full(dev, LLAMA4_ARCH, lookups_per_s, smi_line, shape=LLAMA4_TRAIN,
+                     capture_step=1, stride=LLAMA4_HEAD_STRIDE, n_layers=LLAMA4_DEPTH,
+                     n_experts=LLAMA4_TRAIN_EXPERTS)
+    print(f"launches on the {LLAMA4_ARCH} training run (11c, {LLAMA4_TRAIN['steps']} steps at "
+          f"{LLAMA4_TRAIN['batch']} x {LLAMA4_TRAIN['seq']}, depth {LLAMA4_DEPTH}, "
+          f"{LLAMA4_TRAIN_EXPERTS} experts): {run}")
+    for k, n in run.items():
+        launches[k] = launches.get(k, 0) + n
+    phase_done("11c llama4 training, full width")
+    return err, launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 7" ... "--phase 10": phases 1, 2 and that one alone, without the
+    # "--phase 7" ... "--phase 11": phases 1, 2 and that one alone, without the
     # result lines.
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" and argv[1] in (
-        "7", "8", "9", "10") else None
+        "7", "8", "9", "10", "11") else None
     if argv and only is None:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7, 8, 9 or 10)",
+        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7, 8, 9, 10 or 11)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -4244,6 +4768,8 @@ def main(argv=None) -> int:
         encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
     if only == "10":
         dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+    if only == "11":
+        llama4(dev, lut_case, lookups_per_s, smi_line, phase_done)
     if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
@@ -4677,10 +5203,16 @@ def main(argv=None) -> int:
     for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
                   "fused_out_mlp", "fused_attn_out_mlp"):
         require(zoo_launches.get(kname, 0) > 0, f"{kname} never launched on phase 10's path")
+
+    # ---------------------------------- 11. llama4-maverick-400b-a17b
+    llama4_err, llama4_launches = llama4(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
+                  "fused_attn_out_mlp", "fused_wo_norm", "fused_moe_ffn"):
+        require(llama4_launches.get(kname, 0) > 0, f"{kname} never launched on phase 11's path")
     # each row keeps its own path's launches, beside the time of that run;
-    # phase 10's runs print theirs on lines of their own (10c)
+    # phases 10 and 11 print theirs on lines of their own (10c, 11c)
     for row in rows_out:
-        for err in (ssm_err, encdec_err, zoo_err):
+        for err in (ssm_err, encdec_err, zoo_err, llama4_err):
             if row["name"] in err:
                 row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

@@ -8,10 +8,12 @@ hybrid (Mamba2 with a weight-shared attention block) and encoder-decoder
 (whisper-style, the audio frontend a stub: the encoder takes precomputed
 frame embeddings) families are ported, and a decoder-only LM with frontend
 tokens (llava: precomputed patch embeddings prepended to the text,
-``lm_forward(embeds=)``).  Every JAX arch is registered but
-llama4-maverick-400b-a17b, whose interleaved MoE stack and shared expert
-come with their slice.  JAX's ``fsdp`` and ``scan_layers`` hints are not
-carried: the port runs on one device and loops over its layers.
+``lm_forward(embeds=)``).  An MoE stack has an MoE FFN in every layer or,
+llama4-style (``interleave=2``), in every second one: (dense, MoE) pairs;
+its MoE FFN may add always-on shared experts.  Every JAX arch is
+registered.  JAX's ``fsdp``, ``scan_layers`` and ``scan_block`` hints are
+not carried: the port runs on one device and loops over its layers (a
+llama4 stack over its pairs).
 """
 from __future__ import annotations
 
@@ -30,10 +32,12 @@ class MoEConfig:
     capacity_factor: float = 1.25
 
     def __post_init__(self):
-        if self.interleave != 1 or self.n_shared_experts:
+        if self.interleave not in (1, 2):
+            # JAX stacks the il - 1 dense layers of a block under "dense" with
+            # an extra axis; no registered config has such a block.
             raise NotImplementedError(
-                "interleaved MoE stacks and shared experts are not ported yet: they come "
-                "with the slice that serves llama4-style MoE models")
+                f"interleave={self.interleave}: only an MoE FFN in every layer (1) or in "
+                f"every second one, (dense, MoE) pairs (2), is ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +91,10 @@ class ArchConfig:
                              f"disagree")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"family {self.family!r} and moe={self.moe!r} disagree")
+        if self.moe is not None and self.n_layers % self.moe.interleave:
+            raise ValueError(f"n_layers={self.n_layers} is not a multiple of the MoE "
+                             f"interleave {self.moe.interleave}: the stack is whole "
+                             f"(dense, MoE) pairs")
         if (self.family in ("ssm", "hybrid")) != (self.ssm is not None):
             raise ValueError(f"family {self.family!r} and ssm={self.ssm!r} disagree")
         if (self.family == "hybrid") != (self.attn_every > 0):
@@ -103,7 +111,8 @@ class ArchConfig:
 ARCH_REGISTRY: dict[str, ArchConfig] = {}
 # Modules that register an architecture when imported.
 _ARCH_MODULES = ("granite_3_2b", "granite_moe_3b_a800m", "mamba2_780m", "zamba2_1_2b",
-                 "whisper_base", "llava_next_34b", "qwen2_5_32b", "qwen1_5_110b", "stablelm_12b")
+                 "whisper_base", "llava_next_34b", "qwen2_5_32b", "qwen1_5_110b", "stablelm_12b",
+                 "llama4_maverick_400b_a17b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -117,6 +126,20 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]
+
+
+def cut(cfg: ArchConfig, *, n_layers: int | None = None,
+        n_experts: int | None = None) -> ArchConfig:
+    """``cfg`` at another depth and, for an MoE arch, with its routed
+    experts cut to ``n_experts`` (llama4 trains with 16 on one card, the
+    count of Llama-4-Scout); the widths stay.  A llama4 depth must be whole
+    (dense, MoE) pairs."""
+    changes = {} if n_layers is None else {"n_layers": n_layers}
+    if n_experts is not None:
+        if cfg.moe is None:
+            raise ValueError(f"{cfg.name} has no experts to cut")
+        changes["moe"] = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

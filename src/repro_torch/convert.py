@@ -70,8 +70,10 @@ def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     the dense, MoE, SSM or hybrid family (numpy or JAX array leaves, layers
     stacked on a leading axis; the q/k/v biases ``b`` of a ``qkv_bias``
     config beside their ``w``; an MoE layer's router ``w`` (d, E) and expert
-    banks (E, d, F) / (E, F, d); a Mamba2 layer's ``conv_w`` (K, ch); the
-    hybrid's ``shared_attn``, one layer, unstacked), on ``device``
+    banks (E, d, F) / (E, F, d); llama4's ``dense`` and ``moe_layer``
+    subtrees stacked over its (dense, MoE) pairs; a Mamba2 layer's
+    ``conv_w`` (K, ch); the hybrid's ``shared_attn``, one layer, unstacked),
+    on ``device``
     (default: the card).  The tied head's
     ``emb.T`` is made contiguous here, once.  Raises if the tree's names or
     shapes are not those ``cfg`` gives."""

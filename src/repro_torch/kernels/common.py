@@ -89,6 +89,13 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
     return lanes[..., 0]
 
 
+def live_elements(t: torch.Tensor) -> torch.Tensor:
+    """Whether each element of the float32 ``t`` has a non-zero exponent
+    field: AMSim makes every product of another (+-0, a subnormal) a
+    signed zero, whatever the other operand is."""
+    return ((t.contiguous().view(torch.int32) >> 23) & 0xFF) != 0
+
+
 def best_chunk(chunk: int, total: int) -> int:
     """The divisor of ``total`` closest to ``chunk`` in log-space, at most
     ``2 * chunk``; ties prefer the larger divisor (a prime ``total`` gives

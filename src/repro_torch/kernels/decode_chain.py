@@ -29,7 +29,8 @@ element whose exponent field is not 0: AMSim returns a bare signed zero
 when an operand's exponent field is 0, whatever the other operand is, so
 every product of a dead row is +-0, each of its sums from +0.0 is +0.0,
 and the kernel writes +0.0 over it without a lookup or a weight read
-(``moe_ffn_grid``).  The plain version computes every row; the bits agree.
+(``moe_ffn_grid``).  The plain version skips the same rows; computing
+them would give the same bits.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``*_plain``), which the kernel agrees
@@ -57,7 +58,7 @@ from .approx_attention import (DECODE_TILE, AttnPlan, AttnShape, _tile_plan,
                                check_attention_operands)
 from .approx_gemm import TABLES, _sms
 from .common import (call_kernel, check_contiguous, check_float32, check_lut, device_float,
-                     lane_sum, lut_bytes, lut_in_smem, operand_device)
+                     lane_sum, live_elements, lut_bytes, lut_in_smem, operand_device)
 from .ref import ref_amsim_gemm
 
 
@@ -86,15 +87,42 @@ def fused_wo_norm_plain(x, attn, g2, wo, lut, M: int, *, eps: float, bo=None):
     return x1, rmsnorm_lanes(x1, g2, eps)
 
 
-def fused_moe_ffn_plain(h, wg, wu, wd, lut, M: int):
+def _swiglu_plain(h, wg, wu, wd, lut, M: int):
     a = silu(ref_amsim_gemm(h, wg, lut, M)) * ref_amsim_gemm(h, wu, lut, M)
     return ref_amsim_gemm(a, wd, lut, M)
+
+
+# The plain expert banks take this many live experts at a time: their
+# slices of the banks are gathered (8 x 3 x 168 MB at llama4's widths).
+PLAIN_EXPERTS = 8
+
+
+def fused_moe_ffn_plain(h, wg, wu, wd, lut, M: int):
+    """The swiglu FFN of every expert's capacity buffer h (E, C, d) with
+    the stacked banks.  As the kernel, only the experts with a live row
+    (``live_rows``) are computed, PLAIN_EXPERTS at a time (by their counts
+    of live rows) on their first rows up to the most live rows of any of
+    them (each expert's live rows first, in order); every other row is
+    +0.0: the bits of computing them all."""
+    h, wg, wu, wd = (t.detach() for t in (h, wg, wu, wd))
+    live = live_elements(h).any(dim=-1)
+    out = torch.zeros((*h.shape[:-1], wd.shape[-1]), dtype=torch.float32, device=h.device)
+    counts = live.sum(dim=-1)
+    experts = torch.nonzero(counts)[:, 0]
+    experts = experts[torch.argsort(counts[experts], stable=True)]   # groups of like rows
+    for first in range(0, len(experts), PLAIN_EXPERTS):
+        group = experts[first:first + PLAIN_EXPERTS]
+        rows = torch.argsort((~live[group]).to(torch.int8), dim=1, stable=True)
+        rows = rows[:, :int(live[group].sum(dim=1).max())]
+        hg = torch.gather(h[group], 1, rows[..., None].expand(-1, -1, h.shape[-1]))
+        out[group[:, None], rows] = _swiglu_plain(hg, wg[group], wu[group], wd[group], lut, M)
+    return out
 
 
 def fused_out_mlp_plain(x, attn, g2, wo, wg, wu, wd, lut, M: int, *, eps: float,
                         bo=None, bd=None):
     x1, h = fused_wo_norm_plain(x, attn, g2, wo, lut, M, eps=eps, bo=bo)
-    y2 = fused_moe_ffn_plain(h, wg, wu, wd, lut, M)
+    y2 = _swiglu_plain(h, wg, wu, wd, lut, M)
     if bd is not None:
         y2 = y2 + bd
     return x1 + y2
@@ -379,8 +407,7 @@ def live_rows(h: torch.Tensor) -> torch.Tensor:
     ``fused_moe_ffn`` computes: those with an element whose exponent field
     is not 0.  Every product of another row is +-0, so its output is +0.0
     and the kernel writes that without a lookup."""
-    exponent = (h.contiguous().view(torch.int32) >> 23) & 0xFF
-    return (exponent != 0).any(dim=-1).sum(dim=-1)
+    return live_elements(h).any(dim=-1).sum(dim=-1)
 
 
 def moe_ffn_grid(E: int, C: int, d: int, F: int, lut, *, live=None) -> dict:

@@ -616,9 +616,9 @@ def policy_attention(q, k, v, q_pos, k_pos, policy: Numerics, causal: bool,
 # runs norm+qkv, attention, then wo+residual+norm (``decode_wo_norm``),
 # the routing in plain PyTorch and the stacked expert banks
 # (``decode_moe_ffn``).  The expert-bank launch also serves any MoE FFN
-# (prefill too) whose capacity C is at most ``MOE_FFN_MAX_C`` (the regime
-# where the JAX package runs it); larger buffers run three batched GEMMs.
-# There is no other guard: the kernels take every shape.
+# (prefill too) whose capacity C is at most ``MOE_FFN_MAX_C``; larger
+# buffers run three batched GEMMs.  There is no other guard: the kernels
+# take every shape.
 # =====================================================================
 
 _CHAIN_SITES = ("qkv", "wo", "wg", "wu", "wd", "attn_score", "attn_value")
@@ -630,7 +630,11 @@ FUSE_ATTN_MAX_T = 128
 # granite-moe-3b-a800m's widths (40 experts, d 1536, expert d_ff 512, an
 # M=7 table) that holds for C = 8 ... 256 and fails at C = 512 (11.27 MB
 # against 10 MiB), so capacities up to 256 take the one launch and larger
-# ones the three batched GEMMs, as there.
+# ones the three batched GEMMs, as there.  At llama4-maverick-400b-a17b's
+# (128 experts, d 5120, expert d_ff 8192) it fails at every capacity, and
+# JAX runs the three batched GEMMs; the port keeps the one launch up to
+# C = 256 there too (the card has no VMEM budget).  The bits are the same
+# either way.
 MOE_FFN_MAX_C = 256
 
 

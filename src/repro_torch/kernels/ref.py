@@ -11,7 +11,11 @@ LUT (the ``direct`` mode).
 The products of a chunk of k are computed as one (m, kc, n) tensor, so a
 fold over k = 65 536 (a weight gradient at batch 64) is a few hundred
 elementwise launches plus k additions, not k launch chains; the chunk is
-sized so that each int64 temporary stays near ``_CHUNK_ELEMENTS``.
+sized so that each int64 temporary stays near ``_CHUNK_ELEMENTS``.  An
+output of more elements than that is folded a block of columns at a time
+(each output element's fold is its own), and the operands' bit patterns
+are taken a chunk at a time, so that a product with a 5120 x 202048 LM
+head holds no int64 copy of the head.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.core.amsim import _amsim, lut_words
 from repro_torch.core.float_bits import torch_bits, torch_float
 from repro_torch.core.multipliers import Multiplier
 
-from .common import NEG_INF, attention_mask, lane_sum
+from .common import NEG_INF, attention_mask, lane_sum, live_elements
 
 _CHUNK_ELEMENTS = 1 << 22
 
@@ -37,8 +41,15 @@ def _sequential_gemm(a: torch.Tensor, b: torch.Tensor, products) -> torch.Tensor
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"sequential GEMM takes (..., m, k) @ (..., k, n) with equal batch "
                          f"dims, got {tuple(a.shape)} @ {tuple(b.shape)}")
-    k = a.shape[-1]
-    out_shape = (*a.shape[:-1], b.shape[-1])
+    k, n = a.shape[-1], b.shape[-1]
+    out_shape = (*a.shape[:-1], n)
+    rows = math.prod(out_shape[:-1])
+    nc = max(1, _CHUNK_ELEMENTS // max(1, rows))
+    if nc < n:
+        out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+        for n0 in range(0, n, nc):
+            out[..., n0:n0 + nc] = _sequential_gemm(a, b[..., n0:n0 + nc], products)
+        return out
     kc = max(1, min(k, _CHUNK_ELEMENTS // max(1, math.prod(out_shape))))
     acc = torch.zeros(out_shape, dtype=torch.float32, device=a.device)
     for k0 in range(0, k, kc):
@@ -54,17 +65,26 @@ def ref_amsim_gemm(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, M: int):
 
     a (..., m, k), b (..., k, n) float32 with equal leading batch dims;
     ``lut`` in kernel storage (int16 packed or int32 canonical).  Bit
-    arithmetic runs on int64 words.
+    arithmetic runs on int64 words.  A batch element whose a has no element
+    with a non-zero exponent field (an expert that holds no token) is +0.0
+    without a product: AMSim makes every product of such an operand +-0,
+    and a fold of those from +0.0 is +0.0.
     """
+    if a.ndim > 2:
+        live = live_elements(a).flatten(-2).any(dim=-1)
+        if not bool(live.all()):
+            out = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32, device=a.device)
+            idx = live.nonzero(as_tuple=True)
+            if idx[0].numel():     # detached: b may be a view of a parameter updated since
+                out[idx] = ref_amsim_gemm(a.detach()[idx], b.detach()[idx], lut, M)
+            return out
     words, packed = lut_words(lut)
-    ua = torch_bits(a)
-    ub = torch_bits(b)
 
     def products(ac, bc):
-        return torch_float(_amsim(ac[..., :, :, None], bc[..., None, :, :], words, M, torch,
-                                  packed=packed))
+        return torch_float(_amsim(torch_bits(ac)[..., :, :, None], torch_bits(bc)[..., None, :, :],
+                                  words, M, torch, packed=packed))
 
-    return _sequential_gemm(ua, ub, products)
+    return _sequential_gemm(a, b, products)
 
 
 def ref_kernel_product(ua: torch.Tensor, ub: torch.Tensor, lut: torch.Tensor, M: int, *,

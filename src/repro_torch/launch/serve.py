@@ -22,7 +22,9 @@ Full width by default; ``--n-layers`` cuts the depth only, ``--reduced``
 takes the smoke-test widths of ``configs.base.reduced``.  Weights are
 drawn from ``--seed`` on the device.  Every dense arch serves, llava-next-34b
 on text tokens only, as JAX's engines do (a prefill with its patch
-embeddings is ``lm_forward(embeds=, caches=)``).  Multi-GPU serving
+embeddings is ``lm_forward(embeds=, caches=)``), and the MoE archs; ``--stream``
+refuses llama4-maverick-400b-a17b, whose (dense, MoE) pairs JAX's paged
+caches do not hold either.  Multi-GPU serving
 (``--mesh``) is a later slice.  An encoder-decoder arch (whisper-base) exits before any work
 with the JAX CLI's message.
 """
@@ -129,8 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="granite-3-2b",
                     help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b, "
                          "llava-next-34b (dense; llava serves text tokens only), "
-                         "granite-moe-3b-a800m (MoE), mamba2-780m (SSM) or zamba2-1.2b "
-                         "(hybrid; --stream takes dense and MoE only)")
+                         "granite-moe-3b-a800m (MoE), llama4-maverick-400b-a17b ((dense, MoE) "
+                         "pairs), mamba2-780m (SSM) or zamba2-1.2b (hybrid; --stream takes "
+                         "dense and granite-moe only)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
     ap.add_argument("--n-layers", type=int, default=None,

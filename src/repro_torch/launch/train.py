@@ -9,6 +9,8 @@
         --seq 64 --numerics amsim --multiplier afm16            # over 1500 frames
     python -m repro_torch.launch.train --arch llava-next-34b --reduced --device cpu \
         --steps 2 --batch 2 --seq 16                            # 8 patches + 8 text
+    python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b --n-layers 2 \
+        --n-experts 16 --steps 2 --batch 4 --seq 64 --numerics amsim --multiplier afm16
 
 Full width by default (``--reduced``: the smoke-test widths of
 ``configs.base.reduced``); weights drawn from ``--seed``, batches from
@@ -21,8 +23,12 @@ and the encoder takes ``n_frontend_tokens`` frames (1500; 8 under
 frontend (llava-next-34b) trains ``lm_loss`` on ``lm_batch``'s patch
 embeddings and text: of ``--seq`` positions, ``n_frontend_tokens`` (2880;
 8 under ``--reduced``) are patches, the rest text, so ``--seq`` must
-exceed them.  The optimizer is the config's (``cfg.optimizer``: adafactor
-for qwen1.5-110b, adamw for every other ported config) over
+exceed them.  ``--n-layers`` cuts the depth (llama4-maverick-400b-a17b:
+whole (dense, MoE) pairs, else it raises) and ``--n-experts`` an MoE arch's
+routed experts (``configs.base.cut``): one (dense, MoE) pair of llama4
+trains at full width with its 128 experts cut to 16.  The optimizer is the
+config's (``cfg.optimizer``: adafactor for qwen1.5-110b and llama4, adamw
+for every other ported config) over
 ``cosine_schedule(lr, 10, steps)``, driven by ``train.trainer.Trainer``
 (checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
 report and the metrics every steps/10.
@@ -40,7 +46,7 @@ import argparse
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, get_arch, reduced
+from repro_torch.configs.base import ArchConfig, cut, get_arch, reduced
 from repro_torch.core.policy import (MODES, PASSES, SITES, Numerics, PolicyTable,
                                      load_numerics, table_from_assignments, table_from_json)
 from repro_torch.data.pipeline import lm_batch
@@ -130,10 +136,15 @@ def main(argv=None):
     ap.add_argument("--arch", default="granite-3-2b",
                     help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b (dense), "
                          "llava-next-34b (dense, patch embeddings first), granite-moe-3b-a800m "
-                         "(MoE), mamba2-780m (SSM), zamba2-1.2b (hybrid) or whisper-base "
+                         "(MoE), llama4-maverick-400b-a17b ((dense, MoE) pairs, a shared "
+                         "expert), mamba2-780m (SSM), zamba2-1.2b (hybrid) or whisper-base "
                          "(encoder-decoder)")
     ap.add_argument("--reduced", action="store_true",
                     help="the smoke-test widths of configs.base.reduced")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths stay)")
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="cut an MoE arch's routed experts to this many")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128,
@@ -161,6 +172,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    cfg = cut(cfg, n_layers=args.n_layers, n_experts=args.n_experts)
     check_seq(cfg, args.seq)
     device = resolve_device(args.device)
     policy = policy_from_args(args)

@@ -18,6 +18,8 @@ kernel).  The two give the same bits.
 The combine folds each token's k contributions in choice order from +0.0,
 so it is deterministic on the card (an ``index_add_`` would add with
 atomics in no fixed order); it is the order of XLA's CPU scatter-add.
+A llama4-style MoE FFN then adds its shared experts' FFN over every token
+(``ffn`` at sites wg/wu/wd, per op also in a decode step), as JAX does.
 """
 from __future__ import annotations
 
@@ -42,12 +44,25 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
 
 
 def init_moe(cfg: ArchConfig, *, generator: torch.Generator) -> dict:
-    """The router (d, E) and the stacked expert banks wg/wu (E, d, F), wd
-    (E, F, d) (wu/wd only for gelu), with the JAX package's scales."""
-    m, d = cfg.moe, cfg.d_model
-    experts = [init_ffn(d, m.d_ff, cfg.act, generator=generator) for _ in range(m.n_experts)]
-    banks = {name: {"w": torch.stack([e[name]["w"] for e in experts])} for name in experts[0]}
-    return {"router": init_linear(d, m.n_experts, generator=generator), "experts": banks}
+    """The router (d, E), the stacked expert banks wg/wu (E, d, F), wd
+    (E, F, d) (wu/wd only for gelu), and, with ``n_shared_experts``, the
+    always-on ``shared`` FFN of width F x n_shared, with the JAX package's
+    scales.  Each bank is allocated once and drawn expert by expert in
+    place (e0.wg, e0.wu, e0.wd, e1.wg, ...: the draws of ``init_ffn`` for
+    each expert in turn), so that a bank of 128 x 5120 x 8192 is never held
+    twice; then the router, then the shared FFN."""
+    m, d, dev = cfg.moe, cfg.d_model, generator.device
+    dims = {"wg": (d, m.d_ff), "wu": (d, m.d_ff), "wd": (m.d_ff, d)}
+    names = ("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")
+    banks = {n: torch.empty((m.n_experts, *dims[n]), device=dev) for n in names}
+    for e in range(m.n_experts):
+        for n in names:
+            banks[n][e].normal_(generator=generator).mul_((1.0 / dims[n][0]) ** 0.5)
+    p = {"router": init_linear(d, m.n_experts, generator=generator),
+         "experts": {n: {"w": w} for n, w in banks.items()}}
+    if m.n_shared_experts:
+        p["shared"] = init_ffn(d, m.d_ff * m.n_shared_experts, cfg.act, generator=generator)
+    return p
 
 
 def route(router, xf: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy):
@@ -65,8 +80,9 @@ def route(router, xf: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy):
 
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy):
     """x (B, S, d) -> (y (B, S, d), aux loss scalar).  ``p`` has
-    ``router`` (a ``layers.Linear``) and ``experts`` (wg/wu/wd
-    ``Linear``s holding the banks)."""
+    ``router`` (a ``layers.Linear``), ``experts`` (wg/wu/wd ``Linear``s
+    holding the banks) and, with shared experts, ``shared`` (wg/wu/wd of
+    one FFN over every token, per op at sites wg/wu/wd in every mode)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -100,6 +116,8 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy):
     y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
     for j in range(k):
         y = y + contrib[:, j]
+    if "shared" in p:       # the always-on shared experts, after the routed sum (JAX's order)
+        y = y + ffn(p["shared"], xf, policy, cfg.act)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e / k.
     assign_frac = F.one_hot(sel, E).to(torch.float32).sum(1).mean(0)

@@ -16,7 +16,11 @@ block of a dense, MoE or SSM stack under ``torch.utils.checkpoint`` when
 training loss: token cross-entropy plus the MoE load-balance loss, which
 every block hands up the stack.  A decoder-only LM with a frontend (llava)
 takes its precomputed patch embeddings before the text
-(``lm_forward(embeds=)``); ``lm_loss`` crops those positions.
+(``lm_forward(embeds=)``); ``lm_loss`` crops those positions.  A llama4
+stack (``moe.interleave == 2``) is a loop over (dense, MoE) pairs, JAX's
+scan block: each pair is one ``PairLayer`` (one checkpointed block under
+remat, as ``jax.checkpoint(block)``), its caches a tuple (the dense
+layers' rings, the MoE layers' rings), one a pair in each.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ def _linears(tree: dict) -> nn.ModuleDict:
 
 class DenseLayer(nn.Module):
     """One block: ``attn`` (wq/wk/wv/wo), norms ``n1``/``n2``, and ``ffn``
-    (wg/wu/wd) or, in an MoE layer, ``moe`` (``router`` and the
-    ``experts`` banks wg/wu/wd)."""
+    (wg/wu/wd) or, in an MoE layer, ``moe`` (``router``, the ``experts``
+    banks wg/wu/wd and, llama4-style, the ``shared`` FFN wg/wu/wd)."""
 
     def __init__(self, attn: dict, n1: dict, n2: dict, ffn: dict | None = None,
                  moe: dict | None = None):
@@ -53,37 +57,56 @@ class DenseLayer(nn.Module):
         self.n2 = Norm(**n2)
         self.ffn = None if ffn is None else _linears(ffn)
         self.moe = None if moe is None else nn.ModuleDict(
-            {"router": Linear(**moe["router"]), "experts": _linears(moe["experts"])})
+            {k: Linear(**v) if k == "router" else _linears(v) for k, v in moe.items()})
+
+
+class PairLayer(nn.Module):
+    """A llama4 scan block: ``dense`` (a ``DenseLayer`` with ``ffn``), then
+    ``moe_layer`` (a ``DenseLayer`` with ``moe``), JAX's names."""
+
+    def __init__(self, dense: dict, moe_layer: dict):
+        super().__init__()
+        self.dense = DenseLayer(**dense)
+        self.moe_layer = DenseLayer(**moe_layer)
+
+
+def paired(cfg: ArchConfig) -> bool:
+    """Whether the stack is (dense, MoE) pairs: an MoE FFN every second
+    layer."""
+    return cfg.moe is not None and cfg.moe.interleave == 2
 
 
 class LM(nn.Module):
     """A decoder-only LM built from a JAX-layout tree of tensors
     (``init_tree``, or ``convert.lm_params_from_jax``); parameter names
     follow the JAX pytree with layers unstacked (``layers.<i>.attn.wq.w``,
-    ``layers.<i>.moe.experts.wg.w``, ``layers.<i>.mamba.conv_w``); the
-    hybrid's shared block is ``shared_attn``, one ``DenseLayer``."""
+    ``layers.<i>.moe.experts.wg.w``, ``layers.<i>.mamba.conv_w``; a llama4
+    pair's ``layers.<i>.dense.attn.wq.w``, ``layers.<i>.moe_layer.moe.shared.wg.w``);
+    the hybrid's shared block is ``shared_attn``, one ``DenseLayer``."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
         self.embed = Embedding(**tree["embed"], tied=cfg.tie_embeddings)
         self.final_norm = Norm(**tree["final_norm"])
-        layer = SSMLayer if cfg.ssm is not None else DenseLayer
+        layer = (SSMLayer if cfg.ssm is not None else PairLayer if paired(cfg)
+                 else DenseLayer)
         self.layers = nn.ModuleList(layer(**lp) for lp in tree["layers"])
         self.head = None if cfg.tie_embeddings else Linear(**tree["head"])
         self.shared_attn = DenseLayer(**tree["shared_attn"]) if cfg.attn_every else None
 
 
-def _dense_layer_shapes(cfg: ArchConfig, pre: str) -> dict:
-    """{dotted name: shape} of one dense or MoE layer under prefix ``pre``."""
-    d, dh, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+def _dense_layer_shapes(cfg: ArchConfig, pre: str, use_moe: bool) -> dict:
+    """{dotted name: shape} of one dense (``use_moe`` False) or MoE layer
+    under prefix ``pre``."""
+    d, dh = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
     ffn_names = ("wg", "wu", "wd") if cfg.act == "swiglu" else ("wu", "wd")
-    if cfg.moe is None:
-        ffn, ffn_dims = "ffn", {"wg": (d, F), "wu": (d, F), "wd": (F, d)}
-    else:
-        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
-        ffn, ffn_dims = "moe.experts", {"wg": (E, d, Fe), "wu": (E, d, Fe), "wd": (E, Fe, d)}
+
+    def ffn_shapes(prefix, F, *E):
+        dims = {"wg": (*E, d, F), "wu": (*E, d, F), "wd": (*E, F, d)}
+        return {f"{prefix}.{name}.w": dims[name] for name in ffn_names}
+
     shapes = {}
     for name, shape in (("wq", (d, hq)), ("wk", (d, hkv)), ("wv", (d, hkv)), ("wo", (hq, d))):
         shapes[f"{pre}attn.{name}.w"] = shape
@@ -91,10 +114,13 @@ def _dense_layer_shapes(cfg: ArchConfig, pre: str) -> dict:
             shapes[f"{pre}attn.{name}.b"] = (shape[1],)
     shapes[f"{pre}n1.g"] = (d,)
     shapes[f"{pre}n2.g"] = (d,)
-    if cfg.moe is not None:
-        shapes[f"{pre}moe.router.w"] = (d, E)
-    for name in ffn_names:
-        shapes[f"{pre}{ffn}.{name}.w"] = ffn_dims[name]
+    if not use_moe:
+        return {**shapes, **ffn_shapes(f"{pre}ffn", cfg.d_ff)}
+    m = cfg.moe
+    shapes[f"{pre}moe.router.w"] = (d, m.n_experts)
+    shapes.update(ffn_shapes(f"{pre}moe.experts", m.d_ff, m.n_experts))
+    if m.n_shared_experts:
+        shapes.update(ffn_shapes(f"{pre}moe.shared", m.d_ff * m.n_shared_experts))
     return shapes
 
 
@@ -105,22 +131,28 @@ def lm_param_shapes(cfg: ArchConfig) -> dict:
     shapes = {"embed.emb": (cfg.vocab, d), "final_norm.g": (d,)}
     if not cfg.tie_embeddings:
         shapes["head.w"] = (d, cfg.vocab)
+    if paired(cfg):
+        for i in range(cfg.n_layers // 2):
+            shapes.update(_dense_layer_shapes(cfg, f"layers.{i}.dense.", False))
+            shapes.update(_dense_layer_shapes(cfg, f"layers.{i}.moe_layer.", True))
+        return shapes
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         if cfg.ssm is None:
-            shapes.update(_dense_layer_shapes(cfg, pre))
+            shapes.update(_dense_layer_shapes(cfg, pre, cfg.moe is not None))
         else:
             shapes.update({f"{pre}mamba.{k}": v for k, v in mamba2_shapes(cfg).items()})
             shapes[f"{pre}n1.g"] = (d,)
     if cfg.attn_every:
-        shapes.update(_dense_layer_shapes(cfg, "shared_attn."))
+        shapes.update(_dense_layer_shapes(cfg, "shared_attn.", False))
     return shapes
 
 
 def lm_stacks(cfg: ArchConfig) -> dict:
     """{JAX leaf name: [port names, layer by layer]}: the per-layer tensors
     of ``lm_param_shapes`` that the JAX package stacks into one leaf
-    (``layers.<i>.attn.wq.w`` for every i is its ``layers.attn.wq.w``)."""
+    (``layers.<i>.attn.wq.w`` for every i is its ``layers.attn.wq.w``; a
+    pair's ``layers.<i>.dense.attn.wq.w`` its ``layers.dense.attn.wq.w``)."""
     stacks: dict = {}
     for name in lm_param_shapes(cfg):
         if name.startswith("layers."):
@@ -141,21 +173,24 @@ def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         tree["head"] = init_linear(cfg.d_model, cfg.vocab, generator=g)
 
-    def dense_layer():
+    def dense_layer(use_moe=cfg.moe is not None):
         layer = {"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones()}
-        if cfg.moe is None:
-            layer["ffn"] = init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)
-        else:
+        if use_moe:
             layer["moe"] = init_moe(cfg, generator=g)
+        else:
+            layer["ffn"] = init_ffn(cfg.d_model, cfg.d_ff, cfg.act, generator=g)
         return layer
 
-    if cfg.ssm is None:
+    if paired(cfg):
+        tree["layers"] = [{"dense": dense_layer(False), "moe_layer": dense_layer(True)}
+                          for _ in range(cfg.n_layers // 2)]
+    elif cfg.ssm is None:
         tree["layers"] = [dense_layer() for _ in range(cfg.n_layers)]
     else:
         tree["layers"] = [{"mamba": init_mamba2(cfg, generator=g), "n1": ones()}
                           for _ in range(cfg.n_layers)]
     if cfg.attn_every:
-        tree["shared_attn"] = dense_layer()
+        tree["shared_attn"] = dense_layer(False)
     return tree
 
 
@@ -259,6 +294,16 @@ def _ssm_block(p: SSMLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache, w
     return x + y, cache, 0.0
 
 
+def _pair_block(p: PairLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
+                window: int):
+    """A llama4 pair: its dense layer, then its MoE layer; cache (dense
+    ring, MoE ring) or None; aux the MoE layer's."""
+    c0, c1 = (None, None) if cache is None else cache
+    x, c0, a0 = _dense_block(p.dense, x, cfg, policy, c0, window)
+    x, c1, a1 = _dense_block(p.moe_layer, x, cfg, policy, c1, window)
+    return x, (None if cache is None else (c0, c1)), a0 + a1
+
+
 def _hybrid_stack(model: LM, x, policy: NumericsPolicy, caches, window: int):
     """zamba2: the Mamba2 layers in order, the shared block after every
     ``attn_every``-th one (the same weights each time, its own cache each
@@ -291,7 +336,10 @@ def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embed
     if cfg.family == "hybrid":
         x, new_caches, aux = _hybrid_stack(model, x, policy, caches, window)
     else:
-        block = _ssm_block if cfg.family == "ssm" else _dense_block
+        block = (_ssm_block if cfg.family == "ssm" else _pair_block if paired(cfg)
+                 else _dense_block)
+        if caches is not None and paired(cfg):     # (dense rings, MoE rings) -> a pair's two
+            caches = list(zip(*caches))
         aux = 0.0
         new_caches = []
         for i, layer in enumerate(model.layers):
@@ -303,6 +351,8 @@ def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embed
                 x, cache, a = block(layer, x, cfg, policy, cache, window)
             aux = aux + a
             new_caches.append(cache)
+        if caches is not None and paired(cfg):
+            new_caches = tuple(map(list, zip(*new_caches)))
     norm = rmsnorm if cfg.family == "ssm" else _block_norm(policy, caches)
     x = norm(model.final_norm, x, cfg.norm_eps)
     if not isinstance(aux, torch.Tensor):   # no MoE block: no aux loss
@@ -372,9 +422,14 @@ def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 
 
 def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device):
     """The decode caches of the whole stack (the layout ``lm_forward``
-    takes): a ring cache a layer (dense, MoE); a Mamba2 state a layer
-    (SSM); for the hybrid (Mamba2 states a layer, a ring of min(max_len,
-    sliding window) slots for each application of the shared block)."""
+    takes): a ring cache a layer (dense, MoE); for (dense, MoE) pairs
+    (the dense layers' rings, the MoE layers' rings), one a pair in each,
+    as JAX; a Mamba2 state a layer (SSM); for the hybrid (Mamba2 states a
+    layer, a ring of min(max_len, sliding window) slots for each application
+    of the shared block)."""
+    if paired(cfg):
+        return tuple([init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers // 2)]
+                     for _ in range(2))
     if cfg.family == "ssm":
         return [init_ssm_cache(cfg, batch, device) for _ in range(cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -387,10 +442,11 @@ def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, device):
 
 def check_paged(cfg: ArchConfig):
     """Raise unless paged serving caches cover ``cfg``'s family (JAX
-    ``init_paged_lm_caches``): dense and MoE stacks, whose decode state is
-    attention KV; an SSM or hybrid state is O(1) a slot and needs no
-    paging."""
-    if cfg.family not in ("dense", "moe"):
+    ``init_paged_lm_caches``): dense stacks and MoE stacks with an MoE FFN
+    in every layer, whose decode state is attention KV; an SSM or hybrid
+    state is O(1) a slot and needs no paging, and JAX pages no stack of
+    (dense, MoE) pairs (llama4)."""
+    if not (cfg.family == "dense" or (cfg.family == "moe" and cfg.moe.interleave == 1)):
         raise NotImplementedError(
             f"paged serving caches support dense/moe(interleave=1) stacks; {cfg.name} is "
             f"family {cfg.family!r}")

@@ -8,6 +8,7 @@ numerics: the twin of ``examples/serve_lm.py``.
     python -m repro_torch.serve --arch zamba2-1.2b              # hybrid
     python -m repro_torch.serve --arch stablelm-12b             # heads of 160, 48.6 GB
     python -m repro_torch.serve --arch qwen2.5-32b --n-layers 8 # q/k/v biases
+    python -m repro_torch.serve --arch llama4-maverick-400b-a17b --n-layers 2   # 74.2 GB
     python -m repro_torch.serve --reduced --device cpu --numerics amsim_torch
     python -m repro_torch.serve --numerics table.json           # per-site numerics
 
@@ -21,7 +22,9 @@ The chain runs the dense blocks (the hybrid's shared block); a Mamba2
 layer decodes by its recurrence.  llava-next-34b serves text tokens only,
 as JAX's ``ServingEngine`` does: its prefill with patch embeddings is
 ``lm_forward(embeds=, caches=)``.  The 30-110 B archs (llava, the qwens)
-fit one card only at a cut depth.  An encoder-decoder arch (whisper-base)
+fit one card only at a cut depth; llama4-maverick-400b-a17b ((dense, MoE)
+pairs, 128 experts and a shared expert) at one pair, ``--n-layers 2`` (an
+odd depth raises).  An encoder-decoder arch (whisper-base)
 exits before any work with the JAX CLI's message: no engine serves one.
 Prints which, tokens/s, the prefill time and the time per decode step.
 """
@@ -45,7 +48,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="granite-3-2b",
                     help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b, "
                          "llava-next-34b (dense; llava on text tokens), granite-moe-3b-a800m "
-                         "(MoE), mamba2-780m (SSM) or zamba2-1.2b (hybrid)")
+                         "(MoE), llama4-maverick-400b-a17b ((dense, MoE) pairs), mamba2-780m "
+                         "(SSM) or zamba2-1.2b (hybrid)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=24)

@@ -8,8 +8,8 @@ of the kernels' 64).  Each at ``configs.base.reduced`` (d 128, 2 layers,
 heads of 32): JAX ``init_lm`` parameters, with the biases drawn nonzero,
 are carried across with ``lm_params_from_jax``, and the same numpy tokens
 and patch embeddings go through both packages.  Held here:
-* the registry: every JAX arch builds in the port with JAX's values but
-  llama4-maverick-400b-a17b, which still raises;
+* the registry: every JAX arch builds in the port with JAX's values,
+  llama4-maverick-400b-a17b too (its own tests: ``tests/test_torch_llama4.py``);
 * ``lm_forward`` logits (B, F + S, vocab) under ``native`` and
   ``amsim_torch`` (JAX ``amsim_jnp``): atol = rtol = 1e-5, the limit of
   ``tests/test_torch_serve.py`` (rope, rsqrt and the softmax round apart
@@ -182,7 +182,7 @@ def _worst_rel(port_tree, jax_tree):
 
 
 # ---------------------------------------------------------------- registry
-@pytest.mark.parametrize("arch", sorted(a for a in JAX_ARCHS if not a.startswith("llama4")))
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
 def test_every_jax_arch_but_llama4_builds_with_jax_values(arch):
     """The port's config carries JAX's value in each of its fields, at full
     width and at ``reduced``; its head is JAX's."""
@@ -197,16 +197,14 @@ def test_every_jax_arch_but_llama4_builds_with_jax_values(arch):
 
 
 def test_llama4_still_raises():
-    """llama4's interleaved MoE stack and shared expert are not ported: the
-    registry does not hold it, and its MoE config raises naming its
-    slice."""
+    """llama4's interleaved MoE stack and shared expert are ported (the name
+    is the one this test had while they raised): the registry holds it, and
+    its MoE config, built from JAX's values, is the port's."""
     name = "llama4-maverick-400b-a17b"
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_arch(name)
     m = jax_get_arch(name).moe
-    with pytest.raises(NotImplementedError, match="llama4"):
-        MoEConfig(n_experts=m.n_experts, top_k=m.top_k, d_ff=m.d_ff, interleave=m.interleave,
-                  n_shared_experts=m.n_shared_experts)
+    moe = MoEConfig(n_experts=m.n_experts, top_k=m.top_k, d_ff=m.d_ff, interleave=m.interleave,
+                    n_shared_experts=m.n_shared_experts)
+    assert get_arch(name).moe == moe and (moe.interleave, moe.n_shared_experts) == (2, 1)
 
 
 def test_the_zoo_s_shapes():

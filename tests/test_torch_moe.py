@@ -524,10 +524,15 @@ def test_moe_arch_configs_match_jax():
 
 
 def test_later_moe_variants_are_refused():
+    """(dense, MoE) pairs and shared experts are ported; an interleave of 3
+    is not, and a depth that is not whole pairs raises."""
     from repro_torch.configs.base import MoEConfig
-    for kw in ({"interleave": 2}, {"n_shared_experts": 1}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            MoEConfig(n_experts=8, top_k=2, d_ff=64, **kw)
+    MoEConfig(n_experts=8, top_k=2, d_ff=64, interleave=2, n_shared_experts=1)
+    with pytest.raises(NotImplementedError, match="interleave=3"):
+        MoEConfig(n_experts=8, top_k=2, d_ff=64, interleave=3)
+    paired = dataclasses.replace(CFG.moe, interleave=2)
+    with pytest.raises(ValueError, match="not a multiple"):
+        dataclasses.replace(CFG, n_layers=3, moe=paired)
 
 
 def test_serve_cli_runs_the_moe_arch_on_the_cpu(capsys):
