@@ -105,7 +105,8 @@ MoE serving (granite-moe-3b-a800m at full width,
     on the buffer ``moe_ffn`` scatters for a decode step of 4 tokens, and
     on one with dead rows (zero, -0.0 and subnormal rows between live ones,
     an all-dead expert whose banks hold inf and NaN), against their plain
-    versions with the tables of 3d; every result bit for bit equal (+0.0
+    versions with the table forms of 3d (afm16, afm10, fp16xbf16: the
+    faulted afm16 is afm16's form); every result bit for bit equal (+0.0
     and -0.0 differ);
  4d. depth 2, batch 2, prompt 16, 4 new tokens, ring 64: prefill logits,
     every decode step's logits and the tokens under ``amsim`` bitwise equal
@@ -130,10 +131,10 @@ MoE serving (granite-moe-3b-a800m at full width,
     GEMMs): same bits, the device time of each.
 LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
 ``cosine_schedule(3e-4, 10, 3)``, remat; after the serving phases):
- 5e. depth 2 at full width, batch 1 x 8, 2 steps under ``amsim`` and
-    ``amsim_torch`` with deterministic algorithms: losses, parameters after
-    step 2 and the gradient at the next batch bitwise equal (int32 views),
-    the launches of every step as ``train_want`` counts them; a resume
+ 5e. granite-moe's adamw step at depth 1, 1 x 8 (its top-8-of-40 MoE
+    layer) under amsim and amsim_torch with deterministic algorithms: the
+    loss, the parameters and the next gradient bitwise, the launches
+    (granite-3-2b's two adamw steps at depth 2 are held so in 6a); a resume
     through the trainer (2 steps, a checkpoint under
     ``build/chip_smoke_ckpt/``, a restore into a model drawn from another
     seed, 1 step) bitwise equal to 3 steps straight; then 3 steps of each
@@ -141,7 +142,8 @@ LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
     memory: ``train_fits``), batch 4 x 64: each
     step's wall ms, CUDA-event ms and loss (step 2 also its device busy
     time from torch.profiler), the peak memory, the launches of each step,
-    and every kernel shape of step 3 timed, with its bound and plan, and
+    and granite-moe's every kernel shape of step 3 timed (granite-3-2b's:
+    6b), with its bound and plan, and
     held bitwise against its plain version at its first call, inside the
     step (a GEMM of more than 1e10 lookups, an LM head at 256 rows, on its
     first and last output tiles and every 7th column: ``held_columns``).
@@ -191,13 +193,15 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     in every key no row may read; per-row positions that agree across the
     rows give the bits of shared ones; each timed at those shapes (afm16);
  7b. depth 2 at full width: a ragged two-tier stream (exact=native,
-    cheap=amsim:afm16, pools of 4 pages) token for token the same under
-    cheap=amsim_torch:afm16, with preemption, for granite-3-2b and
-    granite-moe (no deterministic algorithms: the trash page's colliding
-    writes all carry zeros, so dead rows read the same on every run); the per-op
-    path (``REPRO_DECODE_FUSED=0``, the one kill switch this script sets)
-    the chain's tokens; one request's paged decode logits bitwise the ring
-    engine's; a windowed stream (sliding_window 8) recycling a 5-page pool;
+    cheap=amsim:afm16, pools of 4 pages), with preemption, for granite-3-2b
+    and granite-moe (the per-row kernels are held against their plain
+    versions in 7a); the per-op path (``REPRO_DECODE_FUSED=0``, the one
+    kill switch this script sets) the chain's tokens; one request's paged
+    decode logits bitwise the ring engine's; a windowed stream
+    (sliding_window 8) recycling a 5-page pool, token for token the same
+    under amsim_torch (no deterministic algorithms: the trash page's
+    colliding writes all carry zeros, so dead rows read the same on every
+    run);
  7c. granite-3-2b at full width and depth: 32 requests, prompts of 32-256
     tokens from the seed, 16 new tokens each, tiers exact=native and
     cheap=amsim:afm16 in turn, 8 slots a lane, pages of 16, one arrival a
@@ -208,8 +212,9 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     probe around each tick: the same tokens, the launches of each kernel
     and a tick's, device-to-host waits a tick (counted under
     ``torch.cuda.set_sync_debug_mode("warn")``), the probe's wall beside
-    the clean run's, and a full tick's device busy time; then both pools
-    at a third of their size: preemptions, the same tokens;
+    the clean run's, and a full tick's device busy time (preemption is
+    driven on the card in 7b, its token identity in
+    ``tests/test_torch_scheduler.py``);
  7d. granite-moe-3b-a800m at full width and depth: 8 requests of 16 new
     tokens on one amsim:afm16 tier, the same numbers (the probed run's
     tokens those of the clean run: the MoE stream repeats without
@@ -223,17 +228,19 @@ weight-shared attention block; after 7d):
     amsim/afm16 -- a serving prefill of 4 x 64 and a decode step of each
     model (zamba2 also with its window cut to 32: a ring shorter than the
     prompt), the SSD products and the attention of a training step at 1 x
-    512 (two chunks of 256) -- each distinct shape again under the tables of
-    3d against its plain version, bit for bit, with its plan, grid and
-    device time;
+    512 (two chunks of 256) -- each distinct shape again under the table
+    forms of 3d (as 3e) against its plain version, bit for bit, with its
+    plan, grid and device time;
  8b. depth 2 at full width: serving at batch 1, prompt 16, 4 new tokens
     under amsim and amsim_torch (zamba2 again with its window cut to 8, so
     that the ring wraps): prefill logits, decode logits and tokens bitwise,
-    the launches each kernel must make; an adamw step at 1 x 32 with the
-    chunk cut to 16 (two chunks: the state recurrence and every SSD
-    gradient product run) under both with deterministic algorithms: the
-    loss, the parameters and the next gradient bitwise, the launches;
- 8c. full width and depth: each model served at batch 4, prompt 64, 32 new
+    the launches each kernel must make; an adamw step of each with the
+    chunk cut to 16, mamba2 at 1 x 32 (two chunks: the state recurrence and
+    every SSD gradient product run), zamba2 at 1 x 16 with its shared block
+    after both layers (the two applications' gradients add up), under both with
+    deterministic algorithms: the loss, the parameters and the next
+    gradient bitwise, the launches;
+ 8c. full width and depth: each model served at batch 4, prompt 64, 16 new
     tokens under native and amsim (prefill ms, ms a decode step, tokens/s,
     idle shares, launches, the GEMM kernel's time at the prefill's and a
     decode step's shapes), then 3 adamw steps at 4 x 256 (remat for mamba2,
@@ -258,7 +265,8 @@ cross-attention bidirectional over 1500 frames; after 8c):
     4 new tokens under amsim and amsim_torch: the encoder states, every
     step's logits and the tokens bitwise, the launches (an encoder layer 6
     GEMMs + 1 attention, a decoder layer 10 GEMMs + 2 attentions each
-    decode, the head 1 GEMM); an adamw step at 1 x 64 over 1500 frames
+    decode, the head 1 GEMM); an adamw step at 1 x 64 over 1500 frames at
+    depth 1 + 1 (the encoder's backward still chunks its 1500 queries)
     under both with deterministic algorithms: the loss, the parameters and
     the next gradient bitwise, the launches;
  9c. full width and depth: greedy decoding at batch 4 over 1500 frames,
@@ -303,7 +311,7 @@ and 160, q/k/v biases, llava's patch embeddings before its text; after 9c):
     new; qwen1.5-110b at depth 2 served 4 x 64, 8 new (amsim): prefill ms
     (and its device busy time in a profiled rerun), ms a decode step, busy,
     idle share, tokens/s, peak memory, the launches; then 2 training steps
-    each of stablelm (adamw, depth 2, 4 x 64), llava (adamw, depth 2, 1 x
+    each of stablelm (adamw, depth 2, 4 x 64), llava (adamw, depth 1, 1 x
     (2880 + 64)) and qwen1.5 (adafactor, depth 1, 4 x 64): wall, busy,
     peak memory, launches, finite losses.
 The launches of 10c's runs are printed on their own lines; the kernels
@@ -333,8 +341,10 @@ card with the generator, the free memory printed first;
     model served a prompt of 1 x 4 and 2 greedy steps (the prefill's and
     every step's logits and the tokens bitwise, the launches); then, with
     the model freed, one adafactor step at full width and depth 2 with the
-    experts cut to 16 at 1 x 4 (the loss, the parameters and the next
-    gradient bitwise; the amsim run's tensors wait on the host);
+    experts cut to 16 at 1 x 4 (the loss bitwise; the parameters and the
+    next gradient by ``fingerprint``: an int64 a 2^24 elements, the sum of
+    the int32 bit patterns times fixed random odd weights, since both runs'
+    35.7 GB do not fit the card together);
  11c. the same model served at batch 4, prompt 64, 32 new tokens under
     native and amsim (prefill ms and its busy time in a profiled rerun, ms a
     decode step, busy, idle share, tokens/s, peak memory, the launches, 11a's
@@ -345,8 +355,46 @@ card with the generator, the free memory printed first;
     plain version inside the step, a GEMM of more than 1e10 lookups on
     every 71st column, the banks on the first live row of each expert).
 The launches of 11c's runs are printed on their own lines.
-``python3 chip_smoke.py --phase 7`` (8, 9, 10, 11) runs phases 1, 2 and 7
-(8, 9, 10, 11) alone and prints no result lines.
+The mesh (``launch/mesh.py``, ``distributed/``; after 11c, everything
+before it freed): four ranks on the one card through ``launch.mesh.spawn``
+(gloo: NCCL refuses two ranks of one communicator on one device; the
+backend line first), amsim/afm16, a 2x2 (data, model) mesh and a (4, 1)
+one over the same ranks:
+ 12a. the sharded contracts at full-width shapes, kernel against kernel:
+    granite-3-2b's wq/wo and wg/wd at a 4 x 64 prefill, the column-parallel
+    forward bitwise the single-device kernel on the whole operands, the
+    row-parallel forward, the column dx and the batch-split dw bitwise the
+    k-split oracle (the same kernel on the slices, the partials added in
+    shard order); attention with heads and rows split, forward and VJP
+    bitwise; resnet-mini's 8 convs at batch 64 on (4, 1), forward and dx
+    bitwise, dw the batch-split oracle; ``compressed_all_reduce`` of a
+    2048 x 8192 gradient bitwise the composition computed on one rank;
+ 12b. granite-3-2b at full width and depth on the 2x2 mesh (each rank
+    draws the layers from the seed and keeps its blocks), a 4 x 64 prefill
+    and 16 greedy tokens: logits and tokens bitwise the k-split oracle
+    (``distributed.oracle.ksplit``: the single-device per-op run, chain off,
+    with each row-parallel sum split as the mesh splits it), which a row sum
+    missing one shard is not; against the unsplit per-op run a reading of
+    what the split sums alone move (relative norm up to the first token
+    where the two part, the tokens equal wherever its top-2 margin exceeds
+    the largest logit gap); prefill ms, ms a step, tokens/s, the
+    collectives a step and their share of its wall (host clock), peak
+    memory a rank and the card's memory.used;
+ 12c. granite-3-2b at full width, depth 4, on the 2x2 mesh: step 1's loss
+    and every gradient leaf bitwise the k-split oracle
+    (``distributed.oracle.ksplit_loss_and_grads``), which a row sum missing
+    one shard is not, and their readings against the unsplit step; then 2
+    adamw steps at 4 x 64 (clip 1.0), ms a step and memory a rank;
+    resnet-mini data-parallel on (4, 1), 2 sgdm steps at batch 64, step 1
+    against the single-device step (``MESH_VISION_RTOL``);
+ 12d. ``REPRO_SHARD_FUSED=0`` at depth 2 (the replicated dispatch, the
+    chain on the gathered weights): logits and tokens bitwise the
+    single-device run's with the chain on.
+Every kernel of 12b and 12c must launch on every rank; the kernels line
+carries each kernel's launches a rank there (``mesh_launches_per_rank``).
+``python3 chip_smoke.py --phase 5e,8,12`` (any of 5e, 7, 8, 9, 10, 11, 12)
+runs phases 1, 2 and those alone, in that order, and prints no result
+lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -406,6 +454,8 @@ TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-1
 # LM serving: the arch, the tables of phase 3d, and the runs of 4c and 5c.
 LM_ARCH = "granite-3-2b"
 SERVE_LUTS = [("afm16", True), ("afm10", True), ("fp16xbf16", True), (FAULTED_AFM16, True)]
+# 3e and 8a: the faulted afm16 is afm16's table form (3d and 7a hold it)
+FORM_LUTS = SERVE_LUTS[:3]
 DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=4, rings=(64, 160))
 FULL = dict(batch=4, prompt=64, new=32)
 LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
@@ -1178,8 +1228,8 @@ def launches_of(counters) -> dict:
 
 def moe_kernel_checks(dev, gen, lut_case) -> dict:
     """Phase 3e: the three MoE serving kernels against their plain versions
-    at granite-moe-3b-a800m's full width; returns each one's largest
-    |difference|."""
+    at granite-moe-3b-a800m's full width, under ``FORM_LUTS``; returns each
+    one's largest |difference|."""
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import approx_gemm as gemm_mod
     from repro_torch.kernels import decode_chain as chain
@@ -1209,7 +1259,7 @@ def moe_kernel_checks(dev, gen, lut_case) -> dict:
     dead_rows[1:, 2::4] = -0.0
     dead_rows[1:, 3::4] = tiny[3::4]
 
-    for i, (lut_name, packed) in enumerate(SERVE_LUTS):
+    for i, (lut_name, packed) in enumerate(FORM_LUTS):
         lut, M = lut_case(lut_name, packed)
         tag = f"{lut_name} {'packed' if packed else 'canonical'}"
         C = MOE_CHECK_C[min(i, 1)]
@@ -1673,9 +1723,11 @@ def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN,
 # ------------------------------------------------------------ LM training
 TRAIN_LR = 3e-4
 TRAIN_FULL = dict(batch=4, seq=64, steps=3)          # the schedule spans these 3 steps
-# 5e's (and 6a's) depth-2 runs: one row of 8 tokens, 2 steps (the plain
+# 5e's resume and 6a's depth-2 runs: one row of 8 tokens, 2 steps (the plain
 # versions' cost grows with the rows).
 TRAIN_DEPTH2 = dict(n_layers=2, batch=1, seq=8, steps=2)
+# 5e's granite-moe step bitwise amsim_torch: one MoE layer, one row of 8.
+TRAIN_MOE1 = dict(n_layers=1, batch=1, seq=8, steps=1)
 TRAIN_ARCHS = (LM_ARCH, MOE_ARCH)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"        # .gitignore lists build/
 
@@ -1933,39 +1985,36 @@ def _same(xs, ys) -> bool:
     return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(xs, ys))
 
 
-def train_depth2(dev, arch):
-    """Phase 5e, one model: depth 2 at full width, 2 steps under ``amsim``
-    and ``amsim_torch`` with deterministic algorithms (the embedding's and
-    the MoE gather's backward are atomic scatters without them): losses,
-    parameters after step 2 and the gradient at the next batch bitwise
-    equal (int32 views); the amsim launches of each step."""
-    import dataclasses
-    from repro_torch.configs.base import get_arch
+def train_step_bitwise(dev, cfg, label, shape, counters, want) -> None:
+    """adamw steps of ``cfg`` at ``shape`` under amsim and amsim_torch with
+    deterministic algorithms (the embedding's and the MoE gather's
+    backward are atomic scatters without them): the losses, the parameters
+    after the steps and the gradient at the next batch bitwise (int32
+    views); the amsim launches of each step equal ``want``."""
     from repro_torch.core.policy import NumericsPolicy
-    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_DEPTH2["n_layers"])
-    B, S, steps = TRAIN_DEPTH2["batch"], TRAIN_DEPTH2["seq"], TRAIN_DEPTH2["steps"]
-    counters = train_counters()
-    want = train_want(cfg, S)
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
         for mode in ("amsim", "amsim_torch"):
             runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev,
-                                    counters)
+                                    counters, shape)
             torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
     (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
+    steps = shape["steps"]
     require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
-            f"{arch} depth-2 launches: amsim {n_a}, amsim_torch {n_p}, want {want} a step")
-    require(all(bool(torch.isfinite(v)) for v in l_a), f"{arch} depth-2 losses {l_a}")
-    require(_same(l_a, l_p), f"{arch} depth-2 training losses: amsim {l_a}, amsim_torch {l_p}")
-    require(_same(p_a, p_p), f"{arch} depth-2 training: parameters after step {steps} differ")
-    require(_same(g_a, g_p), f"{arch} depth-2 training: gradients after step {steps} differ")
-    print(f"{arch} depth {cfg.n_layers}, batch {B}, seq {S}, {steps} adamw steps: losses "
-          f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
-          f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a step "
-          f"{want}; {t_a:.1f} s amsim, {t_p:.1f} s amsim_torch")
+            f"{label} training launches: amsim {n_a}, amsim_torch {n_p}, want {want} a step")
+    require(all(bool(torch.isfinite(v)) for v in l_a), f"{label} losses {l_a}")
+    require(_same(l_a, l_p), f"{label} training losses: amsim {l_a}, amsim_torch {l_p}")
+    require(_same(p_a, p_p), f"{label} training: parameters after step {steps} differ")
+    require(_same(g_a, g_p), f"{label} training: gradients after step {steps} differ")
+    print(f"{label}: batch {shape['batch']} x {shape['seq']}, {steps} {cfg.optimizer} "
+          f"step{'s' if steps > 1 else ''}{' (remat)' if cfg.remat and not cfg.attn_every else ''}"
+          f": losses {[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the "
+          f"gradient at batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim "
+          f"launches a step { {k: v for k, v in want.items() if v} }; {t_a:.1f} s amsim, "
+          f"{t_p:.1f} s amsim_torch")
     del runs
     torch.cuda.empty_cache()
 
@@ -2019,11 +2068,20 @@ def train_resume(dev):
 
 def lm_training(dev, lookups_per_s, smi_line) -> dict:
     """Phase 5e: LM training on the card; returns {arch: launches of its
-    full-width run}."""
-    for arch in TRAIN_ARCHS:
-        train_depth2(dev, arch)
+    full-width run}.  granite-moe's top-8-of-40 MoE layer steps bitwise
+    amsim_torch here at depth 1 (``TRAIN_MOE1``); granite-3-2b's depth-2
+    adamw steps are held so in 6a; granite-3-2b's step-3 kernel shapes are
+    held in 6b (under fp16xbf16, timed under afm16 too), granite-moe's
+    here."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=TRAIN_MOE1["n_layers"])
+    train_step_bitwise(dev, cfg, f"{MOE_ARCH} depth {cfg.n_layers}", TRAIN_MOE1,
+                       train_counters(), train_want(cfg, TRAIN_MOE1["seq"]))
     train_resume(dev)
-    return {arch: train_full(dev, arch, lookups_per_s, smi_line) for arch in TRAIN_ARCHS}
+    return {arch: train_full(dev, arch, lookups_per_s, smi_line,
+                             capture_step=0 if arch == LM_ARCH else 3)
+            for arch in TRAIN_ARCHS}
 
 
 # ------------------------------------------------- the numerics surface
@@ -2626,12 +2684,11 @@ def run_stream_once(model, args, n_pages=None):
 
 
 def stream_depth2(dev) -> dict:
-    """Phase 7b: depth 2 at full width.  A ragged two-tier stream under
-    cheap=amsim:afm16 token for token cheap=amsim_torch:afm16 (granite-3-2b
-    and granite-moe, pools of 4 pages to preempt); the per-op path
-    (REPRO_DECODE_FUSED=0) the chain's tokens; one request's paged decode
-    logits bitwise the ring engine's; a windowed stream recycling a 5-page
-    pool."""
+    """Phase 7b: depth 2 at full width.  A ragged two-tier stream (granite-3-2b
+    and granite-moe, pools of 4 pages to preempt); granite-3-2b's per-op
+    path (REPRO_DECODE_FUSED=0) the chain's tokens; one request's paged
+    decode logits bitwise the ring engine's; a windowed stream recycling a
+    5-page pool, amsim token for token amsim_torch."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_lm
@@ -2642,31 +2699,20 @@ def stream_depth2(dev) -> dict:
         model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
         max_len = args.prompt_len + args.new_tokens + 1
         pool = 4   # 3 usable pages a lane: two residents overcommit it
-        outs = {}
-        for mode in ("amsim", "amsim_torch"):
-            margs = stream_args(["--arch", arch, *STREAM_DEPTH2],
-                                tiers=f"exact=native,cheap={mode}:afm16")
-            zero_launches(counters)
-            eng, _ = run_stream_once(model, margs, pool)
-            outs[mode] = stream_outcome(eng)
-            if mode == "amsim":
-                got = launches_of(counters)
-                want = ("approx_gemm", "approx_attention", "fused_qkv_norm") + (
-                    ("fused_attn_out_mlp",) if arch == LM_ARCH else
-                    ("fused_wo_norm", "fused_moe_ffn"))
-                require(all(got[k] > 0 for k in want), f"{arch} depth-2 stream: launches {got}")
-                pre = sum(r.preemptions for r in eng.finished.values())
-                require(pre > 0, f"{arch} depth-2 stream: no preemption in pools of "
-                        f"{pool} pages")
-                print(f"{arch} depth 2, a stream of {args.stream} requests (prompts "
-                      f"{args.min_prompt_len}-{args.prompt_len}, {args.new_tokens} new tokens, "
-                      f"Tcap {-(-max_len // args.page_size) * args.page_size}): "
-                      f"{eng.decode_ticks} decode ticks, {pre} preemptions, launches "
-                      f"{ {k: n for k, n in got.items() if n} }")
-        require(outs["amsim"] == outs["amsim_torch"], f"{arch} depth-2 stream: cheap=amsim "
-                f"tokens differ from cheap=amsim_torch")
-        print(f"  tokens, statuses and preemptions under cheap=amsim:afm16 == "
-              f"cheap=amsim_torch:afm16")
+        zero_launches(counters)
+        eng, _ = run_stream_once(model, args, pool)
+        chain_outcome = stream_outcome(eng)
+        got = launches_of(counters)
+        want = ("approx_gemm", "approx_attention", "fused_qkv_norm") + (
+            ("fused_attn_out_mlp",) if arch == LM_ARCH else ("fused_wo_norm", "fused_moe_ffn"))
+        require(all(got[k] > 0 for k in want), f"{arch} depth-2 stream: launches {got}")
+        pre = sum(r.preemptions for r in eng.finished.values())
+        require(pre > 0, f"{arch} depth-2 stream: no preemption in pools of {pool} pages")
+        print(f"{arch} depth 2, a stream of {args.stream} requests (prompts "
+              f"{args.min_prompt_len}-{args.prompt_len}, {args.new_tokens} new tokens, "
+              f"Tcap {-(-max_len // args.page_size) * args.page_size}): "
+              f"{eng.decode_ticks} decode ticks, {pre} preemptions, launches "
+              f"{ {k: n for k, n in got.items() if n} }")
         if arch == LM_ARCH:
             os.environ["REPRO_DECODE_FUSED"] = "0"
             try:
@@ -2677,7 +2723,7 @@ def stream_depth2(dev) -> dict:
             got = launches_of(counters)
             require(got["fused_qkv_norm"] == got["fused_attn_out_mlp"] == 0,
                     f"REPRO_DECODE_FUSED=0 still launched the chain: {got}")
-            require(stream_outcome(eng) == outs["amsim"], "the per-op path (REPRO_DECODE_FUSED=0) "
+            require(stream_outcome(eng) == chain_outcome, "the per-op path (REPRO_DECODE_FUSED=0) "
                     "gives other tokens than the chain")
             print("  the per-op path (REPRO_DECODE_FUSED=0, no chain launch) gives the chain's "
                   "tokens")
@@ -2871,9 +2917,8 @@ def clean_then_probed(model, args, counters, smi_line, what) -> tuple:
 
 def stream_full(dev, smi_line) -> dict:
     """Phase 7c: granite-3-2b at full width and depth, the stream of
-    ``STREAM`` through ``launch.serve``'s engine (clean, then probed),
-    then again with both pools at a third of their default size
-    (preemption, the same tokens).  Returns the launches of the probed run."""
+    ``STREAM`` through ``launch.serve``'s engine (clean, then probed).
+    Returns the launches of the probed run."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_lm
     args = stream_args(STREAM)
@@ -2885,23 +2930,10 @@ def stream_full(dev, smi_line) -> dict:
           f"{time.perf_counter() - t0:.1f} s; `python -m repro_torch.launch.serve "
           f"{' '.join(STREAM)}` ({smi_line}):")
     counters = serving_counters()
-    first, rep, got = clean_then_probed(model, args, counters, smi_line, "granite-3-2b stream")
+    _, _, got = clean_then_probed(model, args, counters, smi_line, "granite-3-2b stream")
     for k in ("approx_gemm", "approx_attention", "fused_qkv_norm", "fused_out_mlp"):
         require(got[k] > 0, f"{k} never launched on the stream: {got}")
-    # A third of the default pools: at 16 new tokens a request faults one
-    # page at most, and pools of half (72 pages) never run dry at a fault;
-    # 48 do, twice (the page schedule is the host's, replayable on the CPU).
-    third = (rep["cheap"]["pages"] + 2) // 3
-    engine2, wall2 = run_stream_once(model, stream_args(STREAM), third)
-    print(f"  the same stream, both pools at {third} pages:")
-    from repro_torch.launch import serve as serve_cli
-    rep2 = serve_cli.report_stream(engine2, wall2)
-    require(rep2["stream"]["preemptions"] > 0, f"no preemption with pools of {third} pages")
-    tokens = lambda outcome: {rid: o[0] for rid, o in outcome.items()}  # noqa: E731
-    require(tokens(stream_outcome(engine2)) == tokens(first),
-            "preemption by recompute changed the stream's tokens")
-    print(f"  {rep2['stream']['preemptions']} preemptions, the same tokens as the first run")
-    del model, engine2
+    del model
     torch.cuda.empty_cache()
     return got
 
@@ -2945,13 +2977,14 @@ def continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
 # ``launch.train``'s step.  At a cut depth the hybrid's shared block comes
 # after every 2nd layer (``ssm_cfg``), so that depth 2 runs it once.
 SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
-# 8b trains rows of 2 chunks of 16 (the chunk-state recurrence and every SSD
-# gradient product run; the plain versions' cost grows with the rows); the
+# 8b trains mamba2 on rows of 2 chunks of 16 (the chunk-state recurrence and
+# every SSD gradient product run; the plain versions' cost grows with the
+# rows), zamba2 on one chunk (its shared block is what it adds); the
 # products at the config's chunk of 256 are held in 8a and 8c.  8b takes
-# one step of it and the gradient after it (5e holds adamw's second step).
+# one step of it and the gradient after it (6a holds adamw's second step).
 SSM_DEPTH2 = dict(batch=1, prompt=16, new=4, window=8, train_batch=1, seq=32, chunk=16,
                   steps=1)
-SSM_FULL = dict(batch=4, prompt=64, new=32)
+SSM_FULL = dict(batch=4, prompt=64, new=16, capture_ring=96)   # 8a's ring: 64 + 32
 SSM_TRAIN = dict(batch=4, seq=256, steps=3)
 SSM_CUT_WINDOW = 32          # 8a: a zamba2 prefill of 64 tokens into a ring of 32
 SSM_CAPTURE_SEQ = 512        # 8a: a training row of two chunks at the config's 256
@@ -3096,7 +3129,7 @@ def ssm_capture(dev) -> dict:
         return wrapped
 
     B, P = SSM_FULL["batch"], SSM_FULL["prompt"]
-    ring = P + SSM_FULL["new"]
+    ring = SSM_FULL["capture_ring"]
     for arch in SSM_ARCHS:
         cfg = ssm_cfg(arch, 2)
         model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -3138,8 +3171,8 @@ def ssm_capture(dev) -> dict:
 
 
 def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
-    """Phase 8a: each captured call (``ssm_capture``) again under every
-    table of 3d against its plain version, bit for bit as int32 (+0.0 and
+    """Phase 8a: each captured call (``ssm_capture``) again under each
+    table form of 3d (``FORM_LUTS``) against its plain version, bit for bit as int32 (+0.0 and
     -0.0 apart); each shape's plan and grid, and its device time under
     afm16.  Returns each kernel's largest |difference|."""
     from repro_torch.kernels import ops
@@ -3147,7 +3180,7 @@ def ssm_kernel_checks(dev, lut_case, lookups_per_s) -> dict:
     plains = ssm_plains()
     kernels = {k: getattr(ops, k) for k in SSM_LUT_SLOT}
     err = dict.fromkeys(SSM_LUT_SLOT, 0.0)
-    for i, (lut_name, packed) in enumerate(SERVE_LUTS):
+    for i, (lut_name, packed) in enumerate(FORM_LUTS):
         lut, M = lut_case(lut_name, packed)
         tag = f"{lut_name} {'packed' if packed else 'canonical'}"
         held = skipped = large = 0
@@ -3238,44 +3271,15 @@ def ssm_serving_depth2(dev, cfg, label) -> None:
     torch.cuda.empty_cache()
 
 
-def ssm_train_depth2(dev, cfg, label) -> None:
-    """8b training: an adamw step at 1 x 32 (2 chunks of 16) under amsim and
-    amsim_torch with deterministic algorithms: the loss, the parameters and
-    the gradient at the next batch bitwise; the amsim launches."""
-    from repro_torch.core.policy import NumericsPolicy
-    counters = ssm_counters()
-    want = ssm_train_want(cfg, SSM_DEPTH2["seq"])
-    shape = dict(batch=SSM_DEPTH2["train_batch"], seq=SSM_DEPTH2["seq"],
-                 steps=SSM_DEPTH2["steps"])
-    runs = {}
-    torch.use_deterministic_algorithms(True)
-    try:
-        for mode in ("amsim", "amsim_torch"):
-            runs[mode] = depth2_run(cfg, NumericsPolicy(mode=mode, multiplier="afm16"), dev,
-                                    counters, shape)
-            torch.cuda.empty_cache()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    (l_a, p_a, g_a, n_a, t_a), (l_p, p_p, g_p, n_p, t_p) = runs["amsim"], runs["amsim_torch"]
-    steps = shape["steps"]
-    require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
-            f"8b {label} training launches: amsim {n_a}, amsim_torch {n_p}, want {want} a step")
-    require(all(bool(torch.isfinite(v)) for v in l_a), f"8b {label} losses {l_a}")
-    require(_same(l_a, l_p), f"8b {label} training losses: amsim {l_a}, amsim_torch {l_p}")
-    require(_same(p_a, p_p), f"8b {label} training: parameters after step {steps} differ")
-    require(_same(g_a, g_p), f"8b {label} training: gradients after step {steps} differ")
-    print(f"{label}: batch {shape['batch']} x {shape['seq']}, {steps} adamw steps"
-          f"{' (remat)' if cfg.remat and not cfg.attn_every else ''}: losses "
-          f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
-          f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a "
-          f"step { {k: v for k, v in want.items() if v} }; {t_a:.1f} s amsim, {t_p:.1f} s "
-          f"amsim_torch")
-    del runs
-    torch.cuda.empty_cache()
+def ssm_train_depth2(dev, cfg, label, seq) -> None:
+    """8b training: an adamw step at 1 x ``seq``, bitwise amsim_torch
+    (``train_step_bitwise``)."""
+    shape = dict(batch=SSM_DEPTH2["train_batch"], seq=seq, steps=SSM_DEPTH2["steps"])
+    train_step_bitwise(dev, cfg, label, shape, ssm_counters(), ssm_train_want(cfg, seq))
 
 
 def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
-    """8c serving: ``arch`` at full width and depth, batch 4, prompt 64, 32
+    """8c serving: ``arch`` at full width and depth, batch 4, prompt 64, 16
     new tokens under native and amsim: prefill ms, ms a decode step,
     tokens/s, idle shares; the amsim run's launches (counters zeroed just
     before it) on a line of their own; the GEMM kernel's device time at the
@@ -3379,9 +3383,12 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
         if cfg.attn_every:
             ssm_serving_depth2(dev, ssm_cfg(arch, 2, sliding_window=SSM_DEPTH2["window"]),
                                f"{label}, window {SSM_DEPTH2['window']}")
-        chunk = SSM_DEPTH2["chunk"]
-        ssm_train_depth2(dev, ssm_cfg(arch, 2, ssm=dataclasses.replace(cfg.ssm, chunk=chunk)),
-                         f"{label}, chunk {chunk}")
+        chunk, seq = SSM_DEPTH2["chunk"], SSM_DEPTH2["seq"]
+        tcfg = ssm_cfg(arch, 2, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+        if cfg.attn_every:      # the shared block after both layers: its gradients add up
+            tcfg = dataclasses.replace(tcfg, attn_every=1)
+            label, seq = f"{arch} depth 2, the shared block after layers 1 and 2", chunk
+        ssm_train_depth2(dev, tcfg, f"{label}, chunk {chunk}", seq)
     phase_done("8b SSM serving and training, depth 2")
     for arch in SSM_ARCHS:
         ssm_serving_full(dev, arch, lookups_per_s, smi_line)
@@ -3400,8 +3407,9 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
 # (``causal=False``) over the 1500 frames.
 ENCDEC_ARCH = "whisper-base"
 # 9a captures at batch 2; 9b decodes one row and trains one step and the
-# gradient after it (5e holds adamw's second step).
-ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=4, train_batch=1, seq=64, steps=1)
+# gradient after it (6a holds adamw's second step).
+ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=4, train_batch=1, seq=64, steps=1,
+                     train_layers=1)
 ENCDEC_FULL = dict(batch=4, prompt=4, new=32)
 ENCDEC_TRAIN = dict(batch=4, seq=64, steps=3)
 # 9a holds a product of more lookups than this under the first table only.
@@ -3712,11 +3720,13 @@ def encdec_serving_depth2(dev) -> None:
 
 
 def encdec_train_depth2(dev) -> None:
-    """9b training: an adamw step at 1 x 64 over 1500 frames under amsim
-    and amsim_torch with deterministic algorithms: the loss, the parameters
-    and the gradient at the next batch bitwise; the amsim launches."""
+    """9b training: an adamw step at 1 x 64 over 1500 frames, one encoder
+    and one decoder layer (the encoder's backward still chunks its 1500
+    queries), under amsim and amsim_torch with deterministic algorithms: the
+    loss, the parameters and the gradient at the next batch bitwise; the
+    amsim launches."""
     from repro_torch.core.policy import NumericsPolicy
-    cfg = encdec_cfg(2)
+    cfg = encdec_cfg(ENCDEC_DEPTH2["train_layers"])
     counters = encdec_counters()
     shape = dict(batch=ENCDEC_DEPTH2["train_batch"], seq=ENCDEC_DEPTH2["seq"],
                  steps=ENCDEC_DEPTH2["steps"])
@@ -3738,7 +3748,8 @@ def encdec_train_depth2(dev) -> None:
     require(_same(l_a, l_p), f"9b whisper-base training losses: amsim {l_a}, amsim_torch {l_p}")
     require(_same(p_a, p_p), f"9b whisper-base training: parameters after step {steps} differ")
     require(_same(g_a, g_p), f"9b whisper-base training: gradients after step {steps} differ")
-    print(f"{ENCDEC_ARCH} depth 2 + 2: batch {shape['batch']} x {shape['seq']} over "
+    print(f"{ENCDEC_ARCH} depth {cfg.n_enc_layers} + {cfg.n_layers}: batch {shape['batch']} x "
+          f"{shape['seq']} over "
           f"{cfg.n_frontend_tokens} frames, {steps} adamw steps (remat): losses "
           f"{[round(float(v), 6) for v in l_a]}, parameters after step {steps} and the gradient at "
           f"batch {steps} bitwise equal to amsim_torch ({len(p_a)} tensors); amsim launches a "
@@ -3941,7 +3952,7 @@ ZOO_SERVE = (("stablelm", None, 4, 64, 32, ("native", "amsim")),
              ("llava", 4, 1, 64, 32, ("amsim",)),
              ("qwen2.5", 8, 4, 64, 32, ("amsim",)),
              ("qwen1.5", 2, 4, 64, 8, ("amsim",)))
-ZOO_TRAIN = (("stablelm", 2, 4, 64, 2), ("llava", 2, 1, 2944, 2), ("qwen1.5", 1, 4, 64, 2))
+ZOO_TRAIN = (("stablelm", 2, 4, 64, 2), ("llava", 1, 1, 2944, 2), ("qwen1.5", 1, 4, 64, 2))
 
 
 def zoo_counters():
@@ -4590,24 +4601,47 @@ def llama4_serve_full(model, dev, smi_line, times) -> dict:
     return got
 
 
+FINGERPRINT_CHUNK = 1 << 24
+
+
+def fingerprint(t: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as one int64 a chunk of 2^24 elements: the sum of
+    each int32 bit pattern times a fixed random odd int64 weight (wrapping
+    mod 2^64).  Two different bit patterns give the same value of a chunk
+    with probability ~2^-63, so equal fingerprints are the bitwise check of
+    tensors too large to hold twice."""
+    v = t.detach().reshape(-1).view(torch.int32)
+    out = []
+    for i in range(0, v.numel(), FINGERPRINT_CHUNK):
+        c = v[i:i + FINGERPRINT_CHUNK].to(torch.int64)
+        out.append(torch.sum(c * weights[:c.numel()]))
+    return torch.stack(out)
+
+
 def llama4_train_bitwise(dev) -> None:
     """Phase 11b training: one adafactor step at full width, depth 2, the
     experts cut to LLAMA4_TRAIN_EXPERTS, at LLAMA4_TRAIN1, under amsim and
-    amsim_torch with deterministic algorithms: the loss, the parameters and
-    the gradient at the next batch bitwise, the amsim launches.  Both runs'
-    parameters and gradients do not fit the card together: the amsim run's
-    wait on the host."""
+    amsim_torch with deterministic algorithms: the loss bitwise, the
+    parameters and the gradient at the next batch by their ``fingerprint``s
+    (both runs' tensors do not fit the card together), the amsim
+    launches."""
     from repro_torch.core.policy import NumericsPolicy
     cfg = llama4_cfg(LLAMA4_TRAIN_EXPERTS)
     counters = train_counters()
     want = train_want(cfg, LLAMA4_TRAIN1["seq"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    weights = torch.randint(-2 ** 62, 2 ** 62, (FINGERPRINT_CHUNK,), generator=gen, device=dev,
+                            dtype=torch.int64) * 2 + 1
     torch.use_deterministic_algorithms(True)
     try:
         l_a, p_a, g_a, n_a, t_a = depth2_run(cfg, NumericsPolicy(mode="amsim", multiplier="afm16"),
                                              dev, counters, LLAMA4_TRAIN1)
         t0 = time.perf_counter()
-        l_a, p_a, g_a = ([t.cpu() for t in ts] for ts in (l_a, p_a, g_a))
-        moved = time.perf_counter() - t0
+        nbytes = 4 * sum(p.numel() for p in p_a)
+        n_tensors = len(p_a)
+        f_a = [[fingerprint(t, weights) for t in ts] for ts in (p_a, g_a)]
+        printed = time.perf_counter() - t0
+        del p_a, g_a
         gc.collect()
         torch.cuda.empty_cache()
         l_p, p_p, g_p, n_p, t_p = depth2_run(cfg, NumericsPolicy(mode="amsim_torch",
@@ -4619,23 +4653,21 @@ def llama4_train_bitwise(dev) -> None:
     require(n_a == [want] * steps and n_p == [dict.fromkeys(want, 0)] * steps,
             f"11b {cfg.name} training launches: amsim {n_a}, amsim_torch {n_p}, want {want}")
     require(all(bool(torch.isfinite(v)) for v in l_a), f"11b {cfg.name} losses {l_a}")
+    require(all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(l_a, l_p)),
+            f"11b {cfg.name} training: amsim and amsim_torch losses differ")
     t0 = time.perf_counter()
-    for what, xs, ys in (("losses", l_a, l_p), ("parameters", p_a, p_p),
-                         ("gradients", g_a, g_p)):
-        require(all(torch.equal(x.to(dev).view(torch.int32), y.view(torch.int32))
-                    for x, y in zip(xs, ys)), f"11b {cfg.name} training: amsim and "
-                f"amsim_torch {what} differ")
-    del xs, ys                 # the loop's last pair: the amsim_torch run's gradients
-    moved += time.perf_counter() - t0
-    nbytes = 4 * sum(p.numel() for p in p_a)
+    for what, fs, ys in (("parameters", f_a[0], p_p), ("gradients", f_a[1], g_p)):
+        require(all(torch.equal(f, fingerprint(y, weights)) for f, y in zip(fs, ys)),
+                f"11b {cfg.name} training: amsim and amsim_torch {what} differ")
+    printed += time.perf_counter() - t0
     print(f"{cfg.name} depth {cfg.n_layers} at full width, {cfg.moe.n_experts} experts "
           f"({nbytes / 1e9:.2f} GB of parameters): batch {LLAMA4_TRAIN1['batch']} x "
           f"{LLAMA4_TRAIN1['seq']}, {steps} {cfg.optimizer} step: loss "
-          f"{[round(float(v), 6) for v in l_a]}, parameters and the next gradient bitwise equal "
-          f"to amsim_torch ({len(p_a)} tensors); amsim launches "
-          f"{ {k: v for k, v in want.items() if v} }; {t_a:.1f} s amsim, {t_p:.1f} s amsim_torch, "
-          f"{moved:.1f} s holding the amsim run's tensors on the host")
-    del p_a, g_a, p_p, g_p
+          f"{[round(float(v), 6) for v in l_a]} bitwise, the parameters and the next gradient "
+          f"equal to amsim_torch's by fingerprint ({n_tensors} tensors each, an int64 a 2^24 "
+          f"elements); amsim launches { {k: v for k, v in want.items() if v} }; {t_a:.1f} s "
+          f"amsim, {t_p:.1f} s amsim_torch, {printed:.1f} s fingerprinting")
+    del p_p, g_p
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4686,18 +4718,571 @@ def llama4(dev, lut_case, lookups_per_s, smi_line, phase_done) -> tuple:
     return err, launches
 
 
+# ------------------------------------------------------------ 12. the mesh
+MESH_SHAPE = (2, 2)                                  # (data, model): four ranks
+DP_SHAPE = (4, 1)                                    # resnet-mini data-parallel
+MESH_SERVE = dict(batch=4, prompt=64, new=16)
+MESH_TRAIN = dict(n_layers=4, batch=4, seq=64, steps=2)
+MESH_KILL = dict(n_layers=2, new=4)
+MESH_VISION_RTOL = 1e-4     # resnet-mini's loss and parameters after step 1
+MESH_TIMEOUT = 600
+MESH_KERNELS = ("approx_gemm", "approx_gemm_batched", "approx_attention",
+                "approx_conv2d_fused", "approx_conv2d_dw")
+
+
+def mesh_counters():
+    from repro_torch.kernels import approx_attention as attn_mod
+    from repro_torch.kernels import approx_conv as conv_mod
+    from repro_torch.kernels import approx_gemm as gemm_mod
+    from repro_torch.kernels import decode_chain as chain
+    return {"approx_gemm": gemm_mod.approx_gemm,
+            "approx_gemm_batched": gemm_mod.approx_gemm_batched,
+            "approx_attention": attn_mod.approx_attention,
+            "approx_conv2d_fused": conv_mod.approx_conv2d_fused,
+            "approx_conv2d_dw": conv_mod.approx_conv2d_dw,
+            "fused_qkv_norm": chain.fused_qkv_norm, "fused_out_mlp": chain.fused_out_mlp,
+            "fused_attn_out_mlp": chain.fused_attn_out_mlp}
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
+
+
+def _bitwise(a, b) -> bool | str:
+    if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        return True
+    return f"max|d| {(a - b).abs().max().item():.3g}"
+
+
+def mesh_contracts(mesh, dp) -> dict:
+    """12a on this rank: the contract rows at granite-3-2b's full-width
+    shapes (one layer, a 4 x 64 prefill) on the 2x2 mesh, resnet-mini's
+    convs on the (4, 1) mesh, and compressed_all_reduce of a 2048 x 8192
+    gradient on the (4, 1) mesh; every reference through the same kernels
+    on the whole tensors (each rank builds them: the same seeded draws)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.distributed import shard_fused as sf
+    from repro_torch.distributed.compression import (compressed_all_reduce, dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.kernels import ops
+    dev = mesh.device
+    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
+    leaf = pol.resolve(None)
+    cfg = get_arch(LM_ARCH)
+    B, S, d, F = MESH_SERVE["batch"], MESH_SERVE["prompt"], cfg.d_model, cfg.d_ff
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rows(t, m=mesh):
+        return m.block(t, m.data_axes, 0)
+
+    def cols(t, dim=-1):
+        return mesh.block(t, "model", dim)
+
+    out = {}
+    x, h = randn(B, S, d), randn(B, S, F)
+    for name, (w_in, w_out, n) in {"wq/wo": (randn(d, H * dh, scale=d ** -0.5),
+                                             randn(H * dh, d, scale=(H * dh) ** -0.5), H * dh),
+                                   "wg/wd": (randn(d, F, scale=d ** -0.5),
+                                             randn(F, d, scale=F ** -0.5), F)}.items():
+        inp = x
+        ref = ops.policy_matmul(inp, w_in, pol)
+        out[f"{name} column forward bitwise"] = _bitwise(
+            sf.column_parallel_matmul(rows(inp), cols(w_in), pol, mesh), cols(rows(ref)))
+        y = ref if name == "wq/wo" else h
+        half = n // 2
+        oracle = (ops.policy_matmul(y[..., :half], w_out[:half], pol)
+                  + ops.policy_matmul(y[..., half:], w_out[half:], pol))
+        out[f"{name} row forward == k-split oracle"] = _bitwise(
+            sf.row_parallel_matmul(cols(rows(y)), cols(w_out, 0), pol, mesh), rows(oracle))
+        g = randn(B, S, n)
+        xl, wl = rows(inp).clone().requires_grad_(), cols(w_in).clone().requires_grad_()
+        dx, dw = torch.autograd.grad(sf.column_parallel_matmul(xl, wl, pol, mesh), (xl, wl),
+                                     cols(rows(g)))
+        dx_oracle = (ops._matmul_nograd(g[..., :half], w_in[:, :half].T, leaf)
+                     + ops._matmul_nograd(g[..., half:], w_in[:, half:].T, leaf))
+        out[f"{name} column dx == k-split oracle"] = _bitwise(dx, rows(dx_oracle))
+        dw_oracle = sf._dw(inp[:B // 2], g[:B // 2], leaf) + sf._dw(inp[B // 2:], g[B // 2:], leaf)
+        out[f"{name} column dw (batch split) == k-split oracle"] = _bitwise(dw, cols(dw_oracle))
+    q, k, v = randn(B, S, H, dh), randn(B, S, KV, dh), randn(B, S, KV, dh)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    aref = ops.policy_attention(*full, pos, pos, pol, True, 0)
+    gref = torch.autograd.grad((aref ** 2).sum(), full)
+    loc = [cols(rows(t), 2).clone().requires_grad_() for t in (q, k, v)]
+    aout = sf.sharded_attention(*loc, pos, pos, pol, causal=True, window=0)
+    out["attention forward bitwise"] = _bitwise(aout, cols(rows(aref.detach()), 2))
+    gsh = torch.autograd.grad((aout ** 2).sum(), loc)
+    out["attention dq dk dv bitwise"] = all(
+        _bitwise(a, cols(rows(b), 2)) is True for a, b in zip(gsh, gref)) or "differ"
+
+    with dp:
+        n_dp = dp.data_size
+        for i, (xs, ws, stride) in enumerate(CONV_SHAPES[:8]):       # resnet-mini's convs
+            xc, wc = randn(*xs), randn(*ws, scale=0.1)
+            xr, wr = xc.clone().requires_grad_(), wc.clone().requires_grad_()
+            cref = ops.approx_conv2d(xr, wr, stride, "SAME", pol)
+            gx_ref, _ = torch.autograd.grad((cref ** 2).sum(), (xr, wr))
+            xl, wl = rows(xc, dp).clone().requires_grad_(), wc.clone().requires_grad_()
+            cout = sf.sharded_conv2d(xl, wl, stride, "SAME", pol, dp)
+            gx, gw = torch.autograd.grad((cout ** 2).sum(), (xl, wl))
+            pads = ops.conv_pads(xs[1], xs[2], ws[0], ws[1], stride, "SAME")
+            gfull, m = 2.0 * cref.detach(), xs[0] // n_dp
+            oracle = None
+            for r in range(n_dp):
+                part = ops._conv_dw(xc[r * m:(r + 1) * m], wc.shape,
+                                    gfull[r * m:(r + 1) * m].contiguous(), stride, pads,
+                                    pol.resolve("conv", pass_="dw"))
+                oracle = part if oracle is None else oracle + part
+            tag = f"resnet-mini conv {i} {xs}x{ws}/s{stride}"
+            out[f"{tag} forward bitwise"] = _bitwise(cout, rows(cref.detach(), dp))
+            out[f"{tag} dx bitwise"] = _bitwise(gx, rows(gx_ref, dp))
+            out[f"{tag} dw == batch-split oracle"] = _bitwise(gw, oracle)
+        grad = torch.randn((2048, 8192), generator=torch.Generator(device=dev).manual_seed(
+            SEED + 1 + dp.rank), device=dev) * 0.01
+        mean, ef = compressed_all_reduce({"g": grad}, {"g": torch.zeros_like(grad)}, dp, "data")
+        every = dp.all_gather(grad, "data")
+        scale = None
+        for g in every:
+            s = quantize_int8(g)[1]
+            scale = s if scale is None else torch.maximum(scale, s)
+        qs = [quantize_int8(g, scale) for g in every]
+        total = qs[0][0].to(torch.int32)
+        for q_, _, _ in qs[1:]:
+            total = total + q_.to(torch.int32)
+        want = dequantize_int8(total, scale, qs[0][2], grad.shape) / n_dp
+        out["compressed_all_reduce 2048 x 8192 == the composition on one rank"] = _bitwise(
+            mean["g"], want)
+        out["its error feedback == the composition's"] = _bitwise(
+            ef["g"], grad - dequantize_int8(qs[dp.rank][0], scale, qs[dp.rank][2], grad.shape))
+    return out
+
+
+def single_device_ctx():
+    from repro_torch.launch.mesh import single_device
+    return single_device()
+
+
+def _timed_generate(engine, prompts, new, mesh=None):
+    """(tokens, logits, seconds, the mesh's collectives and their seconds)."""
+    if mesh is not None:
+        mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = engine.generate(prompts, new, return_logits=True)
+    torch.cuda.synchronize()
+    stats = dict(mesh.stats) if mesh is not None else None
+    return toks, logits, time.perf_counter() - t0, stats
+
+
+def _agreement(toks, ref_toks, logits, ref_logits) -> dict:
+    """Tokens and logits of a run against the single-device run's, up to
+    the first token where they part (past it the two runs read different
+    prompts): the relative norm of the logit difference, its largest
+    entry, and each parting checked against the reference's top-2 margin
+    there."""
+    B, n = ref_toks.shape
+    first = n
+    for i in range(n):
+        if not torch.equal(toks[:, i], ref_toks[:, i]):
+            first = i
+            break
+    upto = first + 1 if first < n else n      # the inputs agree up to the parting step
+    gap = (logits[:, :upto] - ref_logits[:, :upto]).abs().max().item()
+    rel = _rel(logits[:, :upto], ref_logits[:, :upto])
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    bad = [(b, i) for b in range(B) for i in range(upto)
+           if toks[b, i] != ref_toks[b, i] and margin[b, i].item() > gap]
+    return {"first_parting": first, "positions": B * n, "equal": int((toks == ref_toks).sum()),
+            "rel": rel, "gap": gap, "parted_above_margin": bad,
+            "min_margin": margin[:, :upto].min().item()}
+
+
+def mesh_serving(mesh, counters) -> dict:
+    """12b on this rank: granite-3-2b at full width and depth on the 2x2
+    mesh, a 4 x 64 prefill and 16 greedy tokens; then (rank 0) the
+    single-device per-op run (the chain off) of the same weights and prompts,
+    and the mesh's prefill with a row sum missing one shard (the wrong
+    variant)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ServingEngine
+    dev, cfg = mesh.device, get_arch(LM_ARCH)
+    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
+    B, S, new = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["new"]
+    prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                    mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.perf_counter() - t0,
+           "params_gb": sum(p.numel() for p in model.parameters()) * 4 / 1e9}
+    engine = ServingEngine(model, pol, max_len=S + new, mesh=mesh)
+    _timed_generate(engine, prompts[:, :8], 2, mesh)                # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, t_pre, st_pre = _timed_generate(engine, prompts, 1, mesh)
+    zero_launches(counters)
+    toks, logits, t_all, st_all = _timed_generate(engine, prompts, new, mesh)
+    out["launches"] = launches_of(counters)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = new - 1
+    out.update(prefill_s=t_pre, total_s=t_all, tokens_per_s=B * new / t_all,
+               step_ms=1e3 * (t_all - t_pre) / steps,
+               coll_prefill=st_pre["collectives"],
+               coll_step=(st_all["collectives"] - st_pre["collectives"]) / steps,
+               coll_step_share=(st_all["seconds"] - st_pre["seconds"]) / (t_all - t_pre))
+    whole = mesh.all_gather          # the wrong variant: each row sum keeps shard 0 alone
+    mesh.ordered_sum = lambda t, axes: whole(t, axes)[0] if axes == "model" else \
+        type(mesh).ordered_sum(mesh, t, axes)
+    _, wrong_logits, _, _ = _timed_generate(engine, prompts, 1, mesh)
+    del mesh.ordered_sum
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        from repro_torch.distributed.oracle import ksplit
+        from repro_torch.launch.mesh import MeshShape
+        ref = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        with ksplit(ref, MeshShape(MESH_SHAPE)):       # the k-split oracle, the chain off
+            otoks, ologits, rt, _ = _timed_generate(ServingEngine(ref, pol, max_len=S + new),
+                                                    prompts, new)
+        out["oracle_tokens"] = torch.equal(toks, otoks)
+        out["oracle_logits"] = _bitwise(logits, ologits)
+        out["wrong_oracle"] = _bitwise(wrong_logits[:, :1], ologits[:, :1])
+        os.environ["REPRO_DECODE_FUSED"] = "0"
+        try:        # the unsplit per-op run: what the mesh's split sums alone move
+            with single_device_ctx():
+                rtoks, rlogits, _, _ = _timed_generate(ServingEngine(ref, pol, max_len=S + new),
+                                                       prompts, new)
+        finally:
+            del os.environ["REPRO_DECODE_FUSED"]
+        out["agreement"] = _agreement(toks, rtoks, logits, rlogits)
+        out["wrong_rel"] = _rel(wrong_logits[:, :1], rlogits[:, :1])
+        out["single_s"] = rt
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _grads_of(model, batch, pol, mesh=None):
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.models.transformer import lm_loss
+    loss, _ = lm_loss(model, batch, pol)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if mesh is not None:
+        grads = [gather_tensor(g, getattr(p, "spec", ()), mesh)
+                 for g, p in zip(grads, params.values())]
+    return loss.detach(), dict(zip(params, grads))
+
+
+def mesh_training(mesh, dp, counters) -> dict:
+    """12c on this rank: granite-3-2b at full width and depth 4 on the 2x2
+    mesh, step 1's loss and gradient (gathered) against the single-device
+    one (rank 0), then 2 adamw steps timed; resnet-mini data-parallel on
+    the (4, 1) mesh, 2 sgdm steps at batch 64, step 1's loss and parameters
+    against the single-device step (rank 0)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.paper_models import VISION_REGISTRY
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.data.pipeline import lm_batch, vision_batches, vision_dataset
+    from repro_torch.launch.train import make_lm_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.vision import init_vision, vision_loss
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.step import make_train_step
+    dev = mesh.device
+    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=MESH_TRAIN["n_layers"])
+    B, S, steps = MESH_TRAIN["batch"], MESH_TRAIN["seq"], MESH_TRAIN["steps"]
+    out = {}
+
+    def rows(batch, m=mesh):
+        return {k: m.block(v, m.data_axes, 0) for k, v in batch.items()}
+
+    model = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                    mesh=mesh)
+    loss, grads = _grads_of(model, rows(lm_batch(cfg, (B, S), 0, dev)), pol, mesh)
+    whole = mesh.all_gather          # the wrong variant: each row sum keeps shard 0 alone
+    mesh.ordered_sum = lambda t, axes: whole(t, axes)[0] if axes == "model" else \
+        type(mesh).ordered_sum(mesh, t, axes)
+    _, wrong = _grads_of(model, rows(lm_batch(cfg, (B, S), 0, dev)), pol, mesh)
+    del mesh.ordered_sum
+    if mesh.rank == 0:
+        from repro_torch.distributed.oracle import ksplit_loss_and_grads
+        from repro_torch.launch.mesh import MeshShape
+        batch = lm_batch(cfg, (B, S), 0, dev)
+        ref = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        oloss, ograds = ksplit_loss_and_grads(ref, batch, pol, MeshShape(MESH_SHAPE))
+        with single_device_ctx():       # the unsplit step: what the split sums alone move
+            rloss, rgrads = _grads_of(ref, batch, pol)
+        del ref
+        out["lm_step1"] = {
+            "loss": float(loss), "ref_loss": float(rloss), "loss_bitwise": _bitwise(loss, oloss),
+            "leaves": len(ograds),
+            "differ": [n for n, g in ograds.items() if _bitwise(grads[n], g) is not True],
+            "wrong_equal": [n for n, g in ograds.items() if _bitwise(wrong[n], g) is True],
+            "loss_rel": abs(float(loss) - float(rloss)) / abs(float(rloss)),
+            "worst_grad_rel": max((_rel(grads[n], g), n) for n, g in rgrads.items()),
+            "wrong_worst_rel": max((_rel(wrong[n], g), n) for n, g in rgrads.items())}
+        del ograds, rgrads
+    del grads, wrong
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt, step = make_lm_train_step(cfg, pol, lr=TRAIN_LR, steps=steps)
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches(counters)
+    mesh.reset_stats()
+    times, losses = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(model, state, rows(lm_batch(cfg, (B, S), i, dev)))
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    out["lm_launches"] = launches_of(counters)
+    out["lm"] = {"ms": [1e3 * t for t in times], "losses": losses,
+                 "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                 "collectives": mesh.stats["collectives"] / steps,
+                 "coll_share": mesh.stats["seconds"] / sum(times)}
+    del model, state, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vcfg = VISION_REGISTRY["resnet-mini"]
+    data = vision_dataset(vcfg.name, BATCH * 2, 0, vcfg.input_hw, vcfg.input_ch, vcfg.n_classes,
+                          seed=SEED)
+    batches = [{"x": torch.from_numpy(bt["x"]).to(dev), "y": torch.from_numpy(bt["y"]).to(dev)}
+               for bt in vision_batches(data, BATCH, 0)][:2]
+
+    def fresh():
+        m = init_vision(vcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+        o = make_optimizer("sgdm", 0.05)
+        return m, o.init(dict(m.named_parameters())), make_train_step(
+            lambda mm, b: vision_loss(mm, b, pol), o, clip_norm=1.0)
+
+    with dp:
+        vm, vstate, vstep = fresh()
+        zero_launches(counters)
+        vlosses, vtimes = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vstate, metrics = vstep(vm, vstate, rows(b, dp))
+            vlosses.append(float(metrics["loss"]))
+            vtimes.append(time.perf_counter() - t0)
+            if i == 0:
+                after1 = [p.detach().clone() for p in vm.parameters()]
+        out["vision_launches"] = launches_of(counters)
+        out["vision"] = {"losses": vlosses, "ms": [1e3 * t for t in vtimes]}
+    if mesh.rank == 0:
+        with single_device_ctx():
+            rm, rstate, rstep = fresh()
+            _, rmetrics = rstep(rm, rstate, batches[0])
+            out["vision_step1"] = {
+                "loss_rel": abs(vlosses[0] - float(rmetrics["loss"])) / abs(float(rmetrics["loss"])),
+                "worst_param_rel": max(_rel(a, b.detach()) for a, b in zip(after1, rm.parameters()))}
+    dist.barrier()
+    return out
+
+
+def mesh_kill_switch(mesh, counters) -> dict:
+    """12d on this rank: REPRO_SHARD_FUSED=0 at depth 2 on the 2x2 mesh,
+    the replicated dispatch (the chain on the gathered weights), against
+    the single-device run with the chain on (rank 0): logits and tokens."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ServingEngine
+    dev = mesh.device
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=MESH_KILL["n_layers"])
+    pol = NumericsPolicy(mode="amsim", multiplier="afm16")
+    B, S, new = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_KILL["new"]
+    prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = init_lm(cfg, generator=gen, device=dev, mesh=mesh)
+    os.environ["REPRO_SHARD_FUSED"] = "0"
+    try:
+        zero_launches(counters)
+        toks, logits, t, _ = _timed_generate(ServingEngine(model, pol, max_len=S + new, mesh=mesh),
+                                             prompts, new, mesh)
+        out = {"launches": launches_of(counters), "s": t}
+    finally:
+        del os.environ["REPRO_SHARD_FUSED"]
+    if mesh.rank == 0:
+        with single_device_ctx():
+            ref = init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            rtoks, rlogits, _, _ = _timed_generate(ServingEngine(ref, pol, max_len=S + new),
+                                                   prompts, new)
+        out["tokens_bitwise"] = torch.equal(toks, rtoks)
+        out["logits_bitwise"] = _bitwise(logits, rlogits)
+    dist.barrier()
+    return out
+
+
+def mesh_rank(mesh) -> dict:
+    """Phase 12 on one rank of the 2x2 mesh (and of the (4, 1) mesh over the
+    same ranks): 12a, 12b, 12c, 12d with each one's seconds."""
+    from repro_torch.launch.mesh import Mesh
+    counters = mesh_counters()
+    secs, t0 = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    dp = Mesh(DP_SHAPE, device=mesh.device, timeout=MESH_TIMEOUT)
+    out = {"contracts": mesh_contracts(mesh, dp)}
+    done("12a contracts at full width")
+    out["serve"] = mesh_serving(mesh, counters)
+    done("12b serving, full width and depth")
+    out["train"] = mesh_training(mesh, dp, counters)
+    done("12c training")
+    out["kill"] = mesh_kill_switch(mesh, counters)
+    done("12d kill switch")
+    out["seconds"] = secs
+    out["smi_used"] = smi("memory.used") if mesh.rank == 0 else None
+    return out
+
+
+def mesh_phase(dev, smi_line, phase_done) -> dict:
+    """Phase 12: four ranks on the one card (``launch.mesh.spawn``, gloo),
+    amsim/afm16.  Returns {kernel: [launches on each rank]} of the mesh's
+    main path (12b's serving, 12c's training)."""
+    from repro_torch.launch.mesh import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12: {MESH_SHAPE[0] * MESH_SHAPE[1]} ranks on "
+          f"{torch.cuda.device_count()} card(s); four ranks sharing one card measure "
+          f"correctness, launches, collectives and memory, not a speed-up ({smi_line})")
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_SHAPE, device="cuda", timeout=MESH_TIMEOUT)
+    total = time.perf_counter() - t0
+    r0 = ranks[0]
+    phase_done("12 ranks started and joined", total - sum(r0["seconds"].values()))
+    for name, s in r0["seconds"].items():
+        phase_done(name, s)
+    # 12a
+    for check in r0["contracts"]:
+        verdicts = [r["contracts"][check] for r in ranks]
+        require(all(v is True for v in verdicts), f"12a {check}: {verdicts}")
+    print(f"12a: {len(r0['contracts'])} contracts hold on every rank, at granite-3-2b's full-width "
+          f"shapes (a 4 x 64 prefill on the 2x2 mesh), resnet-mini's 8 convs at batch 64 and a "
+          f"2048 x 8192 gradient on the (4, 1) mesh:")
+    for check in r0["contracts"]:
+        print(f"  {check}")
+    # 12b
+    s0 = r0["serve"]
+    ag = s0["agreement"]
+    require(s0["oracle_tokens"] and s0["oracle_logits"] is True,
+            f"12b against the k-split oracle: tokens {s0['oracle_tokens']}, logits "
+            f"{s0['oracle_logits']}")
+    require(s0["wrong_oracle"] is not True, "12b: the wrong variant is bitwise the oracle")
+    require(not ag["parted_above_margin"],
+            f"12b tokens parted where the top-2 margin exceeds the gap: {ag}")
+    for r in ranks:
+        for k in ("approx_gemm", "approx_attention"):
+            require(r["serve"]["launches"][k] > 0, f"12b rank {r['serve']} never launched {k}")
+    print(f"12b: {LM_ARCH} at full width and depth ({s0['params_gb']:.2f} GB of parameters a "
+          f"rank, drawn and cut in {s0['draw_s']:.1f} s) on the 2x2 mesh: prefill "
+          f"{MESH_SERVE['batch']} x {MESH_SERVE['prompt']} {1e3 * s0['prefill_s']:.1f} ms, "
+          f"{s0['step_ms']:.1f} ms a decode step, {s0['tokens_per_s']:.2f} tokens/s "
+          f"({MESH_SERVE['new']} new; the single-device per-op run {s0['single_s']:.2f} s); "
+          f"collectives: {s0['coll_prefill']} a prefill, {s0['coll_step']:.1f} a step, "
+          f"{s0['coll_step_share']:.3f} of a step's wall (rank 0, host clock; {smi_line})")
+    print(f"  logits and tokens bitwise the k-split oracle (distributed.oracle.ksplit: the "
+          f"single-device per-op run with the row sums split as the mesh splits them; a row sum "
+          f"missing one shard is not: {s0['wrong_oracle']}); against the unsplit per-op run "
+          f"(a reading: the split sums alone) rel {ag['rel']:.3g}, the wrong variant "
+          f"{s0['wrong_rel']:.3g}, largest |d| {ag['gap']:.3g}; tokens equal at {ag['equal']} "
+          f"of {ag['positions']}, first parting at step {ag['first_parting']} of "
+          f"{MESH_SERVE['new']}, none where the top-2 margin exceeds the gap (smallest margin "
+          f"{ag['min_margin']:.3g})")
+    print("  peak memory a rank (torch.cuda.max_memory_allocated): "
+          + ", ".join(f"rank {i} {r['serve']['peak_gb']:.2f} GB" for i, r in enumerate(ranks))
+          + f"; rank 0's single-device run {s0['single_peak_gb']:.2f} GB; nvidia-smi memory.used "
+          f"{r0['smi_used']} at the end of the phase")
+    # 12c
+    t = r0["train"]
+    lm1 = t["lm_step1"]
+    require(lm1["loss_bitwise"] is True and not lm1["differ"],
+            f"12c step 1 against the k-split oracle: loss {lm1['loss_bitwise']}, leaves that "
+            f"differ {lm1['differ'][:8]}")
+    require(len(lm1["wrong_equal"]) < lm1["leaves"], "12c: the wrong variant is the oracle's")
+    require(all(math.isfinite(v) for r in ranks for v in r["train"]["lm"]["losses"]),
+            "12c losses not finite")
+    v1 = t["vision_step1"]
+    require(v1["loss_rel"] <= MESH_VISION_RTOL and v1["worst_param_rel"] <= MESH_VISION_RTOL,
+            f"12c resnet-mini step 1 against the single-device step: {v1}")
+    print(f"12c: {LM_ARCH} at full width, depth {MESH_TRAIN['n_layers']}, 2x2 mesh, adamw "
+          f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']}, clip 1.0: step-1 loss {lm1['loss']:.6f} "
+          f"and all {lm1['leaves']} gradient leaves bitwise the k-split oracle "
+          f"(distributed.oracle.ksplit_loss_and_grads; a row sum missing one shard leaves "
+          f"{len(lm1['wrong_equal'])} of them equal); against the unsplit step (a reading: the "
+          f"split sums alone) loss {lm1['ref_loss']:.6f} (rel {lm1['loss_rel']:.3g}), worst leaf "
+          f"rel {lm1['worst_grad_rel'][0]:.3g} ({lm1['worst_grad_rel'][1]}), the wrong variant's "
+          f"{lm1['wrong_worst_rel'][0]:.3g} ({lm1['wrong_worst_rel'][1]}); ms a step "
+          + ", ".join(f"{m:.1f}" for m in t["lm"]["ms"])
+          + f"; losses {[round(v, 5) for v in t['lm']['losses']]}; {t['lm']['collectives']:.0f} "
+          f"collectives a step, {t['lm']['coll_share']:.3f} of its wall; peak a rank "
+          + ", ".join(f"{r['train']['lm']['peak_gb']:.2f}" for r in ranks) + " GB")
+    print(f"  resnet-mini data-parallel on the (4, 1) mesh, 2 sgdm steps at batch {BATCH}: losses "
+          f"{[round(v, 5) for v in t['vision']['losses']]}, ms a step "
+          + ", ".join(f"{m:.1f}" for m in t["vision"]["ms"])
+          + f"; step 1 against the single-device step: loss rel {v1['loss_rel']:.3g}, worst "
+          f"parameter rel {v1['worst_param_rel']:.3g} (tolerance {MESH_VISION_RTOL})")
+    # 12d
+    k0 = r0["kill"]
+    require(k0["tokens_bitwise"] and k0["logits_bitwise"] is True,
+            f"12d REPRO_SHARD_FUSED=0 against the single-device chain run: {k0}")
+    for r in ranks:
+        require(r["kill"]["launches"]["fused_qkv_norm"] > 0, "12d: the chain never launched")
+    print(f"12d: REPRO_SHARD_FUSED=0 at depth {MESH_KILL['n_layers']}, {MESH_SERVE['batch']} x "
+          f"{MESH_SERVE['prompt']} and {MESH_KILL['new']} new: the replicated dispatch's logits "
+          f"and tokens bitwise the single-device run's (chain on); {k0['s']:.2f} s; launches on "
+          f"rank 0 {k0['launches']}")
+    launches = {k: [r["serve"]["launches"].get(k, 0) + r["train"]["lm_launches"].get(k, 0)
+                    + r["train"]["vision_launches"].get(k, 0) for r in ranks]
+                for k in MESH_KERNELS}
+    for k, per_rank in launches.items():
+        require(all(n > 0 for n in per_rank), f"phase 12: {k} never launched on a rank: {per_rank}")
+    print(f"launches on the mesh's path (12b serving, 12c training), per rank: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 7" ... "--phase 11": phases 1, 2 and that one alone, without the
-    # result lines.
-    only = argv[1] if len(argv) == 2 and argv[0] == "--phase" and argv[1] in (
-        "7", "8", "9", "10", "11") else None
-    if argv and only is None:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 7, 8, 9, 10 or 11)",
-              file=sys.stderr)
+    # "--phase 5e,8,12" (any of 5e, 7, 8, 9, 10, 11, 12): phases 1, 2 and those
+    # alone, in that order, without the result lines.
+    phases = ("5e", "7", "8", "9", "10", "11", "12")
+    only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--phase" else None
+    if argv and (only is None or not set(only) <= set(phases)):
+        print(f"chip_smoke: unknown arguments {argv} (none, or --phase and a comma-separated "
+              f"list of {', '.join(phases)})", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_models import VISION_REGISTRY
@@ -4722,10 +5307,10 @@ def main(argv=None) -> int:
     phase_s = {}
     t_phase = time.perf_counter()
 
-    def phase_done(name):
+    def phase_done(name, seconds=None):
         nonlocal t_phase
         now = time.perf_counter()
-        phase_s[name] = now - t_phase
+        phase_s[name] = now - t_phase if seconds is None else seconds
         t_phase = now
 
     def randn(*shape):
@@ -4760,16 +5345,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}: {line.strip()}")
     phase_done("2 build")
-    if only == "7":
-        continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
-    if only == "8":
-        ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
-    if only == "9":
-        encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
-    if only == "10":
-        dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
-    if only == "11":
-        llama4(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    for phase in only or ():
+        if phase == "5e":
+            lm_training(dev, lookups_per_s, smi_line)
+            phase_done("5e LM training")
+        if phase == "7":
+            continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+        if phase == "8":
+            ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+        if phase == "9":
+            encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+        if phase == "10":
+            dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+        if phase == "11":
+            llama4(dev, lut_case, lookups_per_s, smi_line, phase_done)
+        if phase == "12":
+            mesh_phase(dev, smi_line, phase_done)
     if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
@@ -5209,12 +5800,16 @@ def main(argv=None) -> int:
     for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
                   "fused_attn_out_mlp", "fused_wo_norm", "fused_moe_ffn"):
         require(llama4_launches.get(kname, 0) > 0, f"{kname} never launched on phase 11's path")
+    # ---------------------------------- 12. the mesh: four ranks on the card
+    mesh_launches = mesh_phase(dev, smi_line, phase_done)
     # each row keeps its own path's launches, beside the time of that run;
-    # phases 10 and 11 print theirs on lines of their own (10c, 11c)
+    # phases 10 and 11 print theirs on lines of their own (10c, 11c); the
+    # mesh's path, per rank, stands beside them
     for row in rows_out:
         for err in (ssm_err, encdec_err, zoo_err, llama4_err):
             if row["name"] in err:
                 row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+        row["mesh_launches_per_rank"] = mesh_launches.get(row["name"], [0] * 4)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; whole script {sum(phase_s.values()):.1f}")
 

@@ -11,9 +11,10 @@ tokens (llava: precomputed patch embeddings prepended to the text,
 ``lm_forward(embeds=)``).  An MoE stack has an MoE FFN in every layer or,
 llama4-style (``interleave=2``), in every second one: (dense, MoE) pairs;
 its MoE FFN may add always-on shared experts.  Every JAX arch is
-registered.  JAX's ``fsdp``, ``scan_layers`` and ``scan_block`` hints are
-not carried: the port runs on one device and loops over its layers (a
-llama4 stack over its pairs).
+registered.  JAX's ``fsdp`` is carried (the sharding rules read it; FSDP
+placement itself is a later slice); its ``scan_layers`` and ``scan_block``
+hints are not: the port loops over its layers (a llama4 stack over its
+pairs).
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class ArchConfig:
     remat: bool = True           # recompute each block's activations in the backward
     optimizer: str = "adamw"     # adamw | adafactor | sgdm
     q_chunk: int = 1024          # attention query-chunk length of the einsum lowering
+    fsdp: bool = False           # the sharding rules' "F": the other matrix dim over "data"
     cache_dtype: str = "float32"  # KV-cache storage type ("bfloat16" halves it; the
                                   # kernels read float32 views of it)
 
@@ -155,6 +157,7 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         d_head=32 if cfg.n_heads else 0,
         n_enc_layers=min(cfg.n_enc_layers, 2),
         n_frontend_tokens=min(cfg.n_frontend_tokens, 8),
+        fsdp=False,
     )
     if cfg.moe is not None:
         base["moe"] = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 8),

@@ -11,8 +11,9 @@ The port's stack is 24 (dense, MoE) pairs, JAX's scan block of two layers
 (``scan_block=2``), run as a loop.  One pair with all 128 experts holds
 18.55 G float32 parameters (74.2 GB with the embedding and the head), so
 one card serves the arch at depth 2; training at full width holds the
-experts cut to 16, Llama-4-Scout's count.  JAX's ``fsdp=True`` is not
-carried: it waits for multi-GPU.
+experts cut to 16, Llama-4-Scout's count.  JAX's ``fsdp=True`` is carried for
+the sharding rules; placing its "data"-sharded parameters (FSDP) is a
+later slice.
 """
 from repro_torch.configs.base import ArchConfig, MoEConfig, register
 
@@ -28,4 +29,5 @@ CONFIG = register(ArchConfig(
     moe=MoEConfig(n_experts=128, top_k=1, d_ff=8192, interleave=2,
                   n_shared_experts=1),
     optimizer="adafactor",
+    fsdp=True,
 ))

@@ -5,8 +5,8 @@ vision frontend is a stub: 2880 precomputed patch embeddings (anyres 4+1
 tiles x 576 patches) are prepended to the text tokens
 (``lm_forward(embeds=)``); the 60-layer decoder is what is built.
 ~34.4 B parameters (137.5 GB in float32): on one card it runs at a cut
-depth.  JAX's ``fsdp=True`` is not carried: it waits for multi-GPU
-(ROADMAP §1).
+depth.  JAX's ``fsdp=True`` is carried for the sharding
+rules; placing its "data"-sharded parameters (FSDP) is a later slice.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -21,4 +21,5 @@ CONFIG = register(ArchConfig(
     vocab=64000,
     n_frontend_tokens=2880,
     frontend="vision",
+    fsdp=True,
 ))

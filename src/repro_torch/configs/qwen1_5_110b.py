@@ -3,8 +3,9 @@
 [hf:Qwen/Qwen1.5-0.5B; hf]  The largest dense arch of the registry,
 trained with Adafactor (factored second moments, no momentum) as in the
 JAX package.  ~111 B parameters (444 GB in float32): on one card it runs
-at a cut depth.  JAX's ``fsdp=True`` is not carried: it waits for
-multi-GPU (ROADMAP §1).
+at a cut depth.  JAX's ``fsdp=True`` is carried for
+the sharding rules; placing its "data"-sharded parameters (FSDP) is a
+later slice.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -19,4 +20,5 @@ CONFIG = register(ArchConfig(
     vocab=152064,
     qkv_bias=True,
     optimizer="adafactor",
+    fsdp=True,
 ))

@@ -2,8 +2,8 @@
 
 [hf:Qwen/Qwen2.5-0.5B; hf]  q, k and v carry biases, added after their
 products.  ~32.8 B parameters (131 GB in float32): on one card it runs at
-a cut depth.  JAX's ``fsdp=True`` is not carried: it waits for multi-GPU
-(ROADMAP §1).
+a cut depth.  JAX's ``fsdp=True`` is carried for the sharding
+rules; placing its "data"-sharded parameters (FSDP) is a later slice.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -17,4 +17,5 @@ CONFIG = register(ArchConfig(
     d_ff=27648,
     vocab=152064,
     qkv_bias=True,
+    fsdp=True,
 ))

@@ -2,8 +2,9 @@
 
 [hf:stabilityai/stablelm-2-1_6b; hf]  Heads of 160 dims (5120 / 32).
 ~12.1 B parameters (48.6 GB in float32): served at full depth on one
-80 GB card; adamw's moments do not fit there.  JAX's ``fsdp=True`` is
-not carried: it waits for multi-GPU (ROADMAP §1).
+80 GB card; adamw's moments do not fit there.  JAX's ``fsdp=True``
+is carried for the sharding rules; placing its "data"-sharded
+parameters (FSDP) is a later slice (ROADMAP §1).
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -16,4 +17,5 @@ CONFIG = register(ArchConfig(
     n_kv_heads=8,
     d_ff=13824,
     vocab=100352,
+    fsdp=True,
 ))

@@ -65,7 +65,7 @@ def vision_params_from_jax(tree: dict, cfg: VisionConfig, device=None) -> Vision
     return VisionModel(cfg, tensors).to(device)
 
 
-def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
+def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None, mesh=None) -> LM:
     """The port's LM holding the parameters of a JAX ``init_lm`` pytree of
     the dense, MoE, SSM or hybrid family (numpy or JAX array leaves, layers
     stacked on a leading axis; the q/k/v biases ``b`` of a ``qkv_bias``
@@ -76,8 +76,14 @@ def lm_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     on ``device``
     (default: the card).  The tied head's
     ``emb.T`` is made contiguous here, once.  Raises if the tree's names or
-    shapes are not those ``cfg`` gives."""
-    return _model_from_jax(LM, lm_param_shapes, tree, cfg, device)
+    shapes are not those ``cfg`` gives.  With a ``mesh`` (``launch/mesh.py``)
+    every parameter is then cut to this rank's block
+    (``distributed.sharding.shard_model``)."""
+    model = _model_from_jax(LM, lm_param_shapes, tree, cfg, device)
+    if mesh is None:
+        return model
+    from repro_torch.distributed.sharding import lm_param_specs, shard_model
+    return shard_model(model, lm_param_specs(lm_param_shapes(cfg), cfg, mesh), mesh)
 
 
 def encdec_params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> EncDec:
@@ -166,10 +172,17 @@ def lm_tree_to_numpy(flat: dict) -> dict:
     return tree
 
 
-def lm_params_to_numpy(model: LM) -> dict:
+def lm_params_to_numpy(model: LM, mesh=None) -> dict:
     """The JAX ``init_lm`` pytree (numpy float32 leaves, layers stacked) of
-    a port LM: the inverse of ``lm_params_from_jax``."""
-    return lm_tree_to_numpy(dict(model.named_parameters()))
+    a port LM: the inverse of ``lm_params_from_jax``.  With a ``mesh`` the
+    model holds this rank's blocks, which every rank gathers
+    (``distributed.sharding.gather_tensor``; a collective)."""
+    params = dict(model.named_parameters())
+    if mesh is not None:
+        from repro_torch.distributed.sharding import gather_tensor
+        params = {n: gather_tensor(p.detach(), getattr(p, "spec", ()), mesh)
+                  for n, p in params.items()}
+    return lm_tree_to_numpy(params)
 
 
 def encdec_params_to_numpy(model: EncDec) -> dict:

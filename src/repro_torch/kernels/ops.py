@@ -658,10 +658,20 @@ def decode_chain_leaf(policy: Numerics) -> NumericsPolicy | None:
     return _one_leaf(policy, _CHAIN_SITES)
 
 
+def _sharded(leaf: NumericsPolicy) -> bool:
+    """Whether the sharded per-op path owns this leaf's products (an active
+    mesh: ``distributed/shard_fused.active_mesh``).  The chain then stays
+    off, as JAX's; under REPRO_SHARD_FUSED=0 it runs on gathered weights."""
+    from repro_torch.distributed import shard_fused   # lazy: it imports this module
+    return shard_fused.active_mesh(leaf) is not None
+
+
 def decode_chain_enabled(policy: Numerics) -> bool:
     """Whether a single-token step runs as the chain (one chain leaf,
-    ``REPRO_DECODE_FUSED`` on)."""
-    return chain_leaf_ok(decode_chain_leaf(policy)) and not switched_off("REPRO_DECODE_FUSED")
+    ``REPRO_DECODE_FUSED`` on, no active mesh)."""
+    leaf = decode_chain_leaf(policy)
+    return (chain_leaf_ok(leaf) and not switched_off("REPRO_DECODE_FUSED")
+            and not _sharded(leaf))
 
 
 def moe_ffn_leaf(policy: Numerics) -> NumericsPolicy | None:
@@ -673,8 +683,9 @@ def moe_ffn_leaf(policy: Numerics) -> NumericsPolicy | None:
 def decode_moe_ffn_enabled(policy: Numerics, C: int) -> bool:
     """Whether an MoE FFN over a capacity of ``C`` rows an expert runs as
     the one stacked expert-bank launch (``decode_moe_ffn``)."""
-    return (chain_leaf_ok(moe_ffn_leaf(policy)) and C <= MOE_FFN_MAX_C
-            and not switched_off("REPRO_DECODE_FUSED"))
+    leaf = moe_ffn_leaf(policy)
+    return (chain_leaf_ok(leaf) and C <= MOE_FFN_MAX_C
+            and not switched_off("REPRO_DECODE_FUSED") and not _sharded(leaf))
 
 
 def decode_fuse_attn_enabled(policy: Numerics, T: int) -> bool:

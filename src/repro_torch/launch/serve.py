@@ -24,9 +24,16 @@ drawn from ``--seed`` on the device.  Every dense arch serves, llava-next-34b
 on text tokens only, as JAX's engines do (a prefill with its patch
 embeddings is ``lm_forward(embeds=, caches=)``), and the MoE archs; ``--stream``
 refuses llama4-maverick-400b-a17b, whose (dense, MoE) pairs JAX's paged
-caches do not hold either.  Multi-GPU serving
-(``--mesh``) is a later slice.  An encoder-decoder arch (whisper-base) exits before any work
+caches do not hold either.  An encoder-decoder arch (whisper-base) exits before any work
 with the JAX CLI's message.
+
+``--mesh`` serves the batch on a 2x2 (data, model) debug mesh of four
+ranks (``launch.mesh.spawn``, the backend printed first), as JAX's CLI
+does: a dense arch's weights drawn on every rank and cut to its blocks,
+``ServingEngine(mesh=)``; rank 0 prints.  ``--mesh`` with ``--stream``
+exits: the paged scheduler under a mesh is a later slice.
+
+    python -m repro_torch.launch.serve --reduced --device cpu --mesh --numerics amsim
 """
 from __future__ import annotations
 
@@ -147,7 +154,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--numerics", default="native",
                     help=f"one batch: a mode ({'|'.join(MODES)}) or a policy-table JSON path")
     ap.add_argument("--multiplier", default="fp32")
-    ap.add_argument("--mesh", action="store_true", help="not ported: multi-GPU serving")
+    ap.add_argument("--mesh", action="store_true",
+                    help="one batch on a 2x2 (data, model) mesh of four ranks")
+    ap.add_argument("--mesh-timeout", type=float, default=1800.0,
+                    help="seconds every collective and the whole mesh run may take")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
                     help="continuous batching: replay a synthetic stream of N requests")
     ap.add_argument("--tiers", default="default=native",
@@ -160,19 +170,56 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: multi-GPU serving (sharded paged pools) is a later slice of "
-                         "the port; serve on one device")
+def _arch_cfg(args):
     cfg = get_arch(args.arch)
     if cfg.family == "encdec":
         raise SystemExit(ENGINE_REFUSAL)
-    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def _serve_rank(mesh, args):
+    """One rank of ``--mesh``: the batch through ``ServingEngine(mesh=)``;
+    rank 0 prints and returns the tokens."""
+    from repro_torch.distributed import shard_fused
+
+    cfg = _arch_cfg(args)
+    policy = load_numerics(args.numerics, args.multiplier)
+    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+    model = init_lm(cfg, generator=gen, device=mesh.device, mesh=mesh)
+    engine = ServingEngine(model, policy, max_len=args.prompt_len + args.new_tokens + 1,
+                           mesh=mesh)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
+                            device=mesh.device)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=args.new_tokens)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    dt = time.perf_counter() - t0
+    if mesh.rank == 0:
+        print("mesh dispatch: " + shard_fused.describe(mesh, policy))
+        print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+              f"({args.batch * args.new_tokens / dt:.1f} tok/s) on {mesh!r}; "
+              f"{mesh.stats['collectives']} collectives on rank 0")
+        print(out[:, :8].tolist())
+    return out.cpu()
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.mesh and args.stream:
+        raise SystemExit("--mesh --stream: the paged scheduler under a mesh (sharded page "
+                         "pools) is a later slice of the port; --mesh serves one batch")
+    cfg = _arch_cfg(args)
+    if args.mesh:
+        from repro_torch.launch.mesh import spawn
+        from repro_torch.launch.train import mesh_device
+        return spawn(_serve_rank, (2, 2), device=mesh_device(args.device),
+                     timeout=args.mesh_timeout, args=(args,))[0]
+    device = resolve_device(args.device)
     if args.stream:
         try:
             check_paged(cfg)

@@ -33,6 +33,20 @@ for every other ported config) over
 (checkpoints under ``--ckpt-dir`` every steps/5).  Prints the numerics
 report and the metrics every steps/10.
 
+``--mesh DxM`` (or ``PxDxM``) trains on a mesh of that many ranks
+(``launch.mesh.spawn``; the backend is printed first): a dense arch runs
+tensor- and data-parallel through ``distributed/shard_fused``, each rank
+drawing the same weights and keeping its blocks, and each data rank
+keeping its rows of the global ``lm_batch``, so the data are the
+single-device run's.  Rank 0 alone prints, the dispatch line too.  Under
+``--ckpt-dir`` a checkpoint is the gathered tree, written by rank 0: the
+single-device run's, which a resume on any mesh cuts again.  ``main``
+returns rank 0's history and the gathered parameters (the JAX tree).
+
+    python -m repro_torch.launch.train --reduced --device cpu --steps 2 --mesh 2x2
+    python -m repro_torch.launch.train --n-layers 4 --steps 2 --batch 4 --seq 64 \
+        --numerics amsim --multiplier afm16 --mesh 2x2     # four ranks on one card: gloo
+
 Per-site numerics (docs/policies.md): ``--numerics-table table.json``
 loads a ``PolicyTable`` (``--numerics`` takes a table path too), or
 ``--assign "qkv=mitchell8,dw=native"`` assigns multipliers per site on
@@ -43,12 +57,14 @@ default's.
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, cut, get_arch, reduced
 from repro_torch.core.policy import (MODES, PASSES, SITES, Numerics, PolicyTable,
                                      load_numerics, table_from_assignments, table_from_json)
+from repro_torch.convert import lm_params_to_numpy
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.encdec import encdec_loss, encdec_stacks, init_encdec
@@ -131,8 +147,78 @@ def policy_from_args(args) -> Numerics:
     return load_numerics(args.numerics, args.multiplier)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description="LM training on one device")
+def parse_mesh(text: str) -> tuple:
+    """"2x2" -> (2, 2); "2x2x2" -> (2, 2, 2) (pod, data, model)."""
+    try:
+        sizes = tuple(int(v) for v in text.lower().split("x"))
+    except ValueError:
+        sizes = ()
+    if len(sizes) not in (2, 3) or min(sizes) < 1:
+        raise SystemExit(f"--mesh {text!r}: want DxM or PxDxM, e.g. 2x2")
+    return sizes
+
+
+def mesh_device(arg) -> str:
+    """The ranks' device kind: "cpu" when asked, else the card(s), whose
+    kernels the parent builds before the ranks start (ranks never build
+    into one directory at once)."""
+    if arg == "cpu":
+        return "cpu"
+    resolve_device(arg)
+    from repro_torch.kernels import _build
+    _build.build()
+    return "cuda"
+
+
+def _train_rank(mesh, args):
+    """One rank of ``--mesh``: the run of ``main``'s arguments on its
+    blocks; rank 0 prints."""
+    from repro_torch.distributed import shard_fused
+    from repro_torch.distributed.sharding import lm_param_specs, opt_state_specs
+    from repro_torch.models.transformer import lm_param_shapes
+
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    cfg = _arch_cfg(args)
+    policy = policy_from_args(args)
+    say(describe_numerics(policy, mesh.device))
+    say("  mesh dispatch: " + shard_fused.describe(mesh, policy))
+    model = init_lm(cfg, generator=torch.Generator(device=mesh.device).manual_seed(args.seed),
+                    device=mesh.device, mesh=mesh)
+    opt, step = make_lm_train_step(cfg, policy, lr=args.lr, steps=args.steps,
+                                   microbatches=args.microbatches)
+    shapes = lm_param_shapes(cfg)
+    stacked = lm_param_specs(shapes, cfg, mesh, stacked=True)
+    specs = {n: tuple(p.spec) for n, p in model.named_parameters()}
+    opt_specs = opt_state_specs(cfg.optimizer, stacked if cfg.optimizer == "adafactor" else specs)
+
+    def batch_fn(s):
+        return {k: mesh.block(v, mesh.data_axes, 0)
+                for k, v in lm_batch(cfg, (args.batch, args.seq), s, mesh.device).items()}
+
+    trainer = Trainer(step, batch_fn,
+                      TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                                    ckpt_every=max(args.steps // 5, 1),
+                                    log_every=max(args.steps // 10, 1), log_fn=say),
+                      mesh=mesh, specs={"params": specs, "opt": opt_specs})
+    state = trainer.run(TrainerState(model, opt.init(dict(model.named_parameters()))))
+    say(f"done at step {state.step}; stragglers flagged: {len(state.stragglers)}; "
+        f"collectives on rank 0: {mesh.stats['collectives']}")
+    params = lm_params_to_numpy(model, mesh)     # gathered on every rank
+    return {"history": state.history, "params": params} if mesh.rank == 0 else None
+
+
+def _arch_cfg(args) -> ArchConfig:
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    cfg = cut(cfg, n_layers=args.n_layers, n_experts=args.n_experts)
+    check_seq(cfg, args.seq)
+    return cfg
+
+
+def arg_parser() -> argparse.ArgumentParser:
+    """``main``'s arguments."""
+    ap = argparse.ArgumentParser(description="LM training on one device or a mesh of ranks")
     ap.add_argument("--arch", default="granite-3-2b",
                     help="granite-3-2b, stablelm-12b, qwen2.5-32b, qwen1.5-110b (dense), "
                          "llava-next-34b (dense, patch embeddings first), granite-moe-3b-a800m "
@@ -167,13 +253,25 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train on a (data, model) mesh of ranks, e.g. 2x2 (PxDxM: pods too)")
+    ap.add_argument("--mesh-timeout", type=float, default=1800.0,
+                    help="seconds every collective and the whole mesh run may take")
+    return ap
 
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
-    cfg = cut(cfg, n_layers=args.n_layers, n_experts=args.n_experts)
-    check_seq(cfg, args.seq)
+
+def main(argv=None):
+    args = arg_parser().parse_args(argv)
+
+    cfg = _arch_cfg(args)
+    if args.mesh:
+        from repro_torch.launch.mesh import spawn
+        sizes = parse_mesh(args.mesh)
+        if args.batch % math.prod(sizes[:-1]):
+            raise SystemExit(f"--batch {args.batch} does not split over the "
+                             f"{math.prod(sizes[:-1])} data ranks of --mesh {args.mesh}")
+        return spawn(_train_rank, sizes, device=mesh_device(args.device),
+                     timeout=args.mesh_timeout, args=(args,))[0]
     device = resolve_device(args.device)
     policy = policy_from_args(args)
     print(describe_numerics(policy, device))

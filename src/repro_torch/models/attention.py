@@ -16,13 +16,19 @@ The einsum lowering runs a query chunk (``cfg.q_chunk``) at a time when
 the sequence splits into such chunks; the kernel takes every shape, and
 its backward chunks its own recompute (``ops.policy_attention``).
 
+Under an ambient mesh (``launch/mesh.py``) q/k/v are column-parallel and
+wo row-parallel products, and a rank holds H / model query and KV /
+model KV heads (the widths of its projections say how many) and its
+batch rows; the attention runs through ``shard_fused.parallel_attention``,
+the kernel on this rank's heads, with no collective.
+
 The paged serving cache (``serve/paged_cache.py``, JAX
 ``_paged_cache_update``) gives every batch row its own position: q_pos
 and k_pos are (B, S) and (B, T), and the same two lowerings take them
 (the kernel reads each row's positions, the einsum masks per row).  A
 cache stored in ``cfg.cache_dtype`` (bfloat16 halves it) is read back as
 float32 before any lowering, as the JAX kernels' wrappers cast it.  Not
-ported (no path of the port needs it yet): full-head / sharded attention.
+ported (no path of the port needs it yet): full-head attention.
 """
 from __future__ import annotations
 
@@ -32,8 +38,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
+from repro_torch.distributed import shard_fused as sf
 from repro_torch.kernels.common import POS_PAD
 from repro_torch.kernels.ops import attend_einsum, one_call_attention_enabled, policy_attention
+from repro_torch.launch.mesh import current_mesh
 from .layers import init_linear, linear
 
 TRASH_PAGE = 0   # the pools' reserved page (serve/paged_cache.TRASH_PAGE)
@@ -175,7 +183,7 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, kv
            chain launch that runs the attention core itself.
     """
     B, S, _ = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     if qkv is not None:
         if kv_src is not None:
             raise ValueError("qkv= is decoder self-attention only (no kv_src)")
@@ -183,9 +191,11 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, kv
     else:
         src = x if kv_src is None else kv_src
         T = src.shape[1]
-        q = linear(p["wq"], x, policy, site="qkv").reshape(B, S, H, dh)
-        k = linear(p["wk"], src, policy, site="qkv").reshape(B, T, KV, dh)
-        v = linear(p["wv"], src, policy, site="qkv").reshape(B, T, KV, dh)
+        # -1: this rank's heads under a mesh (all of them on one device)
+        q = linear(p["wq"], x, policy, site="qkv", kind="column").reshape(B, S, -1, dh)
+        k = linear(p["wk"], src, policy, site="qkv", kind="column").reshape(B, T, -1, dh)
+        v = linear(p["wv"], src, policy, site="qkv", kind="column").reshape(B, T, -1, dh)
+    H = q.shape[2]
     paged = cache is not None and "ptab" in cache
     if paged:
         if kv_src is not None:
@@ -211,7 +221,12 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, kv
     k, v = k.to(torch.float32), v.to(torch.float32)
     if capture_attend:
         return (q, k, v, q_pos, k_pos), cache
-    if one_call_attention_enabled(policy):
+    mesh = current_mesh()
+    if mesh is not None:
+        out = sf.parallel_attention(q, k, v, q_pos, k_pos, policy, causal=causal, window=window,
+                                    heads_split=sf.spec_of(p["wq"].w)[1] == "model",
+                                    mesh=mesh)
+    elif one_call_attention_enabled(policy):
         out = policy_attention(q, k, v, q_pos, k_pos, policy, causal, window)
     elif S > cfg.q_chunk and S % cfg.q_chunk == 0:
         # The einsum lowering a query chunk at a time, as the JAX package's
@@ -225,4 +240,4 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, *, kv
     out = out.reshape(B, S, H * dh)
     if not project_out:
         return out, cache
-    return linear(p["wo"], out, policy, site="wo"), cache
+    return linear(p["wo"], out, policy, site="wo", kind="row"), cache

@@ -19,9 +19,11 @@ def ffn(p, x: torch.Tensor, policy: NumericsPolicy, act: str = "swiglu") -> torc
     """The FFN of a block; its sites ("wg"/"wu"/"wd") name the projections.
     ``p`` maps those names to ``layers.Linear``s.  With (E, d, F) expert
     banks and x (E, C, d) it is every expert's FFN at once: each projection
-    is one E-batched product."""
+    is one E-batched product.  The Megatron roles: wg/wu column-parallel,
+    wd row-parallel (under a mesh, ``distributed/shard_fused``)."""
     if act == "swiglu":
-        return linear(p["wd"], silu(linear(p["wg"], x, policy, site="wg"))
-                      * linear(p["wu"], x, policy, site="wu"), policy, site="wd")
-    return linear(p["wd"], F.gelu(linear(p["wu"], x, policy, site="wu"), approximate="tanh"),
-                  policy, site="wd")
+        return linear(p["wd"], silu(linear(p["wg"], x, policy, site="wg", kind="column"))
+                      * linear(p["wu"], x, policy, site="wu", kind="column"), policy,
+                      site="wd", kind="row")
+    return linear(p["wd"], F.gelu(linear(p["wu"], x, policy, site="wu", kind="column"),
+                                  approximate="tanh"), policy, site="wd", kind="row")

@@ -21,6 +21,16 @@ stack (``moe.interleave == 2``) is a loop over (dense, MoE) pairs, JAX's
 scan block: each pair is one ``PairLayer`` (one checkpointed block under
 remat, as ``jax.checkpoint(block)``), its caches a tuple (the dense
 layers' rings, the MoE layers' rings), one a pair in each.
+
+Under an ambient mesh (``launch/mesh.py``; parameters placed by
+``distributed/sharding.py``) a dense stack runs tensor- and data-parallel:
+each rank its heads, FFN columns and batch rows, the products through
+``distributed/shard_fused``; the logits are gathered over "model" and the
+loss is the mean over every data rank's rows, from each rank's sum and
+count.  The decode chain stays off (as JAX's), except under
+``REPRO_SHARD_FUSED=0``, where it runs on the layer's gathered weights
+and heads.  The MoE, SSM, hybrid and encoder-decoder families raise under
+a mesh: they are a later slice.
 """
 from __future__ import annotations
 
@@ -31,8 +41,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.device import resolve_device
+from repro_torch.distributed import shard_fused as sf
+from repro_torch.distributed.sharding import gather_tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_chain import rmsnorm_lanes
+from repro_torch.launch.mesh import current_mesh
 from .attention import attention, cache_dtype, init_attention, init_cache
 from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm, unembed
 from .mlp import ffn, init_ffn
@@ -161,17 +174,21 @@ def lm_stacks(cfg: ArchConfig) -> dict:
     return stacks
 
 
-def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
+def init_tree(cfg: ArchConfig, generator: torch.Generator, cut=None) -> dict:
     """JAX-layout parameters on the generator's device, with the JAX
     package's scales: N(0, 1/d_in) weights, N(0, 0.02^2) embeddings, unit
-    norm scales, and the Mamba2 constants of ``ssm.init_mamba2``."""
+    norm scales, and the Mamba2 constants of ``ssm.init_mamba2``.
+    ``cut(prefix, part)``, when given, takes each part as it is drawn (the
+    embedding, the head, a layer) and returns what the tree keeps of it: a
+    rank's blocks, so that no rank holds the whole model at once."""
     g, dev = generator, generator.device
+    cut = (lambda prefix, part: part) if cut is None else cut
     ones = lambda: {"g": torch.ones((cfg.d_model,), device=dev)}  # noqa: E731
-    tree = {"embed": {"emb": torch.randn((cfg.vocab, cfg.d_model), generator=g, device=dev)
-                      * 0.02},
+    tree = {"embed": cut("embed", {"emb": torch.randn((cfg.vocab, cfg.d_model), generator=g,
+                                                       device=dev) * 0.02}),
             "final_norm": ones()}
     if not cfg.tie_embeddings:
-        tree["head"] = init_linear(cfg.d_model, cfg.vocab, generator=g)
+        tree["head"] = cut("head", init_linear(cfg.d_model, cfg.vocab, generator=g))
 
     def dense_layer(use_moe=cfg.moe is not None):
         layer = {"attn": init_attention(cfg, generator=g), "n1": ones(), "n2": ones()}
@@ -182,25 +199,38 @@ def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
         return layer
 
     if paired(cfg):
-        tree["layers"] = [{"dense": dense_layer(False), "moe_layer": dense_layer(True)}
-                          for _ in range(cfg.n_layers // 2)]
+        tree["layers"] = [cut(f"layers.{i}", {"dense": dense_layer(False),
+                                               "moe_layer": dense_layer(True)})
+                          for i in range(cfg.n_layers // 2)]
     elif cfg.ssm is None:
-        tree["layers"] = [dense_layer() for _ in range(cfg.n_layers)]
+        tree["layers"] = [cut(f"layers.{i}", dense_layer()) for i in range(cfg.n_layers)]
     else:
-        tree["layers"] = [{"mamba": init_mamba2(cfg, generator=g), "n1": ones()}
-                          for _ in range(cfg.n_layers)]
+        tree["layers"] = [cut(f"layers.{i}", {"mamba": init_mamba2(cfg, generator=g),
+                                               "n1": ones()})
+                          for i in range(cfg.n_layers)]
     if cfg.attn_every:
-        tree["shared_attn"] = dense_layer(False)
+        tree["shared_attn"] = cut("shared_attn", dense_layer(False))
     return tree
 
 
-def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None, device=None) -> LM:
+def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None, device=None,
+            mesh=None) -> LM:
     """Random parameters drawn from ``generator`` (default: seed 0 on the
     CPU) on its device, then moved to ``device`` (default: the CUDA card).
-    A generator on the card draws a full-size model there directly."""
+    A generator on the card draws a full-size model there directly.  With
+    a ``mesh`` (``launch/mesh.py``) this rank keeps its blocks under
+    ``lm_param_specs``, each part cut as soon as it is drawn: every rank
+    draws the same stream, so its blocks are bitwise the slices of the
+    single-device model's tensors."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(0) if generator is None else generator
-    return LM(cfg, init_tree(cfg, generator)).to(device)
+    if mesh is None:
+        return LM(cfg, init_tree(cfg, generator)).to(device)
+    from repro_torch.distributed.sharding import cut_part, lm_param_specs, tag_specs
+    check_mesh_family(cfg, mesh)
+    specs = lm_param_specs(lm_param_shapes(cfg), cfg, mesh)
+    tree = init_tree(cfg, generator, cut=lambda prefix, part: cut_part(prefix, part, specs, mesh))
+    return tag_specs(LM(cfg, tree).to(device), specs)
 
 
 # ---------------------------------------------------------------- blocks
@@ -267,11 +297,47 @@ def _block_norm(policy: NumericsPolicy, cache):
     return rmsnorm
 
 
+class _Whole:
+    """A layer's tensors put back together over the mesh (``.w``, ``.b``,
+    ``.g`` and the ``attn``/``ffn``/``n1``/``n2`` members the chain reads)."""
+
+    def __init__(self, module, mesh):
+        for name, child in module.named_children():
+            setattr(self, name, {k: _Whole(v, mesh) for k, v in child.items()}
+                    if isinstance(child, nn.ModuleDict) else _Whole(child, mesh))
+        for name, t in module.named_parameters(recurse=False):
+            setattr(self, name, gather_tensor(t.detach(), sf.spec_of(t), mesh))
+        if isinstance(module, Linear) and module.b is None:
+            self.b = None
+        if isinstance(module, DenseLayer):
+            self.moe = None
+
+
+def _chain_on_whole_layer(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
+                          window: int, mesh):
+    """A decode step of the chain under a mesh (REPRO_SHARD_FUSED=0): the
+    layer's weights and the ring's heads gathered over "model", the
+    single-device chain on this rank's rows, this rank's heads written
+    back to its ring."""
+    heads = sf.spec_of(p.attn["wk"].w)[1] == "model"
+    whole = dict(cache)
+    if heads:
+        whole["k"], whole["v"] = (mesh.all_gather(cache[n], "model", dim=2) for n in ("k", "v"))
+    y, whole, aux = _dense_block_fused_decode(_Whole(p, mesh), x, cfg, policy, whole, window)
+    if heads:
+        cache["k"].copy_(mesh.block(whole["k"], "model", 2))
+        cache["v"].copy_(mesh.block(whole["v"], "model", 2))
+    return y, {**cache, "len": whole["len"]}, aux
+
+
 def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
                  window: int):
     """One block: (x, cache, aux), aux the MoE load-balance loss (0 in a
     dense block)."""
     if _use_fused_decode_chain(x, cfg, policy, cache):
+        mesh = current_mesh()
+        if mesh is not None:
+            return _chain_on_whole_layer(p, x, cfg, policy, cache, window, mesh)
         return _dense_block_fused_decode(p, x, cfg, policy, cache, window)
     norm = _block_norm(policy, cache)
     a, cache = attention(p.attn, norm(p.n1, x, cfg.norm_eps), cfg, policy, cache=cache,
@@ -330,6 +396,7 @@ def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embed
     caches or None, aux); ``embeds`` (B, F, d) or None go before the
     tokens' embeddings."""
     cfg = model.cfg
+    check_mesh_family(cfg)
     x = embed(model.embed, tokens)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
@@ -360,10 +427,34 @@ def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embed
     return x, (new_caches if caches is not None else None), aux
 
 
+def check_mesh_family(cfg: ArchConfig, mesh=None):
+    """Raise under ``mesh`` (default: the ambient one) unless ``cfg`` is a
+    dense stack whose query and KV heads divide the "model" axis."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.size == 1:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) under a mesh: only dense stacks run "
+            f"tensor- and data-parallel; MoE expert parallelism, SSM and hybrid heads over "
+            f"\"model\" and the encoder-decoder are a later slice of the port")
+    if cfg.n_heads % mesh.model_size or cfg.n_kv_heads % mesh.model_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV heads over a model axis "
+            f"of {mesh.model_size}: a rank holds whole heads (a later slice splits a head)")
+
+
 def _lm_head(model: LM, x: torch.Tensor, policy: NumericsPolicy) -> torch.Tensor:
+    """The logits over the whole vocab: a column-parallel head's vocab
+    blocks are gathered over "model" under a mesh."""
     if model.cfg.tie_embeddings:
-        return unembed(model.embed, x, policy)
-    return linear(model.head, x, policy, site="head")
+        logits = unembed(model.embed, x, policy)
+        split = sf.spec_of(model.embed.emb)[0] == "model"
+    else:
+        logits = linear(model.head, x, policy, site="head", kind="column")
+        split = sf.spec_of(model.head.w)[1] == "model"
+    mesh = current_mesh()
+    return sf.gather(logits, mesh, "model", -1) if mesh is not None and split else logits
 
 
 def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, embeds=None,
@@ -388,17 +479,28 @@ def lm_forward(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, *, embed
     return logits, new_caches, aux
 
 
-def label_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The mean token cross-entropy of logits (B, S, vocab) at labels (B, S)
-    (-1 = no loss), as JAX ``lm_loss`` and ``encdec_loss`` take it: the
-    label's logit by mask and sum, not a gather (a scatter-free backward)."""
+def xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """(the summed token cross-entropy, the count of labelled tokens) of
+    logits (B, S, vocab) at labels (B, S) (-1 = no loss): the label's logit
+    by mask and sum, not a gather (a scatter-free backward)."""
     valid = labels >= 0
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     ll = torch.sum(torch.where(iota == labels.clamp(min=0)[..., None], logits, 0.0), dim=-1)
-    xent = torch.where(valid, lse - ll, 0.0)
-    return torch.sum(xent) / torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(torch.where(valid, lse - ll, 0.0)), torch.sum(valid)
+
+
+def label_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean token cross-entropy (``xent_sum``), as JAX ``lm_loss`` and
+    ``encdec_loss`` take it; under a mesh the mean over every data rank's
+    rows, from each rank's sum and count."""
+    total, count = xent_sum(logits, labels)
+    mesh = current_mesh()
+    if mesh is not None:
+        count = sf.sum_over_data(count.to(torch.float32), mesh)
+        return sf.data_total(total) / torch.clamp(count, min=1)
+    return total / torch.clamp(count, min=1)
 
 
 def lm_loss(model: LM, batch: dict, policy: NumericsPolicy, aux_weight: float = 0.01):

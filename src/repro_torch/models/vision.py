@@ -8,6 +8,13 @@ stem's input needs none), 15 of the dw kernel and 2 GEMM launches.  Layouts are 
 HWIO, dense weights (d_in, d_out); the parameter names are its pytree's
 (``dense``; ``convs``; ``stem``/``stages``/``head`` with blocks
 ``c1``/``c2``/``proj``), so ``convert.vision_params_from_jax`` is a copy.
+
+Under an ambient mesh (``launch/mesh.py``) a model runs data-parallel:
+each rank its batch rows, the convs through
+``distributed/shard_fused.parallel_conv2d`` (the kernels per rank, dw
+summed over the data axes in rank order), the dense layers through
+``linear`` (``kind`` None: replicated weights, as JAX's) and every bias's
+gradient summed the same way.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ from torch import nn
 from repro_torch.configs.paper_models import VisionConfig
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import approx_conv2d
+from repro_torch.distributed.shard_fused import data_parallel, data_total, parallel_conv2d
+from repro_torch.launch.mesh import current_mesh
 from .layers import Linear, init_linear, linear
 
 
@@ -31,7 +39,7 @@ class Conv(nn.Module):
         self.b = nn.Parameter(b)
 
     def forward(self, x, policy, stride=1, padding="SAME"):
-        return approx_conv2d(x, self.w, stride, padding, policy) + self.b
+        return parallel_conv2d(x, self.w, stride, padding, policy) + data_parallel(self.b)
 
 
 class Block(nn.Module):
@@ -162,11 +170,16 @@ def vision_forward(model: VisionModel, x: torch.Tensor,
 
 def vision_loss(model: VisionModel, batch: dict, policy: NumericsPolicy):
     """Mean softmax cross-entropy of a batch {"x": (B,H,W,C), "y": (B,)}
-    and {"acc": accuracy}; differentiable (the training entry point)."""
+    and {"acc": accuracy}; differentiable (the training entry point).
+    Under a mesh with the batch split over the data axes, the means over
+    every data rank's rows."""
     logits = model(batch["x"], policy)
     labels = batch["y"].to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels[:, None])[:, 0]
-    loss = torch.mean(lse - ll)
-    acc = torch.mean((logits.argmax(-1) == labels).to(torch.float32))
-    return loss, {"acc": acc}
+    hit = (logits.argmax(-1) == labels).to(torch.float32)
+    mesh = current_mesh()
+    if mesh is not None and mesh.data_size > 1:
+        n = labels.shape[0] * mesh.data_size
+        return data_total(torch.sum(lse - ll)) / n, {"acc": data_total(torch.sum(hit)) / n}
+    return torch.mean(lse - ll), {"acc": torch.mean(hit)}

@@ -16,6 +16,14 @@ LM's layers stacked on a leading axis, and Adafactor couples the elements
 of a leaf (its factors, its update clip); ``stacks`` names the port's
 per-layer tensors that form one JAX leaf, so that Adafactor computes on
 the same stacked tensors as there.
+
+Under an ambient mesh (``launch/mesh.py``) every optimizer runs on this
+rank's blocks of the parameters (``param.spec``, placed by
+``distributed/sharding.py``), and the few sums that cross a block go over
+"model" in rank order: the global norm's squares (a sharded leaf's once a
+block, a replicated leaf's once) and Adafactor's factor means and update
+RMS over a split dim.  The data ranks hold the same gradients (summed by
+the sharded ops), so nothing crosses the data axes.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import math
 from typing import Callable
 
 import torch
+
+from repro_torch.launch.mesh import current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +67,34 @@ def apply_updates(params, updates):
     return params
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+def _split(spec) -> bool:
+    return any(a is not None for a in spec)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def global_norm(tree, specs: dict | None = None) -> torch.Tensor:
+    """The norm of every leaf together.  Under a mesh ``tree`` is a flat
+    {name: this rank's block} dict and ``specs`` its {name: spec}: the
+    split leaves' squares are summed over "model" in rank order, the
+    replicated leaves' counted once."""
+    mesh = current_mesh()
+    if mesh is None or specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                              for leaf in tree_leaves(tree)))
+    split = whole = 0.0
+    for name, leaf in tree.items():
+        sq = torch.sum(torch.square(leaf.to(torch.float32)))
+        if _split(specs.get(name, ())):
+            split = split + sq
+        else:
+            whole = whole + sq
+    if isinstance(split, torch.Tensor):
+        split = mesh.ordered_sum(split, "model")
+    return torch.sqrt(split + whole)
+
+
+def clip_by_global_norm(grads, max_norm: float, specs: dict | None = None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, specs)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
@@ -171,6 +201,17 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0, decay: float 
     state ``f`` is keyed by JAX leaf name."""
     stacks = stacks or {}
 
+    def specs_of(params: dict) -> dict:
+        """{leaf name: spec} of the stacked leaves (a member's spec behind
+        the layer axis); empty without a mesh."""
+        if current_mesh() is None:
+            return {}
+        out = {n: tuple(getattr(p, "spec", ())) for n, p in params.items()}
+        for name, names in stacks.items():
+            member = tuple(getattr(params[names[0]], "spec", ()))
+            out[name] = (None, *member) if member else ()
+        return out
+
     def init(params):
         def leaf(p):
             if p.ndim >= 2:
@@ -185,18 +226,29 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0, decay: float 
         step = state["step"] + 1
         lr_t = lr(step) if callable(lr) else lr
         beta = 1.0 - _power(float(step), -decay)
+        specs = specs_of(params)
+        mesh = current_mesh()
 
-        def leaf(g, f, p):
+        def mean(t, dim, axes):
+            """torch.mean over ``dim``, across the blocks when the dim is
+            split over ``axes``."""
+            if mesh is None or axes is None:
+                return torch.mean(t, dim=dim)
+            return mesh.ordered_sum(torch.sum(t, dim=dim), axes) / (
+                t.shape[dim] * mesh.axes_size(axes))
+
+        def leaf(g, f, p, spec=()):
             # In place where a temporary of the leaf's size would be freed
             # at once: the same values, and a leaf of 5 GB (qwen1.5-110b's
             # head) holds two such temporaries at a time, not five.
             g = g.to(torch.float32)
             g2 = torch.square(g).add_(eps)
+            spec = tuple(spec) + (None,) * (g.ndim - len(tuple(spec)))
             if g.ndim >= 2:
-                r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
-                c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                r = beta * f["r"] + (1 - beta) * mean(g2, -1, spec[-1])
+                c = beta * f["c"] + (1 - beta) * mean(g2, -2, spec[-2])
                 del g2
-                rc = torch.mean(r, dim=-1, keepdim=True)
+                rc = mean(r, -1, spec[-2])[..., None]
                 vhat = (r[..., None] / torch.clamp(rc[..., None], min=eps)) * c[..., None, :]
                 u = vhat.clamp_(min=eps).rsqrt_().mul_(g)
                 nf = {"r": r, "c": c}
@@ -204,12 +256,17 @@ def adafactor(lr, eps: float = 1e-30, clip_threshold: float = 1.0, decay: float 
                 v = beta * f["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(torch.clamp(v, min=eps))
                 nf = {"v": v}
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            if mesh is not None and _split(spec):
+                total = mesh.ordered_sum(torch.sum(torch.square(u)), "model")
+                ms = total / (u.numel() * mesh.model_size)
+            else:
+                ms = torch.mean(torch.square(u))
+            rms = torch.sqrt(ms + 1e-12)
             u = u.div_(torch.clamp(rms / clip_threshold, min=1.0))
             return u.add_(weight_decay * p).mul_(-lr_t), nf
 
         g_s, p_s = _stacked(grads, stacks), _stacked(params, stacks)
-        out = {n: leaf(g_s[n], state["f"][n], p_s[n]) for n in g_s}
+        out = {n: leaf(g_s[n], state["f"][n], p_s[n], specs.get(n, ())) for n in g_s}
         upd = {}
         for n, (u, _) in out.items():
             upd.update(zip(stacks[n], u.unbind(0)) if n in stacks else [(n, u)])

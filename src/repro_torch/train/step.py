@@ -53,7 +53,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             loss, metrics, grads = grads_of(model, params, batch)
 
         if clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            specs = {k: tuple(getattr(p, "spec", ())) for k, p in params.items()}
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, specs)
         else:
             gnorm = torch.zeros((), device=loss.device)
         updates, opt_state = optimizer.update(grads, opt_state, params)

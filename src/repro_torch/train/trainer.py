@@ -16,6 +16,12 @@ counts the builds; its ``ladder`` is a ``degrade_fn`` that demotes a flat
 policy or a per-site table rung by rung (``core.policy.demote_numerics``).
 The sweep runners assert one build per numerics used: ``1 +
 ladder_level``.
+
+Under a mesh (``mesh=``, with ``specs``, the spec tree of the
+checkpointed tree): a checkpoint is the gathered tree, written by rank 0,
+so it is the single-device run's; a restore reads the whole tree on every
+rank and keeps its blocks.  There is no retry: a rank that fails fails
+the run.
 """
 from __future__ import annotations
 
@@ -121,10 +127,11 @@ class Trainer:
     ``step_times`` the seconds of each step that completed.
     """
 
-    def __init__(self, train_step, batch_fn, cfg: TrainerConfig):
+    def __init__(self, train_step, batch_fn, cfg: TrainerConfig, *, mesh=None, specs=None):
         self.train_step = train_step
         self.batch_fn = batch_fn
         self.cfg = cfg
+        self.mesh, self.specs = mesh, specs
         self.mgr = CheckpointManager(cfg.ckpt_dir, cfg.keep) if cfg.ckpt_dir else None
         self.divergences: list[tuple[int, str, float]] = []
         self.ladder_level = 0
@@ -135,13 +142,24 @@ class Trainer:
         return {"params": dict(state.model.named_parameters()), "opt": state.opt_state}
 
     def _save(self, state: TrainerState):
-        self.mgr.save(state.step, self._tree(state))
+        tree = self._tree(state)
+        if self.mesh is None:
+            self.mgr.save(state.step, tree)
+            return
+        from repro_torch.distributed.sharding import gather_tree
+        whole = gather_tree(tree, self.specs, self.mesh)
+        if self.mesh.rank == 0:
+            self.mgr.save(state.step, whole)
+        torch.distributed.barrier()
 
     def _restore(self, state: TrainerState) -> TrainerState:
         """The newest checkpoint, copied into the model in place."""
         restored, meta = self.mgr.restore_latest(self._tree(state))
         if restored is None:
             raise RuntimeError(f"{self.mgr.dir}: no checkpoint to restore")
+        if self.mesh is not None:
+            from repro_torch.distributed.sharding import shard_tree
+            restored = shard_tree(restored, self.specs, self.mesh)
         params = dict(state.model.named_parameters())
         with torch.no_grad():
             for name, value in restored["params"].items():
@@ -224,6 +242,8 @@ class Trainer:
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # a failed or diverged step: restore and retry
+                if self.mesh is not None:
+                    raise
                 retries += 1
                 clean_steps = 0
                 ema = None

@@ -657,7 +657,7 @@ def test_serve_cli_batch_and_refusals(capsys):
                     "--new-tokens", "3", "--numerics", "amsim_torch", "--multiplier", MULT])
     assert "generated (2, 3)" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="later slice"):
-        serve_cli.main(["--reduced", "--device", "cpu", "--mesh"])
+        serve_cli.main(["--reduced", "--device", "cpu", "--mesh", "--stream", "4"])
     with pytest.raises(SystemExit, match="unknown mode"):
         serve_cli.parse_tiers("cheap=amsim_jnp:afm16")
     assert set(serve_cli.parse_tiers("a=native,b=amsim_torch:afm16")) == {"a", "b"}
