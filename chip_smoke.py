@@ -137,19 +137,19 @@ LM training (both LMs, ``launch.train.make_lm_train_step``: adamw,
     (granite-3-2b's two adamw steps at depth 2 are held so in 6a); a resume
     through the trainer (2 steps, a checkpoint under
     ``build/chip_smoke_ckpt/``, a restore into a model drawn from another
-    seed, 1 step) bitwise equal to 3 steps straight; then 3 steps of each
+    seed, 1 step) bitwise equal to 3 steps straight; then 2 steps of each
     model at full width and full depth (which must fit the card's free
     memory: ``train_fits``), batch 4 x 64: each
     step's wall ms, CUDA-event ms and loss (step 2 also its device busy
     time from torch.profiler), the peak memory, the launches of each step,
-    and granite-moe's every kernel shape of step 3 timed (granite-3-2b's:
+    and granite-moe's every kernel shape of step 1 timed (granite-3-2b's:
     6b), with its bound and plan, and
     held bitwise against its plain version at its first call, inside the
     step (a GEMM of more than 1e10 lookups, an LM head at 256 rows, on its
-    first and last output tiles and every 7th column: ``held_columns``).
+    first and last output tiles and every 13th column: ``held_columns``).
 The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
 ``core/faults.py``, ``launch/sweep.py``, ``launch/faultsweep.py``; after
-5e):
+5e; 6b first, then 6a, 6c and 6d):
  6a. granite-3-2b depth 2 at full width, batch 1 x 8, 2 adamw steps with
     deterministic algorithms: a uniform ``PolicyTable`` of amsim/afm16
     bitwise the flat policy (losses, parameters after step 2, the gradient
@@ -159,13 +159,13 @@ The numerics surface (``core/policy.py`` tables, ``core/fpstages.py``,
     dictates (``table_train_want``: no dw GEMM where dw runs native, the
     attention as two batched GEMMs where its two sites differ);
  6b. ``python -m repro_torch.launch.sweep``'s ``main`` on granite-3-2b at
-    full width and depth, batch 4 x 64, 3 adamw steps a point: the fp32
-    baseline, the mixed table and ``default=fp16xbf16``; each point's
+    full width and depth, batch 4 x 64, 2 adamw steps a point: the fp32
+    baseline and ``default=fp16xbf16`` (the mixed table is 6a's); each point's
     losses against the baseline, ms a step (wall; step 2's device busy
     time from torch.profiler), peak memory, launches by kernel each step
     (as ``table_train_want`` counts them), the train steps built (one) and
     the tables uploaded; then every kernel shape of the fp16xbf16 point's
-    step 3 held bitwise against its plain version and timed under
+    step 1 held bitwise against its plain version and timed under
     fp16xbf16 and under afm16 on the same operands;
  6c. granite-3-2b depth 2 serving (batch 2, prompt 16, 4 new tokens, ring
     64) under ``unembed=native,default=fp16xbf16`` (the fused decode
@@ -202,7 +202,7 @@ Continuous batching (``serve/scheduler.py``, ``serve/paged_cache.py``,
     under amsim_torch (no deterministic algorithms: the trash page's
     colliding writes all carry zeros, so dead rows read the same on every
     run);
- 7c. granite-3-2b at full width and depth: 32 requests, prompts of 32-256
+ 7c. granite-3-2b at full width and depth: 16 requests, prompts of 32-256
     tokens from the seed, 16 new tokens each, tiers exact=native and
     cheap=amsim:afm16 in turn, 8 slots a lane, pages of 16, one arrival a
     tick, through ``launch.serve``'s engine with nothing around it:
@@ -240,18 +240,20 @@ weight-shared attention block; after 7d):
     after both layers (the two applications' gradients add up), under both with
     deterministic algorithms: the loss, the parameters and the next
     gradient bitwise, the launches;
- 8c. full width and depth: each model served at batch 4, prompt 64, 16 new
-    tokens under native and amsim (prefill ms, ms a decode step, tokens/s,
-    idle shares, launches, the GEMM kernel's time at the prefill's and a
-    decode step's shapes), then 3 adamw steps at 4 x 256 (remat for mamba2,
-    none in the hybrid stack, as in JAX): wall ms, busy ms, peak memory,
-    launches a step, finite losses, and step 3's SSD batched products (a
-    row of one chunk runs the scores and intra-chunk products alone) timed
-    beside their bounds, each bitwise its plain version.
+ 8c. full width and depth: each model served at batch 4, prompt 64, 8 new
+    tokens under amsim (prefill ms, ms a decode step, tokens/s, idle shares,
+    launches, the GEMM kernel's time at the prefill's and a decode step's
+    shapes), then (after phase 9, the mesh's ranks gone from the card) 2
+    adamw steps at 4 x 256 (remat for mamba2, none in the hybrid stack, as
+    in JAX): wall ms, busy ms, peak memory, launches a
+    step, finite losses, and step 1's SSD batched products (a row of one
+    chunk runs the scores and intra-chunk products alone) timed beside
+    their bounds, each bitwise its plain version.
 The launches of each of 8c's runs are printed on their own lines; the
 kernels line keeps the launches of the earlier paths.
 The encoder-decoder (``models/encdec.py``: whisper-base, its encoder and
-cross-attention bidirectional over 1500 frames; after 8c):
+cross-attention bidirectional over 1500 frames; after 8c's serving, 8c's
+training following it):
  9a. the kernels of its path at full width and depth 2, captured under
     amsim/afm16 from ``encode`` (2 x 1500 frames), the decode of a 4-token
     prompt and a decode step (``serve_step``), and the batched products and
@@ -270,12 +272,12 @@ cross-attention bidirectional over 1500 frames; after 8c):
     under both with deterministic algorithms: the loss, the parameters and
     the next gradient bitwise, the launches;
  9c. full width and depth: greedy decoding at batch 4 over 1500 frames,
-    prompt 4, 32 new tokens under native and amsim (encode ms, prompt ms,
+    prompt 4, 16 new tokens under native and amsim (encode ms, prompt ms,
     ms a decode step, tokens/s, idle shares, launches, the GEMM and
     attention kernels' time at the encode's and a step's shapes beside
-    their bounds); then 3 adamw steps at 4 x 64 over 1500 frames with
+    their bounds); then 2 adamw steps at 4 x 64 over 1500 frames with
     remat: wall ms, busy ms, peak memory, launches a step, finite losses,
-    step 3's attention and batched shapes timed beside their bounds, each
+    step 1's attention and batched shapes timed beside their bounds, each
     bitwise its plain version.
 The launches of 9c's runs are printed on their own lines.
 The rest of the dense registry (``configs/llava_next_34b.py``,
@@ -355,11 +357,15 @@ card with the generator, the free memory printed first;
     plain version inside the step, a GEMM of more than 1e10 lookups on
     every 71st column, the banks on the first live row of each expert).
 The launches of 11c's runs are printed on their own lines.
-The mesh (``launch/mesh.py``, ``distributed/``; after 11c, everything
-before it freed): four ranks on the one card through ``launch.mesh.spawn``
-(gloo: NCCL refuses two ranks of one communicator on one device; the
-backend line first), amsim/afm16, a 2x2 (data, model) mesh and a (4, 1)
-one over the same ranks:
+The mesh (``launch/mesh.py``, ``distributed/``): four ranks on the one
+card through ``launch.mesh.spawn`` (gloo: NCCL refuses two ranks of one
+communicator on one device; the backend line first), amsim/afm16, a 2x2
+(data, model) mesh and a (4, 1) one over the same ranks.  The spawn starts
+after 6b, everything before it freed, and runs beside 6a, 6c, 6d, 7, 8
+(8c's training apart) and 9, whose models leave the ranks room on the
+card (the main run waits for it before 8c's training, which follows 9),
+so the times of both are taken on a shared card and host; its checks and
+lines follow 11c:
  12a. the sharded contracts at full-width shapes, kernel against kernel:
     granite-3-2b's wq/wo and wg/wd at a 4 x 64 prefill, the column-parallel
     forward bitwise the single-device kernel on the whole operands, the
@@ -371,7 +377,7 @@ one over the same ranks:
     2048 x 8192 gradient bitwise the composition computed on one rank;
  12b. granite-3-2b at full width and depth on the 2x2 mesh (each rank
     draws the layers from the seed and keeps its blocks), a 4 x 64 prefill
-    and 16 greedy tokens: logits and tokens bitwise the k-split oracle
+    and 8 greedy tokens: logits and tokens bitwise the k-split oracle
     (``distributed.oracle.ksplit``: the single-device per-op run, chain off,
     with each row-parallel sum split as the mesh splits it), which a row sum
     missing one shard is not; against the unsplit per-op run a reading of
@@ -383,8 +389,8 @@ one over the same ranks:
  12c. granite-3-2b at full width, depth 4, on the 2x2 mesh: step 1's loss
     and every gradient leaf bitwise the k-split oracle
     (``distributed.oracle.ksplit_loss_and_grads``), which a row sum missing
-    one shard is not, and their readings against the unsplit step; then 2
-    adamw steps at 4 x 64 (clip 1.0), ms a step and memory a rank;
+    one shard is not, and their readings against the unsplit step; then an
+    adamw step at 4 x 64 (clip 1.0), ms a step and memory a rank;
     resnet-mini data-parallel on (4, 1), 2 sgdm steps at batch 64, step 1
     against the single-device step (``MESH_VISION_RTOL``);
  12d. ``REPRO_SHARD_FUSED=0`` at depth 2 (the replicated dispatch, the
@@ -392,9 +398,48 @@ one over the same ranks:
     single-device run's with the chain on.
 Every kernel of 12b and 12c must launch on every rank; the kernels line
 carries each kernel's launches a rank there (``mesh_launches_per_rank``).
-``python3 chip_smoke.py --phase 5e,8,12`` (any of 5e, 7, 8, 9, 10, 11, 12)
-runs phases 1, 2 and those alone, in that order, and prints no result
-lines.
+Every family on the mesh, in the same spawn after 12d (amsim/afm16 unless
+named; the oracle runs on rank 0, the unsplit runs are readings of what
+the split sums alone move):
+ 13a. granite-moe-3b-a800m at full width and depth through
+    ``ContinuousBatchingEngine(mesh=)``: 6 requests of 16-48 prompt tokens
+    and 8-16 new ones from the seed, one arrival a tick, 4 slots (two a
+    data rank), pages of 16, so that admissions (a B = 1 prefill on its
+    owner's "model" group beside decoding slots) and retirements happen;
+    the pools' spec (None, None, "model", None); tokens/s, ms a tick,
+    collectives a tick, GB a rank.  The stream under afm16, then under
+    native: the tokens and every forward's logits (each prefill's on its
+    owner, each tick's data block) bitwise the k-split oracle's stream
+    (``ksplit``: each data rank's slots in turn, the banks in the mesh's
+    blocks of experts; on the card ``native``'s products are cuBLAS's,
+    whose bits depend on the rows and batch of a call, which the printed
+    witness shows), and against the unsplit single-device stream (a
+    reading; CPU tests hold native's bitwise);
+ 13b. granite-moe at full width, depth 4, 4 x 64: step 1's loss (its aux
+    loss the whole batch's routing) and every gradient leaf bitwise the
+    oracle (``ksplit_loss_and_grads``: the data blocks in lockstep, each
+    MoE layer's routing exchanged), a row sum missing one shard not; then
+    one adamw step, its ms, collectives, GB a rank;
+ 13c. mamba2-780m and zamba2-1.2b at full width, depth 24 (of 48 and 38;
+    cut for time), served 4 x 64 and 4 new tokens, bitwise the oracle
+    (each data rank's rows in turn: the recurrence's exact float32
+    einsums are cuBLAS's); one training step at 4 x 256 bitwise the
+    oracle, mamba2 at depth 4 and zamba2 at 12 (its shared block applied
+    twice; depth cut for time: every weight gradient's data sum goes
+    through gloo's host copies);
+ 13d. whisper-base at full width and depth: an encode of 4 x 1500 frames
+    and 8 greedy tokens (encoder states, tokens, logits) and one training
+    step at 4 x 64 over 1500 frames, bitwise the oracle;
+ 13e. granite-moe's decode under ``REPRO_SHARD_FUSED=0`` at depth 2, 4 x
+    64 and 4 new: ``fused_qkv_norm``, ``fused_wo_norm`` and
+    ``fused_moe_ffn`` launch on the gathered weights and banks, logits and
+    tokens bitwise the single-device chain run.
+Every kernel of 13a-13d's mesh runs must launch on every rank; the kernels
+line carries each one's launches a rank there
+(``mesh_families_launches_per_rank``).
+``python3 chip_smoke.py --phase 5e,8,12`` (any of 5e, 7, 8, 9, 10, 11, 12,
+13) runs phases 1, 2 and those alone, in that order (12 and 13 in one
+spawn), and prints no result lines.
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -454,8 +499,10 @@ TRAIN_LAUNCHES = {"resnet-mini": (29, 15, 3), "lenet-5": (3, 2, 9), "lenet-300-1
 # LM serving: the arch, the tables of phase 3d, and the runs of 4c and 5c.
 LM_ARCH = "granite-3-2b"
 SERVE_LUTS = [("afm16", True), ("afm10", True), ("fp16xbf16", True), (FAULTED_AFM16, True)]
-# 3e and 8a: the faulted afm16 is afm16's table form (3d and 7a hold it)
-FORM_LUTS = SERVE_LUTS[:3]
+# 3e and 8a: afm16's shared-memory table and fp16xbf16's global, asymmetric
+# one (the faulted afm16 is afm16's table form, 3d and 7a hold it; afm10's
+# symmetric global table is held at the dense kernels in 3d and 10a)
+FORM_LUTS = [SERVE_LUTS[0], SERVE_LUTS[2]]
 DEPTH2 = dict(n_layers=2, batch=2, prompt=16, new=4, rings=(64, 160))
 FULL = dict(batch=4, prompt=64, new=32)
 LONG_RING = 160      # a ring over 128 slots: the chain's 3-launch form
@@ -1667,7 +1714,7 @@ def moe_serving_full_depth(dev, lookups_per_s, smi_line, moe_launches, moe_err) 
 # first live row of each expert that holds one (an output row depends on
 # its row of h alone), and on +0.0 at every dead row.
 HELD_COLUMNS_MIN = 1e10
-HELD_COLUMN_STRIDE = 7
+HELD_COLUMN_STRIDE = 13
 
 
 def held_columns(batch: int, m: int, k: int, n: int, lut,
@@ -1722,7 +1769,7 @@ def held_against_plain(kname, fn, plain, args, kw, min_lookups=HELD_COLUMNS_MIN,
 
 # ------------------------------------------------------------ LM training
 TRAIN_LR = 3e-4
-TRAIN_FULL = dict(batch=4, seq=64, steps=3)          # the schedule spans these 3 steps
+TRAIN_FULL = dict(batch=4, seq=64, steps=2)          # the schedule spans these 2 steps
 # 5e's resume and 6a's depth-2 runs: one row of 8 tokens, 2 steps (the plain
 # versions' cost grows with the rows).
 TRAIN_DEPTH2 = dict(n_layers=2, batch=1, seq=8, steps=2)
@@ -2070,7 +2117,7 @@ def lm_training(dev, lookups_per_s, smi_line) -> dict:
     """Phase 5e: LM training on the card; returns {arch: launches of its
     full-width run}.  granite-moe's top-8-of-40 MoE layer steps bitwise
     amsim_torch here at depth 1 (``TRAIN_MOE1``); granite-3-2b's depth-2
-    adamw steps are held so in 6a; granite-3-2b's step-3 kernel shapes are
+    adamw steps are held so in 6a; granite-3-2b's step-1 kernel shapes are
     held in 6b (under fp16xbf16, timed under afm16 too), granite-moe's
     here."""
     import dataclasses
@@ -2080,13 +2127,15 @@ def lm_training(dev, lookups_per_s, smi_line) -> dict:
                        train_counters(), train_want(cfg, TRAIN_MOE1["seq"]))
     train_resume(dev)
     return {arch: train_full(dev, arch, lookups_per_s, smi_line,
-                             capture_step=0 if arch == LM_ARCH else 3)
+                             capture_step=0 if arch == LM_ARCH else 1)
             for arch in TRAIN_ARCHS}
 
 
 # ------------------------------------------------- the numerics surface
 MIXED_TABLE = "qkv=mitchell8,attn_score=bf16,dw=native,default=afm16"
-SWEEP_POINTS = (MIXED_TABLE, "default=fp16xbf16")
+# 6b's points beside the fp32 baseline (the mixed table's launches and bits
+# are held at depth 2 in 6a)
+SWEEP_POINTS = ("default=fp16xbf16",)
 SERVE_TABLES = {"unembed=native,default=fp16xbf16": True, "wd=bf16,default=afm16": False}
 # The campaign under amsim (the accuracy curve), and its faulted points again
 # for BITWISE_STEPS under amsim and amsim_torch, at FAULT_BITWISE's batch and
@@ -2175,7 +2224,7 @@ def table_depth2(dev):
 
 def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
     """Phase 6b: ``launch.sweep.main`` on granite-3-2b at full width and
-    depth; each step's launches, step 2's busy time, and step 3's kernel
+    depth; each step's launches, step 2's busy time, and step 1's kernel
     calls of the fp16xbf16 point held bitwise against their plain versions
     and timed under fp16xbf16 and afm16.  Returns the launches of the
     phase by kernel."""
@@ -2191,7 +2240,7 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
     B, S, steps = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
     counters = train_counters()
     originals = {k: getattr(ops, k) for k in counters}
-    records = []                    # one a step built: launches a step, busy, step-3 calls
+    records = []                    # one a step built: launches a step, busy, step-1 calls
 
     def wrapper(step):
         # Only the last point's calls are timed: drop an earlier point's, whose
@@ -2215,7 +2264,7 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
                 if i == 1:
                     out, rec["busy"] = profiled(lambda: step(model, state, batch))
                 else:
-                    if i == 2:
+                    if i == 0:
                         for k in counters:
                             setattr(ops, k, capture(k))
                     out = step(model, state, batch)
@@ -2263,7 +2312,7 @@ def numerics_sweep(dev, lookups_per_s, smi_line) -> dict:
     new = {k: n for k, n in ops.lut_uploads.items() if k not in uploads}
     print(f"  tables first uploaded in this phase: "
           f"{[(k[0], 'packed' if k[2] else 'canonical') for k in new]}")
-    # The fp16xbf16 point's step-3 kernel calls: bitwise their plain
+    # The fp16xbf16 point's step-1 kernel calls: bitwise their plain
     # versions, and timed under fp16xbf16 and under afm16 on the same operands.
     afm16 = lut_tensor(get_packed_lut("afm16"), dev)
     x16 = lut_tensor(get_packed_lut("fp16xbf16"), dev)
@@ -2467,15 +2516,17 @@ def fault_campaign(dev, smi_line) -> dict:
     return {k: n * FAULT_RUN["steps"] * len(points) for k, n in per_step.items()}
 
 
-def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
-    """Phase 6: the numerics surface on the card; every kernel of its path
-    (6b-6d) must have launched there."""
+def numerics_surface(dev, lookups_per_s, smi_line, phase_done, after_sweep=None):
+    """Phase 6: the numerics surface on the card, 6b first (the largest
+    model), then ``after_sweep`` (if any), 6a, 6c and 6d; every kernel of
+    its path (6b-6d) must have launched there."""
+    launches = numerics_sweep(dev, lookups_per_s, smi_line)
+    phase_done("6b sweep, full width")
+    if after_sweep is not None:
+        after_sweep()
     table_depth2(dev)
     phase_done("6a tables, depth 2")
-    launches = {}
-    for name, run in (("6b sweep, full width", lambda: numerics_sweep(dev, lookups_per_s,
-                                                                      smi_line)),
-                      ("6c serving under tables", lambda: table_serving(dev)),
+    for name, run in (("6c serving under tables", lambda: table_serving(dev)),
                       ("6d fault campaign", lambda: fault_campaign(dev, smi_line))):
         for k, n in run().items():
             launches[k] = launches.get(k, 0) + n
@@ -2489,12 +2540,12 @@ def numerics_surface(dev, lookups_per_s, smi_line, phase_done):
 # ------------------------------------------------- continuous batching
 # Phase 7: the paged scheduler (``serve/scheduler.py``) through the
 # entry points of ``python -m repro_torch.launch.serve --stream``.
-# 7c's stream: 32 requests, prompts of 32-256 tokens, 16 new tokens each,
+# 7c's stream: 16 requests, prompts of 32-256 tokens, 16 new tokens each,
 # tiers exact=native and cheap=amsim:afm16 in turn, 8 slots a lane, pages
 # of 16, one arrival a tick; 7d: granite-moe, 8 requests of 16 new tokens,
 # one amsim tier.  7b: depth 2, 6 requests, prompts of 4-40 tokens, 6 new
 # tokens (a table of 3 pages: Tcap 48, the chain's 2-launch form).
-STREAM = ["--stream", "32", "--min-prompt-len", "32", "--prompt-len", "256", "--new-tokens",
+STREAM = ["--stream", "16", "--min-prompt-len", "32", "--prompt-len", "256", "--new-tokens",
           "16", "--tiers", "exact=native,cheap=amsim:afm16", "--capacity", "8", "--page-size",
           "16", "--arrival-every", "1", "--seed", str(SEED)]
 MOE_STREAM = ["--arch", MOE_ARCH, "--stream", "8", "--min-prompt-len", "32", "--prompt-len",
@@ -2984,8 +3035,8 @@ SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
 # one step of it and the gradient after it (6a holds adamw's second step).
 SSM_DEPTH2 = dict(batch=1, prompt=16, new=4, window=8, train_batch=1, seq=32, chunk=16,
                   steps=1)
-SSM_FULL = dict(batch=4, prompt=64, new=16, capture_ring=96)   # 8a's ring: 64 + 32
-SSM_TRAIN = dict(batch=4, seq=256, steps=3)
+SSM_FULL = dict(batch=4, prompt=64, new=8, capture_ring=96)    # 8a's ring: 64 + 32
+SSM_TRAIN = dict(batch=4, seq=256, steps=2)
 SSM_CUT_WINDOW = 32          # 8a: a zamba2 prefill of 64 tokens into a ring of 32
 SSM_CAPTURE_SEQ = 512        # 8a: a training row of two chunks at the config's 256
 # 8a does not replay GEMM shapes that 3d holds under the same tables
@@ -3279,11 +3330,11 @@ def ssm_train_depth2(dev, cfg, label, seq) -> None:
 
 
 def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
-    """8c serving: ``arch`` at full width and depth, batch 4, prompt 64, 16
-    new tokens under native and amsim: prefill ms, ms a decode step,
-    tokens/s, idle shares; the amsim run's launches (counters zeroed just
-    before it) on a line of their own; the GEMM kernel's device time at the
-    prefill's and a decode step's shapes."""
+    """8c serving: ``arch`` at full width and depth, batch 4, prompt 64, 8
+    new tokens under amsim: prefill ms, ms a decode step, tokens/s, idle
+    shares; the run's launches (counters zeroed just before it) on a line
+    of their own; the GEMM kernel's device time at the prefill's and a
+    decode step's shapes."""
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policy import NumericsPolicy
     from repro_torch.kernels import ops
@@ -3306,17 +3357,14 @@ def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
     counters = ssm_counters()
     want = ssm_serve_want(cfg, prefill=True, steps=N - 1, ring=ring)
     amsim = NumericsPolicy(mode="amsim", multiplier="afm16")
-    res = {}
-    for pname, policy in (("native", NumericsPolicy()), ("amsim", amsim)):
+    for pname, policy in (("amsim", amsim),):
         engine = ServingEngine(model, policy, max_len=max_len)
         engine.generate(prompts, 2)          # warm-up
         zero_launches(counters)
         timings = {}
         toks = engine.generate(prompts, N, timings=timings)
         got = launches_of(counters)
-        if pname == "amsim":
-            require(got == want, f"8c {arch} serving: launches {got}, want {want}")
-            amsim_got = got
+        require(got == want, f"8c {arch} serving: launches {got}, want {want}")
         require(toks.shape == (B, N) and bool((toks >= 0).all() & (toks < cfg.vocab).all()),
                 f"8c {arch} {pname}: tokens out of range")
         caches = init_lm_caches(cfg, B, max_len, dev)
@@ -3326,15 +3374,12 @@ def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
                            reps=1)
         pre_ms = timings["prefill_s"] * 1e3
         step_ms = timings["decode_s"] * 1e3 / timings["decode_steps"]
-        res[pname] = (pre_ms, step_ms)
         print(f"  {pname}: prefill {pre_ms:.2f} ms ({busy_text(busy_pre, pre_ms)}), "
               f"{step_ms:.3f} ms per decode step ({busy_text(busy_step, step_ms)}), "
               f"{B * N / (timings['prefill_s'] + timings['decode_s']):.2f} tokens/s; tokens "
               f"{toks[0, :8].tolist()}")
-    print(f"  amsim/native: prefill {res['amsim'][0] / res['native'][0]:.2f}x, decode step "
-          f"{res['amsim'][1] / res['native'][1]:.2f}x")
     print(f"launches on the {arch} serving run (8c, amsim, prefill and {N - 1} decode steps): "
-          f"{amsim_got}")
+          f"{got}")
     # The GEMM kernel at this run's shapes: a prefill and a decode step.
     original = ops.approx_gemm
     for ctx in ("prefill", "decode step"):
@@ -3370,9 +3415,10 @@ def ssm_serving_full(dev, arch, lookups_per_s, smi_line) -> None:
     torch.cuda.empty_cache()
 
 
-def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
+def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done, train=True) -> dict:
     """Phase 8: 8a-8c; 8c prints each full-depth run's launches on a line of
-    its own.  Returns each kernel's largest |difference| in 8a."""
+    its own; 8c's training unless not ``train`` (``ssm_training``).
+    Returns each kernel's largest |difference| in 8a."""
     import dataclasses
     err = ssm_kernel_checks(dev, lut_case, lookups_per_s)
     phase_done("8a SSM kernels vs plain")
@@ -3392,12 +3438,21 @@ def ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done) -> dict:
     phase_done("8b SSM serving and training, depth 2")
     for arch in SSM_ARCHS:
         ssm_serving_full(dev, arch, lookups_per_s, smi_line)
+    phase_done("8c SSM serving, full depth")
+    if train:
+        ssm_training(dev, lookups_per_s, smi_line, phase_done)
+    return err
+
+
+def ssm_training(dev, lookups_per_s, smi_line, phase_done) -> None:
+    """8c's training: each model's ``SSM_TRAIN`` steps at full width and
+    depth, its launches on a line of their own."""
+    for arch in SSM_ARCHS:
         run = train_full(dev, arch, lookups_per_s, smi_line, shape=SSM_TRAIN,
-                         capture=("approx_gemm_batched",))
+                         capture=("approx_gemm_batched",), capture_step=1)
         print(f"launches on the {arch} training run (8c, {SSM_TRAIN['steps']} steps at "
               f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq']}): {run}")
-    phase_done("8c SSM serving and training, full depth")
-    return err
+    phase_done("8c SSM training, full depth")
 
 
 # ------------------------------------------------- the encoder-decoder
@@ -3410,8 +3465,8 @@ ENCDEC_ARCH = "whisper-base"
 # gradient after it (6a holds adamw's second step).
 ENCDEC_DEPTH2 = dict(batch=2, serve_batch=1, prompt=4, new=4, train_batch=1, seq=64, steps=1,
                      train_layers=1)
-ENCDEC_FULL = dict(batch=4, prompt=4, new=32)
-ENCDEC_TRAIN = dict(batch=4, seq=64, steps=3)
+ENCDEC_FULL = dict(batch=4, prompt=4, new=16)
+ENCDEC_TRAIN = dict(batch=4, seq=64, steps=2)
 # 9a holds a product of more lookups than this under the first table only.
 ENCDEC_ALL_TABLES_MAX = 6e9
 # 9a's bidirectional special-value shapes: (label, B, S, H, KV, T, unwritten
@@ -3888,7 +3943,7 @@ def encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done) -> 
     phase_done("9b encdec decoding and training, depth 2")
     encdec_serving_full(dev, lookups_per_s, smi_line)
     run = train_full(dev, ENCDEC_ARCH, lookups_per_s, smi_line, shape=ENCDEC_TRAIN,
-                     capture=("approx_gemm_batched", "approx_attention"))
+                     capture=("approx_gemm_batched", "approx_attention"), capture_step=1)
     print(f"launches on the {ENCDEC_ARCH} training run (9c, {ENCDEC_TRAIN['steps']} steps at "
           f"{ENCDEC_TRAIN['batch']} x {ENCDEC_TRAIN['seq']} over 1500 frames): {run}")
     phase_done("9c encdec decoding and training, full depth")
@@ -4316,8 +4371,8 @@ LLAMA4_TRAIN1 = dict(batch=1, seq=4, steps=1)      # 11b training
 LLAMA4_TRAIN = dict(batch=4, seq=64, steps=2)      # 11c training; its first step held
 # 11a and 11c's training hold a GEMM of more than HELD_COLUMNS_MIN lookups
 # (the head at 256 rows, the 256-row FFN projections, the banks' backward)
-# on every 71st column (odd, so every lane and register column; every 7th
-# would be 38 G plain lookups for a head).  11a holds the expert banks whole
+# on every 71st column (odd, so every lane and register column; every 13th
+# would be 20 G plain lookups for a head).  11a holds the expert banks whole
 # under afm16 (their plain version computes the live experts alone, as the
 # kernel does: a 4 x 64 prefill's ~85 of 128, ~20 s), and under afm10 the
 # prefill's buffer on the first live row of each live expert
@@ -4721,11 +4776,11 @@ def llama4(dev, lut_case, lookups_per_s, smi_line, phase_done) -> tuple:
 # ------------------------------------------------------------ 12. the mesh
 MESH_SHAPE = (2, 2)                                  # (data, model): four ranks
 DP_SHAPE = (4, 1)                                    # resnet-mini data-parallel
-MESH_SERVE = dict(batch=4, prompt=64, new=16)
-MESH_TRAIN = dict(n_layers=4, batch=4, seq=64, steps=2)
+MESH_SERVE = dict(batch=4, prompt=64, new=8)
+MESH_TRAIN = dict(n_layers=4, batch=4, seq=64, steps=1)
 MESH_KILL = dict(n_layers=2, new=4)
 MESH_VISION_RTOL = 1e-4     # resnet-mini's loss and parameters after step 1
-MESH_TIMEOUT = 600
+MESH_TIMEOUT = 900       # phases 12 and 13 in one spawn
 MESH_KERNELS = ("approx_gemm", "approx_gemm_batched", "approx_attention",
                 "approx_conv2d_fused", "approx_conv2d_dw")
 
@@ -4905,7 +4960,7 @@ def _agreement(toks, ref_toks, logits, ref_logits) -> dict:
 
 def mesh_serving(mesh, counters) -> dict:
     """12b on this rank: granite-3-2b at full width and depth on the 2x2
-    mesh, a 4 x 64 prefill and 16 greedy tokens; then (rank 0) the
+    mesh, a 4 x 64 prefill and 8 greedy tokens; then (rank 0) the
     single-device per-op run (the chain off) of the same weights and prompts,
     and the mesh's prefill with a row sum missing one shard (the wrong
     variant)."""
@@ -4990,9 +5045,9 @@ def _grads_of(model, batch, pol, mesh=None):
 def mesh_training(mesh, dp, counters) -> dict:
     """12c on this rank: granite-3-2b at full width and depth 4 on the 2x2
     mesh, step 1's loss and gradient (gathered) against the single-device
-    one (rank 0), then 2 adamw steps timed; resnet-mini data-parallel on
-    the (4, 1) mesh, 2 sgdm steps at batch 64, step 1's loss and parameters
-    against the single-device step (rank 0)."""
+    one (rank 0), then MESH_TRAIN's adamw steps timed; resnet-mini
+    data-parallel on the (4, 1) mesh, 2 sgdm steps at batch 64, step 1's
+    loss and parameters against the single-device step (rank 0)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -5139,11 +5194,586 @@ def mesh_kill_switch(mesh, counters) -> dict:
     return out
 
 
-def mesh_rank(mesh) -> dict:
-    """Phase 12 on one rank of the 2x2 mesh (and of the (4, 1) mesh over the
-    same ranks): 12a, 12b, 12c, 12d with each one's seconds."""
+# ------------------------------------------- 13. every family on the mesh
+FAM_MOE = "granite-moe-3b-a800m"
+FAM_STREAM = dict(requests=6, prompt=(16, 48), new=(8, 16), capacity=4, page=16)
+FAM_MOE_TRAIN = dict(n_layers=4, batch=4, seq=64, steps=1)
+# mamba2 and zamba2: served at depth 24 (of 48 and 38: cut for time); one
+# training step at 4 x 256 (a chunk a row) at a cut depth (time: every
+# weight gradient's data sum goes through gloo's host copies), zamba2's
+# applying its shared block twice
+FAM_SSM = {"mamba2-780m": dict(train_layers=4), "zamba2-1.2b": dict(train_layers=12)}
+FAM_SSM_SERVE = dict(batch=4, prompt=64, new=4, n_layers=24)
+FAM_SSM_TRAIN = dict(batch=4, seq=256)
+FAM_WHISPER = "whisper-base"
+FAM_WHISPER_SERVE = dict(batch=4, prompt=4, new=8)
+FAM_WHISPER_TRAIN = dict(batch=4, seq=64)
+FAM_KILL = dict(n_layers=2, batch=4, prompt=64, new=4)
+FAM_KERNELS = ("approx_gemm", "approx_gemm_batched", "approx_attention")
+
+
+def fam_cfg(arch, n_layers=None):
+    """An arch of phase 13 at full width, its depth cut to ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def family_counters():
+    from repro_torch.kernels import decode_chain as chain
+    return {**mesh_counters(), "fused_wo_norm": chain.fused_wo_norm,
+            "fused_moe_ffn": chain.fused_moe_ffn}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _params_gb(model) -> float:
+    return sum(p.numel() for p in model.parameters()) * 4 / 1e9
+
+
+def _afm16():
+    from repro_torch.core.policy import NumericsPolicy
+    return NumericsPolicy(mode="amsim", multiplier="afm16")
+
+
+def _fam_init(cfg, dev, mesh=None):
+    """The arch's model from ``SEED`` on ``dev``: this rank's blocks under a
+    mesh, every tensor without one."""
+    from repro_torch.models.encdec import init_encdec
+    from repro_torch.models.transformer import init_lm
+    init = init_encdec if cfg.family == "encdec" else init_lm
+    return init(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                mesh=mesh)
+
+
+def _fam_grads(model, batch, pol, mesh=None):
+    """(loss, {name: gradient}) of one step's loss, the gradients gathered
+    under a mesh."""
+    from repro_torch.distributed.sharding import gather_tensor
+    from repro_torch.models.encdec import encdec_loss
+    from repro_torch.models.transformer import lm_loss
+    loss_fn = encdec_loss if model.cfg.family == "encdec" else lm_loss
+    loss, metrics = loss_fn(model, batch, pol)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if mesh is not None:
+        grads = [gather_tensor(g, getattr(p, "spec", ()), mesh)
+                 for g, p in zip(grads, params.values())]
+    return (loss.detach(), dict(zip(params, grads)),
+            {k: float(v.detach()) for k, v in metrics.items()})
+
+
+def _missing_shard(mesh):
+    """The wrong variant: each row sum over "model" keeps shard 0 alone."""
+    whole = mesh.all_gather
+    mesh.ordered_sum = lambda t, axes: whole(t, axes)[0] if axes == "model" else \
+        type(mesh).ordered_sum(mesh, t, axes)
+
+
+def _step_verdict(mesh, model, batch, pol, dev, counters, wrong=False) -> dict:
+    """A training step's loss and gathered gradients on the mesh (its
+    launches counted), with ``wrong`` the missing-shard variant's, and
+    (rank 0) both against the k-split oracle and the unsplit single-device
+    step (a reading)."""
+    from repro_torch.distributed.oracle import ksplit_loss_and_grads
+    from repro_torch.launch.mesh import MeshShape
+    rows = {k: mesh.block(v, mesh.data_axes, 0) for k, v in batch.items()}
+    _reset_peak(dev)
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    loss, grads, metrics = _fam_grads(model, rows, pol, mesh)
+    _sync(dev)
+    out = {"step_s": time.perf_counter() - t0, "metrics": metrics,
+           "launches": launches_of(counters), "peak_gb": _peak_gb(dev)}
+    if wrong:
+        _missing_shard(mesh)
+        _, wrong, _ = _fam_grads(model, rows, pol, mesh)
+        del mesh.ordered_sum
+    if mesh.rank == 0:
+        ref = _fam_init(model.cfg, dev)
+        oloss, ograds = ksplit_loss_and_grads(ref, batch, pol, MeshShape(MESH_SHAPE))
+        with single_device_ctx():
+            rloss, rgrads, _ = _fam_grads(ref, batch, pol)
+        del ref
+        out.update(
+            loss=float(loss), ref_loss=float(rloss), loss_bitwise=_bitwise(loss, oloss),
+            leaves=len(ograds),
+            differ=[n for n, g in ograds.items() if _bitwise(grads[n], g) is not True],
+            loss_rel=abs(float(loss) - float(rloss)) / abs(float(rloss)),
+            worst_grad_rel=max((_rel(grads[n], g), n) for n, g in rgrads.items()))
+        if wrong:
+            out.update(
+                wrong_equal=[n for n, g in ograds.items() if _bitwise(wrong[n], g) is True],
+                wrong_worst_rel=max((_rel(wrong[n], g), n) for n, g in rgrads.items()))
+        del ograds, rgrads
+    del grads, wrong
+    _free(dev)
+    return out
+
+
+def fam_requests(cfg) -> list:
+    """13a's stream: FAM_STREAM's requests drawn from ``SEED`` with numpy,
+    one arrival a tick."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    lo, hi = FAM_STREAM["prompt"]
+    nlo, nhi = FAM_STREAM["new"]
+    return [(i, rng.integers(1, cfg.vocab, size=int(rng.integers(lo, hi + 1))).tolist(),
+             int(rng.integers(nlo, nhi + 1)), "default")
+            for i in range(FAM_STREAM["requests"])]
+
+
+def _tapped():
+    """A context: every forward of the paged scheduler's lane steps, in
+    turn, as [(tokens, logits)] on the host (a prefill's on its owner's
+    ranks, a tick's rows of this rank's data block)."""
+    import contextlib
+
+    from repro_torch.serve import scheduler
+
+    @contextlib.contextmanager
+    def tap():
+        calls, forward = [], scheduler.lm_forward
+
+        def tapped(model, tokens, policy, **kw):
+            out = forward(model, tokens, policy, **kw)
+            calls.append((tokens.cpu(), out[0].cpu()))
+            return out
+        scheduler.lm_forward = tapped
+        try:
+            yield calls
+        finally:
+            scheduler.lm_forward = forward
+    return tap()
+
+
+def _run_stream(model, pol, stream, dev, mesh=None):
+    """The stream through ``ContinuousBatchingEngine``, its forwards tapped:
+    (engine, wall seconds, ({rid: tokens}, [(tokens, logits)]))."""
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine
+    max_len = FAM_STREAM["prompt"][1] + FAM_STREAM["new"][1] + 1
+    eng = ContinuousBatchingEngine(model, {"default": pol}, max_len=max_len,
+                                   capacity=FAM_STREAM["capacity"], page_size=FAM_STREAM["page"],
+                                   mesh=mesh)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with _tapped() as calls:
+        eng.run(stream)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return eng, wall, ({rid: list(r.out) for rid, r in eng.finished.items()}, calls)
+
+
+def _ticks(calls) -> list:
+    """Each decode tick's (tokens, logits) of a single-device stream, a
+    tick that ran in data blocks (the oracle's) put back together."""
+    out, part = [], []
+    for c in calls:
+        if c[0].shape[1] == 1:
+            part.append(c)
+            if sum(t.shape[0] for t, _ in part) == FAM_STREAM["capacity"]:
+                out.append(tuple(torch.cat(x) for x in zip(*part)))
+                part = []
+    return out
+
+
+def _paired_calls(runs, want) -> list | str:
+    """The mesh's stream, ``runs`` each data rank's ({rid: tokens}, calls),
+    against a single-device one ``want``: [(the mesh's logits, want's,
+    same inputs)], a decode tick's the data ranks' blocks put together, a
+    prefill's its owner's of the same prompt; or where they do not pair."""
+    calls = want[1]
+    ticks = _ticks(calls)
+    prefills = [c for c in calls if c[0].shape[1] > 1]
+    mine = [[c for c in r[1] if c[0].shape[1] > 1] for r in runs]
+    got_ticks = [[c for c in r[1] if c[0].shape[1] == 1] for r in runs]
+    if sum(map(len, mine)) != len(prefills) or any(len(t) != len(ticks) for t in got_ticks):
+        return (f"{[len(m) for m in mine]} prefills and {[len(t) for t in got_ticks]} ticks "
+                f"against {len(prefills)} and {len(ticks)}")
+    pairs = []
+    for i, (tw, lw) in enumerate(ticks):
+        tg, lg = (torch.cat(x) for x in zip(*(t[i] for t in got_ticks)))
+        pairs.append((lg, lw, torch.equal(tg, tw)))
+    for tw, lw in prefills:
+        owner = next((m for m in mine if m and torch.equal(m[0][0], tw)), None)
+        if owner is None:
+            return f"no data rank prefilled a prompt of {tw.shape[1]} tokens"
+        pairs.append((owner.pop(0)[1], lw, True))
+    return pairs
+
+
+def _stream_verdict(runs, want) -> bool | str:
+    """True when every request's tokens are ``want``'s and every paired
+    forward's logits bitwise, else what differs."""
+    if any(r[0] != want[0] for r in runs):
+        return "tokens differ"
+    pairs = _paired_calls(runs, want)
+    if isinstance(pairs, str):
+        return pairs
+    bad = [i for i, (a, b, same) in enumerate(pairs) if not same or _bitwise(a, b) is not True]
+    return True if not bad else (f"{len(bad)} of {len(pairs)} forwards differ, the first "
+                                 f"{_bitwise(*pairs[bad[0]][:2])}")
+
+
+def _stream_gap(runs, want) -> tuple:
+    """(tokens equal, tokens, the logits' largest |d| and relative norm over
+    the forwards whose inputs agree)."""
+    toks = want[0]
+    eq = sum(x == y for rid in toks for x, y in zip(runs[0][0][rid], toks[rid]))
+    n = sum(len(t) for t in toks.values())
+    pairs = _paired_calls(runs, want)
+    if isinstance(pairs, str):
+        return eq, n, math.nan, math.nan
+    same = [(a, b) for a, b, s in pairs if s]
+    gap = max(float((a - b).abs().max()) for a, b in same)
+    num = sum(float((a - b).norm() ** 2) for a, b in same)
+    den = sum(float(b.norm() ** 2) for _, b in same)
+    return eq, n, gap, (num / max(den, 1e-30)) ** 0.5
+
+
+def _gathered_runs(mesh, run) -> list | None:
+    """On rank 0, each data rank's ({rid: tokens}, calls) of a stream (its
+    first "model" rank's: the logits are gathered over "model"); None
+    elsewhere."""
+    import torch.distributed as dist
+    mine = (mesh.index(mesh.data_axes), run if mesh.index("model") == 0 else None)
+    every = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(mine, every, dst=0)
+    if mesh.rank:
+        return None
+    return [r for _, r in sorted((d, r) for d, r in every if r is not None)]
+
+
+def _shape_witness(model, dev) -> dict:
+    """Whether ``native``'s products are bitwise at the mesh's shapes of a
+    call on this card: layer 0's expert banks on a buffer of C = 8 (a tick's
+    or a B = 1 prefill's) as one call over every expert against one a
+    "model" block of them; the tied head on 4 rows against 2 + 2."""
+    from repro_torch.models.moe import _Bank
+    from repro_torch.models.mlp import ffn
+    from repro_torch.core.policy import NumericsPolicy
+    cfg, pol, n = model.cfg, NumericsPolicy(), MESH_SHAPE[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ew = model.layers[0].moe["experts"]
+    buf = torch.randn((cfg.moe.n_experts, 8, cfg.d_model), generator=gen, device=dev)
+    x = torch.randn((4, cfg.d_model), generator=gen, device=dev)
+    w = model.embed.emb.detach().T
+    with torch.no_grad():
+        whole = ffn(ew, buf, pol, cfg.act)
+        blocks = torch.cat([ffn({k: _Bank(lin.w.chunk(n, 0)[i]) for k, lin in ew.items()}, b,
+                                pol, cfg.act) for i, b in enumerate(buf.chunk(n, 0))])
+        head = x @ w
+        halves = torch.cat([x[:2] @ w, x[2:] @ w])
+    return {"banks": _bitwise(whole, blocks), "head": _bitwise(head, halves)}
+
+
+def fam_stream(mesh, counters) -> dict:
+    """13a on this rank: granite-moe-3b-a800m at full width and depth
+    through ``ContinuousBatchingEngine(mesh=)``: the stream under afm16
+    (counted, timed), then under native; (rank 0) each against the k-split
+    oracle's stream, and against the unsplit single-device stream (a
+    reading), and native's bits at the mesh's shapes of a call."""
+    import torch.distributed as dist
+    from repro_torch.core.policy import NumericsPolicy
+    from repro_torch.distributed.oracle import ksplit
+    from repro_torch.launch.mesh import MeshShape
+    dev, cfg = mesh.device, fam_cfg(FAM_MOE)
+    stream = fam_requests(cfg)
+    t0 = time.perf_counter()
+    model = _fam_init(cfg, dev, mesh)
+    _sync(dev)
+    out = {"draw_s": time.perf_counter() - t0, "params_gb": _params_gb(model),
+           "requests": [(len(p), n) for _, p, n, _ in stream]}
+    _reset_peak(dev)
+    mesh.reset_stats()
+    zero_launches(counters)
+    eng, wall, got = _run_stream(model, _afm16(), stream, dev, mesh)
+    out["launches"] = launches_of(counters)
+    lane = eng._lanes["default"]
+    tokens = sum(len(t) for t in got[0].values())
+    out.update(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall, ticks=lane.decode_ticks,
+               tick_ms=1e3 * sum(lane.decode_s) / max(lane.decode_ticks, 1),
+               admissions=sum(len(v) for v in lane.prefill_s.values()),
+               prefill_ms=1e3 * sum(sum(v) for v in lane.prefill_s.values())
+               / max(sum(len(v) for v in lane.prefill_s.values()), 1),
+               collectives=mesh.stats["collectives"], coll_s=mesh.stats["seconds"],
+               preemptions=sum(r.preemptions for r in eng.finished.values()),
+               pages_high=lane.pages_high, peak_gb=_peak_gb(dev),
+               pool_specs=lane.cache_specs[0]["pool_k"])
+    del eng, lane
+    got = _gathered_runs(mesh, got)
+    _, out["native_s"], nat = _run_stream(model, NumericsPolicy(), stream, dev, mesh)
+    nat = _gathered_runs(mesh, nat)
+    del model
+    _free(dev)
+    if mesh.rank == 0:
+        ref = _fam_init(cfg, dev)
+        for name, pol, runs in (("afm16", _afm16(), got), ("native", NumericsPolicy(), nat)):
+            with ksplit(ref, MeshShape(MESH_SHAPE)):
+                _, t_oracle, oracle = _run_stream(ref, pol, stream, dev)
+            with single_device_ctx():
+                os.environ["REPRO_DECODE_FUSED"] = "0"
+                try:
+                    _, _, unsplit = _run_stream(ref, pol, stream, dev)
+                finally:
+                    del os.environ["REPRO_DECODE_FUSED"]
+            out[name] = {"oracle": _stream_verdict(runs, oracle), "oracle_s": t_oracle,
+                         "gap": _stream_gap(runs, unsplit)}
+            del oracle, unsplit
+        out["witness"] = _shape_witness(ref, dev)
+        del ref
+        _free(dev)
+    dist.barrier()
+    return out
+
+
+def fam_moe_train(mesh, counters) -> dict:
+    """13b on this rank: granite-moe at full width, depth 4, 4 x 64: step
+    1's loss and gradients against the k-split oracle (rank 0), then
+    FAM_MOE_TRAIN's adamw steps timed."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch.train import make_lm_train_step
+    dev = mesh.device
+    cfg = fam_cfg(FAM_MOE, FAM_MOE_TRAIN["n_layers"])
+    B, S, steps = FAM_MOE_TRAIN["batch"], FAM_MOE_TRAIN["seq"], FAM_MOE_TRAIN["steps"]
+    model = _fam_init(cfg, dev, mesh)
+    out = _step_verdict(mesh, model, lm_batch(cfg, (B, S), 0, dev), _afm16(), dev, counters,
+                        wrong=True)
+    del out["launches"]          # the adamw steps below are the path's
+    opt, step = make_lm_train_step(cfg, _afm16(), lr=TRAIN_LR, steps=steps)
+    state = opt.init(dict(model.named_parameters()))
+    _reset_peak(dev)
+    zero_launches(counters)
+    mesh.reset_stats()
+    times, losses = [], []
+    for i in range(steps):
+        rows = {k: mesh.block(v, mesh.data_axes, 0) for k, v in lm_batch(cfg, (B, S), i,
+                                                                          dev).items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(model, state, rows)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    out["launches"] = launches_of(counters)
+    out.update(ms=[1e3 * t for t in times], losses=losses, peak_gb=_peak_gb(dev),
+               params_gb=_params_gb(model), collectives=mesh.stats["collectives"] / steps,
+               coll_share=mesh.stats["seconds"] / sum(times))
+    del model, state, opt, step
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def _by_data_block(fn, *tensors):
+    """``fn`` run on each data rank's rows of ``tensors`` in turn, each
+    output concatenated over the blocks: the single-device run of a mesh's
+    serving where a row's ops are row-local only at a fixed row count (the
+    SSM recurrence's exact float32 einsums are cuBLAS's, which picks its
+    algorithm by the rows of a call)."""
+    D = MESH_SHAPE[0]
+    outs = [fn(*(t.chunk(D, 0)[d] for t in tensors)) for d in range(D)]
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
+def _serve_verdict(mesh, model, pol, dev, prompts, new, counters) -> dict:
+    """A batch served on the mesh (counted, timed) against (rank 0) the
+    k-split oracle's run (each data rank's rows in turn) and the unsplit
+    per-op run (a reading)."""
+    from repro_torch.distributed.oracle import ksplit
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.serve.engine import ServingEngine
+    S = prompts.shape[1]
+    engine = ServingEngine(model, pol, max_len=S + new, mesh=mesh)
+    _reset_peak(dev)
+    zero_launches(counters)
+    toks, logits, t, st = _timed_generate(engine, prompts, new, mesh)
+    out = {"s": t, "collectives": st["collectives"], "coll_s": st["seconds"],
+           "tokens_per_s": prompts.shape[0] * new / t, "launches": launches_of(counters),
+           "peak_gb": _peak_gb(dev)}
+    if mesh.rank == 0:
+        ref = _fam_init(model.cfg, dev)
+        with ksplit(ref, MeshShape(MESH_SHAPE)):
+            otoks, ologits = _by_data_block(
+                lambda p: _timed_generate(ServingEngine(ref, pol, max_len=S + new), p, new)[:2],
+                prompts)
+        os.environ["REPRO_DECODE_FUSED"] = "0"
+        try:
+            with single_device_ctx():
+                rtoks, rlogits, _, _ = _timed_generate(ServingEngine(ref, pol, max_len=S + new),
+                                                       prompts, new)
+        finally:
+            del os.environ["REPRO_DECODE_FUSED"]
+        del ref
+        out.update(tokens=torch.equal(toks, otoks), logits=_bitwise(logits, ologits),
+                   agreement=_agreement(toks, rtoks, logits, rlogits))
+    _free(dev)
+    return out
+
+
+def fam_ssm(mesh, counters, arch) -> dict:
+    """13c on this rank for ``arch``: served at FAM_SSM_SERVE's depth (4 x
+    64 and its new tokens), then one training step at 4 x 256 at FAM_SSM's
+    depth, each against the k-split oracle (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import lm_batch
+    dev, cfg = mesh.device, fam_cfg(arch, FAM_SSM_SERVE["n_layers"])
+    B, S, new = FAM_SSM_SERVE["batch"], FAM_SSM_SERVE["prompt"], FAM_SSM_SERVE["new"]
+    prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    model = _fam_init(cfg, dev, mesh)
+    out = {"params_gb": _params_gb(model)}
+    out["serve"] = _serve_verdict(mesh, model, _afm16(), dev, prompts, new, counters)
+    del model
+    _free(dev)
+    tcfg = fam_cfg(arch, FAM_SSM[arch]["train_layers"])
+    model = _fam_init(tcfg, dev, mesh)
+    batch = lm_batch(tcfg, (FAM_SSM_TRAIN["batch"], FAM_SSM_TRAIN["seq"]), 0, dev)
+    out["train"] = _step_verdict(mesh, model, batch, _afm16(), dev, counters)
+    out["launches"] = {k: n + out["serve"]["launches"][k]
+                       for k, n in out["train"]["launches"].items()}
+    del model
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def fam_whisper(mesh, counters) -> dict:
+    """13d on this rank: whisper-base at full width and depth: an encode of
+    4 x 1500 frames and FAM_WHISPER_SERVE's greedy tokens, then one training
+    step at 4 x 64 over 1500 frames, each against the k-split oracle
+    (rank 0; its decoding each data rank's rows in turn)."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.distributed.oracle import ksplit
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.encdec import greedy
+    dev, cfg = mesh.device, fam_cfg(FAM_WHISPER)
+    B, P, new = FAM_WHISPER_SERVE["batch"], FAM_WHISPER_SERVE["prompt"], FAM_WHISPER_SERVE["new"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    frames = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=g, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=g, device=dev)
+    model = _fam_init(cfg, dev, mesh)
+    pol = _afm16()
+
+    def rows(t):
+        return mesh.block(t, mesh.data_axes, 0)
+
+    greedy(model, rows(frames)[:, :64], rows(prompts), 2, pol)           # warm-up
+    _reset_peak(dev)
+    zero_launches(counters)
+    mesh.reset_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    enc, toks, logits = greedy(model, rows(frames), rows(prompts), new, pol)
+    _sync(dev)
+    out = {"s": time.perf_counter() - t0, "collectives": mesh.stats["collectives"],
+           "params_gb": _params_gb(model)}
+    enc, toks, logits = (mesh.all_gather(t.contiguous(), mesh.data_axes, dim=0)
+                         for t in (enc, toks, logits))
+    launches = launches_of(counters)
+    out["peak_gb"] = _peak_gb(dev)
+    if mesh.rank == 0:
+        ref = _fam_init(cfg, dev)
+        with ksplit(ref, MeshShape(MESH_SHAPE)):
+            oenc, otoks, ologits = _by_data_block(
+                lambda f, p: greedy(ref, f, p, new, pol), frames, prompts)
+        os.environ["REPRO_DECODE_FUSED"] = "0"
+        try:
+            with single_device_ctx():
+                renc, rtoks, rlogits = greedy(ref, frames, prompts, new, pol)
+        finally:
+            del os.environ["REPRO_DECODE_FUSED"]
+        del ref
+        out.update(enc=_bitwise(enc, oenc), tokens=torch.equal(toks, otoks),
+                   logits=_bitwise(logits, ologits), enc_rel=_rel(enc, renc),
+                   agreement=_agreement(toks, rtoks, logits, rlogits))
+    _free(dev)
+    batch = lm_batch(cfg, (FAM_WHISPER_TRAIN["batch"], FAM_WHISPER_TRAIN["seq"]), 0, dev)
+    out["train"] = _step_verdict(mesh, model, batch, pol, dev, counters)
+    out["launches"] = {k: n + launches[k] for k, n in out["train"]["launches"].items()}
+    del model
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def fam_kill_switch(mesh, counters) -> dict:
+    """13e on this rank: granite-moe's decode under REPRO_SHARD_FUSED=0 at
+    depth 2 (the chain, its MoE launches too, on the gathered weights)
+    against the single-device run with the chain on (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.serve.engine import ServingEngine
+    dev = mesh.device
+    cfg = fam_cfg(FAM_MOE, FAM_KILL["n_layers"])
+    B, S, new = FAM_KILL["batch"], FAM_KILL["prompt"], FAM_KILL["new"]
+    prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    model = _fam_init(cfg, dev, mesh)
+    os.environ["REPRO_SHARD_FUSED"] = "0"
+    try:
+        zero_launches(counters)
+        toks, logits, t, _ = _timed_generate(ServingEngine(model, _afm16(), max_len=S + new,
+                                                           mesh=mesh), prompts, new, mesh)
+        out = {"launches": launches_of(counters), "s": t}
+    finally:
+        del os.environ["REPRO_SHARD_FUSED"]
+    if mesh.rank == 0:
+        with single_device_ctx():
+            ref = _fam_init(cfg, dev)
+            rtoks, rlogits, _, _ = _timed_generate(ServingEngine(ref, _afm16(), max_len=S + new),
+                                                   prompts, new)
+        out["tokens_bitwise"] = torch.equal(toks, rtoks)
+        out["logits_bitwise"] = _bitwise(logits, rlogits)
+        del ref
+    del model
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def families_rank(mesh, done) -> dict:
+    """Phase 13 on one rank of the 2x2 mesh: 13a-13e, each one's seconds
+    through ``done``."""
+    counters = family_counters()
+    out = {"13a": fam_stream(mesh, counters)}
+    done("13a granite-moe stream, full depth")
+    out["13b"] = fam_moe_train(mesh, counters)
+    done("13b granite-moe training, depth 4")
+    out["13c"] = {arch: fam_ssm(mesh, counters, arch) for arch in FAM_SSM}
+    done("13c mamba2 and zamba2")
+    out["13d"] = fam_whisper(mesh, counters)
+    done("13d whisper-base")
+    out["13e"] = fam_kill_switch(mesh, counters)
+    done("13e granite-moe kill switch")
+    return out
+
+
+def mesh_rank(mesh, which=("12", "13")) -> dict:
+    """Phases 12 and 13 (``which``) on one rank of the 2x2 mesh (and of the
+    (4, 1) mesh over the same ranks): 12a-12d, 13a-13e, with each one's
+    seconds."""
     from repro_torch.launch.mesh import Mesh
-    counters = mesh_counters()
     secs, t0 = {}, time.perf_counter()
 
     def done(name):
@@ -5152,37 +5782,80 @@ def mesh_rank(mesh) -> dict:
         secs[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    dp = Mesh(DP_SHAPE, device=mesh.device, timeout=MESH_TIMEOUT)
-    out = {"contracts": mesh_contracts(mesh, dp)}
-    done("12a contracts at full width")
-    out["serve"] = mesh_serving(mesh, counters)
-    done("12b serving, full width and depth")
-    out["train"] = mesh_training(mesh, dp, counters)
-    done("12c training")
-    out["kill"] = mesh_kill_switch(mesh, counters)
-    done("12d kill switch")
+    out = {}
+    if "12" in which:
+        counters = mesh_counters()
+        dp = Mesh(DP_SHAPE, device=mesh.device, timeout=MESH_TIMEOUT)
+        out["contracts"] = mesh_contracts(mesh, dp)
+        done("12a contracts at full width")
+        out["serve"] = mesh_serving(mesh, counters)
+        done("12b serving, full width and depth")
+        out["train"] = mesh_training(mesh, dp, counters)
+        done("12c training")
+        out["kill"] = mesh_kill_switch(mesh, counters)
+        done("12d kill switch")
+    if "13" in which:
+        out["families"] = families_rank(mesh, done)
     out["seconds"] = secs
     out["smi_used"] = smi("memory.used") if mesh.rank == 0 else None
     return out
 
 
-def mesh_phase(dev, smi_line, phase_done) -> dict:
-    """Phase 12: four ranks on the one card (``launch.mesh.spawn``, gloo),
-    amsim/afm16.  Returns {kernel: [launches on each rank]} of the mesh's
-    main path (12b's serving, 12c's training)."""
+def mesh_start(smi_line, which=("12", "13")) -> dict:
+    """Phases 12 and 13 (``which``) in one spawn, started in a thread of its
+    own: four ranks on the one card (``launch.mesh.spawn``, gloo),
+    amsim/afm16.  The main run goes on beside it; ``mesh_join`` waits."""
+    import threading
+
     from repro_torch.launch.mesh import spawn
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 12: {MESH_SHAPE[0] * MESH_SHAPE[1]} ranks on "
+    print(f"phases {' and '.join(which)}: {MESH_SHAPE[0] * MESH_SHAPE[1]} ranks on "
           f"{torch.cuda.device_count()} card(s); four ranks sharing one card measure "
           f"correctness, launches, collectives and memory, not a speed-up ({smi_line})")
-    t0 = time.perf_counter()
-    ranks = spawn(mesh_rank, MESH_SHAPE, device="cuda", timeout=MESH_TIMEOUT)
-    total = time.perf_counter() - t0
+    job = {"which": which, "t0": time.perf_counter()}
+
+    def run():
+        try:
+            job["ranks"] = spawn(mesh_rank, MESH_SHAPE, device="cuda", timeout=MESH_TIMEOUT,
+                                 args=(which,))
+        except BaseException as e:      # noqa: BLE001 - raised again in mesh_join
+            job["error"] = e
+        job["total"] = time.perf_counter() - job["t0"]
+    job["thread"] = threading.Thread(target=run, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def mesh_join(job) -> dict:
+    """Wait for ``mesh_start``'s spawn; raise its failure.  Returns its
+    phases' seconds (the ranks' start and join, then each phase's on rank
+    0)."""
+    job["thread"].join()
+    if "error" in job:
+        raise job["error"]
+    print(f"phases {' and '.join(job['which'])}: the spawn ended {job['total']:.1f} s after "
+          f"its start")
+    r0 = job["ranks"][0]
+    secs = {f"{'/'.join(job['which'])} ranks started and joined":
+            job["total"] - sum(r0["seconds"].values())}
+    secs.update(r0["seconds"])
+    return secs
+
+
+def mesh_report(job, smi_line) -> tuple:
+    """Returns ({kernel: [launches on each rank]} of phase 12's main path
+    (12b's serving, 12c's training), the same of phase 13's (13a-13d's mesh
+    runs)), its checks passed and its lines printed."""
+    ranks, which = job["ranks"], job["which"]
+    return (report_mesh(ranks, smi_line) if "12" in which else {},
+            report_families(ranks, smi_line) if "13" in which else {})
+
+
+def report_mesh(ranks, smi_line) -> dict:
+    """Phase 12's checks and lines, from every rank's results; its launches
+    a rank."""
     r0 = ranks[0]
-    phase_done("12 ranks started and joined", total - sum(r0["seconds"].values()))
-    for name, s in r0["seconds"].items():
-        phase_done(name, s)
     # 12a
     for check in r0["contracts"]:
         verdicts = [r["contracts"][check] for r in ranks]
@@ -5271,14 +5944,147 @@ def mesh_phase(dev, smi_line, phase_done) -> dict:
     return launches
 
 
+def _step_line(v) -> str:
+    wrong = ("" if "wrong_equal" not in v else
+             f" (a row sum missing one shard leaves {len(v['wrong_equal'])} of them equal)")
+    return (f"step-1 loss {v['loss']:.6f} and all {v['leaves']} gradient leaves bitwise the "
+            f"k-split oracle{wrong}; against the unsplit step (a reading) loss rel "
+            f"{v['loss_rel']:.3g}, worst leaf rel {v['worst_grad_rel'][0]:.3g} "
+            f"({v['worst_grad_rel'][1]})" + ("" if "wrong_equal" not in v else
+                                              f", the wrong variant's "
+                                              f"{v['wrong_worst_rel'][0]:.3g}"))
+
+
+def _require_step(v, what):
+    require(v["loss_bitwise"] is True and not v["differ"],
+            f"{what} step 1 against the k-split oracle: loss {v['loss_bitwise']}, leaves that "
+            f"differ {v['differ'][:8]}")
+    if "wrong_equal" in v:
+        require(len(v["wrong_equal"]) < v["leaves"], f"{what}: the wrong variant is the oracle's")
+
+
+def report_stream(ranks, smi_line) -> None:
+    """13a's checks and lines, from every rank's results."""
+    a = ranks[0]["families"]["13a"]
+    for name in ("afm16", "native"):
+        require(a[name]["oracle"] is True,
+                f"13a {name} against the k-split oracle's stream: {a[name]['oracle']}")
+    require(a["pool_specs"] == (None, None, "model", None), f"13a pools {a['pool_specs']}")
+    print(f"13a: {FAM_MOE} at full width and depth ({a['params_gb']:.2f} GB of parameters a "
+          f"rank, drawn in {a['draw_s']:.1f} s) through ContinuousBatchingEngine(mesh=) on the "
+          f"2x2 mesh: {len(a['requests'])} requests (prompt, new) {a['requests']}, capacity "
+          f"{FAM_STREAM['capacity']} (two slots a data rank), pages of {FAM_STREAM['page']}, KV "
+          f"heads over \"model\" (pools {a['pool_specs']}): {a['tokens']} tokens in "
+          f"{a['wall_s']:.2f} s, {a['tokens_per_s']:.2f} tokens/s, {a['ticks']} decode ticks "
+          f"({a['tick_ms']:.1f} ms a tick), {a['admissions']} admissions ({a['prefill_ms']:.1f} "
+          f"ms a B = 1 prefill), {a['collectives']} collectives "
+          f"({a['collectives'] / max(a['ticks'], 1):.1f} a tick, admissions included; "
+          f"{a['coll_s']:.2f} s of the wall, host clock), {a['preemptions']} preemptions, "
+          f"pages high-water {a['pages_high']}; peak a rank "
+          + ", ".join(f"{r['families']['13a']['peak_gb']:.2f}" for r in ranks)
+          + f" GB (rank 0; {smi_line})")
+    for name in ("afm16", "native"):
+        eq, n, gap, rel = a[name]["gap"]
+        print(f"  {name}: tokens and every forward's logits bitwise the k-split oracle's stream "
+              f"(each data rank's slots in turn, the banks in the mesh's blocks of experts; its "
+              f"single-device run {a[name]['oracle_s']:.2f} s); against the unsplit "
+              f"single-device stream (a reading) tokens equal at {eq} of {n}, logits largest "
+              f"|d| {gap:.3g}, rel {rel:.3g}"
+              + (f" (the mesh's stream {a['native_s']:.2f} s)" if name == "native" else ""))
+    w = a["witness"]
+    print(f"  native at the mesh's shapes of a call, against the unsplit call (why the oracle "
+          f"makes the mesh's calls): layer 0's banks at C = 8, one call of "
+          f"{fam_cfg(FAM_MOE).moe.n_experts} experts against one a \"model\" block: bitwise "
+          f"{w['banks']}; the head on 4 rows against 2 + 2: bitwise {w['head']}")
+
+
+def report_families(ranks, smi_line) -> dict:
+    """Phase 13's checks and lines, from every rank's results; its launches
+    a rank (13a-13d's mesh runs; 13e's kill switch apart)."""
+    f0 = ranks[0]["families"]
+    report_stream(ranks, smi_line)
+    # 13b
+    b = f0["13b"]
+    _require_step(b, "13b")
+    require(all(math.isfinite(v) for r in ranks for v in r["families"]["13b"]["losses"]),
+            "13b losses not finite")
+    print(f"13b: {FAM_MOE} at full width, depth {FAM_MOE_TRAIN['n_layers']}, 2x2 mesh, adamw "
+          f"{FAM_MOE_TRAIN['batch']} x {FAM_MOE_TRAIN['seq']}: " + _step_line(b)
+          + f"; the aux loss (the whole batch's routing) {b['metrics']['aux']:.6f}; ms a step "
+          + ", ".join(f"{m:.1f}" for m in b["ms"]) + f"; losses "
+          f"{[round(v, 5) for v in b['losses']]}; {b['collectives']:.0f} collectives a step, "
+          f"{b['coll_share']:.3f} of its wall; {b['params_gb']:.2f} GB of parameters a rank, "
+          f"peak " + ", ".join(f"{r['families']['13b']['peak_gb']:.2f}" for r in ranks) + " GB")
+    # 13c
+    for arch, c in f0["13c"].items():
+        sv, tr = c["serve"], c["train"]
+        require(sv["tokens"] and sv["logits"] is True,
+                f"13c {arch} serving against the k-split oracle: {sv['tokens']}, {sv['logits']}")
+        _require_step(tr, f"13c {arch}")
+        ag = sv["agreement"]
+        print(f"13c: {arch} served at full width, depth {FAM_SSM_SERVE['n_layers']} "
+              f"({c['params_gb']:.2f} GB a rank) "
+              f"{FAM_SSM_SERVE['batch']} x {FAM_SSM_SERVE['prompt']} and "
+              f"{FAM_SSM_SERVE['new']} new in {sv['s']:.2f} s ({sv['tokens_per_s']:.2f} "
+              f"tokens/s, {sv['collectives']} collectives, {sv['coll_s']:.2f} s of them; peak "
+              f"{sv['peak_gb']:.2f} GB): tokens and logits bitwise the k-split oracle; against "
+              f"the unsplit per-op run rel {ag['rel']:.3g}, tokens equal at {ag['equal']} of "
+              f"{ag['positions']}")
+        print(f"  trained at depth {FAM_SSM[arch]['train_layers']}, {FAM_SSM_TRAIN['batch']} x "
+              f"{FAM_SSM_TRAIN['seq']}: " + _step_line(tr) + f"; the step {tr['step_s']:.2f} s "
+              f"a rank, peak {tr['peak_gb']:.2f} GB")
+    # 13d
+    d = f0["13d"]
+    require(d["enc"] is True and d["tokens"] and d["logits"] is True,
+            f"13d against the k-split oracle: encode {d['enc']}, tokens {d['tokens']}, logits "
+            f"{d['logits']}")
+    _require_step(d["train"], "13d")
+    ag = d["agreement"]
+    print(f"13d: {FAM_WHISPER} at full width and depth ({d['params_gb']:.3f} GB a rank): an "
+          f"encode of {FAM_WHISPER_SERVE['batch']} x 1500 frames and {FAM_WHISPER_SERVE['new']} "
+          f"greedy tokens in {d['s']:.2f} s ({d['collectives']} collectives; peak "
+          f"{d['peak_gb']:.2f} GB): encoder states, tokens and logits bitwise the k-split "
+          f"oracle; against the unsplit per-op run encoder states rel {d['enc_rel']:.3g}, "
+          f"logits rel {ag['rel']:.3g}, tokens equal at {ag['equal']} of {ag['positions']}")
+    print(f"  one training step at {FAM_WHISPER_TRAIN['batch']} x {FAM_WHISPER_TRAIN['seq']} "
+          f"over 1500 frames: " + _step_line(d["train"])
+          + f"; {d['train']['step_s']:.2f} s a rank")
+    # 13e
+    e = f0["13e"]
+    require(e["tokens_bitwise"] and e["logits_bitwise"] is True,
+            f"13e REPRO_SHARD_FUSED=0 against the single-device chain run: {e}")
+    for r in ranks:
+        for k in ("fused_qkv_norm", "fused_wo_norm", "fused_moe_ffn"):
+            require(r["families"]["13e"]["launches"][k] > 0, f"13e: {k} never launched")
+    print(f"13e: {FAM_MOE} under REPRO_SHARD_FUSED=0 at depth {FAM_KILL['n_layers']}, "
+          f"{FAM_KILL['batch']} x {FAM_KILL['prompt']} and {FAM_KILL['new']} new: the chain on "
+          f"the gathered weights and banks, logits and tokens bitwise the single-device chain "
+          f"run; {e['s']:.2f} s; launches on rank 0 {e['launches']}")
+    launches = {}
+    for k in family_counters():
+        per_rank = []
+        for r in ranks:
+            f = r["families"]
+            per_rank.append(f["13a"]["launches"].get(k, 0) + f["13b"]["launches"].get(k, 0)
+                            + sum(c["launches"].get(k, 0) for c in f["13c"].values())
+                            + f["13d"]["launches"].get(k, 0))
+        launches[k] = per_rank
+    for k in FAM_KERNELS:
+        require(all(n > 0 for n in launches[k]),
+                f"phase 13: {k} never launched on a rank: {launches[k]}")
+    print(f"launches on the families' mesh path (13a-13d), per rank: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    # "--phase 5e,8,12" (any of 5e, 7, 8, 9, 10, 11, 12): phases 1, 2 and those
-    # alone, in that order, without the result lines.
-    phases = ("5e", "7", "8", "9", "10", "11", "12")
+    # "--phase 5e,8,12" (any of 5e, 7, 8, 9, 10, 11, 12, 13): phases 1, 2 and
+    # those alone, in that order (12 and 13 in one spawn), without the result
+    # lines.
+    phases = ("5e", "7", "8", "9", "10", "11", "12", "13")
     only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--phase" else None
     if argv and (only is None or not set(only) <= set(phases)):
         print(f"chip_smoke: unknown arguments {argv} (none, or --phase and a comma-separated "
@@ -5359,8 +6165,11 @@ def main(argv=None) -> int:
             dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
         if phase == "11":
             llama4(dev, lut_case, lookups_per_s, smi_line, phase_done)
-        if phase == "12":
-            mesh_phase(dev, smi_line, phase_done)
+        if phase == "12" or (phase == "13" and "12" not in only):
+            job = mesh_start(smi_line, tuple(p for p in ("12", "13") if p in only))
+            for k, v in mesh_join(job).items():
+                phase_done(k, v)
+            mesh_report(job, smi_line)
     if only:
         print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
         return 0
@@ -5778,16 +6587,26 @@ def main(argv=None) -> int:
     phase_done("5e LM training")
 
     # ------------------------------------------- 6. the numerics surface
-    numerics_surface(dev, lookups_per_s, smi_line, phase_done)
+    # 12 and 13, the mesh (four ranks on the card, one spawn), start after
+    # 6b and run beside 6a, 6c, 6d, 7, 8 (its training apart) and 9, whose
+    # models leave the ranks room on the card (6b, 8c's training and phases
+    # 10-11 would not); the main run waits for them before 8c's training
+    jobs = []
+    numerics_surface(dev, lookups_per_s, smi_line, phase_done,
+                     after_sweep=lambda: jobs.append(mesh_start(smi_line)))
 
     # ---------------------------------------------- 7. continuous batching
     continuous_batching(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
 
     # ---------------------------------------------- 8. the SSM families
-    ssm_err = ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done)
+    ssm_err = ssm_families(dev, lut_case, lookups_per_s, smi_line, phase_done, train=False)
 
     # ---------------------------------------------- 9. the encoder-decoder
     encdec_err = encoder_decoder(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
+    job = jobs[0]
+    mesh_s = mesh_join(job)
+    phase_done("12/13 waited for")
+    ssm_training(dev, lookups_per_s, smi_line, phase_done)
 
     # ------------------------------------ 10. the rest of the dense registry
     zoo_err, zoo_launches = dense_zoo(dev, gen, lut_case, lookups_per_s, smi_line, phase_done)
@@ -5800,18 +6619,20 @@ def main(argv=None) -> int:
     for kname in ("approx_gemm", "approx_gemm_batched", "approx_attention", "fused_qkv_norm",
                   "fused_attn_out_mlp", "fused_wo_norm", "fused_moe_ffn"):
         require(llama4_launches.get(kname, 0) > 0, f"{kname} never launched on phase 11's path")
-    # ---------------------------------- 12. the mesh: four ranks on the card
-    mesh_launches = mesh_phase(dev, smi_line, phase_done)
+    # ------------------------------ 12 and 13: the mesh's checks and lines
+    mesh_launches, family_launches = mesh_report(job, smi_line)
     # each row keeps its own path's launches, beside the time of that run;
     # phases 10 and 11 print theirs on lines of their own (10c, 11c); the
-    # mesh's path, per rank, stands beside them
+    # mesh's paths, per rank, stand beside them
     for row in rows_out:
         for err in (ssm_err, encdec_err, zoo_err, llama4_err):
             if row["name"] in err:
                 row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
         row["mesh_launches_per_rank"] = mesh_launches.get(row["name"], [0] * 4)
+        row["mesh_families_launches_per_rank"] = family_launches.get(row["name"], [0] * 4)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
-          + f"; whole script {sum(phase_s.values()):.1f}")
+          + f"; whole script {sum(phase_s.values()):.1f}; beside phases 6a-9: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mesh_s.items()))
 
     print(smi_line)
     print(json.dumps({"kernels": rows_out}))

@@ -185,10 +185,12 @@ def lm_params_to_numpy(model: LM, mesh=None) -> dict:
     return lm_tree_to_numpy(params)
 
 
-def encdec_params_to_numpy(model: EncDec) -> dict:
+def encdec_params_to_numpy(model: EncDec, mesh=None) -> dict:
     """The JAX ``init_encdec`` pytree (numpy float32 leaves, layers stacked)
-    of a port encoder-decoder: the inverse of ``encdec_params_from_jax``."""
-    return lm_tree_to_numpy(dict(model.named_parameters()))
+    of a port encoder-decoder: the inverse of ``encdec_params_from_jax``.
+    With a ``mesh``, every rank gathers the blocks (as
+    ``lm_params_to_numpy``)."""
+    return lm_params_to_numpy(model, mesh)
 
 
 def _is_factors(node) -> bool:

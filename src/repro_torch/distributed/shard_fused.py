@@ -37,9 +37,18 @@ A tensor's layout under a mesh follows the specs alone, whichever path
 computes it: a column product's output is column-sharded iff its weight's
 output dim is, a row product's output is whole.  Parameters read outside
 these products (norm gains, biases, the embedding) go through
-``data_parallel``, whose backward sums their gradient over the data axes.
+``data_parallel``, whose backward sums their gradient over the data axes;
+the Mamba2 constants and conv go through ``whole_param`` (gathered at use:
+held per weight version without grad).  A weight that a step reads more
+than once (the hybrid's shared block) can be wrapped once by
+``data_summed_once``: its products then leave its gradient to the wrapper,
+which sums every use's local gradient, in autograd's order, over the data
+axes once.  A column-split bias's gradient is reduced over the whole
+columns (``bias_add``), so that its fold is the unsplit tensor's.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -98,11 +107,35 @@ class _DataParallel(torch.autograd.Function):
 
 def data_parallel(t: torch.Tensor) -> torch.Tensor:
     """``t`` (a parameter every data rank holds) as it is; its gradient is
-    summed over the data axes in rank order under an ambient mesh."""
+    summed over the data axes in rank order under an ambient mesh (unless
+    ``data_summed_once`` already wrapped it)."""
+    mesh = current_mesh()
+    if mesh is None or not t.requires_grad or getattr(t, "data_summed", False):
+        return t
+    return _DataParallel.apply(t, mesh)
+
+
+def data_summed_once(t: torch.Tensor) -> torch.Tensor:
+    """``t`` wrapped so that every use's local gradient is added up first
+    (autograd's order, the single-device one) and the total summed over the
+    data axes once; the products that read it then sum nothing over the
+    data axes (its ``data_summed`` mark).  Keeps ``t``'s spec."""
     mesh = current_mesh()
     if mesh is None or not t.requires_grad:
         return t
-    return _DataParallel.apply(t, mesh)
+    out = _DataParallel.apply(t, mesh)
+    out.spec, out.data_summed = spec_of(t), True
+    return out
+
+
+def _data_sum(w) -> bool:
+    """Whether a product's weight gradient is its own to sum over the data
+    axes (not a ``data_summed_once`` weight's)."""
+    return not getattr(w, "data_summed", False)
+
+
+def _dw_total(dw, mesh, data_sum: bool):
+    return sum_over_data(dw, mesh) if data_sum else dw
 
 
 class _Gather(torch.autograd.Function):
@@ -130,6 +163,80 @@ def gather_param(t: torch.Tensor, mesh: Mesh, spec) -> torch.Tensor:
         if axes is not None:
             t = gather(t, mesh, axes, dim)
     return t
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.block(t, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.axes, dim=ctx.dim), None, None, None
+
+
+def scatter(t: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` (the same on every rank of ``axes``)
+    along ``dim``; the backward gathers every rank's block of the gradient,
+    so that each rank holds the whole tensor's (``gather``'s mirror)."""
+    return _Scatter.apply(t, mesh, axes, dim)
+
+
+_WHOLE: dict = {}       # id(parameter) -> ((version, storage), the gathered tensor)
+
+
+def held_whole(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole of a placed parameter, gathered once per weight version
+    (its version counter and storage) and held while it lives: the
+    serving steps read it without a collective."""
+    key = (t._version, t.data_ptr())
+    held = _WHOLE.get(id(t))
+    if held is None or held[0] != key:
+        if held is None:
+            weakref.finalize(t, _WHOLE.pop, id(t), None)
+        held = _WHOLE[id(t)] = (key, gather_tensor(t.detach(), spec, mesh))
+    return held[1]
+
+
+def whole_param(t: torch.Tensor) -> torch.Tensor:
+    """A parameter read whole outside the products (the Mamba2 conv and
+    constants): itself without a mesh; under one, its blocks put back
+    together, held per weight version without grad (``held_whole``), or
+    gathered differentiably with its gradient summed over the data axes."""
+    mesh = current_mesh()
+    spec = spec_of(t)
+    if mesh is None or all(a is None for a in spec):
+        return data_parallel(t)
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return held_whole(t, spec, mesh)
+    return gather_param(data_parallel(t), mesh, spec)
+
+
+class _BiasAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, b, mesh, shape, data_sum):
+        ctx.mesh, ctx.shape, ctx.data_sum = mesh, shape, data_sum
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        whole = mesh.all_gather(g.contiguous(), "model", dim=-1).sum_to_size(ctx.shape)
+        db = mesh.block(whole, "model", -1).contiguous()
+        return g, _dw_total(db, mesh, ctx.data_sum), None, None, None
+
+
+def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y + b for a layer's bias.  A bias split over "model" (a column
+    product's) reduces its gradient over the whole columns, gathered, and
+    keeps its block, so its fold is the unsplit tensor's; every other bias
+    is ``data_parallel``."""
+    mesh = current_mesh()
+    if mesh is None or spec_of(b, 1)[0] != "model" or not torch.is_grad_enabled():
+        return y + data_parallel(b)
+    whole = (b.shape[0] * mesh.model_size,)
+    return _BiasAdd.apply(y, b, mesh, whole, _data_sum(b))
 
 
 class _SumScalars(torch.autograd.Function):
@@ -167,9 +274,9 @@ def _dw(x, g, leaf):
 
 class _ColumnParallel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, policy, site, mesh):
+    def forward(ctx, x, w, policy, site, mesh, data_sum=True):
         ctx.save_for_backward(x, w)
-        ctx.policy, ctx.site, ctx.mesh = policy, site, mesh
+        ctx.policy, ctx.site, ctx.mesh, ctx.data_sum = policy, site, mesh, data_sum
         return ops._matmul_nograd(x, w, policy.resolve(site))
 
     @staticmethod
@@ -181,15 +288,16 @@ class _ColumnParallel(torch.autograd.Function):
             part = ops._matmul_nograd(g, w.T, ctx.policy.resolve(ctx.site, pass_="dx"))
             dx = ctx.mesh.ordered_sum(part, "model")
         if ctx.needs_input_grad[1]:
-            dw = sum_over_data(_dw(x, g, ctx.policy.resolve(ctx.site, pass_="dw")), ctx.mesh)
-        return dx, dw, None, None, None
+            dw = _dw_total(_dw(x, g, ctx.policy.resolve(ctx.site, pass_="dw")), ctx.mesh,
+                           ctx.data_sum)
+        return dx, dw, None, None, None, None
 
 
 class _RowParallel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, policy, site, mesh):
+    def forward(ctx, x, w, policy, site, mesh, data_sum=True):
         ctx.save_for_backward(x, w)
-        ctx.policy, ctx.site, ctx.mesh = policy, site, mesh
+        ctx.policy, ctx.site, ctx.mesh, ctx.data_sum = policy, site, mesh, data_sum
         return mesh.ordered_sum(ops._matmul_nograd(x, w, policy.resolve(site)), "model")
 
     @staticmethod
@@ -200,19 +308,22 @@ class _RowParallel(torch.autograd.Function):
         if ctx.needs_input_grad[0]:   # w's k rows live here: dx's block is local
             dx = ops._matmul_nograd(g, w.T, ctx.policy.resolve(ctx.site, pass_="dx"))
         if ctx.needs_input_grad[1]:
-            dw = sum_over_data(_dw(x, g, ctx.policy.resolve(ctx.site, pass_="dw")), ctx.mesh)
-        return dx, dw, None, None, None
+            dw = _dw_total(_dw(x, g, ctx.policy.resolve(ctx.site, pass_="dw")), ctx.mesh,
+                           ctx.data_sum)
+        return dx, dw, None, None, None, None
 
 
 def column_parallel_matmul(x, w, policy: Numerics, mesh: Mesh, site: str | None = None):
     """x (..., m, k) @ w's column block (k, n / model) -> (..., m, n / model)."""
-    return _ColumnParallel.apply(x.to(torch.float32), w.to(torch.float32), policy, site, mesh)
+    return _ColumnParallel.apply(x.to(torch.float32), w.to(torch.float32), policy, site, mesh,
+                                 _data_sum(w))
 
 
 def row_parallel_matmul(x, w, policy: Numerics, mesh: Mesh, site: str | None = None):
     """x's k block (..., m, k / model) @ w's row block (k / model, n) ->
     (..., m, n), summed over "model" in rank order."""
-    return _RowParallel.apply(x.to(torch.float32), w.to(torch.float32), policy, site, mesh)
+    return _RowParallel.apply(x.to(torch.float32), w.to(torch.float32), policy, site, mesh,
+                              _data_sum(w))
 
 
 class _Replicated(torch.autograd.Function):
@@ -220,11 +331,11 @@ class _Replicated(torch.autograd.Function):
     the whole w, the single-device product, this rank's columns of it."""
 
     @staticmethod
-    def forward(ctx, x, w, policy, site, mesh, x_split, w_spec, out_split, w_full):
+    def forward(ctx, x, w, policy, site, mesh, x_split, w_spec, out_split, w_full, data_sum):
         wf = w_full if w_full is not None else gather_tensor(w, w_spec, mesh)
         xf = mesh.all_gather(x, "model", dim=-1) if x_split else x
         ctx.save_for_backward(xf, wf)
-        ctx.policy, ctx.site, ctx.mesh = policy, site, mesh
+        ctx.policy, ctx.site, ctx.mesh, ctx.data_sum = policy, site, mesh, data_sum
         ctx.x_split, ctx.w_spec, ctx.out_split = x_split, w_spec, out_split
         out = ops._matmul_nograd(xf, wf, policy.resolve(site))
         return mesh.block(out, "model", -1).contiguous() if out_split else out
@@ -241,12 +352,13 @@ class _Replicated(torch.autograd.Function):
             if ctx.x_split:
                 dx = mesh.block(dx, "model", -1).contiguous()
         if ctx.needs_input_grad[1]:
-            dw = sum_over_data(_dw(xf, gf, ctx.policy.resolve(ctx.site, pass_="dw")), mesh)
+            dw = _dw_total(_dw(xf, gf, ctx.policy.resolve(ctx.site, pass_="dw")), mesh,
+                           ctx.data_sum)
             for dim, axes in enumerate(ctx.w_spec):
                 if axes is not None:
                     dw = mesh.block(dw, axes, dim)
             dw = dw.contiguous()
-        return dx, dw, None, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None, None
 
 
 def replicated_matmul(x, w, policy: Numerics, kind: str | None, mesh: Mesh,
@@ -254,12 +366,17 @@ def replicated_matmul(x, w, policy: Numerics, kind: str | None, mesh: Mesh,
     """x @ w by the replicated dispatch.  The layout is the sharded path's:
     x's k is split iff ``kind`` is "row" and w's k is; the output's columns
     are split iff ``kind`` is "column" and w's n is.  ``w_full`` is the
-    whole w when the caller holds it (the tied head's gathered table)."""
+    whole w when the caller holds it (the tied head's gathered table);
+    without grad a placed parameter's whole is held per weight version
+    (``held_whole``: the SSM projections, whisper's head)."""
     spec = spec_of(w, 2) if w_spec is None else tuple(w_spec)
     x_split = kind == "row" and spec[0] == "model"
     out_split = kind == "column" and spec[1] == "model"
+    if (w_full is None and isinstance(w, torch.nn.Parameter) and not torch.is_grad_enabled()
+            and any(a is not None for a in spec)):
+        w_full = held_whole(w, spec, mesh)
     return _Replicated.apply(x.to(torch.float32), w.to(torch.float32), policy, site, mesh,
-                             x_split, spec, out_split, w_full)
+                             x_split, spec, out_split, w_full, _data_sum(w))
 
 
 def parallel_matmul(x, w, policy: Numerics, kind: str | None, site: str | None = None, *,
@@ -392,7 +509,8 @@ def describe(mesh: Mesh, policy: Numerics) -> str:
     if leaf.mode == "amsim" and not leaf.is_native:
         if env_enabled():
             return (f"amsim/{leaf.multiplier}: sharded LUT kernels on mesh {shape} (column/row-"
-                    f"parallel GEMMs, heads and batch split attention, batch split convs)")
+                    f"parallel GEMMs, heads and batch split attention, experts over \"model\", "
+                    f"batch split convs)")
         return (f"amsim/{leaf.multiplier}: REPRO_SHARD_FUSED=0, the replicated dispatch on mesh "
                 f"{shape} (operands gathered over \"model\", the single-device kernels; the "
                 f"decode chain on the gathered weights)")

@@ -178,9 +178,24 @@ class Mesh(MeshShape):
     def __exit__(self, *exc):
         _CURRENT.pop()
 
+    def model_group(self) -> "Mesh":
+        """This rank's "model" group as a mesh of its own: the same ranks
+        along "model", every data axis of size 1.  A computation inside it
+        runs on this data rank's ranks alone (a prefill of one request
+        while the other data ranks do other work); it shares the model
+        group and the counts (``stats``) with this mesh."""
+        sub = object.__new__(Mesh)
+        sub.__dict__.update(self.__dict__)
+        sub.sizes = tuple(s if a == "model" else 1 for a, s in zip(self.axis_names, self.sizes))
+        sub.coords = {a: (c if a == "model" else 0) for a, c in self.coords.items()}
+        return sub
+
     # -------------------------------------------------------- collectives
     def reset_stats(self):
-        self.stats = {"collectives": 0, "seconds": 0.0, "bytes": 0}
+        """Zero the counts, in place (a ``model_group`` shares them)."""
+        if not hasattr(self, "stats"):
+            self.stats = {}
+        self.stats.update(collectives=0, seconds=0.0, bytes=0)
 
     def _count(self, t: torch.Tensor, t0: float):
         self.stats["collectives"] += 1

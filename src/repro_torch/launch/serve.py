@@ -27,13 +27,16 @@ refuses llama4-maverick-400b-a17b, whose (dense, MoE) pairs JAX's paged
 caches do not hold either.  An encoder-decoder arch (whisper-base) exits before any work
 with the JAX CLI's message.
 
-``--mesh`` serves the batch on a 2x2 (data, model) debug mesh of four
-ranks (``launch.mesh.spawn``, the backend printed first), as JAX's CLI
-does: a dense arch's weights drawn on every rank and cut to its blocks,
-``ServingEngine(mesh=)``; rank 0 prints.  ``--mesh`` with ``--stream``
-exits: the paged scheduler under a mesh is a later slice.
+``--mesh`` serves on a 2x2 (data, model) debug mesh of four ranks
+(``launch.mesh.spawn``, the backend printed first), as JAX's CLI does:
+the weights drawn on every rank and cut to its blocks; one batch through
+``ServingEngine(mesh=)``, or with ``--stream`` the stream through
+``ContinuousBatchingEngine(mesh=)`` (the slots split over the data axes
+when they divide ``--capacity``, KV heads over "model"); rank 0 prints.
 
     python -m repro_torch.launch.serve --reduced --device cpu --mesh --numerics amsim
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --reduced --device cpu \
+        --mesh --stream 6 --tiers default=amsim:afm16 --capacity 4
 """
 from __future__ import annotations
 
@@ -155,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"one batch: a mode ({'|'.join(MODES)}) or a policy-table JSON path")
     ap.add_argument("--multiplier", default="fp32")
     ap.add_argument("--mesh", action="store_true",
-                    help="one batch on a 2x2 (data, model) mesh of four ranks")
+                    help="serve on a 2x2 (data, model) mesh of four ranks (one batch, or the "
+                         "--stream)")
     ap.add_argument("--mesh-timeout", type=float, default=1800.0,
                     help="seconds every collective and the whole mesh run may take")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
@@ -208,23 +212,56 @@ def _serve_rank(mesh, args):
     return out.cpu()
 
 
+def _stream_rank(mesh, args):
+    """One rank of ``--mesh --stream``: the stream through
+    ``ContinuousBatchingEngine(mesh=)``; rank 0 prints and returns the
+    report."""
+    from repro_torch.distributed import shard_fused
+
+    cfg = _arch_cfg(args)
+    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+    model = init_lm(cfg, generator=gen, device=mesh.device, mesh=mesh)
+    engine = ContinuousBatchingEngine(
+        model, parse_tiers(args.tiers), max_len=args.prompt_len + args.new_tokens + 1,
+        capacity=args.capacity, page_size=args.page_size, mesh=mesh)
+    stream = synthetic_stream(args, cfg.vocab)
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    engine.run(stream)
+    wall = time.perf_counter() - t0
+    if mesh.rank:
+        return None
+    for name, pol in parse_tiers(args.tiers).items():
+        print(f"mesh dispatch, tier {name}: " + shard_fused.describe(mesh, pol))
+    rep = report_stream(engine, wall)
+    ticks = sum(engine.decode_ticks.values())
+    print(f"on {mesh!r}: {mesh.stats['collectives']} collectives on rank 0 "
+          f"({mesh.stats['collectives'] / max(ticks, 1):.1f} a decode tick, admissions' "
+          f"prefills included)")
+    rep["tokens"] = {rid: list(r.out) for rid, r in engine.finished.items()}
+    return rep
+
+
+def _check_stream(cfg):
+    try:
+        check_paged(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"--stream: {e}") from None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh and args.stream:
-        raise SystemExit("--mesh --stream: the paged scheduler under a mesh (sharded page "
-                         "pools) is a later slice of the port; --mesh serves one batch")
     cfg = _arch_cfg(args)
+    if args.stream:
+        _check_stream(cfg)
     if args.mesh:
         from repro_torch.launch.mesh import spawn
-        from repro_torch.launch.train import mesh_device
-        return spawn(_serve_rank, (2, 2), device=mesh_device(args.device),
-                     timeout=args.mesh_timeout, args=(args,))[0]
+        from repro_torch.launch.train import check_mesh_arch, mesh_device
+        check_mesh_arch(cfg, (2, 2))
+        return spawn(_stream_rank if args.stream else _serve_rank, (2, 2),
+                     device=mesh_device(args.device), timeout=args.mesh_timeout,
+                     args=(args,))[0]
     device = resolve_device(args.device)
-    if args.stream:
-        try:
-            check_paged(cfg)
-        except NotImplementedError as e:
-            raise SystemExit(f"--stream: {e}") from None
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = init_lm(cfg, generator=gen, device=device)
     if args.stream:

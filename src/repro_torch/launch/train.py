@@ -34,8 +34,10 @@ for every other ported config) over
 report and the metrics every steps/10.
 
 ``--mesh DxM`` (or ``PxDxM``) trains on a mesh of that many ranks
-(``launch.mesh.spawn``; the backend is printed first): a dense arch runs
-tensor- and data-parallel through ``distributed/shard_fused``, each rank
+(``launch.mesh.spawn``; the backend is printed first): every arch runs
+tensor- and data-parallel through ``distributed/shard_fused`` (an MoE
+arch's experts over "model", its routing the whole batch's; whisper-base's
+encoder and decoder as a dense stack), each rank
 drawing the same weights and keeping its blocks, and each data rank
 keeping its rows of the global ``lm_batch``, so the data are the
 single-device run's.  Rank 0 alone prints, the dispatch line too.  Under
@@ -64,10 +66,11 @@ import torch
 from repro_torch.configs.base import ArchConfig, cut, get_arch, reduced
 from repro_torch.core.policy import (MODES, PASSES, SITES, Numerics, PolicyTable,
                                      load_numerics, table_from_assignments, table_from_json)
-from repro_torch.convert import lm_params_to_numpy
+from repro_torch.convert import encdec_params_to_numpy, lm_params_to_numpy
 from repro_torch.data.pipeline import lm_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.encdec import encdec_loss, encdec_stacks, init_encdec
+from repro_torch.models.encdec import (encdec_loss, encdec_param_shapes, encdec_stacks,
+                                       init_encdec)
 from repro_torch.models.transformer import init_lm, lm_loss, lm_stacks
 from repro_torch.optim.optimizers import Optimizer, cosine_schedule, make_optimizer
 from repro_torch.train.step import make_train_step
@@ -158,6 +161,17 @@ def parse_mesh(text: str) -> tuple:
     return sizes
 
 
+def check_mesh_arch(cfg, sizes) -> None:
+    """Exit before any rank starts when ``cfg`` does not run on a mesh of
+    ``sizes`` yet (``transformer.check_mesh_family``)."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.transformer import check_mesh_family
+    try:
+        check_mesh_family(cfg, MeshShape(sizes))
+    except NotImplementedError as e:
+        raise SystemExit(f"--mesh: {e}") from None
+
+
 def mesh_device(arg) -> str:
     """The ranks' device kind: "cpu" when asked, else the card(s), whose
     kernels the parent builds before the ranks start (ranks never build
@@ -179,14 +193,16 @@ def _train_rank(mesh, args):
 
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     cfg = _arch_cfg(args)
+    encdec = cfg.family == "encdec"
     policy = policy_from_args(args)
     say(describe_numerics(policy, mesh.device))
     say("  mesh dispatch: " + shard_fused.describe(mesh, policy))
-    model = init_lm(cfg, generator=torch.Generator(device=mesh.device).manual_seed(args.seed),
-                    device=mesh.device, mesh=mesh)
+    init = init_encdec if encdec else init_lm
+    model = init(cfg, generator=torch.Generator(device=mesh.device).manual_seed(args.seed),
+                 device=mesh.device, mesh=mesh)
     opt, step = make_lm_train_step(cfg, policy, lr=args.lr, steps=args.steps,
                                    microbatches=args.microbatches)
-    shapes = lm_param_shapes(cfg)
+    shapes = (encdec_param_shapes if encdec else lm_param_shapes)(cfg)
     stacked = lm_param_specs(shapes, cfg, mesh, stacked=True)
     specs = {n: tuple(p.spec) for n, p in model.named_parameters()}
     opt_specs = opt_state_specs(cfg.optimizer, stacked if cfg.optimizer == "adafactor" else specs)
@@ -203,7 +219,8 @@ def _train_rank(mesh, args):
     state = trainer.run(TrainerState(model, opt.init(dict(model.named_parameters()))))
     say(f"done at step {state.step}; stragglers flagged: {len(state.stragglers)}; "
         f"collectives on rank 0: {mesh.stats['collectives']}")
-    params = lm_params_to_numpy(model, mesh)     # gathered on every rank
+    # gathered on every rank
+    params = (encdec_params_to_numpy if encdec else lm_params_to_numpy)(model, mesh)
     return {"history": state.history, "params": params} if mesh.rank == 0 else None
 
 
@@ -267,6 +284,7 @@ def main(argv=None):
     if args.mesh:
         from repro_torch.launch.mesh import spawn
         sizes = parse_mesh(args.mesh)
+        check_mesh_arch(cfg, sizes)
         if args.batch % math.prod(sizes[:-1]):
             raise SystemExit(f"--batch {args.batch} does not split over the "
                              f"{math.prod(sizes[:-1])} data ranks of --mesh {args.mesh}")

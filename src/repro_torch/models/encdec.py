@@ -19,6 +19,16 @@ when ``cfg.remat``.  Parameter names follow JAX's tree with layers
 unstacked: ``enc_layers.<i>.{attn,ffn,n1,n2}``,
 ``dec_layers.<i>.{self,cross,ffn,n1,n2,n3}``, ``embed``, ``enc_norm``,
 ``final_norm``, ``head``.
+
+Under an ambient mesh (``launch/mesh.py``; ``init_encdec(mesh=)`` places
+the parameters by ``sharding.lm_param_specs``) the encoder and decoder
+run tensor- and data-parallel as a dense stack does: heads and FFN columns
+over "model", batch rows over the data axes.  The bidirectional encoder
+attention and the cross-attention run heads over "model" through
+``shard_fused.parallel_attention``, the cross K/V projected from this
+rank's encoder rows; the head carries no Megatron role, as in JAX, and
+takes the replicated dispatch.  ``encode``, ``decode``, ``encdec_loss``
+and ``greedy`` then take and give this rank's rows.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import current_mesh
 from .attention import attention, init_attention, init_cache
 from .layers import Embedding, Linear, Norm, embed, init_linear, linear, rmsnorm
 from .mlp import ffn, init_ffn
@@ -131,12 +142,23 @@ def init_tree(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def init_encdec(cfg: ArchConfig, *, generator: torch.Generator | None = None,
-                device=None) -> EncDec:
+                device=None, mesh=None) -> EncDec:
     """Random parameters drawn from ``generator`` (default: seed 0 on the
-    CPU) on its device, then moved to ``device`` (default: the CUDA card)."""
+    CPU) on its device, then moved to ``device`` (default: the CUDA card).
+    With a ``mesh`` this rank keeps its blocks under ``lm_param_specs``:
+    every rank draws the same tree, so its blocks are bitwise the slices of
+    the single-device model's tensors."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(0) if generator is None else generator
-    return EncDec(cfg, init_tree(cfg, generator)).to(device)
+    tree = init_tree(cfg, generator)
+    if mesh is None:
+        return EncDec(cfg, tree).to(device)
+    from repro_torch.distributed.sharding import cut_part, lm_param_specs, tag_specs
+    from .transformer import check_mesh_family
+    check_mesh_family(cfg, mesh)
+    specs = lm_param_specs(encdec_param_shapes(cfg), cfg, mesh)
+    tree = {k: cut_part(k, v, specs, mesh) for k, v in tree.items()}
+    return tag_specs(EncDec(cfg, tree).to(device), specs)
 
 
 # ---------------------------------------------------------------- forward
@@ -202,8 +224,15 @@ def encdec_loss(model: EncDec, batch: dict, policy: NumericsPolicy):
 
 def init_encdec_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> list:
     """The decoder's self-attention caches: a ring of ``max_len`` slots a
-    layer."""
-    return [init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers)]
+    layer.  Under an ambient mesh ``batch`` is this rank's rows and each
+    ring holds its KV heads over "model" (``sharding.cache_specs``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return [init_cache(cfg, batch, max_len, device) for _ in range(cfg.n_layers)]
+    from repro_torch.distributed.sharding import cache_specs, shard_tree
+    rows = batch * mesh.data_size
+    whole = [init_cache(cfg, rows, max_len, device) for _ in range(cfg.n_layers)]
+    return shard_tree(whole, cache_specs(whole, mesh, rows), mesh)
 
 
 # ---------------------------------------------------------------- serving
@@ -223,7 +252,7 @@ def greedy(model: EncDec, frames: torch.Tensor, prompts: torch.Tensor, new_token
     """``encode`` the frames once, then ``serve_step`` over the prompt and
     once a new token, with rings of prompt + new_tokens slots.  Returns
     (encoder states, tokens (B, new_tokens) int32, the logits that chose
-    them (B, new_tokens, vocab))."""
+    them (B, new_tokens, vocab)); under a mesh, of this rank's rows."""
     B, P = prompts.shape
     enc = encode(model, frames, policy)
     caches = init_encdec_caches(model.cfg, B, P + new_tokens, frames.device)

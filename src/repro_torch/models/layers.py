@@ -52,7 +52,7 @@ def linear(p: Linear, x: torch.Tensor, policy: NumericsPolicy,
            site: str | None = None, kind: str | None = None) -> torch.Tensor:
     y = sf.parallel_matmul(x, p.w, policy, kind, site)
     if p.b is not None:
-        y = y + sf.data_parallel(p.b)
+        y = sf.bias_add(y, p.b)
     return y
 
 

@@ -14,6 +14,17 @@ its state is O(1) in the sequence length.
 
 n_groups=1 (the Mamba2 default): B and C are shared across heads.
 
+Under an ambient mesh (``launch/mesh.py``) a rank holds its blocks of
+``conv_w``/``conv_b`` (channels) and ``A_log``/``D``/``dt_bias`` (heads)
+over "model" (JAX's rules) and gathers them at use
+(``shard_fused.whole_param``); ``in_proj``/``out_proj`` carry no Megatron
+role, as in JAX (in_proj's output is [z, x, B, C, dt], which a column split
+would not cut at head boundaries), so they take the replicated dispatch.
+The layer then runs whole on this rank's batch rows, bitwise the
+single-device layer's; its cache's ``ssm`` heads and ``conv`` channels
+are this rank's blocks over "model" (``sharding.cache_specs``), gathered
+for the step and cut again after it.
+
 One deliberate difference from JAX: the intra-chunk decay factor is
 ``exp(where(mask, decay, -inf))`` where JAX takes ``where(mask, exp(decay),
 0)``.  The forward values are the same element for element; JAX's
@@ -30,7 +41,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import NumericsPolicy
+from repro_torch.distributed.shard_fused import whole_param
 from repro_torch.kernels.ops import exact_fp32, policy_einsum
+from repro_torch.launch.mesh import current_mesh
 from .layers import Linear, Norm, init_linear, linear, rmsnorm
 
 
@@ -145,41 +158,67 @@ def mamba2(p: Mamba2, u: torch.Tensor, cfg: ArchConfig, policy: NumericsPolicy, 
     zxbcdt = linear(p.in_proj, u, policy, site="ssm")
     z, xs, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)
+    conv_w, conv_b = whole_param(p.conv_w), whole_param(p.conv_b)
+    held = None if cache is None else _whole_cache(cache, nheads, conv_ch)
 
     if cache is not None:
         # Decode: prepend the conv state, run the conv over the K-1+L window.
-        full = torch.cat([cache["conv"], xbc], dim=1)
-        xbc = _conv_window(full, p.conv_w, p.conv_b)
+        full = torch.cat([held["conv"], xbc], dim=1)
+        xbc = _conv_window(full, conv_w, conv_b)
         new_conv = full[:, -(s.conv_kernel - 1):, :]
     else:
-        xbc = _causal_conv(xbc, p.conv_w, p.conv_b)
+        xbc = _causal_conv(xbc, conv_w, conv_b)
     xbc = silu(xbc)
     xs = xbc[..., :d_in].reshape(B_, L, nheads, hp)
     Bc = xbc[..., d_in:d_in + N]                        # (B, L, N)  G=1
     Cc = xbc[..., d_in + N:]                            # (B, L, N)
 
-    dt = softplus(dt + p.dt_bias)                       # (B, L, nh)
-    A = -torch.exp(p.A_log)                             # (nh,)
+    dt = softplus(dt + whole_param(p.dt_bias))          # (B, L, nh)
+    A = -torch.exp(whole_param(p.A_log))                # (nh,)
     dA = dt * A                                         # (B, L, nh)  log-decay
     xdt = xs * dt[..., None]                            # (B, L, nh, p)
 
     if cache is not None:
         # state <- state * exp(dA) + B (x dt);  y = C . state, token by token
         exact_fp32()
-        state, ys = cache["ssm"], []
+        state, ys = held["ssm"], []
         for t in range(L):
             state = state * torch.exp(dA[:, t])[:, :, None, None]
             state = state + torch.einsum("bn,bhp->bhpn", Bc[:, t], xdt[:, t])
             ys.append(torch.einsum("bn,bhpn->bhp", Cc[:, t], state))
         y = torch.stack(ys, dim=1)                      # (B, L, nh, p)
-        cache["ssm"], cache["conv"] = state, new_conv
+        _put_cache(cache, state, new_conv, nheads, conv_ch)
     else:
         y = ssd_chunked(xdt, Bc, Cc, dA, Q, policy)
 
-    y = y + p.D[None, None, :, None] * xs               # skip connection
+    y = y + whole_param(p.D)[None, None, :, None] * xs   # skip connection
     y = y.reshape(B_, L, d_in) * silu(z)
     y = rmsnorm(p.norm, y, cfg.norm_eps)
     return linear(p.out_proj, y, policy, site="ssm"), cache
+
+
+def _whole_cache(cache: dict, nheads: int, conv_ch: int) -> dict:
+    """The cache's ``ssm`` (B, nh, p, N) and ``conv`` (B, K-1, ch) with
+    every head and channel: a rank's blocks over "model" gathered under a
+    mesh."""
+    mesh = current_mesh()
+    out = dict(cache)
+    if mesh is not None and cache["ssm"].shape[1] != nheads:
+        out["ssm"] = mesh.all_gather(cache["ssm"], "model", dim=1)
+    if mesh is not None and cache["conv"].shape[2] != conv_ch:
+        out["conv"] = mesh.all_gather(cache["conv"], "model", dim=2)
+    return out
+
+
+def _put_cache(cache: dict, state, conv, nheads: int, conv_ch: int) -> None:
+    """Replace the cache's entries with the state after the step, cut to
+    this rank's blocks where the cache holds blocks."""
+    mesh = current_mesh()
+    if cache["ssm"].shape[1] != nheads:
+        state = mesh.block(state, "model", 1).contiguous()
+    if cache["conv"].shape[2] != conv_ch:
+        conv = mesh.block(conv, "model", 2).contiguous()
+    cache["ssm"], cache["conv"] = state, conv
 
 
 def masked_decay(decay: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -23,14 +23,21 @@ remat, as ``jax.checkpoint(block)``), its caches a tuple (the dense
 layers' rings, the MoE layers' rings), one a pair in each.
 
 Under an ambient mesh (``launch/mesh.py``; parameters placed by
-``distributed/sharding.py``) a dense stack runs tensor- and data-parallel:
-each rank its heads, FFN columns and batch rows, the products through
-``distributed/shard_fused``; the logits are gathered over "model" and the
-loss is the mean over every data rank's rows, from each rank's sum and
-count.  The decode chain stays off (as JAX's), except under
-``REPRO_SHARD_FUSED=0``, where it runs on the layer's gathered weights
-and heads.  The MoE, SSM, hybrid and encoder-decoder families raise under
-a mesh: they are a later slice.
+``distributed/sharding.py``) every family runs tensor- and data-parallel:
+each rank its batch rows, and of a dense block its heads and FFN columns,
+the products through ``distributed/shard_fused``; an MoE block routes the
+whole batch and runs its rank's experts (``models/moe.py``); a Mamba2
+layer runs its projections by the replicated dispatch and its conv and
+constants gathered, its cache's heads and channels over "model"
+(``models/ssm.py``); the hybrid's shared block runs the dense sharded path,
+its weights wrapped once a forward (``shard_fused.data_summed_once``), so
+that the gradients of its applications add up in the single-device order
+before the data sum.  The logits are gathered over "model" and the loss is
+the mean over every data rank's rows, from each rank's sum and count.  The
+decode chain stays off (as JAX's), except under ``REPRO_SHARD_FUSED=0``,
+where it runs on the layer's gathered weights (an MoE layer's banks too),
+heads and cache.  ``check_mesh_family`` raises for what still waits:
+llama4's pairs, a head count that "model" does not divide, FSDP.
 """
 from __future__ import annotations
 
@@ -297,37 +304,54 @@ def _block_norm(policy: NumericsPolicy, cache):
     return rmsnorm
 
 
-class _Whole:
-    """A layer's tensors put back together over the mesh (``.w``, ``.b``,
-    ``.g`` and the ``attn``/``ffn``/``n1``/``n2`` members the chain reads)."""
+class _View:
+    """A layer's tensors, each mapped by ``fn`` (``.w``, ``.b``, ``.g`` and
+    the ``attn``/``ffn``/``moe``/``n1``/``n2`` members a block reads; a
+    ``ModuleDict`` as a dict)."""
 
-    def __init__(self, module, mesh):
+    def __init__(self, module, fn):
         for name, child in module.named_children():
-            setattr(self, name, {k: _Whole(v, mesh) for k, v in child.items()}
-                    if isinstance(child, nn.ModuleDict) else _Whole(child, mesh))
+            setattr(self, name, _view_of(child, fn))
         for name, t in module.named_parameters(recurse=False):
-            setattr(self, name, gather_tensor(t.detach(), sf.spec_of(t), mesh))
+            setattr(self, name, fn(t))
         if isinstance(module, Linear) and module.b is None:
             self.b = None
         if isinstance(module, DenseLayer):
-            self.moe = None
+            self.ffn = None if module.ffn is None else self.ffn
+            self.moe = None if module.moe is None else self.moe
+
+
+def _view_of(module, fn):
+    if isinstance(module, nn.ModuleDict):
+        return {k: _view_of(v, fn) for k, v in module.items()}
+    return _View(module, fn)
+
+
+def _whole(layer, mesh) -> _View:
+    """A layer's tensors put back together over the mesh."""
+    return _View(layer, lambda t: gather_tensor(t.detach(), sf.spec_of(t), mesh))
+
+
+_CACHE_HEADS = ("k", "v", "pool_k", "pool_v")    # a ring's or a paged pool's KV (dim 2)
 
 
 def _chain_on_whole_layer(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
                           window: int, mesh):
     """A decode step of the chain under a mesh (REPRO_SHARD_FUSED=0): the
-    layer's weights and the ring's heads gathered over "model", the
-    single-device chain on this rank's rows, this rank's heads written
-    back to its ring."""
+    layer's weights and the cache's heads (a ring's, or a paged pool's)
+    gathered over "model", the single-device chain on this rank's rows
+    (an MoE layer's routing the whole batch's), this rank's heads written
+    back to its cache."""
     heads = sf.spec_of(p.attn["wk"].w)[1] == "model"
+    names = [n for n in _CACHE_HEADS if n in cache]
     whole = dict(cache)
     if heads:
-        whole["k"], whole["v"] = (mesh.all_gather(cache[n], "model", dim=2) for n in ("k", "v"))
-    y, whole, aux = _dense_block_fused_decode(_Whole(p, mesh), x, cfg, policy, whole, window)
+        whole.update({n: mesh.all_gather(cache[n], "model", dim=2) for n in names})
+    y, whole, aux = _dense_block_fused_decode(_whole(p, mesh), x, cfg, policy, whole, window)
     if heads:
-        cache["k"].copy_(mesh.block(whole["k"], "model", 2))
-        cache["v"].copy_(mesh.block(whole["v"], "model", 2))
-    return y, {**cache, "len": whole["len"]}, aux
+        for n in names:
+            cache[n].copy_(mesh.block(whole[n], "model", 2))
+    return y, ({**cache, "len": whole["len"]} if "len" in whole else cache), aux
 
 
 def _dense_block(p: DenseLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
@@ -370,6 +394,17 @@ def _pair_block(p: PairLayer, x, cfg: ArchConfig, policy: NumericsPolicy, cache,
     return x, (None if cache is None else (c0, c1)), a0 + a1
 
 
+def _shared_block(block: DenseLayer):
+    """The hybrid's shared block as the stack reads it: itself, or under a
+    mesh with grad each parameter wrapped once a forward
+    (``shard_fused.data_summed_once``), so that the gradients of its
+    applications add up (autograd's order, the single-device one) before
+    the one sum over the data axes."""
+    if current_mesh() is None or not torch.is_grad_enabled():
+        return block
+    return _View(block, sf.data_summed_once)
+
+
 def _hybrid_stack(model: LM, x, policy: NumericsPolicy, caches, window: int):
     """zamba2: the Mamba2 layers in order, the shared block after every
     ``attn_every``-th one (the same weights each time, its own cache each
@@ -378,12 +413,13 @@ def _hybrid_stack(model: LM, x, policy: NumericsPolicy, caches, window: int):
     cfg = model.cfg
     mcaches, acaches = caches if caches is not None else (None, None)
     new_m, new_a, aux = [], [], 0.0
+    shared = _shared_block(model.shared_attn)
     for i, layer in enumerate(model.layers):
         x, cache, _ = _ssm_block(layer, x, cfg, policy, None if mcaches is None else mcaches[i])
         new_m.append(cache)
         if (i + 1) % cfg.attn_every == 0:
             cache = None if acaches is None else acaches[len(new_a)]
-            x, cache, a = _dense_block(model.shared_attn, x, cfg, policy, cache, window)
+            x, cache, a = _dense_block(shared, x, cfg, policy, cache, window)
             new_a.append(cache)
             aux = aux + a
     return x, (None if caches is None else (new_m, new_a)), aux
@@ -428,20 +464,34 @@ def _final_hidden(model: LM, tokens: torch.Tensor, policy: NumericsPolicy, embed
 
 
 def check_mesh_family(cfg: ArchConfig, mesh=None):
-    """Raise under ``mesh`` (default: the ambient one) unless ``cfg`` is a
-    dense stack whose query and KV heads divide the "model" axis."""
+    """Raise under ``mesh`` (default: the ambient one) for what the port
+    does not run on a mesh yet: llama4's (dense, MoE) pairs (no check
+    holds them against the k-split oracle yet), attention heads (query or
+    KV), experts, or Mamba2 heads and conv channels that the "model" axis
+    does not divide (a rank holds whole ones), and FSDP (``cfg.fsdp``)."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None or mesh.size == 1:
         return
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) under a mesh: only dense stacks run "
-            f"tensor- and data-parallel; MoE expert parallelism, SSM and hybrid heads over "
-            f"\"model\" and the encoder-decoder are a later slice of the port")
-    if cfg.n_heads % mesh.model_size or cfg.n_kv_heads % mesh.model_size:
+    M = mesh.model_size
+    if paired(cfg):
+        raise NotImplementedError(f"{cfg.name}: (dense, MoE) pairs on a mesh are a later slice "
+                                  f"of the port")
+    if cfg.fsdp:
+        raise NotImplementedError(f"{cfg.name}: FSDP (cfg.fsdp) is a later slice of the port")
+    if cfg.n_heads and (cfg.n_heads % M or cfg.n_kv_heads % M):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV heads over a model axis "
-            f"of {mesh.model_size}: a rank holds whole heads (a later slice splits a head)")
+            f"of {M}: a rank holds whole heads (a later slice splits a head)")
+    if cfg.moe is not None and cfg.moe.n_experts % M:
+        raise NotImplementedError(f"{cfg.name}: {cfg.moe.n_experts} experts over a model axis "
+                                  f"of {M}: a rank holds whole experts")
+    if cfg.ssm is not None:
+        shapes = mamba2_shapes(cfg)
+        nheads, conv_ch = shapes["A_log"][0], shapes["conv_b"][0]
+        if nheads % M or conv_ch % M:
+            raise NotImplementedError(f"{cfg.name}: {nheads} Mamba2 heads and {conv_ch} conv "
+                                      f"channels over a model axis of {M}: a rank holds whole "
+                                      f"ones")
 
 
 def _lm_head(model: LM, x: torch.Tensor, policy: NumericsPolicy) -> torch.Tensor:

@@ -37,6 +37,22 @@ Scheduling (deterministic, greedy)
     start, release window-stale pages, retire finished or quarantined
     requests); (5) retire resident requests whose deadline lapsed.
 
+Sharded (``mesh=``, a ``launch.mesh.Mesh``; the model's parameters this
+rank's blocks, ``init_lm(mesh=)``, or placed by the engine)
+    Each lane's page pools hold this rank's KV heads over "model" and every
+    page on every data rank (``sharding.cache_specs``, JAX's
+    ``cache_pspecs``).  When the data axes divide the capacity, the slots
+    split over them: a decode tick runs each data rank's slots inside the
+    mesh (an MoE layer routes the tick's whole batch), and the data rank
+    that owns an admitted request's slot prefills it alone, inside its
+    "model" group (``Mesh.model_group``: B = 1 needs no cross-data
+    collective); each data rank writes only its own slots' pages.  Else
+    every data rank runs every slot inside its "model" group.  The host
+    control (allocator, page tables, admission, preemption, retirement) is
+    the same on every rank: each tick's tokens and sentinels are gathered
+    over the data axes (an admission's from its owner) before any of it
+    is decided.
+
 Prefill runs per admission at a bucketed (power-of-two) padded length with
 the true length as a tensor, so ragged prompts run at most one prefill
 shape per bucket.  There is no ``jit``: the lane steps are plain functions
@@ -47,6 +63,7 @@ twins of the JAX package's trace counters.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -174,6 +191,11 @@ class _Lane:
         self.slot_seq = [0] * engine.capacity  # admission order, for victim pick
         self.caches = init_paged_lm_caches(engine.model.cfg, n_pages, engine.page_size,
                                            engine.device)
+        self.cache_specs = None
+        if engine.mesh is not None:     # this rank's KV heads of every page
+            from repro_torch.distributed.sharding import cache_specs, shard_tree
+            self.cache_specs = cache_specs(self.caches, engine.mesh, engine.capacity)
+            self.caches = shard_tree(self.caches, self.cache_specs, engine.mesh)
         self.decode_builds = 0
         self.decode_ticks = 0
         self.prefill_buckets: set[int] = set()
@@ -228,17 +250,37 @@ class ContinuousBatchingEngine:
         request's logits go non-finite it is re-admitted once, from
         scratch, on the mapped tier; without a mapping, or on a second
         fault, it retires with ``status="fault"``.
+    mesh: serve on this mesh (the module docstring); every rank runs the
+        engine and ends with the same requests and tokens.  A model whose
+        parameters are whole is placed here, cut to this rank's blocks in
+        place (``sharding.shard_model``); one from ``init_lm(mesh=)`` is
+        placed already.
     """
 
     def __init__(self, model: LM, tiers, *, max_len: int = 512, capacity: int = 4,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 window: Optional[int] = None, fault_retier: Optional[dict] = None):
+                 window: Optional[int] = None, fault_retier: Optional[dict] = None,
+                 mesh=None):
         if not isinstance(tiers, dict):
             tiers = {"default": tiers}
         if not tiers:
             raise ValueError("need at least one tier")
         self.model, self.cfg = model, model.cfg
         self.device = model.embed.emb.device
+        self.mesh = mesh
+        if mesh is not None and not all(hasattr(p, "spec") for p in model.parameters()):
+            from repro_torch.distributed.sharding import lm_param_specs, shard_model
+            from repro_torch.models.transformer import check_mesh_family, lm_param_shapes
+            check_mesh_family(model.cfg, mesh)
+            shard_model(model, lm_param_specs(lm_param_shapes(model.cfg), model.cfg, mesh), mesh)
+        # the slots this rank runs: its data rank's share when the data axes
+        # divide the capacity, else every slot inside its "model" group
+        D = 1 if mesh is None else mesh.data_size
+        self._split = D > 1 and capacity % D == 0
+        per = capacity // D if self._split else capacity
+        first = mesh.index(mesh.data_axes) * per if self._split else 0
+        self._rows = slice(first, first + per)
+        self._group = None if mesh is None else mesh.model_group()
         self.max_len, self.capacity = max_len, capacity
         self.page_size = page_size
         self.n_ptab = -(-max_len // page_size)
@@ -375,12 +417,35 @@ class ContinuousBatchingEngine:
             at += n
         return out
 
-    @staticmethod
-    def _readback(nxt, ok):
-        """(next tokens, ok flags) as numpy, in one device-to-host copy."""
-        both = torch.cat([nxt.reshape(-1), ok.to(torch.int32)]).cpu().numpy()
-        n = nxt.numel()
+    def _readback(self, nxt, ok, owner: Optional[int] = None):
+        """(next tokens, ok flags) of every slot as numpy, in one
+        device-to-host copy: this rank's gathered over the data axes when
+        the slots split over them; with ``owner``, that data rank's alone
+        (an admission's)."""
+        both = torch.cat([nxt.reshape(-1), ok.to(torch.int32)])
+        if self._split:
+            parts = self.mesh.all_gather(both, self.mesh.data_axes)
+            parts = [parts[owner]] if owner is not None else parts
+            n = nxt.numel()
+            both = torch.cat([p[:n] for p in parts] + [p[n:] for p in parts])
+        both = both.cpu().numpy()
+        n = both.shape[0] // 2
         return both[:n], both[n:].astype(bool)
+
+    def _inside(self, *, owner: Optional[int] = None):
+        """The context a step runs in: none without a mesh; the mesh for a
+        tick whose slots split over the data axes; else (an admission, or a
+        tick of slots every data rank runs) this rank's "model" group."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return self.mesh if self._split and owner is None else self._group
+
+    def _owner(self, slot: int) -> Optional[int]:
+        """The data rank that prefills ``slot`` (None: every rank does)."""
+        return slot // (self.capacity // self.mesh.data_size) if self._split else None
+
+    def _mine(self, owner: Optional[int]) -> bool:
+        return owner is None or owner == self.mesh.index(self.mesh.data_axes)
 
     def _resolve_faults(self, lane: _Lane) -> None:
         """Ensure every live slot owns the page its next decode write lands
@@ -491,9 +556,15 @@ class ContinuousBatchingEngine:
             toks = np.zeros((1, bucket), np.int32)
             toks[0, :m] = cur
             t0 = time.perf_counter()
-            tokens, true_len, ptab = self._upload(toks, [m], ctrl.ptab[slot:slot + 1])
-            nxt, ok, lane.caches = lane.prefill(tokens, true_len, ptab, lane.caches)
-            nxt, ok = self._readback(nxt, ok)
+            owner = None if self.mesh is None else self._owner(slot)
+            if self.mesh is None or self._mine(owner):
+                tokens, true_len, ptab = self._upload(toks, [m], ctrl.ptab[slot:slot + 1])
+                with self._inside(owner=owner):
+                    nxt, ok, lane.caches = lane.prefill(tokens, true_len, ptab, lane.caches)
+            else:       # another data rank's slot: its tokens come from the owner
+                nxt = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+                ok = torch.zeros((1,), dtype=torch.bool, device=self.device)
+            nxt, ok = self._readback(nxt, ok, owner)
             lane.prefill_s.setdefault(bucket, []).append(time.perf_counter() - t0)
             lane.slot_req[slot] = req
             if not ok[0]:
@@ -518,9 +589,11 @@ class ContinuousBatchingEngine:
         if not ctrl.live.any():
             return
         t0 = time.perf_counter()
-        tokens, live, start, ptab = self._upload(ctrl.last_tok[:, None], ctrl.live, ctrl.start,
-                                                 ctrl.ptab)
-        nxt, ok, lane.caches = lane.step(tokens, live.bool(), start, ptab, lane.caches)
+        rows = self._rows
+        tokens, live, start, ptab = self._upload(ctrl.last_tok[rows, None], ctrl.live[rows],
+                                                 ctrl.start[rows], ctrl.ptab[rows])
+        with self._inside():
+            nxt, ok, lane.caches = lane.step(tokens, live.bool(), start, ptab, lane.caches)
         nxt, ok = self._readback(nxt, ok)
         lane.decode_ticks += 1
         lane.decode_s.append(time.perf_counter() - t0)

@@ -656,8 +656,9 @@ def test_serve_cli_batch_and_refusals(capsys):
     serve_cli.main(["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "5",
                     "--new-tokens", "3", "--numerics", "amsim_torch", "--multiplier", MULT])
     assert "generated (2, 3)" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="later slice"):
-        serve_cli.main(["--reduced", "--device", "cpu", "--mesh", "--stream", "4"])
+    with pytest.raises(SystemExit, match="paged serving caches"):   # before any rank starts
+        serve_cli.main(["--arch", "llama4-maverick-400b-a17b", "--reduced", "--device", "cpu",
+                        "--mesh", "--stream", "4"])
     with pytest.raises(SystemExit, match="unknown mode"):
         serve_cli.parse_tiers("cheap=amsim_jnp:afm16")
     assert set(serve_cli.parse_tiers("a=native,b=amsim_torch:afm16")) == {"a", "b"}
